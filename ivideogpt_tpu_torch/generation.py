@@ -1,0 +1,209 @@
+"""Autoregressive video-token generation over a KV cache, the port of
+``ivideogpt_tpu/generation.py`` (its frame-structured ``bshd`` path).
+
+Sequence bookkeeping (ctx tokens per frame C=256, dyn D=16):
+  input  = prelude + first sdf            (length (C+1)*ctx, e.g. 514)
+  frame f: D sampled dyn tokens, then a forced sdf carrying action[ctx+f]
+  output = stream without the final sdf   (length seq_len, e.g. 751)
+
+The JAX package runs this as one jitted scan; here it is a Python loop over
+eager steps, with the cache updated in place. Sampling draws from an
+explicit ``torch.Generator``; torch cannot reproduce JAX's threefry draws,
+so streams from the two packages are compared through their logits and
+top-k sets, never token for token.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+
+class GenerateResult(NamedTuple):
+    tokens: torch.Tensor             # [B, seq_len] full token stream
+    rewards: Optional[torch.Tensor]  # [B, T-ctx] or None
+
+
+def _cast_params(module: nn.Module, dtype: torch.dtype, min_ndim: int):
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.ndim >= min_ndim and p.is_floating_point():
+                p.data = p.data.to(dtype)
+    return module
+
+
+def cast_matmul_params(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """Cast every >=2-D float parameter (dense kernels, embedding tables) to
+    the compute dtype in place, leaving 1-D ones (norm scales, biases) fp32.
+    Bit-identical for a model that computes in ``dtype`` (its layers cast at
+    use); it saves the per-step cast and halves the weights' memory."""
+    return _cast_params(module, dtype, 2)
+
+
+def cast_conv_params(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """Tokenizer companion of :func:`cast_matmul_params`: cast >=3-D float
+    parameters (conv kernels) in place, leaving 1-/2-D ones fp32; the 2-D
+    ones include the VQ codebooks, which stay fp32 for exact lookups."""
+    return _cast_params(module, dtype, 3)
+
+
+def _float32_order_key(x: torch.Tensor) -> torch.Tensor:
+    """Monotonic key as int64 holding the uint32 pattern:
+    a > b  <=>  key(a) > key(b) for finite floats."""
+    b = x.float().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(x >= 0, b | 0x80000000, 0xFFFFFFFF ^ b)
+
+
+def _bf16_order_key(x: torch.Tensor) -> torch.Tensor:
+    """Monotonic key over bf16 values, as int32 holding the uint16 pattern."""
+    b = x.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+    return torch.where(x >= 0, b | 0x8000, 0xFFFF ^ b)
+
+
+def _kth_largest(keys: torch.Tensor, k: int, bits: int) -> torch.Tensor:
+    """Largest p with count(keys >= p) >= k, per row, by a binary search on
+    the key bits: the exact k-th largest key."""
+    p = torch.zeros((keys.shape[0], 1), dtype=keys.dtype, device=keys.device)
+    for bit in range(bits - 1, -1, -1):
+        cand = p | (1 << bit)
+        cnt = (keys >= cand).sum(dim=1, keepdim=True)
+        p = torch.where(cnt >= k, cand, p)
+    return p[:, 0]
+
+
+def exact_kth_largest_key(logits: torch.Tensor, k: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keys [B, V], kth [B]): each logit's order key and the exact k-th
+    largest key per row (32-bit search)."""
+    keys = _float32_order_key(logits)
+    return keys, _kth_largest(keys, k, 32)
+
+
+def exact_kth_largest_key_bf16(logits: torch.Tensor, k: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """16-bit variant for logits that are exactly bf16-representable (a bf16
+    unembed upcast to fp32): the same set in half the passes."""
+    keys = _bf16_order_key(logits)
+    return keys, _kth_largest(keys, k, 16)
+
+
+def top_k_keep_mask(logits: torch.Tensor, top_k: int,
+                    bf16_exact: bool = False) -> torch.Tensor:
+    """[B, V] bool: the logits at or above the k-th largest. Ties at the
+    k-th value are all kept, as HF's ``TopKLogitsWarper`` does."""
+    search = exact_kth_largest_key_bf16 if bf16_exact else exact_kth_largest_key
+    keys, kth = search(logits, top_k)
+    return keys >= kth[:, None]
+
+
+def sample_top_k(logits: torch.Tensor, generator: torch.Generator,
+                 top_k: int = 100, temperature: float = 1.0,
+                 bf16_exact: bool = False) -> torch.Tensor:
+    """Restrict to the top-k set (threshold search), then draw one token
+    per row from softmax(logits / T) by the Gumbel-max trick."""
+    keep = top_k_keep_mask(logits, top_k, bf16_exact)
+    masked = torch.where(keep, logits / temperature,
+                         torch.full_like(logits, float("-inf")))
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return (masked - torch.log(-torch.log(u))).argmax(dim=-1)
+
+
+@torch.inference_mode()
+def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
+             context_length: int, generator: torch.Generator,
+             action: Optional[torch.Tensor] = None,
+             tokens_per_dyna: int = 16, top_k: int = 100,
+             temperature: float = 1.0, reward_prediction: bool = False,
+             cache_dtype: torch.dtype = torch.bfloat16) -> GenerateResult:
+    """Autoregressive rollout of (segment_length - context_length) frames.
+
+    model: a HeadModelWithAction; prelude_tokens [B, P1] context tokens and
+    the first sdf; action [B, T, A] or None. Forced sdf tokens carry
+    action[ctx + f] (the first sdf, in the prelude, carries action[ctx-1]);
+    the final sampled token is not decoded unless rewards are wanted;
+    rewards are read after each frame's last dyn token.
+    """
+    B, P1 = prelude_tokens.shape
+    F = segment_length - context_length
+    D = tokens_per_dyna
+    D1 = D + 1
+    total = P1 + D1 * F
+    sdf_token = model.llm_config.vocab_size - 1
+    bf16_exact = model.dtype == torch.bfloat16
+
+    embeds = model.embed_tokens(prelude_tokens)
+    action_embeds = None
+    if action is not None:
+        action_embeds = model.action_embeds(action)    # [B, T, hidden]
+        embeds[:, P1 - 1] += action_embeds[:, context_length - 1].to(
+            embeds.dtype)
+
+    cache = model.init_cache(B, total, cache_dtype, prelude_tokens.device)
+    hidden, _ = model.decode_cached(embeds, cache, 0)
+    last_logits = model.unembed(hidden[:, -1])
+
+    buf = prelude_tokens.new_zeros((B, total))
+    buf[:, :P1] = prelude_tokens
+    sdf_ids = prelude_tokens.new_full((B, 1), sdf_token)
+    sdf_emb = model.embed_tokens(sdf_ids)
+    rewards = []
+    for f in range(F):
+        s0 = f * D1
+        last_frame = f == F - 1
+        for j in range(D):
+            pos = P1 + s0 + j
+            token = sample_top_k(last_logits, generator, top_k, temperature,
+                                 bf16_exact)
+            buf[:, pos] = token
+            if last_frame and j == D - 1 and not reward_prediction:
+                break  # its logits would only feed the dropped final sdf
+            hidden, _ = model.decode_cached(
+                model.embed_tokens(token[:, None]), cache, pos)
+            last_logits = model.unembed(hidden[:, 0])
+        if reward_prediction:
+            rewards.append(model.reward(hidden[:, 0]).float())
+        if not last_frame:
+            pos = P1 + s0 + D
+            buf[:, pos] = sdf_token
+            emb = sdf_emb
+            if action_embeds is not None:
+                emb = emb + action_embeds[:, context_length + f, None].to(
+                    emb.dtype)
+            hidden, _ = model.decode_cached(emb, cache, pos)
+            last_logits = model.unembed(hidden[:, 0])
+    tokens = buf[:, :-1]  # the final sdf slot is never written nor needed
+    return GenerateResult(tokens,
+                          torch.stack(rewards, 1) if reward_prediction else None)
+
+
+@torch.inference_mode()
+def replay_logits(model, stream: torch.Tensor, *, segment_length: int,
+                  context_length: int, action: Optional[torch.Tensor] = None,
+                  tokens_per_dyna: int = 16,
+                  cache_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Teacher-forced cached replay of a token stream: the per-step logits
+    the decode path samples from. logits[0] is the prefill output at
+    position P1-1; logits[s] for s > 0 follows the decode of stream position
+    P1-1+s. stream [B, L] (final sdf dropped) -> [L - P1 + 1, B, V] fp32.
+    """
+    B, L = stream.shape
+    D1 = tokens_per_dyna + 1
+    F = segment_length - context_length
+    P1 = (model.head_config.tokens_per_context + 1) * context_length
+
+    embeds = model.embed_tokens(stream)
+    if action is not None:
+        positions = P1 - 1 + torch.arange(F, device=stream.device) * D1
+        a = model.action_embeds(action)[:, context_length - 1:-1]
+        embeds[:, positions] += a.to(embeds.dtype)
+
+    cache = model.init_cache(B, L + 1, cache_dtype, stream.device)
+    hidden, _ = model.decode_cached(embeds[:, :P1], cache, 0)
+    out = [model.unembed(hidden[:, -1])]
+    for idx in range(P1, L):
+        hidden, _ = model.decode_cached(embeds[:, idx:idx + 1], cache, idx)
+        out.append(model.unembed(hidden[:, 0]))
+    return torch.stack(out).float()

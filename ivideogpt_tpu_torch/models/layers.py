@@ -1,0 +1,42 @@
+"""Linear and conv layers that compute in a set dtype.
+
+Parameters stay in whatever dtype they hold (fp32 masters, or bf16 after
+``generation.cast_matmul_params`` / ``cast_conv_params``) and are cast to
+the layer's compute dtype at use, with the input: the promotion rule of a
+Flax ``Dense``/``Conv`` built with ``dtype=``. A cast that is already done
+costs nothing.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Dense(nn.Linear):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv(nn.Conv2d):
+    """NCHW conv; ``padding`` is symmetric, as Flax's ``padding=1``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=padding)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                        self.stride, self.padding)

@@ -1,0 +1,256 @@
+"""LLaMA-architecture causal LM with a KV cache, the port of
+``ivideogpt_tpu/models/llama.py`` (RMSNorm, rotate-half RoPE, SwiGLU, no
+biases, fp32 softmax and logits).
+
+The cache is a list of per-layer dicts in the ``bshd`` layout, updated in
+place:
+- bf16 (or any float dtype): ``k``/``v`` [B, M, H, hd];
+- int8: ``k``/``v`` int8 [B, M, H, hd] with bf16 per-(slot, head) scales
+  ``ks``/``vs`` [B, M, H], s = max|x|/127 + 1e-8, round half to even.
+
+Attention in ``forward_cached``:
+- prefill (cache_index 0, S > 1): chunked causal attention over the fresh,
+  unquantised k/v, plain torch; the cache is written for later steps;
+- one-token decode over the int8 cache: ``ops.decode_attention`` (K3);
+- one-token decode over a float cache: plain torch.
+Multi-token steps at a nonzero index, grouped KV heads, the training
+forward and the TPU-only ``ghdm``/``"mixed"`` caches are not in this port.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ivideogpt_tpu_torch.configs import TransformerConfig
+from ivideogpt_tpu_torch.models.layers import Dense
+from ivideogpt_tpu_torch.ops.decode_attention import decode_attention
+
+Cache = List[Dict[str, torch.Tensor]]
+
+
+def _rotate_half(x):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HF-convention RoPE tables: cos/sin [..., head_dim], freqs duplicated."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                             dtype=torch.float32,
+                                             device=positions.device)
+                                / head_dim))
+    freqs = positions[..., None].float() * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def apply_rope(x, cos, sin):
+    """x: [B, S, H, hd]; cos/sin: [B, S, hd] (broadcast over heads)."""
+    return x * cos[:, :, None, :] + _rotate_half(x) * sin[:, :, None, :]
+
+
+def quantize_int8(x: torch.Tensor):
+    """[..., hd] -> (int8 values, bf16 scales [...]): s = max|x|/127 + 1e-8
+    in fp32, round half to even, scale stored as bf16."""
+    x = x.float()
+    s = x.abs().amax(dim=-1) / 127.0 + 1e-8
+    return torch.round(x / s[..., None]).to(torch.int8), s.to(torch.bfloat16)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + self.eps)
+        return (xf * self.weight.float()).to(self.dtype)
+
+
+def _prefill_causal_attention(q, k, v, dtype, chunk: int = 128):
+    """Causal attention over fresh q/k/v [B, S, H, hd], in query chunks: the
+    chunk at q0 attends keys [0, q0 + cs) only, and the fp32 score temp is
+    [B, H, chunk, S] rather than [B, H, S, S]."""
+    B, S, H, hd = q.shape
+    outs = []
+    for q0 in range(0, S, chunk):
+        cs = min(chunk, S - q0)
+        kb, vb = k[:, :q0 + cs], v[:, :q0 + cs]
+        attn = torch.einsum("bqhd,bkhd->bhqk", q[:, q0:q0 + cs], kb).float()
+        attn = attn * (hd ** -0.5)
+        kpos = torch.arange(q0 + cs, device=q.device)[None, :]
+        qpos = (q0 + torch.arange(cs, device=q.device))[:, None]
+        attn = attn.masked_fill(kpos > qpos, torch.finfo(torch.float32).min)
+        attn = torch.softmax(attn, dim=-1)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", attn.to(dtype), vb))
+    return torch.cat(outs, dim=1).reshape(B, S, H * hd)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: TransformerConfig,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c = config
+        if c.num_key_value_heads != c.num_attention_heads:
+            raise ValueError("grouped KV heads are not ported; every "
+                             "published config is multi-head")
+        self.config = c
+        self.dtype = dtype
+        width = c.num_attention_heads * c.head_dim
+        self.q_proj = Dense(c.hidden_size, width, bias=False, dtype=dtype)
+        self.k_proj = Dense(c.hidden_size, width, bias=False, dtype=dtype)
+        self.v_proj = Dense(c.hidden_size, width, bias=False, dtype=dtype)
+        self.o_proj = Dense(width, c.hidden_size, bias=False, dtype=dtype)
+
+    def forward(self, x, cos, sin, cache: Dict[str, torch.Tensor],
+                cache_index: int):
+        c = self.config
+        B, S, _ = x.shape
+        H, hd = c.num_attention_heads, c.head_dim
+        q = apply_rope(self.q_proj(x).view(B, S, H, hd), cos, sin)
+        k = apply_rope(self.k_proj(x).view(B, S, H, hd), cos, sin)
+        v = self.v_proj(x).view(B, S, H, hd)
+
+        end = cache_index + S
+        int8 = "ks" in cache
+        if int8:
+            kq, ks = quantize_int8(k)
+            vq, vs = quantize_int8(v)
+            cache["k"][:, cache_index:end] = kq
+            cache["v"][:, cache_index:end] = vq
+            cache["ks"][:, cache_index:end] = ks
+            cache["vs"][:, cache_index:end] = vs
+        else:
+            cache["k"][:, cache_index:end] = k.to(cache["k"].dtype)
+            cache["v"][:, cache_index:end] = v.to(cache["v"].dtype)
+
+        if S > 1:
+            if cache_index != 0:
+                raise ValueError("multi-token steps run only as the prefill "
+                                 "at cache_index 0")
+            out = _prefill_causal_attention(q, k, v, self.dtype)
+        elif int8:
+            out = decode_attention(q[:, 0].contiguous(), cache["k"],
+                                   cache["ks"], cache["v"], cache["vs"],
+                                   end).reshape(B, 1, H * hd)
+        else:
+            keys = cache["k"][:, :end].to(self.dtype)
+            values = cache["v"][:, :end].to(self.dtype)
+            attn = torch.einsum("bqhd,bkhd->bhqk", q, keys).float()
+            attn = torch.softmax(attn * (hd ** -0.5), dim=-1)
+            out = torch.einsum("bhqk,bkhd->bqhd", attn.to(self.dtype), values)
+            out = out.reshape(B, 1, H * hd)
+        return self.o_proj(out)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: TransformerConfig,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c = config
+        self.gate_proj = Dense(c.hidden_size, c.intermediate_size, bias=False,
+                               dtype=dtype)
+        self.up_proj = Dense(c.hidden_size, c.intermediate_size, bias=False,
+                             dtype=dtype)
+        self.down_proj = Dense(c.intermediate_size, c.hidden_size, bias=False,
+                               dtype=dtype)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaLayer(nn.Module):
+    def __init__(self, config: TransformerConfig,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        eps = config.rms_norm_eps
+        self.input_layernorm = RMSNorm(config.hidden_size, eps, dtype)
+        self.self_attn = LlamaAttention(config, dtype)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, eps, dtype)
+        self.mlp = LlamaMLP(config, dtype)
+
+    def forward(self, x, cos, sin, cache, cache_index: int):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, cache,
+                               cache_index)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class _LlamaModel(nn.Module):
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype):
+        super().__init__()
+        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size)
+        nn.init.normal_(self.embed_tokens.weight, std=config.initializer_range)
+        self.layers = nn.ModuleList([LlamaLayer(config, dtype)
+                                     for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtype)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Parameter names are those of ``flax_to_torch_llama`` (HF Llama)."""
+
+    def __init__(self, config: TransformerConfig,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        self.model = _LlamaModel(config, dtype)
+        if config.tie_word_embeddings:
+            self.lm_head = None
+        else:
+            self.lm_head = Dense(config.hidden_size, config.vocab_size,
+                                 bias=False, dtype=dtype)
+            nn.init.normal_(self.lm_head.weight, std=config.initializer_range)
+
+    def embed(self, input_ids):
+        return F.embedding(input_ids,
+                           self.model.embed_tokens.weight.to(self.dtype))
+
+    def unembed(self, hidden):
+        """hidden -> fp32 logits."""
+        if self.lm_head is None:
+            w = self.model.embed_tokens.weight.to(self.dtype)
+            return F.linear(hidden.to(self.dtype), w).float()
+        return self.lm_head(hidden).float()
+
+    def init_cache(self, batch: int, max_len: int,
+                   cache_dtype: torch.dtype = torch.bfloat16,
+                   device=None) -> Cache:
+        """Zeroed ``bshd`` cache; ``cache_dtype=torch.int8`` selects the
+        quantised cache with bf16 scales."""
+        c = self.config
+        if device is None:
+            device = self.model.embed_tokens.weight.device
+        shape = (batch, max_len, c.num_key_value_heads, c.head_dim)
+        if cache_dtype == torch.int8:
+            sshape = shape[:3]
+            return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                     "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                     "ks": torch.zeros(sshape, dtype=torch.bfloat16,
+                                       device=device),
+                     "vs": torch.zeros(sshape, dtype=torch.bfloat16,
+                                       device=device)}
+                    for _ in range(c.num_hidden_layers)]
+        return [{"k": torch.zeros(shape, dtype=cache_dtype, device=device),
+                 "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
+                for _ in range(c.num_hidden_layers)]
+
+    def forward_cached(self, inputs_embeds, cache: Cache, cache_index: int):
+        """Run S positions starting at ``cache_index`` against the cache,
+        which is updated in place. Returns (hidden [B, S, D], cache)."""
+        B, S, _ = inputs_embeds.shape
+        pos = cache_index + torch.arange(S, device=inputs_embeds.device)
+        cos, sin = rope_cos_sin(pos[None].expand(B, S), self.config.head_dim,
+                                self.config.rope_theta, dtype=self.dtype)
+        x = inputs_embeds
+        for layer, layer_cache in zip(self.model.layers, cache):
+            x = layer(x, cos, sin, layer_cache, cache_index)
+        return self.model.norm(x), cache

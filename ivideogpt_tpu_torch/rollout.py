@@ -1,0 +1,88 @@
+"""The main path: context tokenize -> KV-cached generate -> detokenize.
+
+The port's counterpart of the rollout ``bench.py`` times in the JAX
+package (64x64, 16 frames, ctx 2, TOKENIZER_64 + LLAMA_BASE with the
+action head, bf16 under the cast rules, int8 KV cache):
+
+    tokenizer, lm = build_models(seed=0)             # on CUDA
+    result = rollout(tokenizer, lm, context_frames, action,
+                     segment_length=16, generator=torch.Generator("cuda"))
+
+``build_models`` runs on CUDA unless given ``device="cpu"`` and raises
+when CUDA is absent.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ivideogpt_tpu_torch import generation, tokens
+from ivideogpt_tpu_torch.configs import (LLAMA_BASE, TOKENIZER_64,
+                                         ActionModelConfig,
+                                         CompressiveVQConfig,
+                                         TransformerConfig)
+from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
+from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+from ivideogpt_tpu_torch.utils.platform import resolve_device
+
+
+class RolloutResult(NamedTuple):
+    tokens: torch.Tensor  # [B, seq_len]
+    frames: torch.Tensor  # [B, T, H, W, C]
+
+
+def build_models(tok_cfg: CompressiveVQConfig = TOKENIZER_64,
+                 lm_cfg: TransformerConfig = LLAMA_BASE, *,
+                 context_length: int = 2, segment_length: int = 16,
+                 action_dim: int = 4, dtype: torch.dtype = torch.bfloat16,
+                 seed: int = 0, device=None
+                 ) -> Tuple[CompressiveVQModel, HeadModelWithAction]:
+    """Tokenizer and action-conditioned LM with random weights from ``seed``.
+
+    For a dtype other than fp32 the cast rules apply: the tokenizer's conv
+    kernels and the LM's matrices are stored in ``dtype``; 1-D parameters
+    and the VQ codebooks stay fp32."""
+    dev = resolve_device(device)
+    tok_cfg = tok_cfg.replace(context_length=context_length)
+    head_cfg = ActionModelConfig(
+        action_dim=action_dim, context_length=context_length,
+        segment_length=segment_length,
+        tokens_per_context=tok_cfg.ctx_tokens_per_frame,
+        tokens_per_dyna=tok_cfg.dyn_tokens_per_frame)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        tokenizer = CompressiveVQModel(tok_cfg, dtype)
+        lm = HeadModelWithAction(lm_cfg, head_cfg, dtype)
+    if dtype != torch.float32:
+        generation.cast_conv_params(tokenizer, dtype)
+        generation.cast_matmul_params(lm, dtype)
+    return tokenizer.to(dev).eval(), lm.to(dev).eval()
+
+
+@torch.inference_mode()
+def rollout(tokenizer: CompressiveVQModel, lm: HeadModelWithAction,
+            context_frames: torch.Tensor, action: Optional[torch.Tensor], *,
+            segment_length: int, generator: torch.Generator,
+            cache_dtype: torch.dtype = torch.int8, top_k: int = 100,
+            temperature: float = 1.0, detok_chunk: int = 128) -> RolloutResult:
+    """context_frames [B, ctx, H, W, C] (and action [B, T, A]) -> the token
+    stream [B, seq_len] and frames [B, T, H, W, C]. Detokenize runs in
+    chunks of ``detok_chunk`` samples to cap its activation memory."""
+    device = next(tokenizer.parameters()).device
+    if context_frames.device != device:
+        raise ValueError(f"context frames on {context_frames.device}, "
+                         f"models on {device}")
+    B, ctx = context_frames.shape[:2]
+    cfg = tokenizer.config
+    prelude = tokens.make_prelude(tokenizer.encode_context(context_frames),
+                                  cfg.num_vq_embeddings, cfg.num_dyn_embeddings)
+    res = generation.generate(
+        lm, prelude, segment_length=segment_length, context_length=ctx,
+        generator=generator, action=action,
+        tokens_per_dyna=cfg.dyn_tokens_per_frame, top_k=top_k,
+        temperature=temperature, cache_dtype=cache_dtype)
+    frames = torch.cat([tokenizer.detokenize(res.tokens[i:i + detok_chunk], ctx)
+                        for i in range(0, B, detok_chunk)])
+    return RolloutResult(res.tokens, frames)

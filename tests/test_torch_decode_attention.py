@@ -1,0 +1,56 @@
+"""Int8 decode attention of the PyTorch port: the plain version of kernel K3
+against the JAX package's Pallas kernel (interpret mode) and its XLA oracle,
+after moving the port's ``bshd`` cache into the TPU's [B*H, hd, M] layout."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ivideogpt_tpu.ops.decode_attention import (decode_attention,
+                                                decode_attention_xla)
+from ivideogpt_tpu_torch.ops import decode_attention as tda
+
+B, H, HD, M = 2, 4, 64, 256
+
+
+def _inputs(seed):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(B, H, HD)).astype(np.float32))
+    k = torch.from_numpy(rng.integers(-127, 128, (B, M, H, HD)).astype(np.int8))
+    v = torch.from_numpy(rng.integers(-127, 128, (B, M, H, HD)).astype(np.int8))
+    ks = torch.from_numpy(rng.uniform(0.001, 0.02, (B, M, H)).astype(np.float32))
+    vs = torch.from_numpy(rng.uniform(0.001, 0.02, (B, M, H)).astype(np.float32))
+    return q.bfloat16(), k, ks.bfloat16(), v, vs.bfloat16()
+
+
+def _to_ghdm(q, k, ks, v, vs):
+    """bshd -> the TPU kernel's layout: q [G, hd], K/V [G, hd, M], s [G, M]."""
+    def bf16(t):
+        return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+    kv = lambda t: jnp.asarray(t.numpy().transpose(0, 2, 3, 1).reshape(B * H, HD, M))
+    sc = lambda t: bf16(t.transpose(1, 2).reshape(B * H, M))
+    return bf16(q.reshape(B * H, HD)), kv(k), sc(ks), kv(v), sc(vs)
+
+
+@pytest.mark.parametrize("valid", [1, 127, 129, M])
+def test_plain_matches_pallas_and_xla(valid):
+    q, k, ks, v, vs = _inputs(valid)
+    ours = tda.decode_attention(q, k, ks, v, vs, valid)   # CPU: plain version
+    assert ours.dtype == torch.bfloat16 and ours.shape == (B, H, HD)
+    ours = ours.float().numpy().reshape(B * H, HD)
+    g = _to_ghdm(q, k, ks, v, vs)
+    for ref in (decode_attention(*g, valid, tg=8, tm=128, interpret=True),
+                decode_attention_xla(*g, valid)):
+        np.testing.assert_allclose(ours, np.asarray(ref, np.float32),
+                                   rtol=2e-2, atol=2e-3)
+
+
+def test_dead_slots_are_ignored():
+    q, k, ks, v, vs = _inputs(0)
+    a = tda.decode_attention_plain(q, k, ks, v, vs, 100)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 100:] = 127
+    v2[:, 100:] = -127
+    b = tda.decode_attention_plain(q, k2, ks, v2, vs, 100)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)

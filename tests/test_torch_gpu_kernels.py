@@ -1,0 +1,82 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``; each test decides inside itself whether a card is present
+and skips when there is none. Imports no JAX, so it runs on a machine
+without it:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py
+
+The checks at the main path's full shapes are ``chip_smoke.py``'s phases;
+these cover the edges: ragged tiles, small D, fp32 queries, a single live
+slot, and the wrappers' refusals.
+"""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n,k,d", [(1, 1, 64), (1000, 333, 64), (4097, 64, 8),
+                                   (300, 8192, 32)])
+def test_vq_argmin_matches_plain(cuda, n, k, d):
+    from ivideogpt_tpu_torch.ops import vq
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    z = torch.randint(-3, 4, (n, d), device=cuda, generator=g).float()
+    e = torch.randint(-3, 4, (k, d), device=cuda, generator=g).float()
+    before = vq.vq_argmin.launches
+    with full_fp32():
+        ours = vq.vq_argmin(z, e)
+        ref = vq.vq_lookup_plain(z, e)
+    assert vq.vq_argmin.launches == before + 1
+    # small integers: every distance is exact, ties included
+    torch.testing.assert_close(ours, ref, rtol=0, atol=0)
+
+
+def test_vq_argmin_refuses_unsupported_width(cuda):
+    from ivideogpt_tpu_torch.ops import vq
+    with pytest.raises(ValueError):
+        vq.vq_argmin(torch.zeros(4, 12, device=cuda),
+                     torch.zeros(8, 12, device=cuda))
+
+
+@pytest.mark.parametrize("valid", [1, 127, 128, 129, 200])
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_matches_plain(cuda, valid, qdtype):
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    B, M, H, hd = 3, 200, 5, 64   # M is no multiple of the 128-slot tile
+    g = torch.Generator(device=cuda).manual_seed(valid)
+    q = torch.randn(B, H, hd, device=cuda, generator=g).to(qdtype)
+    k = torch.randint(-127, 128, (B, M, H, hd), device=cuda, generator=g,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (B, M, H, hd), device=cuda, generator=g,
+                      dtype=torch.int8)
+    ks = (torch.rand(B, M, H, device=cuda, generator=g) * 0.02).bfloat16()
+    vs = (torch.rand(B, M, H, device=cuda, generator=g) * 0.02).bfloat16()
+    before = da.decode_attention.launches
+    ours = da.decode_attention(q, k, ks, v, vs, valid)
+    assert da.decode_attention.launches == before + 1
+    ref = da.decode_attention_plain(q, k, ks, v, vs, valid)
+    assert ours.dtype == qdtype
+    # fp32 sums in another order; a bf16 output may differ by one ulp
+    tol = dict(rtol=2e-2, atol=2e-3) if qdtype == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ours, ref, **tol)
+
+
+def test_decode_attention_refuses_bad_valid(cuda):
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    q = torch.zeros(1, 1, 64, device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 4, 1, 64, device=cuda, dtype=torch.int8)
+    s = torch.zeros(1, 4, 1, device=cuda, dtype=torch.bfloat16)
+    for valid in (0, 5):
+        with pytest.raises(ValueError):
+            da.decode_attention(q, kv, s, kv, s, valid)

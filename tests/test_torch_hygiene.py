@@ -1,0 +1,84 @@
+"""Rules of the PyTorch port that hold whatever the numbers:
+- the package and ``chip_smoke.py`` import no ``jax``, ``flax`` or
+  ``ivideogpt_tpu`` (AST scan);
+- entry points run on CUDA unless asked for the CPU, and raise when CUDA is
+  absent;
+- nothing builds or imports a GPU toolchain at import time.
+"""
+
+import ast
+import os
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "ivideogpt_tpu_torch")
+FORBIDDEN = ("jax", "flax", "ivideogpt_tpu")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_imports_no_jax_package(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_scan_sees_the_whole_package():
+    rels = {os.path.relpath(p, PKG) for p in _port_files()}
+    for must in ("rollout.py", "generation.py", "ops/vq.py",
+                 "ops/decode_attention.py", "models/llama.py"):
+        assert must in rels
+    assert os.path.exists(os.path.join(PKG, "csrc", "vq_argmin.cu"))
+    assert os.path.exists(os.path.join(PKG, "csrc", "decode_attention.cu"))
+
+
+def test_entry_point_wants_cuda():
+    from ivideogpt_tpu_torch.rollout import build_models
+    from ivideogpt_tpu_torch.utils.platform import resolve_device
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_models()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_wrappers_raise_on_non_cuda_accelerator_tensors():
+    """A tensor that is neither on the CPU nor on CUDA is refused, never
+    sent to the plain version."""
+    from ivideogpt_tpu_torch.ops import decode_attention as tda
+    from ivideogpt_tpu_torch.ops import vq as tvq
+    z = torch.zeros((4, 8), device="meta")
+    with pytest.raises(ValueError):
+        tvq.vq_argmin(z, torch.zeros((16, 8), device="meta"))
+    q = torch.zeros((1, 1, 64), device="meta", dtype=torch.bfloat16)
+    kv = torch.zeros((1, 4, 1, 64), device="meta", dtype=torch.int8)
+    s = torch.zeros((1, 4, 1), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tda.decode_attention(q, kv, s, kv, s, 2)
