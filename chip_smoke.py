@@ -12,16 +12,30 @@ the final result line:
                version (TF32 off), plus a codebook with duplicated rows
   4. K3        int8 decode attention at B=256, H=12, hd=64, M=752 for
                valid in {515, 633, 751} against the plain version
-  5. main      the rollout (TOKENIZER_64 + LLAMA_BASE + action head, bf16
+  5. flash     K4 (causal flash-attention forward) at the training shape
+               (B=16, H=12, S=751) and the prefill shape (B=256, S=514), K5
+               (dK, dV) and K6 (dQ) at the training shape, bf16, against the
+               plain version and autograd through it; SDPA timed beside them
+  6. main      the rollout (TOKENIZER_64 + LLAMA_BASE + action head, bf16
                under the cast rules, int8 KV cache, ctx=2, T=16, B=256) with
                random weights from a seed: shapes, token ranges, launch
-               counts (K3: exactly 2832 a rollout), frames/s
-  6. check     a B=2 fp32 rollout on the GPU held against the plain CPU path
+               counts (K3: exactly 2832 a rollout, K4: 12), frames/s
+  7. check     a B=2 fp32 rollout on the GPU held against the plain CPU path
                on the same stream: context ids, teacher-forced logits, frames
-Then the kernels' JSON line, the card line again, and the result line.
+  8. train     the GPT training step (frozen tokenize -> LLAMA_BASE forward/
+               backward -> clipped AdamW), bf16 over fp32 masters, B=16,
+               L=751: 3 warm-up and 10 timed steps on one batch, a falling
+               finite loss, launches a step (K1 2, K4/K5/K6 12), ms/step,
+               tokens/s, peak memory, one profiled step
+  9. train check  one fp32 forward/backward at B=2 (LLAMA_BASE widths, 2
+               layers) on the GPU held against the CPU's plain path: loss,
+               grad norm, every gradient
+Then the launches by path, the kernels' JSON line, the card line again, and
+the result line.
 Imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -32,7 +46,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CTX, T, B = 2, 16, 256
 N_TIMED = 3
 FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
+BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s
+TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 16, 3, 10
 
 
 class PhaseError(Exception):
@@ -167,6 +183,130 @@ def phase_k3(torch):
     return row
 
 
+def phase_flash(torch):
+    """K4 at the training and prefill shapes, K5/K6 at the training shape,
+    bf16, against the plain version in fp32 on the same (upcast) inputs
+    with TF32 off: the kernels keep fp32 scores and sums and round P and dS
+    to bf16 where the TPU kernel does, the plain bf16 version rounds the
+    scores too, so fp32 is the reference for the algorithm. Times: the
+    kernels, the plain version in bf16 and SDPA (is_causal=True) on the
+    same inputs."""
+    import torch.nn.functional as F
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    H, hd = 12, 64
+    # bf16 P and dS, a bf16 result rounded at the end (2^-9), di from the
+    # bf16 O: bf16 rounding of values up to ~10 in dK/dV
+    tol = dict(rtol=2e-2, atol=2e-2)
+    # the same roundings over a whole tensor: ~3e-3 of its norm; a wrong
+    # tile or mask reads O(1e-1) and more
+    rel_tol = 1e-2
+    rows = {}
+
+    def inputs(b, s, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return [torch.randn(b, s, H, hd, device="cuda", generator=g).bfloat16()
+                for _ in range(4)]
+
+    def err(got, want, what):
+        """Gate got against want elementwise and by norm; returns max |diff|
+        and ||diff|| / ||want||."""
+        want = want.detach()
+        diff = got.float() - want
+        e = float(diff.abs().max())
+        rel = float(diff.norm() / want.norm())
+        check(torch.allclose(got.float(), want, **tol),
+              f"{what} disagrees with the plain version elementwise")
+        check(rel < rel_tol, f"{what}: relative L2 error {rel:.3e} is over "
+              f"{rel_tol}")
+        return e, rel
+
+    for name, b, s in (("train", 16, 751), ("prefill", B, 514)):
+        q, k, v, do = inputs(b, s, seed=s)
+        elems = b * s * H * hd
+        pairs = b * H * s * (s + 1) // 2   # causal (query, key) pairs
+        out, lse = fa.flash_fwd(q, k, v)
+        with full_fp32():
+            ref_in = [t.float().requires_grad_(name == "train")
+                      for t in (q, k, v)]
+            ref = fa.causal_attention_plain(*ref_in, torch.float32)
+        e4, r4 = err(out.flatten(2), ref, f"K4 O at the {name} shape")
+        ms = cuda_ms(lambda: fa.flash_fwd(q, k, v), 10)
+        plain_ms = cuda_ms(
+            lambda: fa.causal_attention_plain(q, k, v, torch.bfloat16), 5)
+        qt, kt, vt = (t.transpose(1, 2).requires_grad_() for t in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 10)
+        b_ms, b_by = bound(4 * elems * 2 + b * H * s * 4, 4 * hd * pairs,
+                           BF16_PEAK)
+        print(f"K4 {name} B={b} S={s}: max_abs_err={e4:.3e} (rtol 2e-2, "
+              f"atol 2e-2) rel_l2_err={r4:.3e} (< {rel_tol}) "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} (SDPA forward) bound_ms={b_ms:.4f} "
+              f"({b_by}) share_of_bound={b_ms / ms:.3f}")
+        rows[f"K4_{name}"] = dict(
+            name="flash_attention_fwd", route="cuda",
+            source="ivideogpt_tpu_torch/csrc/flash_attention.cu",
+            replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:331",
+            max_abs_err=e4, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        if name != "train":
+            continue
+
+        di = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, di)
+        with full_fp32():
+            rq, rk, rv = torch.autograd.grad(ref, ref_in,
+                                             do.float().flatten(2))
+        (ek, rel_k), (ev, rel_v) = err(dk, rk, "K5 dK"), err(dv, rv, "K5 dV")
+        e5, r5 = max(ek, ev), max(rel_k, rel_v)
+        e6, r6 = err(dq, rq, "K6 dQ")
+        del ref, ref_in, rq, rk, rv
+
+        def plain_fwd_bwd(bwd):
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = fa.causal_attention_plain(*ins, torch.bfloat16)
+            if bwd:
+                torch.autograd.grad(o, ins, do.flatten(2))
+
+        def sdpa_fwd_bwd(bwd):
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            if bwd:
+                torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2))
+        plain_bwd = (cuda_ms(lambda: plain_fwd_bwd(True), 3)
+                     - cuda_ms(lambda: plain_fwd_bwd(False), 3))
+        lib_bwd = (cuda_ms(lambda: sdpa_fwd_bwd(True), 10)
+                   - cuda_ms(lambda: sdpa_fwd_bwd(False), 10))
+        for key, kname, fn, e, rel, n_io, per_pair in (
+                ("K5", "flash_attention_bwd_dkv",
+                 lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di), e5, r5, 6, 8),
+                ("K6", "flash_attention_bwd_dq",
+                 lambda: fa.flash_bwd_dq(q, k, v, do, lse, di), e6, r6, 5,
+                 6)):
+            ms = cuda_ms(fn, 10)
+            b_ms, b_by = bound(n_io * elems * 2 + 2 * b * H * s * 4,
+                               per_pair * hd * pairs, BF16_PEAK)
+            print(f"{key} train B={b} S={s}: max_abs_err={e:.3e} (rtol 2e-2, "
+                  f"atol 2e-2) rel_l2_err={rel:.3e} (< {rel_tol}) "
+                  f"kernel_ms={ms:.4f} plain_ms="
+                  f"{plain_bwd:.4f} (plain backward, dQ/dK/dV together) "
+                  f"library_ms={lib_bwd:.4f} (SDPA forward+backward minus "
+                  f"forward) bound_ms={b_ms:.4f} ({b_by}) share_of_bound="
+                  f"{b_ms / ms:.3f}")
+            rows[key] = dict(
+                name=kname, route="cuda",
+                source="ivideogpt_tpu_torch/csrc/flash_attention.cu",
+                replaces=("jax/experimental/pallas/ops/tpu/"
+                          "flash_attention.py:"
+                          + ("796" if key == "K5" else "1146")),
+                max_abs_err=e, ms=ms, plain_ms=plain_bwd, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_bwd)
+        del q, k, v, do, qt, kt, vt, out, lse, di, dk, dv, dq
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_stream(torch, tokens_mod, cfg, toks, batch):
     L = tokens_mod.seq_len(CTX, T)
     check(tuple(toks.shape) == (batch, L), f"tokens {tuple(toks.shape)}")
@@ -184,11 +324,31 @@ def check_stream(torch, tokens_mod, cfg, toks, batch):
           "a token lies outside the vocabulary")
 
 
+def counted():
+    """Every kernel wrapper, by the name the kernels line gives it."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.ops import vq
+    return {"vq_argmin": vq.vq_argmin,
+            "decode_attention": da.decode_attention,
+            "flash_attention_fwd": fa.flash_fwd,
+            "flash_attention_bwd_dkv": fa.flash_bwd_dkv,
+            "flash_attention_bwd_dq": fa.flash_bwd_dq}
+
+
+def reset_counts():
+    for fn in counted().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counted().items()}
+
+
 def phase_main(torch):
     from ivideogpt_tpu_torch import rollout as ro
     from ivideogpt_tpu_torch import tokens as tok
     from ivideogpt_tpu_torch.ops import decode_attention as da
-    from ivideogpt_tpu_torch.ops import vq
     t0 = time.time()
     tokenizer, lm = ro.build_models(context_length=CTX, segment_length=T,
                                     seed=0)
@@ -205,21 +365,22 @@ def phase_main(torch):
         return ro.rollout(tokenizer, lm, px, action, segment_length=T,
                           generator=gen, cache_dtype=torch.int8)
 
-    vq.vq_argmin.launches = 0
-    da.decode_attention.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     res = run(torch.Generator(device="cuda").manual_seed(4))
     torch.cuda.synchronize()
     first_s = time.time() - t0
-    launches = {"vq_argmin": vq.vq_argmin.launches,
-                "decode_attention": da.decode_attention.launches}
+    launches = read_counts()
     print(f"main: first rollout {first_s:.2f}s, launches {launches}, peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     check(launches["vq_argmin"] >= 1, "K1 never ran on the main path")
     check(launches["decode_attention"] == 2832,
           f"K3 ran {launches['decode_attention']} times, not 2832")
+    check(launches["flash_attention_fwd"] == 12,
+          f"K4 ran {launches['flash_attention_fwd']} times, not 12 (the "
+          f"prefill of each layer)")
     check_stream(torch, tok, tokenizer.config, res.tokens, B)
     check(tuple(res.frames.shape) == (B, T, 64, 64, 3),
           f"frames {tuple(res.frames.shape)}")
@@ -258,7 +419,6 @@ def stage_seconds(torch, tokenizer, lm, px, action, gen, timer):
     """Run the rollout's three stages once each, through the same calls
     ``rollout`` makes; ``timer(name)`` is a context manager around each
     stage (None: host wall seconds after a synchronize)."""
-    import contextlib
     from ivideogpt_tpu_torch import generation
     from ivideogpt_tpu_torch import tokens as tok
     cfg = tokenizer.config
@@ -288,30 +448,42 @@ def stage_seconds(torch, tokenizer, lm, px, action, gen, timer):
     return out
 
 
-def profile_stages(torch, tokenizer, lm, px, action, gen):
-    """Device seconds of each stage: the CUDA kernels' time summed from a
-    torch.profiler trace of that stage (one stream, so kernels do not
-    overlap). None, with the reason printed, when the trace has no device
-    time."""
-    import contextlib
+@contextlib.contextmanager
+def kernel_trace(torch, out):
+    """torch.profiler around the block; then out["seconds"] holds the CUDA
+    kernels' device seconds (one stream, so kernels do not overlap) and
+    out["kernels"] their averages by name, largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    out["kernels"] = kernels
+    out["seconds"] = sum(e.self_device_time_total for e in kernels) / 1e6
+
+
+def top_kernels(kernels, n, width=60):
+    """(name, launches, device s) of the n largest kernels."""
+    return [(e.key[:width], e.count, round(e.self_device_time_total / 1e6, 5))
+            for e in kernels[:n]]
+
+
+def profile_stages(torch, tokenizer, lm, px, action, gen):
+    """Device seconds of each stage from a kernel trace of that stage. None,
+    with the reason printed, when the trace has no device time."""
     out, top = {}, {}
 
     @contextlib.contextmanager
     def traced(name):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        res = {}
+        with kernel_trace(torch, res):
             yield
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        out[name] = round(sum(e.self_device_time_total for e in kernels)
-                          / 1e6, 4)
-        kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-        top[name] = [(e.key[:60], e.count,
-                      round(e.self_device_time_total / 1e6, 4))
-                     for e in kernels[:6]]
+        out[name] = round(res["seconds"], 4)
+        top[name] = top_kernels(res["kernels"], 6)
 
     stage_seconds(torch, tokenizer, lm, px, action, gen, traced)
     if not any(out.values()):
@@ -367,6 +539,173 @@ def phase_check(torch):
     check(df < 1e-3, "frames differ from the CPU path")
 
 
+def phase_train(torch):
+    """The GPT training step at full width and depth: TOKENIZER_64 (fp32,
+    frozen) + LLAMA_BASE with the action head, bf16 over fp32 masters,
+    B=16, ctx=2, T=16, L=751, action-free; AdamW lr 1e-4, constant schedule
+    without warmup (so the first update has lr 0, as in optax), clip 1.0.
+    One fixed batch of pixels made on the card; each step tokenizes it (K1)
+    and trains on it (K4/K5/K6 in every layer)."""
+    from ivideogpt_tpu_torch import tokens as tok
+    from ivideogpt_tpu_torch.configs import GPTTrainConfig
+    from ivideogpt_tpu_torch.train import gpt_trainer as gt
+    t0 = time.time()
+    tokenizer, model = gt.build_train_models(context_length=CTX,
+                                             segment_length=T, seed=10)
+    n_lm = sum(p.numel() for p in model.parameters())
+    cfg = GPTTrainConfig(learning_rate=1e-4, lr_scheduler="constant",
+                         lr_warmup_steps=0, max_grad_norm=1.0)
+    state = gt.create_train_state(model, cfg)
+    tokenize = gt.make_tokenize_fn(tokenizer, CTX)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    px = torch.rand(TRAIN_B, T, 64, 64, 3, device="cuda", generator=g)
+    L = tok.seq_len(CTX, T)
+    print(f"train: models built in {time.time() - t0:.1f}s (LM "
+          f"{n_lm / 1e6:.1f}M fp32 masters, bf16 compute)")
+
+    def step():
+        ids, labels = tokenize(px)
+        return gt.train_step(state, {"input_ids": ids, "labels": labels})
+
+    warm = [step() for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    metrics = [step() for _ in range(TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    dt = (time.time() - t0) / TRAIN_TIMED
+    launches = read_counts()
+    losses = [float(m["loss"]) for m in warm + metrics]
+    timed = losses[TRAIN_WARMUP:]
+    print(f"train: losses {[round(x, 4) for x in losses]} (the first "
+          f"{TRAIN_WARMUP} are warm-up steps); grad norms "
+          f"{[round(float(m['grad_norm']), 4) for m in metrics]}")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          "train: a loss is not finite")
+    check(timed[-1] < timed[0], f"train: the loss did not fall over the "
+          f"timed steps ({timed[0]:.4f} -> {timed[-1]:.4f})")
+    want = {"vq_argmin": 2, "decode_attention": 0, "flash_attention_fwd": 12,
+            "flash_attention_bwd_dkv": 12, "flash_attention_bwd_dq": 12}
+    for name, n in want.items():
+        check(launches[name] == n * TRAIN_TIMED,
+              f"train: {name} ran {launches[name]} times in "
+              f"{TRAIN_TIMED} steps, not {n} a step")
+    flops = 6 * n_lm * TRAIN_B * L
+    print(f"train: {TRAIN_TIMED} timed steps, {dt * 1e3:.2f} ms/step, "
+          f"{TRAIN_B * L / dt:.1f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"6*N*B*L = {flops:.4e} FLOP = {flops / dt / BF16_PEAK:.4f} of "
+          f"989 TFLOP/s; launches a step "
+          f"{json.dumps({k: v // TRAIN_TIMED for k, v in launches.items()})}")
+
+    stages = {}
+
+    def timed_stage(name, fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = round(time.time() - t, 4)
+        return out
+
+    ids, labels = timed_stage("tokenize", lambda: tokenize(px))
+    timed_stage("forward_backward", lambda: model(ids, labels)["loss"]
+                .backward())
+    timed_stage("clip_adamw", state.apply_gradients)
+    print("train: stage wall seconds " + json.dumps(stages))
+    profile_train_step(torch, step, dt)
+    del tokenizer, model, state, metrics, warm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_train_step(torch, step, step_s):
+    """Device time of one training step by kernel, from a kernel trace."""
+    res = {}
+    with kernel_trace(torch, res):
+        step()
+    total, kernels = res["seconds"], res["kernels"]
+    if not total:
+        print("train: the profiler recorded no device time: device seconds "
+              "not measured")
+        return
+    flash = sum(e.self_device_time_total for e in kernels
+                if "flash_" in e.key) / 1e6
+    print(f"train: one profiled step: device {total:.4f} s, busy share "
+          f"{total / step_s:.4f} of the unprofiled step, flash-attention "
+          f"kernels {flash:.4f} s ({flash / total:.4f} of device time)")
+    print("train: top kernels (name, launches, device s): "
+          + json.dumps(top_kernels(kernels, 12, width=70)))
+
+
+def phase_train_check(torch):
+    """One fp32 training forward/backward at B=2 on the card (K1, K4, K5,
+    K6) held against the same step on the CPU's plain path, with the same
+    weights and batch: LLAMA_BASE widths at a depth cut to 2 layers to stay
+    within the time limit, the full TOKENIZER_64."""
+    import copy
+    from ivideogpt_tpu_torch.configs import LLAMA_BASE
+    from ivideogpt_tpu_torch.train import gpt_trainer as gt
+    from ivideogpt_tpu_torch.train.optim import global_norm
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    b, depth = 2, 2
+    tokenizer, model = gt.build_train_models(
+        lm_cfg=LLAMA_BASE.replace(num_hidden_layers=depth), context_length=CTX,
+        segment_length=T, compute_dtype=torch.float32, seed=12)
+    tok_cpu, model_cpu = (copy.deepcopy(m).cpu() for m in (tokenizer, model))
+    g = torch.Generator(device="cuda").manual_seed(13)
+    px = torch.rand(b, T, 64, 64, 3, device="cuda", generator=g)
+    reset_counts()
+    ids, labels = gt.make_tokenize_fn(tokenizer, CTX)(px)
+    with full_fp32():
+        loss = model(ids, labels)["loss"]
+        loss.backward()
+    loss = loss.detach()
+    counts = read_counts()
+    for name in ("vq_argmin", "flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        check(counts[name] == 2, f"train check: {name} ran {counts[name]} "
+              f"times, not 2")
+    gnorm = float(global_norm(p.grad for p in model.parameters()
+                              if p.grad is not None))
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    ids_cpu, _ = gt.make_tokenize_fn(tok_cpu, CTX)(px.cpu())
+    same = float((ids.cpu() == ids_cpu).float().mean())
+    loss_cpu = model_cpu(ids.cpu(), labels.cpu())["loss"]
+    loss_cpu.backward()
+    loss_cpu = loss_cpu.detach()
+    gnorm_cpu = float(global_norm(p.grad for p in model_cpu.parameters()
+                                  if p.grad is not None))
+    dl = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    dn = abs(gnorm - gnorm_cpu) / gnorm_cpu
+    worst, worst_name = 0.0, ""
+    for (name, p), p_cpu in zip(model.named_parameters(),
+                                model_cpu.parameters()):
+        if p_cpu.grad is None:
+            check(p.grad is None, f"train check: {name} has a gradient on "
+                  f"the card only")
+            continue
+        rel = float((p.grad.cpu() - p_cpu.grad).abs().max()
+                    / p_cpu.grad.abs().max().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"train check: ids equal to the CPU tokenizer's {same:.4f}; loss "
+          f"{float(loss):.6f} vs {float(loss_cpu):.6f} (relative diff "
+          f"{dl:.3e}, tolerance 1e-4); grad norm {gnorm:.6f} vs "
+          f"{gnorm_cpu:.6f} (relative diff {dn:.3e}, tolerance 1e-4); worst "
+          f"gradient {worst_name} at {worst:.3e} of its max (tolerance "
+          f"1e-3)")
+    # fp32 on both sides, TF32 off; the kernels, cuBLAS and the CPU sum in
+    # other orders, and the differences compound through the backward
+    check(same >= 0.99, "train check: ids differ from the CPU tokenizer")
+    check(dl < 1e-4, "train check: the loss differs from the CPU path")
+    check(dn < 1e-4, "train check: the grad norm differs from the CPU path")
+    check(worst < 1e-3, f"train check: {worst_name}'s gradient differs from "
+          f"the CPU path")
+
+
 def main():
     try:
         import torch
@@ -400,16 +739,28 @@ def main():
                     print(f"build[{name}]: {line.strip()}")
         k1 = phase_k1(torch)
         k3 = phase_k3(torch)
-        launches = phase_main(torch)
-        k1["launches"] = launches["vq_argmin"]
-        k3["launches"] = launches["decode_attention"]
+        flash = phase_flash(torch)
+        by_path = {"rollout": phase_main(torch)}
         phase_check(torch)
+        by_path["train"] = phase_train(torch)
+        phase_train_check(torch)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k3)]}))
+    print("launches by path (rollout: the first B=256 rollout; train: the "
+          f"{TRAIN_TIMED} timed steps): " + json.dumps(by_path))
+    rows = (k1, k3, flash["K4_train"], flash["K5"], flash["K6"])
+    for r in rows:
+        # launches: all the path runs read (one rollout + the timed steps);
+        # launches_by_path: a rollout's and a train step's
+        r["launches"] = sum(c[r["name"]] for c in by_path.values())
+        r["launches_by_path"] = {
+            "rollout": by_path["rollout"][r["name"]],
+            "train_step": by_path["train"][r["name"]] // TRAIN_TIMED}
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

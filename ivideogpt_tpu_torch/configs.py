@@ -2,8 +2,9 @@
 
 The port's own copy of the fields, derived quantities and JSON form of
 ``ivideogpt_tpu/configs.py`` (CompressiveVQConfig, TransformerConfig,
-ActionModelConfig and the published TOKENIZER_64 / LLAMA_BASE / LLAMA_MEDIUM
-presets), so a config serialised by either package loads in the other.
+ActionModelConfig, GPTTrainConfig and the published TOKENIZER_64 /
+LLAMA_BASE / LLAMA_MEDIUM presets), so a config serialised by either package
+loads in the other.
 """
 
 from __future__ import annotations
@@ -137,6 +138,27 @@ class ActionModelConfig(_JsonMixin):
     @property
     def prelude_tokens_num(self) -> int:
         return (self.tokens_per_context + 1) * self.context_length - 1
+
+
+@dataclass(frozen=True)
+class GPTTrainConfig(_JsonMixin):
+    """Token-LM trainer knobs: the optimiser and scheduler fields of the JAX
+    package's GPTTrainConfig, with its defaults (the reference LM pretrain
+    recipe). A JAX config's JSON loads here; its other fields (batch
+    geometry, checkpointing, validation, eval generation) belong to the
+    trainer CLI, not ported yet, and ``from_json`` drops them."""
+
+    learning_rate: float = 1e-4
+    lr_scheduler: str = "cosine"
+    lr_warmup_steps: int = 5000
+    max_train_steps: int = 1_000_000
+    gradient_accumulation_steps: int = 1
+    max_grad_norm: Optional[float] = 1.0
+    weight_decay: float = 0.01
+    embed_no_wd: bool = True
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_epsilon: float = 1e-8
 
 
 # 64x64 tokenizer, 114M params

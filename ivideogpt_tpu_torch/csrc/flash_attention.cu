@@ -1,0 +1,882 @@
+// K4, K5, K6: causal flash attention, forward and backward, sm_90a.
+//
+// Replaces the stock TPU kernel that the JAX package calls at
+// ivideogpt_tpu/models/llama.py:97 (jax/experimental/pallas/ops/tpu/
+// flash_attention.py, JAX 0.9.0):
+//   K4  _flash_attention_kernel      :331 (launched :758)
+//   K5  _flash_attention_dkv_kernel  :796 (launched :1121)
+//   K6  _flash_attention_dq_kernel   :1146 (launched :1456)
+//
+// For one (b, h), with s = q.k * hd^-0.5 and keys j <= query i only:
+//   K4  O = softmax(s) V, and lse_i = log sum_j exp(s_ij)  (fp32)
+//   K5  P = exp(s - lse),  dS = P * (dO V^T - di),  di = rowsum(O * dO)
+//       dV = P^T dO,  dK = dS^T Q * hd^-0.5
+//   K6  dQ = dS K * hd^-0.5
+// di is computed outside, in plain PyTorch (the TPU code computes it in XLA).
+//
+// Layout: q/k/v are read in the port's bshd layout [B, S, H, 64] through
+// their batch, sequence and head strides (the head dim is contiguous); O,
+// dQ, dK, dV are written contiguous [B, S, H, 64]; lse and di are fp32
+// [B, H, S]. No transpose to [B, H, S, hd] and no padding of S to a tile
+// multiple as on the TPU (llama.py:88-99): rows at or past S read as 0 and
+// the ragged last tile is masked. hd = 64, 1 <= S <= 1024.
+//
+// Bound on the H100. At the training shape (B=16, H=12, S=751) K4 moves
+// q, k, v, O (~74 MB in bf16: ~22 us at 3.35 TB/s) and does ~1.4e10 causal
+// FLOP (~14 us at 989 TFLOP/s bf16): bytes bound it. K5+K6 move q, k, v, dO,
+// dQ, dK, dV plus lse and di (~150 MB, ~45 us). At the prefill shape
+// (B=256, S=514) K4 moves ~0.81 GB (~0.24 ms).
+//
+// Design. Every block works on 64-row tiles of one (b, h):
+//   K4: one block per 64-query tile; loops over key tiles up to the
+//       diagonal with an fp32 online softmax (running max m, sum l).
+//   K5: one block per 64-key tile; loops over query tiles from the diagonal
+//       on, recomputes P from q, k and lse, accumulates dV and dK.
+//   K6: one block per 64-query tile; loops over key tiles up to the
+//       diagonal, accumulates dQ.
+// dK/dV and dQ come from separate kernels, as on the TPU, so no block adds
+// into another's output: no atomics, and the gradients are deterministic.
+// Blocks are ordered heaviest tile first (blockIdx.y) to shorten the tail.
+// Two arithmetic routes, chosen by the input type:
+//   bf16: tensor cores through mma.sync m16n8k16 (bf16 operands, fp32
+//     accumulators). 4 warps own 16 rows each; a warp keeps its rows of
+//     the resident tile (Q, dO in K4/K6; K, V in K5) as A fragments in
+//     registers, and feeds the streamed tile from shared memory (bf16, row
+//     stride 72 halves: fragment reads hit distinct banks). The first
+//     product's accumulators become the second product's A fragments in
+//     registers. P and dS are rounded to bf16 before their products, where
+//     the TPU kernel rounds them too (p.astype(v.dtype), ds.astype(...)).
+//   fp32: the same tiles as 64 x 64 x 64 products in fp32 FMAs, so fp32
+//     inputs are never rounded to bf16 or TF32. 256 threads, fp32 tiles in
+//     shared memory with a row stride of 65 floats (a row walk and a column
+//     walk both free of bank conflicts); each thread owns a 4 x 4 piece of
+//     every result (rows ty + 16 i, columns tx + 16 j), and a row's 16
+//     owners are one half warp, so row max and row sum are shuffles.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kHd = 64;    // head dim = the inner dim of every product
+constexpr int kTile = 64;  // rows of a query tile and of a key tile
+constexpr int kMaxS = 1024;
+
+struct Strides {
+  int64_t b, s, h;  // in elements; the head dim has stride 1
+};
+
+Strides contiguous_strides(int S, int H) {
+  return Strides{static_cast<int64_t>(S) * H * kHd,
+                 static_cast<int64_t>(H) * kHd, kHd};
+}
+
+// ===================== bf16: mma.sync on tensor cores =====================
+
+constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
+constexpr int kLdh = kHd + 8;     // shared row stride in halves (144 bytes)
+constexpr int kTileHalves = kTile * kLdh;
+
+__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  return pack(__float2bfloat16(lo), __float2bfloat16(hi));
+}
+
+// c += a b for one m16n8k16 tile: a 16x16 row-major, b 16x8 column-major.
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                    const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Fragment layouts of m16n8k16 (PTX ISA), g = lane / 4, t = lane % 4:
+//   A reg 0: (g, 2t..2t+1)  1: (g+8, 2t..)  2: (g, 2t+8..)  3: (g+8, 2t+8..)
+//   B reg 0: (k 2t..2t+1, n g)  1: (k 2t+8..2t+9, n g)
+//   C 0,1: (g, 2t..2t+1)  2,3: (g+8, 2t..2t+1)
+// A fragment of the 16 x 16 block at (r0, c0) of M(r, c) = s[r * RS + c].
+__device__ __forceinline__ void load_a(const bf16* s, int r0, int c0,
+                                       uint32_t a[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const bf16* p = s + (r0 + g) * kLdh + c0 + 2 * t;
+  a[0] = pack(p[0], p[1]);
+  a[1] = pack(p[8 * kLdh], p[8 * kLdh + 1]);
+  a[2] = pack(p[8], p[9]);
+  a[3] = pack(p[8 * kLdh + 8], p[8 * kLdh + 9]);
+}
+
+// B fragment of the 16 x 8 block at (k0, n0) of M(k, n) = s[k * KS + n * NS].
+template <int KS, int NS>
+__device__ __forceinline__ void load_b(const bf16* s, int k0, int n0,
+                                       uint32_t b[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const bf16* p = s + (k0 + 2 * t) * KS + (n0 + g) * NS;
+  b[0] = pack(p[0], p[KS]);
+  b[1] = pack(p[8 * KS], p[9 * KS]);
+}
+
+// A fragments (4 k-steps of 16) of this warp's 16 rows of a [64][kLdh] tile.
+__device__ __forceinline__ void load_rows_a(const bf16* s, uint32_t a[4][4]) {
+  const int r0 = (threadIdx.x >> 5) * 16;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) load_a(s, r0, 16 * kk, a[kk]);
+}
+
+// Rows [row0, row0 + 64) of one (b, h) of a bf16 [B, S, H, 64] tensor into
+// dst[64][kLdh]; rows at or past S are 0. 16-byte loads (the wrapper checks
+// that base and strides are multiples of 8 elements).
+__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
+                                               Strides st, int64_t b,
+                                               int64_t h, int row0, int S) {
+  const bf16* base = src + b * st.b + h * st.h;
+  for (int i = threadIdx.x; i < kTile * kHd / 8; i += kMmaThreads) {
+    const int r = i / (kHd / 8);
+    const int c = (i % (kHd / 8)) * 8;
+    const int row = row0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < S)
+      v = *reinterpret_cast<const uint4*>(
+          base + static_cast<int64_t>(row) * st.s + c);
+    *reinterpret_cast<uint4*>(dst + r * kLdh + c) = v;
+  }
+}
+
+// The C fragments of a 16 x 64 result (8 n-tiles) times `mul`, into rows
+// row0 + (warp rows) of a contiguous bf16 [B, S, H, 64] output.
+__device__ __forceinline__ void store_rows_bf16(bf16* out, const float c[8][4],
+                                                float mul, int64_t b,
+                                                int64_t h, int H, int row0,
+                                                int S) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + (threadIdx.x >> 5) * 16 + g + 8 * r;
+    if (row >= S) continue;
+    bf16* p = out + ((b * S + row) * H + h) * kHd + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) =
+          __floats2bfloat162_rn(c[j][2 * r] * mul, c[j][2 * r + 1] * mul);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// K4, bf16 ----------------------------------------------------------------
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, Strides qs, Strides ks,
+                     Strides vs, int S, int H, float scale) {
+  __shared__ __align__(16) bf16 q_s[kTileHalves];
+  __shared__ __align__(16) bf16 k_s[kTileHalves];  // [key][d]
+  __shared__ __align__(16) bf16 v_s[kTileHalves];  // [key][e]
+  const int nt = (S + kTile - 1) / kTile;
+  const int qt = nt - 1 - static_cast<int>(blockIdx.y);
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / H;
+  const int64_t h = bh % H;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int q0 = qt * kTile;
+  const int row[2] = {q0 + (threadIdx.x >> 5) * 16 + g,
+                      q0 + (threadIdx.x >> 5) * 16 + g + 8};
+
+  load_tile_bf16(q_s, q, qs, b, h, q0, S);
+  __syncthreads();
+  uint32_t qa[4][4];
+  load_rows_a(q_s, qa);
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  float acc[8][4] = {};
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's reads of k_s and v_s are done
+    load_tile_bf16(k_s, k, ks, b, h, k0, S);
+    load_tile_bf16(v_s, v, vs, b, h, k0, S);
+    __syncthreads();
+
+    float s[8][4] = {};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t bb[2];
+        load_b<1, kLdh>(k_s, 16 * kk, 8 * j, bb);  // B(d, key) = K[key][d]
+        mma(s[j], qa[kk], bb);
+      }
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const int r = e >> 1;
+        s[j][e] = (col <= row[r] && col < S) ? s[j][e] * scale : -CUDART_INF_F;
+        mx[r] = fmaxf(mx[r], s[j][e]);
+      }
+    float base[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      base[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[r] = expf(m[r] - base[r]);  // 0 on the first tile
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - base[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+    // O += P V: the score tiles 2kk, 2kk+1 are the A fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
+                              pack(s[2 * kk][2], s[2 * kk][3]),
+                              pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t bb[2];
+        load_b<kLdh, 1>(v_s, 16 * kk, 8 * j, bb);  // B(key, e) = V[key][e]
+        mma(acc[j], pa, bb);
+      }
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    inv[r] = 1.f / l[r];
+    if (t == 0 && row[r] < S) lse[bh * S + row[r]] = m[r] + logf(l[r]);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= inv[e >> 1];
+  store_rows_bf16(o, acc, 1.f, b, h, H, q0, S);
+}
+
+// K5, bf16 ----------------------------------------------------------------
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, Strides qs, Strides ks,
+                         Strides vs, Strides dos, int S, int H, float scale) {
+  __shared__ __align__(16) bf16 kv_s[kTileHalves];  // K, then V, for A frags
+  __shared__ __align__(16) bf16 q_s[kTileHalves];   // [query][d]
+  __shared__ __align__(16) bf16 do_s[kTileHalves];  // [query][e]
+  __shared__ float lse_s[kTile];
+  __shared__ float di_s[kTile];
+  const int nt = (S + kTile - 1) / kTile;
+  const int kt = blockIdx.y;  // key tile 0 meets the most query tiles
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / H;
+  const int64_t h = bh % H;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int k0 = kt * kTile;
+  const int key[2] = {k0 + (threadIdx.x >> 5) * 16 + g,
+                      k0 + (threadIdx.x >> 5) * 16 + g + 8};
+
+  uint32_t ka[4][4], va[4][4];  // this warp's keys: rows key, k = d / e
+  load_tile_bf16(kv_s, k, ks, b, h, k0, S);
+  __syncthreads();
+  load_rows_a(kv_s, ka);
+  __syncthreads();
+  load_tile_bf16(kv_s, v, vs, b, h, k0, S);
+  __syncthreads();
+  load_rows_a(kv_s, va);
+  float dk_acc[8][4] = {}, dv_acc[8][4] = {};
+
+  for (int qt = kt; qt < nt; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // the previous tile's reads of q_s, do_s, lse_s, di_s
+    load_tile_bf16(q_s, q, qs, b, h, q0, S);
+    load_tile_bf16(do_s, dout, dos, b, h, q0, S);
+    if (threadIdx.x < kTile) {
+      const int row = q0 + threadIdx.x;
+      lse_s[threadIdx.x] = row < S ? lse[bh * S + row] : 0.f;
+      di_s[threadIdx.x] = row < S ? di[bh * S + row] : 0.f;
+    }
+    __syncthreads();
+
+    uint32_t pa[4][4], dsa[4][4];  // P^T, dS^T: rows key, k = query
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float st[4] = {}, dpt[4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t bb[2];
+        load_b<1, kLdh>(q_s, 16 * kk, 8 * j, bb);  // B(d, query) = Q[query][d]
+        mma(st, ka[kk], bb);
+        load_b<1, kLdh>(do_s, 16 * kk, 8 * j, bb);  // B(e, query) = dO[q][e]
+        mma(dpt, va[kk], bb);
+      }
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * j + 2 * t + (e & 1);
+        const int query = q0 + qi;
+        p[e] = (query >= key[e >> 1] && query < S)
+                   ? expf(st[e] * scale - lse_s[qi])
+                   : 0.f;
+        ds[e] = p[e] * (dpt[e] - di_s[qi]);
+      }
+      pa[j >> 1][(j & 1) * 2] = pack(p[0], p[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack(p[2], p[3]);
+      dsa[j >> 1][(j & 1) * 2] = pack(ds[0], ds[1]);
+      dsa[j >> 1][(j & 1) * 2 + 1] = pack(ds[2], ds[3]);
+    }
+    // dV += P^T dO, dK += dS^T Q: B(query, e) = dO[query][e], Q likewise
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t bb[2];
+        load_b<kLdh, 1>(do_s, 16 * kk, 8 * j, bb);
+        mma(dv_acc[j], pa[kk], bb);
+        load_b<kLdh, 1>(q_s, 16 * kk, 8 * j, bb);
+        mma(dk_acc[j], dsa[kk], bb);
+      }
+  }
+  store_rows_bf16(dk, dk_acc, scale, b, h, H, k0, S);
+  store_rows_bf16(dv, dv_acc, 1.f, b, h, H, k0, S);
+}
+
+// K6, bf16 ----------------------------------------------------------------
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di, bf16* __restrict__ dq,
+                        Strides qs, Strides ks, Strides vs, Strides dos,
+                        int S, int H, float scale) {
+  __shared__ __align__(16) bf16 q_s[kTileHalves];   // Q, then dO, for A frags
+  __shared__ __align__(16) bf16 k_s[kTileHalves];   // [key][d]
+  __shared__ __align__(16) bf16 v_s[kTileHalves];   // [key][e]
+  const int nt = (S + kTile - 1) / kTile;
+  const int qt = nt - 1 - static_cast<int>(blockIdx.y);
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / H;
+  const int64_t h = bh % H;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int q0 = qt * kTile;
+  const int row[2] = {q0 + (threadIdx.x >> 5) * 16 + g,
+                      q0 + (threadIdx.x >> 5) * 16 + g + 8};
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse_r[r] = row[r] < S ? lse[bh * S + row[r]] : 0.f;
+    di_r[r] = row[r] < S ? di[bh * S + row[r]] : 0.f;
+  }
+
+  uint32_t qa[4][4], doa[4][4];  // this warp's queries: rows query, k = d / e
+  load_tile_bf16(q_s, q, qs, b, h, q0, S);
+  __syncthreads();
+  load_rows_a(q_s, qa);
+  __syncthreads();
+  load_tile_bf16(q_s, dout, dos, b, h, q0, S);
+  __syncthreads();
+  load_rows_a(q_s, doa);
+  float dq_acc[8][4] = {};
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's reads of k_s and v_s are done
+    load_tile_bf16(k_s, k, ks, b, h, k0, S);
+    load_tile_bf16(v_s, v, vs, b, h, k0, S);
+    __syncthreads();
+
+    uint32_t dsa[4][4];  // dS: rows query, k = key
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float s[4] = {}, dp[4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t bb[2];
+        load_b<1, kLdh>(k_s, 16 * kk, 8 * j, bb);  // B(d, key) = K[key][d]
+        mma(s, qa[kk], bb);
+        load_b<1, kLdh>(v_s, 16 * kk, 8 * j, bb);  // B(e, key) = V[key][e]
+        mma(dp, doa[kk], bb);
+      }
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const int r = e >> 1;
+        const float p = (col <= row[r] && row[r] < S)
+                            ? expf(s[e] * scale - lse_r[r])
+                            : 0.f;
+        ds[e] = p * (dp[e] - di_r[r]);
+      }
+      dsa[j >> 1][(j & 1) * 2] = pack(ds[0], ds[1]);
+      dsa[j >> 1][(j & 1) * 2 + 1] = pack(ds[2], ds[3]);
+    }
+    // dQ += dS K: B(key, d) = K[key][d]
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t bb[2];
+        load_b<kLdh, 1>(k_s, 16 * kk, 8 * j, bb);
+        mma(dq_acc[j], dsa[kk], bb);
+      }
+  }
+  store_rows_bf16(dq, dq_acc, scale, b, h, H, q0, S);
+}
+
+// ======================= fp32: FMA tile products ==========================
+
+constexpr int kLd = kHd + 1;   // shared-memory row stride, in floats
+constexpr int kTileFloats = kTile * kLd;
+constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 piece each
+
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Rows [row0, row0 + 64) of one (b, h) of a [B, S, H, 64] tensor into
+// dst[64][kLd]; rows at or past S read as 0. Neighbouring threads read
+// neighbouring elements of a row.
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          Strides st, int64_t b, int64_t h,
+                                          int row0, int S) {
+  const float* base = src + b * st.b + h * st.h;
+  for (int i = threadIdx.x; i < kTile * kHd; i += kThreads) {
+    const int r = i / kHd;
+    const int d = i % kHd;
+    const int row = row0 + r;
+    dst[r * kLd + d] =
+        row < S ? base[static_cast<int64_t>(row) * st.s + d] : 0.f;
+  }
+}
+
+// lse or di of rows [row0, row0 + 64) of one (b, h) into dst[64]; 0 past S.
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int64_t bh, int row0, int S) {
+  if (threadIdx.x < kTile) {
+    const int row = row0 + threadIdx.x;
+    dst[threadIdx.x] = row < S ? src[bh * S + row] : 0.f;
+  }
+}
+
+// acc[i][j] += sum_{k < 64} A(k, ty + 16 i) * B(k, tx + 16 j), where
+// A(k, m) = a[k * AK + m * AM] and B(k, n) = b[k * BK + n * BN] in shared
+// memory. Within a warp the A reads hit 2 addresses (a broadcast) and the B
+// reads 16 distinct banks, for either stride order, because kLd is odd.
+template <int AK, int AM, int BK, int BN>
+__device__ __forceinline__ void tile_product(const float* a, const float* b,
+                                             float acc[4][4], int ty, int tx) {
+#pragma unroll 8
+  for (int k = 0; k < kHd; ++k) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = a[k * AK + (ty + 16 * i) * AM];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = b[k * BK + (tx + 16 * j) * BN];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void zero(float x[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[i][j] = 0.f;
+}
+
+// Writes this thread's 4 x 4 piece of a [64 rows, 64] tile starting at row0
+// into a contiguous [B, S, H, 64] output, times `mul`; rows past S skipped.
+__device__ __forceinline__ void store_tile(float* out, const float x[4][4],
+                                           float mul, int64_t b, int64_t h,
+                                           int H, int row0, int S, int ty,
+                                           int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty + 16 * i;
+    if (row >= S) continue;
+    float* p = out + ((b * S + row) * H + h) * kHd;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[tx + 16 * j] = x[i][j] * mul;
+  }
+}
+
+// K4, fp32 ----------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, Strides qs, Strides ks,
+                      Strides vs, int S, int H, float scale) {
+  extern __shared__ float smem[];
+  float* q_s = smem;                // [query][d]
+  float* k_s = q_s + kTileFloats;   // [key][d]
+  float* v_s = k_s + kTileFloats;   // [key][e]
+  float* p_s = v_s + kTileFloats;   // [query][key]
+
+  const int nt = (S + kTile - 1) / kTile;
+  const int qt = nt - 1 - static_cast<int>(blockIdx.y);
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / H;
+  const int64_t h = bh % H;
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+  const int q0 = qt * kTile;
+
+  load_tile(q_s, q, qs, b, h, q0, S);
+  float m[4], l[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+  }
+  zero(acc);
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's reads of k_s, v_s, p_s are done
+    load_tile(k_s, k, ks, b, h, k0, S);
+    load_tile(v_s, v, vs, b, h, k0, S);
+    __syncthreads();
+
+    float s[4][4];
+    zero(s);
+    tile_product<1, kLd, 1, kLd>(q_s, k_s, s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        s[i][j] = (col <= row && col < S) ? s[i][j] * scale : -CUDART_INF_F;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      const float base = m_new == -CUDART_INF_F ? 0.f : m_new;
+      const float alpha = expf(m[i] - base);  // 0 on the first tile
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - base);
+        sum += s[i][j];
+      }
+      l[i] = l[i] * alpha + half_warp_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] *= alpha;
+        p_s[(ty + 16 * i) * kLd + tx + 16 * j] = s[i][j];
+      }
+    }
+    __syncthreads();
+    // O[query][e] += sum_key P[query][key] V[key][e]
+    tile_product<1, kLd, kLd, 1>(p_s, v_s, acc, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] *= inv;
+    if (tx == 0 && row < S) lse[bh * S + row] = m[i] + logf(l[i]);
+  }
+  store_tile(o, acc, 1.f, b, h, H, q0, S, ty, tx);
+}
+
+// K5, fp32 ----------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_fp32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ di,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          Strides qs, Strides ks, Strides vs, Strides dos,
+                          int S, int H, float scale) {
+  extern __shared__ float smem[];
+  float* k_s = smem;                 // [key][d]
+  float* v_s = k_s + kTileFloats;    // [key][e]
+  float* q_s = v_s + kTileFloats;    // [query][d]
+  float* do_s = q_s + kTileFloats;   // [query][e]
+  float* p_s = do_s + kTileFloats;   // P^T  [key][query]
+  float* ds_s = p_s + kTileFloats;   // dS^T [key][query]
+  float* lse_s = ds_s + kTileFloats;
+  float* di_s = lse_s + kTile;
+
+  const int nt = (S + kTile - 1) / kTile;
+  const int kt = blockIdx.y;  // key tile 0 meets the most query tiles
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / H;
+  const int64_t h = bh % H;
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+  const int k0 = kt * kTile;
+
+  load_tile(k_s, k, ks, b, h, k0, S);
+  load_tile(v_s, v, vs, b, h, k0, S);
+  float dk_acc[4][4], dv_acc[4][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  for (int qt = kt; qt < nt; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // the previous tile's reads of q_s, do_s, p_s, ds_s
+    load_tile(q_s, q, qs, b, h, q0, S);
+    load_tile(do_s, dout, dos, b, h, q0, S);
+    load_rows(lse_s, lse, bh, q0, S);
+    load_rows(di_s, di, bh, q0, S);
+    __syncthreads();
+
+    float p[4][4], dp[4][4];
+    zero(p);
+    zero(dp);
+    tile_product<1, kLd, 1, kLd>(k_s, q_s, p, ty, tx);    // s^T [key][query]
+    tile_product<1, kLd, 1, kLd>(v_s, do_s, dp, ty, tx);  // dP^T
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = k0 + ty + 16 * i;  // key
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = tx + 16 * j;
+        const int row = q0 + r;  // query
+        const float pv =
+            (row >= col && row < S) ? expf(p[i][j] * scale - lse_s[r]) : 0.f;
+        p_s[(ty + 16 * i) * kLd + r] = pv;
+        ds_s[(ty + 16 * i) * kLd + r] = pv * (dp[i][j] - di_s[r]);
+      }
+    }
+    __syncthreads();
+    // dV[key][e] += sum_query P^T[key][query] dO[query][e]
+    tile_product<1, kLd, kLd, 1>(p_s, do_s, dv_acc, ty, tx);
+    // dK[key][d] += sum_query dS^T[key][query] Q[query][d]
+    tile_product<1, kLd, kLd, 1>(ds_s, q_s, dk_acc, ty, tx);
+  }
+  store_tile(dk, dk_acc, scale, b, h, H, k0, S, ty, tx);
+  store_tile(dv, dv_acc, 1.f, b, h, H, k0, S, ty, tx);
+}
+
+// K6, fp32 ----------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_fp32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di, float* __restrict__ dq,
+                         Strides qs, Strides ks, Strides vs, Strides dos,
+                         int S, int H, float scale) {
+  extern __shared__ float smem[];
+  float* q_s = smem;                 // [query][d]
+  float* do_s = q_s + kTileFloats;   // [query][e]
+  float* k_s = do_s + kTileFloats;   // [key][d]
+  float* v_s = k_s + kTileFloats;    // [key][e]
+  float* ds_s = v_s + kTileFloats;   // dS [query][key]
+  float* lse_s = ds_s + kTileFloats;
+  float* di_s = lse_s + kTile;
+
+  const int nt = (S + kTile - 1) / kTile;
+  const int qt = nt - 1 - static_cast<int>(blockIdx.y);
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / H;
+  const int64_t h = bh % H;
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+  const int q0 = qt * kTile;
+
+  load_tile(q_s, q, qs, b, h, q0, S);
+  load_tile(do_s, dout, dos, b, h, q0, S);
+  load_rows(lse_s, lse, bh, q0, S);
+  load_rows(di_s, di, bh, q0, S);
+  float dq_acc[4][4];
+  zero(dq_acc);
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's reads of k_s, v_s, ds_s
+    load_tile(k_s, k, ks, b, h, k0, S);
+    load_tile(v_s, v, vs, b, h, k0, S);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    zero(s);
+    zero(dp);
+    tile_product<1, kLd, 1, kLd>(q_s, k_s, s, ty, tx);    // s [query][key]
+    tile_product<1, kLd, 1, kLd>(do_s, v_s, dp, ty, tx);  // dP
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int row = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const float pv =
+            (col <= row && row < S) ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+        ds_s[r * kLd + tx + 16 * j] = pv * (dp[i][j] - di_s[r]);
+      }
+    }
+    __syncthreads();
+    // dQ[query][d] += sum_key dS[query][key] K[key][d]
+    tile_product<1, kLd, kLd, 1>(ds_s, k_s, dq_acc, ty, tx);
+  }
+  store_tile(dq, dq_acc, scale, b, h, H, q0, S, ty, tx);
+}
+
+constexpr int kFwdSmem = 4 * kTileFloats * 4;
+constexpr int kDkvSmem = (6 * kTileFloats + 2 * kTile) * 4;
+constexpr int kDqSmem = (5 * kTileFloats + 2 * kTile) * 4;
+
+// ============================== launches ==================================
+
+bool bad_shape(int B, int S, int H, int hd) {
+  return hd != kHd || B < 1 || H < 1 || S < 1 || S > kMaxS;
+}
+
+float softmax_scale() { return 1.0f / sqrtf(static_cast<float>(kHd)); }
+
+dim3 grid(int B, int S, int H) {
+  return dim3(B * H, (S + kTile - 1) / kTile);
+}
+
+// The fp32 kernels take more than 48 KB of shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+}  // namespace
+
+// q/k/v: [B, S, H, 64] bf16 (is_bf16=1) or fp32, read through the given
+// batch/sequence/head strides (elements), head dim contiguous; in bf16 the
+// base pointers are 16-byte aligned and the strides multiples of 8. Outputs
+// are contiguous: o, dq, dk, dv [B, S, H, 64] in the input type, lse
+// [B, H, S] fp32. dout is contiguous [B, S, H, 64]; di is fp32 [B, H, S].
+// Each function launches one kernel on `stream` and returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int ivg_flash_fwd(const void* q, const void* k, const void* v,
+                             void* o, float* lse, int B, int S, int H, int hd,
+                             int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                             int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                             int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                             int is_bf16, void* stream) {
+  if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
+      vs{v_sb, v_ss, v_sh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    flash_fwd_mma_kernel<<<grid(B, S, H), kMmaThreads, 0, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, qs, ks, vs,
+        S, H, softmax_scale());
+  } else {
+    const cudaError_t err = allow_smem(flash_fwd_fp32_kernel, kFwdSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_fwd_fp32_kernel<<<grid(B, S, H), kThreads, kFwdSmem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, qs, ks, vs,
+        S, H, softmax_scale());
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ivg_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* dout, const float* lse,
+                                 const float* di, void* dk, void* dv, int B,
+                                 int S, int H, int hd, int64_t q_sb,
+                                 int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                                 int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                                 int64_t v_ss, int64_t v_sh, int is_bf16,
+                                 void* stream) {
+  if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
+      vs{v_sb, v_ss, v_sh}, dos = contiguous_strides(S, H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    flash_bwd_dkv_mma_kernel<<<grid(B, S, H), kMmaThreads, 0, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, di,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), qs, ks, vs, dos, S, H,
+        softmax_scale());
+  } else {
+    const cudaError_t err = allow_smem(flash_bwd_dkv_fp32_kernel, kDkvSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dkv_fp32_kernel<<<grid(B, S, H), kThreads, kDkvSmem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        di, static_cast<float*>(dk), static_cast<float*>(dv), qs, ks, vs, dos,
+        S, H, softmax_scale());
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ivg_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse,
+                                const float* di, void* dq, int B, int S,
+                                int H, int hd, int64_t q_sb, int64_t q_ss,
+                                int64_t q_sh, int64_t k_sb, int64_t k_ss,
+                                int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                                int64_t v_sh, int is_bf16, void* stream) {
+  if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
+      vs{v_sb, v_ss, v_sh}, dos = contiguous_strides(S, H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    flash_bwd_dq_mma_kernel<<<grid(B, S, H), kMmaThreads, 0, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, di,
+        static_cast<bf16*>(dq), qs, ks, vs, dos, S, H, softmax_scale());
+  } else {
+    const cudaError_t err = allow_smem(flash_bwd_dq_fp32_kernel, kDqSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dq_fp32_kernel<<<grid(B, S, H), kThreads, kDqSmem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        di, static_cast<float*>(dq), qs, ks, vs, dos, S, H, softmax_scale());
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -3,11 +3,13 @@
 
 Continuous actions go through a zero-initialised linear layer and are added
 to the embedding at each per-frame sdf slot; an optional reward head reads
-the hidden state. The methods are the building blocks
-``generation.generate`` calls.
+the hidden state. ``forward`` is the training forward; the other methods
+are the building blocks ``generation.generate`` calls.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -15,6 +17,7 @@ from torch import nn
 from ivideogpt_tpu_torch.configs import ActionModelConfig, TransformerConfig
 from ivideogpt_tpu_torch.models.layers import Dense
 from ivideogpt_tpu_torch.models.llama import Cache, LlamaForCausalLM
+from ivideogpt_tpu_torch.tokens import sdf_positions
 
 
 class HeadModelWithAction(nn.Module):
@@ -57,3 +60,41 @@ class HeadModelWithAction(nn.Module):
 
     def decode_cached(self, inputs_embeds, cache: Cache, cache_index: int):
         return self.llm.forward_cached(inputs_embeds, cache, cache_index)
+
+    def forward(self, input_ids: torch.Tensor,
+                labels: Optional[torch.Tensor] = None,
+                action: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Training forward: input_ids [B, L], action [B, T, A] (the whole
+        segment's actions). Returns dict(logits[, loss][,
+        action_recon_loss][, reward_pred])."""
+        h = self.head_config
+        embeds = self.llm.embed(input_ids)
+        positions = sdf_positions(h.context_length, h.segment_length,
+                                  h.tokens_per_context, h.tokens_per_dyna,
+                                  device=input_ids.device)
+        if action is not None:
+            # action[ctx-1 .. T-2] go to the sdf slot before each frame
+            a = self.action_linear(action)[:, h.context_length - 1:-1]
+            embeds = embeds.index_add(1, positions, a.to(embeds.dtype))
+        need_hidden = h.reward_prediction or h.action_recon is not None
+        out = self.llm(inputs_embeds=embeds, labels=labels,
+                       output_hidden_states=need_hidden)
+        result = {"logits": out["logits"]}
+        if labels is not None:
+            result["loss"] = out["loss"]
+        if h.action_recon is not None and action is not None:
+            F = h.segment_length - h.context_length
+            rec = self.action_recon_linear(
+                out["hidden_states"][:, h.prelude_tokens_num:])
+            rec = rec.reshape(-1, F, h.tokens_per_dyna + 1, h.action_dim)
+            target = action[:, h.context_length - 1:-1, None, :]
+            recon_loss = ((rec - target) ** 2).mean()
+            result["action_recon_loss"] = recon_loss
+            if "loss" in result:
+                result["loss"] = result["loss"] + h.action_recon * recon_loss
+        if h.reward_prediction:
+            # the hidden state at the last dyn token of each frame
+            reward_h = out["hidden_states"][:, positions + h.tokens_per_dyna]
+            result["reward_pred"] = self.reward_linear(reward_h)[..., 0]
+        return result

@@ -8,26 +8,32 @@ place:
 - int8: ``k``/``v`` int8 [B, M, H, hd] with bf16 per-(slot, head) scales
   ``ks``/``vs`` [B, M, H], s = max|x|/127 + 1e-8, round half to even.
 
-Attention in ``forward_cached``:
-- prefill (cache_index 0, S > 1): chunked causal attention over the fresh,
-  unquantised k/v, plain torch; the cache is written for later steps;
+Attention:
+- the training forward (``LlamaForCausalLM.forward``, no cache) and the
+  prefill (cache_index 0, S > 1): causal attention over the fresh,
+  unquantised k/v, ``ops.flash_attention.causal_attention`` (K4 forward,
+  K5/K6 backward); the prefill also writes the cache for later steps;
 - one-token decode over the int8 cache: ``ops.decode_attention`` (K3);
 - one-token decode over a float cache: plain torch.
-Multi-token steps at a nonzero index, grouped KV heads, the training
-forward and the TPU-only ``ghdm``/``"mixed"`` caches are not in this port.
+Multi-token steps at a nonzero index, grouped KV heads, attention dropout,
+the "dots" remat policy and the TPU-only ``ghdm``/``"mixed"`` caches are not
+in this port.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ivideogpt_tpu_torch.configs import TransformerConfig
 from ivideogpt_tpu_torch.models.layers import Dense
 from ivideogpt_tpu_torch.ops.decode_attention import decode_attention
+from ivideogpt_tpu_torch.ops.flash_attention import causal_attention
+from ivideogpt_tpu_torch.tokens import IGNORE_INDEX
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -76,25 +82,6 @@ class RMSNorm(nn.Module):
         return (xf * self.weight.float()).to(self.dtype)
 
 
-def _prefill_causal_attention(q, k, v, dtype, chunk: int = 128):
-    """Causal attention over fresh q/k/v [B, S, H, hd], in query chunks: the
-    chunk at q0 attends keys [0, q0 + cs) only, and the fp32 score temp is
-    [B, H, chunk, S] rather than [B, H, S, S]."""
-    B, S, H, hd = q.shape
-    outs = []
-    for q0 in range(0, S, chunk):
-        cs = min(chunk, S - q0)
-        kb, vb = k[:, :q0 + cs], v[:, :q0 + cs]
-        attn = torch.einsum("bqhd,bkhd->bhqk", q[:, q0:q0 + cs], kb).float()
-        attn = attn * (hd ** -0.5)
-        kpos = torch.arange(q0 + cs, device=q.device)[None, :]
-        qpos = (q0 + torch.arange(cs, device=q.device))[:, None]
-        attn = attn.masked_fill(kpos > qpos, torch.finfo(torch.float32).min)
-        attn = torch.softmax(attn, dim=-1)
-        outs.append(torch.einsum("bhqk,bkhd->bqhd", attn.to(dtype), vb))
-    return torch.cat(outs, dim=1).reshape(B, S, H * hd)
-
-
 class LlamaAttention(nn.Module):
     def __init__(self, config: TransformerConfig,
                  dtype: torch.dtype = torch.float32):
@@ -111,14 +98,20 @@ class LlamaAttention(nn.Module):
         self.v_proj = Dense(c.hidden_size, width, bias=False, dtype=dtype)
         self.o_proj = Dense(width, c.hidden_size, bias=False, dtype=dtype)
 
-    def forward(self, x, cos, sin, cache: Dict[str, torch.Tensor],
-                cache_index: int):
+    def forward(self, x, cos, sin,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_index: int = 0):
+        """Without a cache: causal attention over the whole sequence (the
+        training forward). With one: S positions written at
+        ``cache_index`` and attended as below."""
         c = self.config
         B, S, _ = x.shape
         H, hd = c.num_attention_heads, c.head_dim
         q = apply_rope(self.q_proj(x).view(B, S, H, hd), cos, sin)
         k = apply_rope(self.k_proj(x).view(B, S, H, hd), cos, sin)
         v = self.v_proj(x).view(B, S, H, hd)
+        if cache is None:
+            return self.o_proj(causal_attention(q, k, v, self.dtype))
 
         end = cache_index + S
         int8 = "ks" in cache
@@ -137,7 +130,7 @@ class LlamaAttention(nn.Module):
             if cache_index != 0:
                 raise ValueError("multi-token steps run only as the prefill "
                                  "at cache_index 0")
-            out = _prefill_causal_attention(q, k, v, self.dtype)
+            out = causal_attention(q, k, v, self.dtype)
         elif int8:
             out = decode_attention(q[:, 0].contiguous(), cache["k"],
                                    cache["ks"], cache["v"], cache["vs"],
@@ -178,7 +171,7 @@ class LlamaLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps, dtype)
         self.mlp = LlamaMLP(config, dtype)
 
-    def forward(self, x, cos, sin, cache, cache_index: int):
+    def forward(self, x, cos, sin, cache=None, cache_index: int = 0):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, cache,
                                cache_index)
         return x + self.mlp(self.post_attention_layernorm(x))
@@ -221,6 +214,40 @@ class LlamaForCausalLM(nn.Module):
             return F.linear(hidden.to(self.dtype), w).float()
         return self.lm_head(hidden).float()
 
+    def forward(self, input_ids=None, inputs_embeds=None, labels=None,
+                output_hidden_states: bool = False) -> Dict[str, torch.Tensor]:
+        """Full training/eval forward over positions 0..S-1, no cache.
+        Returns dict(logits fp32[, loss][, hidden_states]); with
+        ``config.remat`` each layer is recomputed in the backward."""
+        c = self.config
+        if c.remat and c.remat_policy != "none":
+            raise NotImplementedError(
+                f"remat_policy {c.remat_policy!r}: only 'none' (recompute "
+                f"the whole layer) is ported")
+        if self.training and c.attention_dropout > 0:
+            raise NotImplementedError(
+                "attention dropout in the training forward is not ported: "
+                "it belongs inside the flash-attention kernels")
+        if inputs_embeds is None:
+            inputs_embeds = self.embed(input_ids)
+        B, S, _ = inputs_embeds.shape
+        pos = torch.arange(S, device=inputs_embeds.device)
+        cos, sin = rope_cos_sin(pos[None].expand(B, S), c.head_dim,
+                                c.rope_theta, dtype=self.dtype)
+        x = inputs_embeds
+        for layer in self.model.layers:
+            if c.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, cos, sin, use_reentrant=False)
+            else:
+                x = layer(x, cos, sin)
+        hidden = self.model.norm(x)
+        out = {"logits": self.unembed(hidden)}
+        if output_hidden_states:
+            out["hidden_states"] = hidden
+        if labels is not None:
+            out["loss"] = cross_entropy_loss(out["logits"], labels)
+        return out
+
     def init_cache(self, batch: int, max_len: int,
                    cache_dtype: torch.dtype = torch.bfloat16,
                    device=None) -> Cache:
@@ -254,3 +281,17 @@ class LlamaForCausalLM(nn.Module):
         for layer, layer_cache in zip(self.model.layers, cache):
             x = layer(x, cos, sin, layer_cache, cache_index)
         return self.model.norm(x), cache
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """Shifted next-token cross-entropy in fp32, ignoring IGNORE_INDEX:
+    sum over valid targets / max(count, 1), so an all-ignored batch gives 0
+    (``F.cross_entropy``'s mean would give NaN)."""
+    logits = logits[:, :-1].float()
+    targets = labels[:, 1:]
+    valid = targets != IGNORE_INDEX
+    safe = torch.where(valid, targets, torch.zeros_like(targets))
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return (nll * valid).sum() / valid.sum().clamp_min(1)

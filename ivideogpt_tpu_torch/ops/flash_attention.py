@@ -1,0 +1,198 @@
+"""Causal attention over fresh q/k/v: kernels K4 (forward), K5 (dK, dV) and
+K6 (dQ) in ``csrc/flash_attention.cu``, and their plain PyTorch version.
+
+One function serves the KV-cached prefill and the training forward:
+
+    q, k, v [B, S, H, hd] (RoPE applied, the port's bshd layout)
+    out [B, S, H*hd] = softmax(q k^T * hd^-0.5, keys j <= query i) v
+
+The kernels replace the stock TPU flash-attention kernel that
+``ivideogpt_tpu/models/llama.py:97`` calls (its forward, dK/dV and dQ
+``pallas_call``s); ``causal_attention_plain`` is the port of the chunked
+``_prefill_causal_attention`` (``llama.py:63``), the JAX package's default.
+On CPU tensors :func:`causal_attention` is the plain version and its
+gradient comes from autograd; on CUDA tensors it is a
+``torch.autograd.Function`` whose forward launches K4 and whose backward
+computes di = rowsum(O * dO) in plain torch, as the TPU code does in XLA,
+then launches K5 and K6.
+
+The kernels keep the scores, the softmax and every sum in fp32, as the TPU
+kernel does; on bf16 inputs they run on tensor cores and, like the TPU
+kernel, round P and dS to bf16 before multiplying them; on fp32 inputs
+nothing is rounded below fp32. The plain version rounds the scores and P
+to bf16 on a bf16 input (``einsum`` of bf16 operands returns bf16), so in
+bf16 the two agree to bf16 rounding, and in fp32 to fp32 rounding.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ivideogpt_tpu_torch import _build
+
+HEAD_DIM = 64
+MAX_SEQ = 1024
+
+
+def causal_attention_plain(q, k, v, dtype, chunk: int = 128):
+    """Causal attention over fresh q/k/v [B, S, H, hd], in query chunks: the
+    chunk at q0 attends keys [0, q0 + cs) only, and the fp32 score temp is
+    [B, H, chunk, S] rather than [B, H, S, S]."""
+    B, S, H, hd = q.shape
+    outs = []
+    for q0 in range(0, S, chunk):
+        cs = min(chunk, S - q0)
+        kb, vb = k[:, :q0 + cs], v[:, :q0 + cs]
+        attn = torch.einsum("bqhd,bkhd->bhqk", q[:, q0:q0 + cs], kb).float()
+        attn = attn * (hd ** -0.5)
+        kpos = torch.arange(q0 + cs, device=q.device)[None, :]
+        qpos = (q0 + torch.arange(cs, device=q.device))[:, None]
+        attn = attn.masked_fill(kpos > qpos, torch.finfo(torch.float32).min)
+        attn = torch.softmax(attn, dim=-1)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", attn.to(dtype), vb))
+    return torch.cat(outs, dim=1).reshape(B, S, H * hd)
+
+
+def causal_attention(q, k, v, dtype):
+    """q/k/v [B, S, H, hd] -> [B, S, H*hd] in ``dtype``.
+
+    On CPU tensors this is :func:`causal_attention_plain`; otherwise it
+    runs K4 forward and K5/K6 backward, or raises (``_check``)."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return causal_attention_plain(q, k, v, dtype)
+    B, S, H, hd = q.shape
+    return _CausalFlash.apply(q, k, v).view(B, S, H * hd).to(dtype)
+
+
+class _CausalFlash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, di)
+        return flash_bwd_dq(q, k, v, do, lse, di), dk, dv
+
+
+def _check(q, k, v):
+    """Refuse what the kernels do not take; returns (B, S, H)."""
+    ts = (q, k, v)
+    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
+        raise ValueError(
+            f"causal_attention: q on {q.device}, k on {k.device}, v on "
+            f"{v.device}; all must be on one CUDA device")
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"causal_attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)} are not one "
+                         f"[B, S, H, hd]")
+    B, S, H, hd = q.shape
+    if hd != HEAD_DIM:
+        raise ValueError(f"causal_attention: the kernels take hd={HEAD_DIM}, "
+                         f"got {hd}")
+    if not 1 <= S <= MAX_SEQ:
+        raise ValueError(f"causal_attention: S={S} outside [1, {MAX_SEQ}]")
+    if (q.dtype not in (torch.bfloat16, torch.float32)
+            or any(t.dtype != q.dtype for t in ts)):
+        raise ValueError("causal_attention: q, k, v must all be bf16 or all "
+                         "fp32")
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError("causal_attention: the head dim must be contiguous")
+    if q.dtype == torch.bfloat16 and not all(_aligned(t) for t in ts):
+        raise ValueError("causal_attention: bf16 inputs must be 16-byte "
+                         "aligned, with strides in multiples of 8")
+    return B, S, H
+
+
+def _aligned(t):
+    """The bf16 kernels read rows as 16-byte vectors."""
+    return t.data_ptr() % 16 == 0 and all(t.stride(i) % 8 == 0
+                                          for i in range(3))
+
+
+def _strides(*ts):
+    return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
+
+
+def _launch(fn, name, *args):
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def flash_fwd(q, k, v):
+    """K4: (O [B, S, H, hd] in q's dtype, lse [B, H, S] fp32)."""
+    B, S, H = _check(q, k, v)
+    o = torch.empty((B, S, H, HEAD_DIM), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    _launch(_lib().ivg_flash_fwd, "flash_fwd", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, H, HEAD_DIM,
+            *_strides(q, k, v), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def _check_bwd(q, k, v, do, lse, di):
+    B, S, H = _check(q, k, v)
+    if (do.shape != q.shape or do.dtype != q.dtype or do.device != q.device
+            or not do.is_contiguous() or not _aligned(do)):
+        raise ValueError("flash backward: dO must be contiguous, 16-byte "
+                         "aligned, of q's shape, dtype and device")
+    for name, t in (("lse", lse), ("di", di)):
+        if (t.shape != (B, H, S) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"flash backward: {name} must be contiguous "
+                             f"fp32 [B, H, S] on q's device")
+    return B, S, H
+
+
+def flash_bwd_dkv(q, k, v, do, lse, di):
+    """K5: (dK, dV), contiguous [B, S, H, hd] in q's dtype."""
+    B, S, H = _check_bwd(q, k, v, do, lse, di)
+    dk = torch.empty((B, S, H, HEAD_DIM), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    _launch(_lib().ivg_flash_bwd_dkv, "flash_bwd_dkv", q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, HEAD_DIM,
+            *_strides(q, k, v), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, di):
+    """K6: dQ, contiguous [B, S, H, hd] in q's dtype."""
+    B, S, H = _check_bwd(q, k, v, do, lse, di)
+    dq = torch.empty((B, S, H, HEAD_DIM), dtype=q.dtype, device=q.device)
+    _launch(_lib().ivg_flash_bwd_dq, "flash_bwd_dq", q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), dq.data_ptr(), B, S, H, HEAD_DIM,
+            *_strides(q, k, v), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_fwd.launches = 0
+flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    strides = [i64] * 9
+    lib.ivg_flash_fwd.argtypes = [p] * 5 + [i] * 4 + strides + [i, p]
+    lib.ivg_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 4 + strides + [i, p]
+    lib.ivg_flash_bwd_dq.argtypes = [p] * 7 + [i] * 4 + strides + [i, p]
+    for fn in (lib.ivg_flash_fwd, lib.ivg_flash_bwd_dkv, lib.ivg_flash_bwd_dq):
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,110 @@
+"""Token-LM training step, the port of ``ivideogpt_tpu/train/gpt_trainer.py``:
+tokenize pixels with the frozen fp32 tokenizer (K1), run the LM's training
+forward and backward (K4 forward, K5/K6 backward in each layer's
+attention), clip and take an AdamW step.
+
+    tokenizer, model = build_train_models(seed=0)          # on CUDA
+    state = create_train_state(model, GPTTrainConfig())
+    tokenize = make_tokenize_fn(tokenizer, context_length=2)
+    ids, labels = tokenize(pixels)                         # [B, T, H, W, C]
+    metrics = train_step(state, {"input_ids": ids, "labels": labels})
+
+Compute is bf16 over fp32 master parameters by default, as ``train_gpt.py``
+builds it: the LM's parameters stay fp32 and each layer casts them to bf16
+at use, so gradients and AdamW run on the fp32 masters.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ivideogpt_tpu_torch.configs import (LLAMA_BASE, TOKENIZER_64,
+                                         ActionModelConfig,
+                                         CompressiveVQConfig, GPTTrainConfig,
+                                         TransformerConfig)
+from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
+from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+from ivideogpt_tpu_torch.train.optim import TrainState, global_norm
+from ivideogpt_tpu_torch.utils.platform import full_fp32, resolve_device
+
+Batch = Dict[str, torch.Tensor]
+
+
+def build_train_models(tok_cfg: CompressiveVQConfig = TOKENIZER_64,
+                       lm_cfg: TransformerConfig = LLAMA_BASE, *,
+                       context_length: int = 2, segment_length: int = 16,
+                       action_dim: int = 4,
+                       action_recon: Optional[float] = None,
+                       compute_dtype: torch.dtype = torch.bfloat16,
+                       seed: int = 0, device=None
+                       ) -> Tuple[CompressiveVQModel, HeadModelWithAction]:
+    """The frozen fp32 tokenizer and the LM to train, with random weights
+    from ``seed``, at the shapes of ``train_gpt.py``'s ``build_models``:
+    the LM's vocabulary is the tokenizer's, its parameters fp32, its
+    compute ``compute_dtype``. Everything else (remat, dropout) is
+    ``lm_cfg``'s as given. On CUDA unless ``device`` says otherwise."""
+    dev = resolve_device(device)
+    tok_cfg = tok_cfg.replace(context_length=context_length)
+    lm_cfg = lm_cfg.replace(vocab_size=tok_cfg.vocab_size)
+    head_cfg = ActionModelConfig(
+        action_dim=action_dim, context_length=context_length,
+        segment_length=segment_length,
+        tokens_per_context=tok_cfg.ctx_tokens_per_frame,
+        tokens_per_dyna=tok_cfg.dyn_tokens_per_frame,
+        action_recon=action_recon)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        tokenizer = CompressiveVQModel(tok_cfg)
+        model = HeadModelWithAction(lm_cfg, head_cfg, dtype=compute_dtype)
+    tokenizer.requires_grad_(False)
+    return tokenizer.to(dev).eval(), model.to(dev).train()
+
+
+def create_train_state(model: HeadModelWithAction,
+                       cfg: GPTTrainConfig) -> TrainState:
+    """AdamW, schedule, clipping and accumulation from the trainer config,
+    as ``train_gpt.py`` passes them to ``make_optimizer``."""
+    return TrainState(
+        model, learning_rate=cfg.learning_rate, lr_scheduler=cfg.lr_scheduler,
+        warmup_steps=cfg.lr_warmup_steps, total_steps=cfg.max_train_steps,
+        weight_decay=cfg.weight_decay, embed_no_wd=cfg.embed_no_wd,
+        b1=cfg.adam_beta1, b2=cfg.adam_beta2, eps=cfg.adam_epsilon,
+        max_grad_norm=cfg.max_grad_norm,
+        gradient_accumulation_steps=cfg.gradient_accumulation_steps)
+
+
+def make_tokenize_fn(tokenizer: CompressiveVQModel, context_length: int
+                     ) -> Callable[[torch.Tensor], Tuple[torch.Tensor,
+                                                         torch.Tensor]]:
+    """pixels [B, T, H, W, C] -> (input_ids, labels) [B, L] through the
+    frozen tokenizer: no gradient, TF32 off."""
+    def tokenize(pixels):
+        with torch.no_grad(), full_fp32():
+            return tokenizer.tokenize(pixels, context_length)
+    return tokenize
+
+
+def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+    """One micro-batch: forward, backward, then ``state.apply_gradients``.
+    batch: {"input_ids", "labels" [B, L][, "action" [B, T, A]]}. Returns
+    0-dim tensors (no host sync): loss, the unclipped gradient norm and
+    perplexity."""
+    model = state.model
+    model.train()
+    out = model(batch["input_ids"], batch["labels"], batch.get("action"))
+    loss = out["loss"]
+    loss.backward()
+    gnorm = global_norm(p.grad for p in state.params if p.grad is not None)
+    state.apply_gradients()
+    loss = loss.detach()
+    return {"loss": loss, "grad_norm": gnorm, "perplexity": torch.exp(loss)}
+
+
+@torch.no_grad()
+def eval_step(model: HeadModelWithAction, batch: Batch
+              ) -> Dict[str, torch.Tensor]:
+    model.eval()
+    out = model(batch["input_ids"], batch["labels"], batch.get("action"))
+    return {"loss": out["loss"], "perplexity": torch.exp(out["loss"])}

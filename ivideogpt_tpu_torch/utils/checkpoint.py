@@ -112,3 +112,23 @@ def action_model_state_dict(params: dict) -> Dict[str, torch.Tensor]:
             sd[f"{head}.weight"] = np.asarray(tree[head]["kernel"]).T
             sd[f"{head}.bias"] = np.asarray(tree[head]["bias"])
     return _to_torch(sd)
+
+
+def action_model_flax_path(name: str) -> str:
+    """The port's action-model parameter name -> the "/"-joined Flax path
+    (under ``params``) that :func:`action_model_state_dict` loads it from."""
+    if not name.startswith("llm."):
+        head, leaf = name.rsplit(".", 1)
+        return f"{head}/{'kernel' if leaf == 'weight' else leaf}"
+    rest = name[len("llm."):]
+    fixed = {"model.embed_tokens.weight": "embed_tokens/embedding",
+             "model.norm.weight": "norm/weight",
+             "lm_head.weight": "lm_head/kernel"}
+    if rest in fixed:
+        return f"llm/{fixed[rest]}"
+    m = re.match(r"model\.layers\.(\d+)\.(.*)\.weight$", rest)
+    if not m:
+        raise ValueError(f"unmapped port name {name}")
+    i, mod = m.groups()
+    leaf = "weight" if mod.endswith("layernorm") else "kernel"
+    return f"llm/layers_{i}/{mod.replace('.', '/')}/{leaf}"

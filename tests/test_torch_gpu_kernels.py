@@ -8,7 +8,7 @@ without it:
 
 The checks at the main path's full shapes are ``chip_smoke.py``'s phases;
 these cover the edges: ragged tiles, small D, fp32 queries, a single live
-slot, and the wrappers' refusals.
+slot, strided bshd views, and the wrappers' refusals.
 """
 
 import pytest
@@ -80,3 +80,58 @@ def test_decode_attention_refuses_bad_valid(cuda):
     for valid in (0, 5):
         with pytest.raises(ValueError):
             da.decode_attention(q, kv, s, kv, s, valid)
+
+
+def _qkv(cuda, S, dtype, seed, strided=False):
+    B, H, hd = 3, 5, 64   # B*H = 15: no multiple of anything
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shape = (B, H, S, hd) if strided else (B, S, H, hd)
+    ts = [torch.randn(shape, device=cuda, generator=g).to(dtype)
+          for _ in range(4)]
+    if strided:  # bshd views of [B, H, S, hd] tensors
+        ts = [t.transpose(1, 2) for t in ts]
+    return [t.requires_grad_(i < 3) for i, t in enumerate(ts)]
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 751])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_matches_plain(cuda, S, dtype):
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    q, k, v, do = _qkv(cuda, S, dtype, S, strided=S == 65)
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches,
+              fa.flash_bwd_dq.launches)
+    out = fa.causal_attention(q, k, v, dtype)
+    grads = torch.autograd.grad(out, (q, k, v), do.flatten(2))
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dq.launches) == tuple(c + 1 for c in counts)
+    assert out.dtype == dtype and all(g.dtype == dtype for g in grads)
+    # the reference: the plain version in fp32 on the same (upcast) inputs,
+    # TF32 off. The kernels keep fp32 scores and sums; in bf16 they round P
+    # and dS to bf16 before their products (as the TPU kernel does), round
+    # the result once at the end (2^-9 relative), and di reads the bf16 O.
+    ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    with full_fp32():
+        ref = fa.causal_attention_plain(*ref_in, torch.float32)
+        ref_grads = torch.autograd.grad(ref, ref_in, do.float().flatten(2))
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=1e-5))
+    torch.testing.assert_close(out.float(), ref, **tol)
+    for ours, theirs in zip(grads, ref_grads):
+        torch.testing.assert_close(ours.float(), theirs, **tol)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+
+    def qkv(S, hd, k_device=cuda):
+        q = torch.zeros(1, S, 2, hd, device=cuda, dtype=torch.bfloat16)
+        return q, q.to(k_device), q.clone()
+
+    # an odd element offset: the bf16 kernels read rows as 16-byte vectors
+    unaligned = torch.zeros(1, 8, 2, 65, device=cuda,
+                            dtype=torch.bfloat16)[..., 1:]
+    for args in (qkv(8, 32), qkv(1025, 64), qkv(8, 64, k_device="cpu"),
+                 (unaligned,) * 3):
+        with pytest.raises(ValueError):
+            fa.causal_attention(*args, torch.bfloat16)

@@ -50,14 +50,16 @@ def test_port_imports_no_jax_package(path):
 def test_scan_sees_the_whole_package():
     rels = {os.path.relpath(p, PKG) for p in _port_files()}
     for must in ("rollout.py", "generation.py", "ops/vq.py",
-                 "ops/decode_attention.py", "models/llama.py"):
+                 "ops/decode_attention.py", "ops/flash_attention.py",
+                 "models/llama.py", "train/gpt_trainer.py", "train/optim.py"):
         assert must in rels
-    assert os.path.exists(os.path.join(PKG, "csrc", "vq_argmin.cu"))
-    assert os.path.exists(os.path.join(PKG, "csrc", "decode_attention.cu"))
+    for src in ("vq_argmin", "decode_attention", "flash_attention"):
+        assert os.path.exists(os.path.join(PKG, "csrc", f"{src}.cu"))
 
 
 def test_entry_point_wants_cuda():
     from ivideogpt_tpu_torch.rollout import build_models
+    from ivideogpt_tpu_torch.train.gpt_trainer import build_train_models
     from ivideogpt_tpu_torch.utils.platform import resolve_device
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
@@ -66,6 +68,8 @@ def test_entry_point_wants_cuda():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         build_models()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_train_models()
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -73,6 +77,7 @@ def test_wrappers_raise_on_non_cuda_accelerator_tensors():
     """A tensor that is neither on the CPU nor on CUDA is refused, never
     sent to the plain version."""
     from ivideogpt_tpu_torch.ops import decode_attention as tda
+    from ivideogpt_tpu_torch.ops import flash_attention as tfa
     from ivideogpt_tpu_torch.ops import vq as tvq
     z = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError):
@@ -82,3 +87,6 @@ def test_wrappers_raise_on_non_cuda_accelerator_tensors():
     s = torch.zeros((1, 4, 1), device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         tda.decode_attention(q, kv, s, kv, s, 2)
+    qkv = torch.zeros((1, 4, 2, 64), device="meta")
+    with pytest.raises(ValueError):
+        tfa.causal_attention(qkv, qkv, qkv, torch.float32)
