@@ -10,6 +10,11 @@ the final result line:
   2. build     nvcc for sm_90a of every csrc/*.cu, all at once (-Xptxas -v)
   3. K1        VQ argmin at N=131072, K=8192, D=64 fp32 against the plain
                version (TF32 off), plus a codebook with duplicated rows
+     K2        the tiled VQ argmin at the wide training step's shapes
+               (N=8192 and 1536, K=16384, D=256) and the rollout's (also
+               against K1), plus duplicated rows across a codebook split;
+               then K1 and K2 at the tokenizer-train lookups (N=8192 and
+               1536, K=8192, D=64) against the plain version, timed
   4. K3        int8 decode attention at B=256, H=12, hd=64, M=752 for
                valid in {515, 633, 751} against the plain version
   5. flash     K4 (causal flash-attention forward) at the training shape
@@ -30,6 +35,17 @@ the final result line:
   9. train check  one fp32 forward/backward at B=2 (LLAMA_BASE widths, 2
                layers) on the GPU held against the CPU's plain path: loss,
                grad norm, every gradient
+ 10. tok_train the tokenizer (VQGAN) training step: TOKENIZER_64, the
+               discriminator and LPIPS, bf16 over fp32 masters, B=16, T=8,
+               GAN on: 3 warm-up and 10 timed G+D pairs on one batch, a
+               falling finite recon loss, launches a pair (K1 4), G and D
+               ms/step, frames/s, peak memory, FLOP, one profiled pair
+ 11. tok_train_wide  the same step with 16384 x 256 codebooks: 1 warm-up
+               and 3 timed pairs, launches a pair (K2 4, K1 0), ms/step
+ 12. tok_train check  one fp32 G step and D step at B=4 (full widths,
+               discriminator depth 4, the training CLI's) on the card held
+               against the CPU's plain path: losses, the adaptive weight,
+               grad norms, every gradient, the updated u
 Then the launches by path, the kernels' JSON line, the card line again, and
 the result line.
 Imports nothing of JAX or of the JAX package.
@@ -49,6 +65,9 @@ FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s
 TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 16, 3, 10
+TOK_T, TOK_CTX = 8, 2          # the tokenizer trainer's clips (B=TRAIN_B)
+TOK_WARMUP, TOK_TIMED = 3, 10
+TOK_WIDE_WARMUP, TOK_WIDE_TIMED = 1, 3
 
 
 class PhaseError(Exception):
@@ -89,6 +108,26 @@ def bound(bytes_moved, flops, peak_flops):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def near_tie_gate(torch, what, z, e, ids, ref):
+    """Hold ids against ref: they may differ only where the two picks'
+    float64 distances are within 1e-5 of the distances' scale (fp32 sums
+    in another order), at most N/1000 rows. Returns the largest gap."""
+    n = z.shape[0]
+    diff = (ids != ref).nonzero()[:, 0]
+    z64, e64 = z[diff].double(), e.double()
+    d_ours = ((z64 - e64[ids[diff]]) ** 2).sum(1)
+    d_ref = ((z64 - e64[ref[diff]]) ** 2).sum(1)
+    gap = (d_ours - d_ref).abs()
+    scale = (z64 ** 2).sum(1) + (e64[ids[diff]] ** 2).sum(1)
+    max_err = float(gap.max()) if len(diff) else 0.0
+    print(f"{what}: {n - len(diff)}/{n} equal; {len(diff)} differ, max "
+          f"float64 distance gap {max_err:.3e}")
+    check(bool((gap < 1e-5 * scale).all()),
+          f"{what}: ids differ beyond a near tie")
+    check(len(diff) <= n // 1000, f"{what}: {len(diff)} near-tie flips")
+    return max_err
+
+
 def phase_k1(torch):
     from ivideogpt_tpu_torch.ops import vq
     from ivideogpt_tpu_torch.utils.platform import full_fp32
@@ -100,18 +139,8 @@ def phase_k1(torch):
         ids = vq.vq_argmin(z, e)
         ref = vq.vq_lookup_plain(z, e)
         torch.cuda.synchronize()
-        diff = (ids != ref).nonzero()[:, 0]
-        z64, e64 = z[diff].double(), e.double()
-        d_ours = ((z64 - e64[ids[diff]]) ** 2).sum(1)
-        d_ref = ((z64 - e64[ref[diff]]) ** 2).sum(1)
-        gap = (d_ours - d_ref).abs()
-        scale = (z64 ** 2).sum(1) + (e64[ids[diff]] ** 2).sum(1)
-        max_err = float(gap.max()) if len(diff) else 0.0
-        print(f"K1 ids: {n - len(diff)}/{n} equal to the plain version; "
-              f"{len(diff)} differ, max float64 distance gap {max_err:.3e}")
-        check(bool((gap < 1e-5 * scale).all()),
-              "K1 ids differ from the plain version beyond a near tie")
-        check(len(diff) <= n // 1000, f"K1: {len(diff)} near-tie flips")
+        max_err = near_tie_gate(torch, "K1 ids against the plain version", z,
+                                e, ids, ref)
 
         # duplicated codebook rows: an exact tie must go to the smaller index
         e_dup = e.clone()
@@ -137,6 +166,95 @@ def phase_k1(torch):
                 replaces="ivideogpt_tpu/ops/vq.py:89", max_abs_err=max_err,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
+
+
+def phase_k2(torch, k1):
+    """K2 against its plain version, TF32 off, at the wide training step's
+    shapes (context N=8192 and dynamics N=1536 against a 16384 x 256
+    codebook) and at the rollout's (N=131072, K=8192, D=64), where it is
+    also held against K1; duplicated rows across a codebook split resolve
+    to the smallest index. Then K1 and K2 at the tokenizer-train lookups
+    (N=8192 and 1536, K=8192, D=64), against the plain version, timed side
+    by side; K1's gap there goes into its row ``k1``. The kernels line
+    keeps the wide context shape's times, the largest lookup of the wide
+    step."""
+    from ivideogpt_tpu_torch.ops import vq
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    g = torch.Generator(device="cuda").manual_seed(20)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row, worst = None, 0.0
+    for name, n, k, d in (("context", 8192, 16384, 256),
+                          ("dynamics", 1536, 16384, 256),
+                          ("rollout", B * CTX * 256, 8192, 64)):
+        z = torch.randn(n, d, device="cuda", generator=g)
+        e = torch.randn(k, d, device="cuda", generator=g)
+        with full_fp32():
+            ids = vq.vq_argmin_tiled(z, e)
+            ref = vq.vq_lookup_plain(z, e)
+            torch.cuda.synchronize()
+            worst = max(worst, near_tie_gate(
+                torch, f"K2 {name} ids against the plain version", z, e, ids,
+                ref))
+            if name == "rollout":
+                near_tie_gate(torch, "K2 rollout ids against K1's", z, e, ids,
+                              vq.vq_argmin(z, e))
+            else:
+                # copies of rows 0..511 straddling the first split boundary
+                n_dup = 512 + 4096
+                splits, per = vq.k2_splits(n_dup, k, sms)
+                e_dup = e.clone()
+                e_dup[per - 256:per + 256] = e[:512]
+                ids_dup = vq.vq_argmin_tiled(
+                    torch.cat([e[:512], z[:4096]]), e_dup)
+                check(bool(((ids_dup < per - 256) | (ids_dup >= per + 256))
+                           .all()), f"K2 {name}: a tie did not go to the "
+                      f"smallest index")
+                check(bool((ids_dup[:512] == torch.arange(
+                    512, device="cuda")).all()), f"K2 {name}: exact matches "
+                      f"not found at the smaller index")
+                print(f"K2 {name} ties: rows copied across the split at "
+                      f"{per} ({splits} splits) resolve to the smallest "
+                      f"index")
+            ms = cuda_ms(lambda: vq.vq_argmin_tiled(z, e), 10)
+            plain_ms = cuda_ms(lambda: vq.vq_lookup_plain(z, e), 5)
+            lib_ms = cuda_ms(lambda: torch.cdist(z, e).argmin(1), 5)
+        b_ms, b_by = bound(n * d * 4 + k * d * 4 + k * 4 + n * 8,
+                           2 * n * k * d, FP32_PEAK)
+        # the z tile [D][64], a 32 x 64 codebook chunk and its 64 norms
+        smem = (d * vq.K2_ROWS + 32 * vq.K2_CODES + vq.K2_CODES) * 4
+        print(f"K2 {name} N={n} K={k} D={d} splits="
+              f"{vq.k2_splits(n, k, sms)[0]}: kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"(cdist+argmin) bound_ms={b_ms:.4f} ({b_by}) "
+              f"share_of_bound={b_ms / ms:.3f}; dynamic shared memory "
+              f"{smem} bytes a block")
+        if row is None:
+            row = dict(name="vq_argmin_tiled", route="cuda",
+                       source="ivideogpt_tpu_torch/csrc/vq_argmin_tiled.cu",
+                       replaces="ivideogpt_tpu/ops/vq.py:46", ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms)
+        del z, e, ids, ref
+    # the tokenizer-train lookups (K=8192, D=64) route to K1: both held
+    # against the plain version at these shapes, then timed
+    for n in (8192, 1536):
+        z = torch.randn(n, 64, device="cuda", generator=g)
+        e = torch.randn(8192, 64, device="cuda", generator=g)
+        with full_fp32():
+            ref = vq.vq_lookup_plain(z, e)
+            k1["max_abs_err"] = max(k1["max_abs_err"], near_tie_gate(
+                torch, f"K1 tokenizer-train N={n} ids against the plain "
+                f"version", z, e, vq.vq_argmin(z, e), ref))
+            worst = max(worst, near_tie_gate(
+                torch, f"K2 tokenizer-train N={n} ids against the plain "
+                f"version", z, e, vq.vq_argmin_tiled(z, e), ref))
+            k1_ms = cuda_ms(lambda: vq.vq_argmin(z, e), 10)
+            k2_ms = cuda_ms(lambda: vq.vq_argmin_tiled(z, e), 10)
+        print(f"K1 and K2 at the tokenizer-train shape N={n} K=8192 D=64: "
+              f"K1 {k1_ms:.4f} ms, K2 {k2_ms:.4f} ms")
+    torch.cuda.empty_cache()
+    row["max_abs_err"] = worst
+    return row
 
 
 def phase_k3(torch):
@@ -330,6 +448,7 @@ def counted():
     from ivideogpt_tpu_torch.ops import flash_attention as fa
     from ivideogpt_tpu_torch.ops import vq
     return {"vq_argmin": vq.vq_argmin,
+            "vq_argmin_tiled": vq.vq_argmin_tiled,
             "decode_attention": da.decode_attention,
             "flash_attention_fwd": fa.flash_fwd,
             "flash_attention_bwd_dkv": fa.flash_bwd_dkv,
@@ -452,7 +571,9 @@ def stage_seconds(torch, tokenizer, lm, px, action, gen, timer):
 def kernel_trace(torch, out):
     """torch.profiler around the block; then out["seconds"] holds the CUDA
     kernels' device seconds (one stream, so kernels do not overlap) and
-    out["kernels"] their averages by name, largest first."""
+    out["kernels"] their averages by name, largest first. Ranges that
+    annotate the device timeline (``Optimizer.step#AdamW.step``) overlap
+    the kernels they hold and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -460,7 +581,8 @@ def kernel_trace(torch, out):
         yield
         torch.cuda.synchronize()
     kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
                      key=lambda e: e.self_device_time_total, reverse=True)
     out["kernels"] = kernels
     out["seconds"] = sum(e.self_device_time_total for e in kernels) / 1e6
@@ -639,6 +761,305 @@ def profile_train_step(torch, step, step_s):
           + json.dumps(top_kernels(kernels, 12, width=70)))
 
 
+def phase_tok_train(torch, wide):
+    """The tokenizer (VQGAN) training step, the JAX bench's tok64 regime:
+    TOKENIZER_64 (or its wide-codebook variant), DiscriminatorConfig()
+    (hidden 512, depth 6) and LPIPS, random weights from a seed, bf16
+    compute over fp32 masters, B=16, T=8, ctx=2, 64 px, one fixed batch.
+    Each G+D pair quantizes context and dynamics twice: K1 4 times (K2 4
+    times at the wide codebooks). The bench's depth 6 ends, at 64 px, in a
+    1x1 map that InstanceNorm sets to 0 (constant logits, no D gradient,
+    the adaptive weight at its clip); the training CLI builds depth 4,
+    which the fp32 check uses."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from ivideogpt_tpu_torch.configs import TOKENIZER_64, TokenizerTrainConfig
+    from ivideogpt_tpu_torch.train import tokenizer_trainer as tt
+    name = "tok_train_wide" if wide else "tok_train"
+    warmup, timed = ((TOK_WIDE_WARMUP, TOK_WIDE_TIMED) if wide
+                     else (TOK_WARMUP, TOK_TIMED))
+    t0 = time.time()
+    tok_cfg = TOKENIZER_64
+    if wide:
+        # taming-transformers' VQGAN f16-16384 codebooks: 16 MB padded fp32
+        tok_cfg = tok_cfg.replace(num_vq_embeddings=16384,
+                                  num_dyn_embeddings=16384, vq_embed_dim=256)
+    models = tt.build_tokenizer_train_models(tok_cfg, seed=40 + wide)
+    tokenizer, disc, lpips = models
+    # the recipe (AdamW lr 5e-4, wd 1e-4, clip 1.0, constant schedule)
+    # without warmup
+    cfg = TokenizerTrainConfig(batch_size=TRAIN_B, segment_length=TOK_T,
+                               context_length=TOK_CTX, lr_warmup_steps=0)
+    state, disc_state = tt.create_train_states(tokenizer, disc, cfg)
+    g_step = tt.make_generator_step(tokenizer, disc, lpips, cfg, use_gan=True)
+    d_step = tt.make_discriminator_step(tokenizer, disc, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(41 + wide)
+    px = torch.rand(TRAIN_B, TOK_T, 64, 64, 3, device="cuda", generator=gen)
+    n_params = [sum(p.numel() for p in m.parameters()) for m in models]
+    print(f"{name}: models built in {time.time() - t0:.1f}s (tokenizer "
+          f"{n_params[0] / 1e6:.1f}M, discriminator {n_params[1] / 1e6:.1f}M, "
+          f"LPIPS {n_params[2] / 1e6:.1f}M; fp32 masters, bf16 compute)")
+
+    def pair():
+        torch.cuda.synchronize()
+        t = time.time()
+        m = g_step(state, px, gen)
+        torch.cuda.synchronize()
+        t_g = time.time()
+        dm = d_step(disc_state, px, gen)
+        torch.cuda.synchronize()
+        return m, dm, t_g - t, time.time() - t_g
+
+    flops = {}
+    for i in range(warmup):
+        if i == warmup - 1 and not wide:
+            # the last warm-up pair's FLOP by aten op (the VQ kernels, a
+            # few GFLOP, are outside aten and not counted)
+            for key, fn in (("G", lambda: g_step(state, px, gen)),
+                            ("D", lambda: d_step(disc_state, px, gen))):
+                with FlopCounterMode(display=False) as counter:
+                    fn()
+                flops[key] = counter.get_total_flops()
+        else:
+            pair()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    runs = [pair() for _ in range(timed)]
+    launches = read_counts()
+    g_ms = sum(r[2] for r in runs) / timed * 1e3
+    d_ms = sum(r[3] for r in runs) / timed * 1e3
+    recon = [float(r[0]["recon_loss"]) for r in runs]
+    losses = {k: [float(r[0][k]) for r in runs]
+              for k in ("gen_loss", "gan_loss", "adaptive_weight")}
+    losses["discr_loss"] = [float(r[1]["discr_loss"]) for r in runs]
+    print(f"{name}: recon_loss over the timed pairs "
+          f"{[round(x, 5) for x in recon]}; "
+          + "; ".join(f"{k} {[round(x, 5) for x in v]}"
+                      for k, v in losses.items()))
+    check(all(x == x and abs(x) != float("inf")
+              for v in [recon, *losses.values()] for x in v),
+          f"{name}: a loss is not finite")
+    if not wide:
+        # Adam at lr 5e-4 from random weights moves the loss up and down
+        # from pair to pair: the later half's mean against the first pair
+        late = sum(recon[timed // 2:]) / (timed - timed // 2)
+        check(late < recon[0], f"{name}: recon_loss did not fall over the "
+              f"timed pairs ({recon[0]:.5f}, then {late:.5f} on average over "
+              f"the later half)")
+    want = {"vq_argmin": 0 if wide else 4, "vq_argmin_tiled": 4 if wide else 0,
+            "decode_attention": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
+    for kname, n in want.items():
+        check(launches[kname] == n * timed,
+              f"{name}: {kname} ran {launches[kname]} times in {timed} "
+              f"pairs, not {n} a pair")
+    pair_s = (g_ms + d_ms) / 1e3
+    line = (f"{name}: {timed} timed G+D pairs, G {g_ms:.2f} ms/step, D "
+            f"{d_ms:.2f} ms/step, {TRAIN_B * TOK_T / pair_s:.1f} frames/s "
+            f"(B*T = {TRAIN_B * TOK_T} frames a pair), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"a pair {json.dumps({k: v // timed for k, v in launches.items()})}"
+            f"; G ms by pair {[round(r[2] * 1e3, 2) for r in runs]}, D ms "
+            f"{[round(r[3] * 1e3, 2) for r in runs]}")
+    if flops:
+        line += (f"; FLOP of one G step {flops['G']:.4e} "
+                 f"({flops['G'] / (g_ms / 1e3) / BF16_PEAK:.4f} of 989 "
+                 f"TFLOP/s), of one D step {flops['D']:.4e} "
+                 f"({flops['D'] / (d_ms / 1e3) / BF16_PEAK:.4f})")
+    print(line)
+    res = {}
+    with kernel_trace(torch, res):
+        g_step(state, px, gen)
+        d_step(disc_state, px, gen)
+    total, kernels = res["seconds"], res["kernels"]
+    if total:
+        vq_s = sum(e.self_device_time_total for e in kernels
+                   if "vq_argmin" in e.key) / 1e6
+        print(f"{name}: one profiled pair: device {total:.4f} s, busy share "
+              f"{total / pair_s:.4f} of the unprofiled pair, VQ kernels "
+              f"{vq_s:.4f} s ({vq_s / total:.4f} of device time)")
+        print(f"{name}: top kernels (name, launches, device s): "
+              + json.dumps(top_kernels(kernels, 12, width=70)))
+    else:
+        print(f"{name}: the profiler recorded no device time: device seconds "
+              f"not measured")
+    del models, state, disc_state, runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def grad_errors(names, grads, grads_ref):
+    """The worst (error, name) of a model's gradients against the reference
+    gradients, by the norm of the difference over the reference's norm and
+    by the largest element over the reference's max; each denominator is
+    floored at 1e-3 of the model's largest, since a bias in front of
+    InstanceNorm, or the key bias of a softmax, has a gradient that is zero
+    but for rounding."""
+    norm_floor = 1e-3 * max(float(g.norm()) for g in grads_ref)
+    max_floor = 1e-3 * max(float(g.abs().max()) for g in grads_ref)
+    by_norm, by_max = [], []
+    for n, g, g_ref in zip(names, grads, grads_ref):
+        diff = g.cpu() - g_ref
+        by_norm.append((float(diff.norm()) / max(float(g_ref.norm()),
+                                                 norm_floor), n))
+        by_max.append((float(diff.abs().max())
+                       / max(float(g_ref.abs().max()), max_floor), n))
+    return max(by_norm), max(by_max)
+
+
+def phase_tok_train_check(torch):
+    """One fp32 G step and one D step on the card held against the CPU's
+    plain path with the same weights, batch and spectral-norm stats:
+    TOKENIZER_64 at full width with cross-attention dropout 0 (dropout
+    draws cannot be compared), LPIPS, B=4, and the discriminator at its
+    full width (hidden 512) and the depth the training CLI builds it with
+    (train_tokenizer.py's --disc_depth, 4; 4x4 logits at 64 px). The
+    timed cells' DiscriminatorConfig() (depth 6) would not test anything
+    here: at 64 px its sixth stride-2 conv leaves a 1x1 map that
+    InstanceNorm sets to 0, so every input gets the same logits, the D
+    gradients are zero and the adaptive weight is pinned at its 1e4 clip.
+
+    Tolerances: the losses, adaptive weight and grad norms within 1e-4
+    relative; the updated u within 1e-5; the D gradients within 1e-3 of
+    their max and norm, the CPU's D step fed the card's reconstructions
+    (the tokenizer forward is held by the G step; the discriminator's
+    leaky-ReLU kinks would otherwise turn its ~1e-6 differences into jumps).
+    The G gradients within 1e-2 of their max and norm, or 4 times the
+    CPU's own spread (the CPU against itself at fewer threads, by norm and
+    by element, whichever is larger) where that is larger: the backward
+    into the encoders' first blocks runs through ~40 layers and GroupNorms
+    and magnifies rounding there, for the CPU as for the card, so 1e-3
+    cannot be held (on an H100 the card reads about 7e-3 there, 3.6 to
+    3.9 times the CPU's spread). B=4, not 2,
+    narrows the adaptive weight's spread. The VQ ids are compared first;
+    the CPU then runs on the card's ids, so a near-tie flip does not move
+    the losses."""
+    import copy
+    from ivideogpt_tpu_torch.configs import (TOKENIZER_64, DiscriminatorConfig,
+                                             TokenizerTrainConfig)
+    from ivideogpt_tpu_torch.ops import vq
+    from ivideogpt_tpu_torch.train import tokenizer_trainer as tt
+    b = 4
+    cfg = TokenizerTrainConfig(batch_size=b, segment_length=TOK_T,
+                               context_length=TOK_CTX, lr_warmup_steps=0)
+    card = tt.build_tokenizer_train_models(
+        TOKENIZER_64.replace(cross_attn_dropout=0.0),
+        DiscriminatorConfig(depth=4), compute_dtype=torch.float32, seed=50)
+    host = [copy.deepcopy(m).cpu() for m in card]
+    g = torch.Generator(device="cuda").manual_seed(51)
+    px = torch.rand(b, TOK_T, 64, 64, 3, device="cuda", generator=g)
+    lookup = vq.vq_lookup
+    card_ids, card_recons = [], []
+
+    def steps(models, px, lookup_fn, recons):
+        """[(metrics, gradients)] of the G step and the D step, the
+        gradients kept instead of applied; ``recons`` stands in for the
+        tokenizer in the D step."""
+        tok, disc, lpips = models
+        state, disc_state = tt.create_train_states(tok, disc, cfg)
+        kept = []
+        for s in (state, disc_state):
+            s.apply_gradients = lambda s=s: kept.append(
+                [p.grad.detach().clone() for p in s.params])
+        vq.vq_lookup = lookup_fn
+        try:
+            out = [tt.make_generator_step(tok, disc, lpips, cfg,
+                                          use_gan=True)(state, px)]
+            tok.forward = recons
+            out.append(tt.make_discriminator_step(tok, disc, cfg)(disc_state,
+                                                                  px))
+        finally:
+            vq.vq_lookup = lookup
+            tok.__dict__.pop("forward", None)
+        return list(zip(out, kept))
+
+    def card_lookup(z, e):
+        card_ids.append(lookup(z, e))
+        return card_ids[-1]
+
+    def card_forward(*args, **kw):
+        card_recons.append(type(card[0]).forward(card[0], *args, **kw))
+        return card_recons[-1]
+
+    reset_counts()
+    ours = steps(card, px, card_lookup, card_forward)
+    counts = read_counts()
+    check(counts["vq_argmin"] == 4 and counts["vq_argmin_tiled"] == 0,
+          f"tok_train check: VQ launches {counts}, not K1 4 and K2 0")
+
+    threads = os.cpu_count() or 1
+    torch.set_num_threads(threads)
+    queue = list(card_ids)
+
+    def host_lookup(z, e):
+        """The CPU's ids held against the card's; the card's go on."""
+        mine = lookup(z, e)
+        theirs = queue.pop(0).cpu().view(mine.shape)
+        d = z.shape[-1]
+        near_tie_gate(torch, f"tok_train check: card ids against the CPU's "
+                      f"(D={d})", z.reshape(-1, d).float(), e.float(),
+                      theirs.reshape(-1), mine.reshape(-1))
+        return theirs
+
+    def host_forward(*args, **kw):
+        return tuple(t.cpu() for t in card_recons[0])
+
+    host_again = [copy.deepcopy(m) for m in host]
+    ref = steps(host, px.cpu(), host_lookup, host_forward)
+    # the CPU against itself at fewer threads (sums in another order): the
+    # spread that the G gradients' tolerance is set against
+    torch.set_num_threads(max(1, threads // 2 - 1))
+    queue = list(card_ids)
+    again = steps(host_again, px.cpu(), host_lookup, host_forward)
+    torch.set_num_threads(threads)
+    names = [n for n, p in card[0].named_parameters() if p.requires_grad]
+    spread = grad_errors(names, again[0][1], ref[0][1])
+    g_tol = max(1e-2, 4 * max(spread[0][0], spread[1][0]))
+    moved = {k: abs(float(again[0][0][k]) - float(ref[0][0][k]))
+             / abs(float(ref[0][0][k])) for k in ("adaptive_weight",
+                                                  "grad_norm")}
+    print(f"tok_train check: the CPU at {threads} threads against "
+          f"{max(1, threads // 2 - 1)}: G gradients worst by norm "
+          f"{spread[0][1]} at {spread[0][0]:.3e}, by element {spread[1][1]} "
+          f"at {spread[1][0]:.3e}, so the G gradients' tolerance is "
+          f"{g_tol:.3e}; relative diffs "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in moved.items()}))
+    failed = []
+    for label, (m, grads), (m_ref, grads_ref), model, keys, tol in (
+            ("G", ours[0], ref[0], card[0],
+             ("gen_loss", "adaptive_weight", "grad_norm"), g_tol),
+            ("D", ours[1], ref[1], card[1], ("discr_loss", "disc_grad_norm"),
+             1e-3)):
+        rel = {k: abs(float(m[k]) - float(m_ref[k]))
+               / max(abs(float(m_ref[k])), 1e-30) for k in keys}
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        by_norm, by_max = grad_errors(names, grads, grads_ref)
+        print(f"tok_train check, {label}: relative diffs "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()})
+              + f" (tolerance 1e-4); worst gradient by norm {by_norm[1]} at "
+              f"{by_norm[0]:.3e} of its norm, by element {by_max[1]} at "
+              f"{by_max[0]:.3e} of its max (tolerance {tol:.3e})")
+        failed += [f"{label} {k}" for k, v in rel.items() if not v <= 1e-4]
+        failed += [f"{label} {n}'s gradient" for e, n in (by_norm, by_max)
+                   if not e <= tol]
+    aw = [float(r[0][0]["adaptive_weight"]) for r in (ours, ref)]
+    u_err = max(float((u.cpu() - u_ref).abs().max())
+                for (n, u), u_ref in zip(card[1].named_buffers(),
+                                         host[1].buffers()) if n.endswith(".u"))
+    print(f"tok_train check: adaptive weight {aw[0]:.6f} on the card, "
+          f"{aw[1]:.6f} on the CPU; updated u max |diff| {u_err:.3e} "
+          f"(tolerance 1e-5)")
+    # fp32 on both sides, TF32 off, the same ids: cuDNN, the kernels and
+    # the CPU sum in other orders
+    check(0 < aw[1] < 1e4 and float(ref[1][0]["disc_grad_norm"]) > 0,
+          "tok_train check: the discriminator does not see its input")
+    check(not failed, f"tok_train check: differs from the CPU path: "
+          f"{', '.join(failed)}")
+    check(u_err <= 1e-5, "tok_train check: the updated spectral-norm u "
+          "differs from the CPU path")
+    del card, ours, card_recons
+    torch.cuda.empty_cache()
+
+
 def phase_train_check(torch):
     """One fp32 training forward/backward at B=2 on the card (K1, K4, K5,
     K6) held against the same step on the CPU's plain path, with the same
@@ -738,25 +1159,35 @@ def main():
                 if "ptxas info" in line:
                     print(f"build[{name}]: {line.strip()}")
         k1 = phase_k1(torch)
+        k2 = phase_k2(torch, k1)
         k3 = phase_k3(torch)
         flash = phase_flash(torch)
         by_path = {"rollout": phase_main(torch)}
         phase_check(torch)
         by_path["train"] = phase_train(torch)
         phase_train_check(torch)
+        by_path["tokenizer_train"] = phase_tok_train(torch, wide=False)
+        by_path["tokenizer_train_wide"] = phase_tok_train(torch, wide=True)
+        phase_tok_train_check(torch)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     print("launches by path (rollout: the first B=256 rollout; train: the "
-          f"{TRAIN_TIMED} timed steps): " + json.dumps(by_path))
-    rows = (k1, k3, flash["K4_train"], flash["K5"], flash["K6"])
+          f"{TRAIN_TIMED} timed steps; tokenizer_train: the {TOK_TIMED} timed "
+          f"G+D pairs; tokenizer_train_wide: the {TOK_WIDE_TIMED} timed "
+          f"pairs): " + json.dumps(by_path))
+    per_run = {"rollout": ("rollout", 1), "train_step": ("train", TRAIN_TIMED),
+               "tokenizer_train": ("tokenizer_train", TOK_TIMED),
+               "tokenizer_train_wide": ("tokenizer_train_wide",
+                                        TOK_WIDE_TIMED)}
+    rows = (k1, k2, k3, flash["K4_train"], flash["K5"], flash["K6"])
     for r in rows:
-        # launches: all the path runs read (one rollout + the timed steps);
-        # launches_by_path: a rollout's and a train step's
+        # launches: all the path runs read (one rollout + the timed steps
+        # and pairs); launches_by_path: a rollout's, a train step's and a
+        # tokenizer G+D pair's
         r["launches"] = sum(c[r["name"]] for c in by_path.values())
-        r["launches_by_path"] = {
-            "rollout": by_path["rollout"][r["name"]],
-            "train_step": by_path["train"][r["name"]] // TRAIN_TIMED}
+        r["launches_by_path"] = {key: by_path[path][r["name"]] // n
+                                 for key, (path, n) in per_run.items()}
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -2,7 +2,8 @@
 
 The port's own copy of the fields, derived quantities and JSON form of
 ``ivideogpt_tpu/configs.py`` (CompressiveVQConfig, TransformerConfig,
-ActionModelConfig, GPTTrainConfig and the published TOKENIZER_64 /
+ActionModelConfig, DiscriminatorConfig, TokenizerTrainConfig,
+GPTTrainConfig and the published TOKENIZER_64 /
 LLAMA_BASE / LLAMA_MEDIUM presets), so a config serialised by either package
 loads in the other.
 """
@@ -138,6 +139,51 @@ class ActionModelConfig(_JsonMixin):
     @property
     def prelude_tokens_num(self) -> int:
         return (self.tokens_per_context + 1) * self.context_length - 1
+
+
+@dataclass(frozen=True)
+class DiscriminatorConfig(_JsonMixin):
+    """PatchGAN-style discriminator of the tokenizer's GAN loss."""
+
+    in_channels: int = 3
+    hidden_channels: int = 512
+    depth: int = 6
+
+
+@dataclass(frozen=True)
+class TokenizerTrainConfig(_JsonMixin):
+    """Tokenizer (VQGAN) trainer knobs, with the JAX package's defaults (the
+    reference 64px pretrain recipe: lr 5e-4, wd 1e-4, clip 1.0, balanced
+    L1 + LPIPS losses, GAN weight 0.1)."""
+
+    batch_size: int = 16
+    segment_length: int = 8
+    context_length: int = 2
+    video_stepsize: int = 1
+    learning_rate: float = 5e-4
+    disc_learning_rate: float = 5e-4
+    lr_scheduler: str = "constant"
+    lr_warmup_steps: int = 1000
+    max_train_steps: int = 1_000_000
+    gradient_accumulation_steps: int = 1
+    max_grad_norm: float = 1.0
+    recon_weight: float = 1.0
+    perc_weight: float = 1.0
+    disc_weight: float = 0.1
+    disc_start: int = 0
+    balanced_loss: bool = True
+    vae_loss: str = "l1"
+    use_ema: bool = False
+    ema_decay: float = 0.9999
+    weight_decay: float = 1e-4
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_epsilon: float = 1e-8
+    checkpointing_steps: int = 10_000
+    validation_steps: int = 2_500
+    log_steps: int = 50
+    seed: Optional[int] = 42
+    mixed_precision: str = "bf16"
 
 
 @dataclass(frozen=True)

@@ -5,7 +5,10 @@ The dynamics branch attends to the context branch's feature pyramid at
 every resolution <= ``max_att_resolution``, with learned q/kv positional
 embeddings. The cross-attention keeps the packed ``att.in_proj_*`` /
 ``att.out_proj`` parameters of the torch checkpoints and computes plain
-attention from them. Inference only: dropout is not applied.
+attention from them. Dropout (the ResnetBlocks' ``dropout`` and the
+cross-attention's ``cross_attn_dropout`` on the attention weights and on the
+output) applies when a forward is called with ``deterministic=False``, drawn
+from its ``generator``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ivideogpt_tpu_torch.models.layers import Conv, Dense
+from ivideogpt_tpu_torch.models.layers import Conv, Dense, dropout
 from ivideogpt_tpu_torch.models.vae import DownBlock, MidBlock, UpBlock
 from ivideogpt_tpu_torch.ops.norms import GroupNorm
 
@@ -36,16 +39,19 @@ class CrossAttentionBlock(nn.Module):
     """q from the dynamics path, kv from context features:
 
       kv = GN(addin) + kv_pos_emb ; q = GN(z) + q_pos_emb
-      z  = silu(z + out_proj(MHA(q, kv, kv)))
+      z  = silu(z + dropout(out_proj(MHA(q, kv, kv))))
+
+    with dropout on the softmax weights inside MHA as well.
 
     The residual uses the un-normalised z; GroupNorm eps is 1e-5.
     """
 
     def __init__(self, channels: int, resolution: int, kv_frames: int = 1,
                  num_heads: int = 4, norm_groups: int = 32,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.dtype = dtype
         r2 = resolution * resolution
         self.kv_pos_emb = nn.Parameter(torch.zeros(kv_frames * r2, channels))
@@ -54,7 +60,7 @@ class CrossAttentionBlock(nn.Module):
         self.q_norm = GroupNorm(norm_groups, channels, 1e-5, dtype)
         self.att = _PackedAttention(channels, dtype)
 
-    def forward(self, z, addin):
+    def forward(self, z, addin, deterministic: bool = True, generator=None):
         """z [B, C, H, W]; addin [B, C, H, W] or [B, t, C, H, W]."""
         B, C, H, W = z.shape
         dt = self.dtype
@@ -74,8 +80,10 @@ class CrossAttentionBlock(nn.Module):
 
         attn = torch.einsum("bqhd,bkhd->bhqk", qh, kh).float()
         attn = torch.softmax(attn * (hd ** -0.5), dim=-1)
+        attn = dropout(attn, self.dropout, deterministic, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", attn.to(dt), vh).reshape(B, -1, C)
-        out = self.att.out_proj(out)
+        out = dropout(self.att.out_proj(out), self.dropout, deterministic,
+                      generator)
         return F.silu(z + out.transpose(1, 2).reshape(B, C, H, W))
 
 
@@ -87,10 +95,12 @@ class ConditionalEncoder(nn.Module):
                  layers_per_block: int = 2, norm_num_groups: int = 32,
                  max_att_resolution: int = 16, init_resolution: int = 64,
                  context_length: int = 1, cross_attn_heads: int = 4,
+                 dropout: float = 0.0, cross_attn_dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         ch = list(block_out_channels)
         n = len(ch)
+        blk = dict(groups=norm_num_groups, dropout=dropout, dtype=dtype)
         self.conv_in = Conv(in_channels, ch[0], 3, padding=1, dtype=dtype)
         self.down_blocks = nn.ModuleList()
         self.cross_att_blocks = nn.ModuleList()
@@ -98,8 +108,7 @@ class ConditionalEncoder(nn.Module):
         resolution = init_resolution
         for i, c in enumerate(ch):
             self.down_blocks.append(DownBlock(
-                ch[max(i - 1, 0)], c, layers_per_block, i != n - 1,
-                norm_num_groups, dtype))
+                ch[max(i - 1, 0)], c, layers_per_block, i != n - 1, **blk))
             if i != n - 1:
                 resolution //= 2
             use = resolution <= max_att_resolution
@@ -107,19 +116,21 @@ class ConditionalEncoder(nn.Module):
             if use:
                 self.cross_att_blocks.append(CrossAttentionBlock(
                     c, resolution, context_length, cross_attn_heads,
-                    norm_num_groups, dtype))
-        self.mid_block = MidBlock(ch[-1], True, norm_num_groups, dtype)
+                    norm_num_groups, cross_attn_dropout, dtype))
+        self.mid_block = MidBlock(ch[-1], True, **blk)
         self.conv_norm_out = GroupNorm(norm_num_groups, ch[-1], 1e-6, dtype)
         self.conv_out = Conv(ch[-1], out_channels, 3, padding=1, dtype=dtype)
 
-    def forward(self, sample, cond_features):
+    def forward(self, sample, cond_features, deterministic: bool = True,
+                generator=None):
+        drop = (deterministic, generator)
         sample = self.conv_in(sample)
         att = iter(self.cross_att_blocks)
         for i, block in enumerate(self.down_blocks):
-            sample = block(sample)
+            sample = block(sample, *drop)
             if self._att_after[i]:
-                sample = next(att)(sample, cond_features[i + 1])
-        sample = self.mid_block(sample)
+                sample = next(att)(sample, cond_features[i + 1], *drop)
+        sample = self.mid_block(sample, *drop)
         return self.conv_out(F.silu(self.conv_norm_out(sample)))
 
 
@@ -131,24 +142,26 @@ class ConditionalDecoder(nn.Module):
                  layers_per_block: int = 2, norm_num_groups: int = 32,
                  max_att_resolution: int = 16, init_resolution: int = 16,
                  context_length: int = 1, cross_attn_heads: int = 4,
+                 dropout: float = 0.0, cross_attn_dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         rev = list(reversed(block_out_channels))
         n = len(rev)
+        blk = dict(groups=norm_num_groups, dropout=dropout, dtype=dtype)
         self.conv_in = Conv(in_channels, rev[0], 3, padding=1, dtype=dtype)
-        self.mid_block = MidBlock(rev[0], True, norm_num_groups, dtype)
+        self.mid_block = MidBlock(rev[0], True, **blk)
         # the first cross block always exists at init_resolution, fed by the
         # context decoder's mid feature
         self.cross_att_blocks = nn.ModuleList([CrossAttentionBlock(
             rev[0], init_resolution, context_length, cross_attn_heads,
-            norm_num_groups, dtype)])
+            norm_num_groups, cross_attn_dropout, dtype)])
         self.up_blocks = nn.ModuleList()
         self._att_after = []
         resolution = init_resolution
         for i, c in enumerate(rev):
             self.up_blocks.append(UpBlock(
                 rev[max(i - 1, 0)], c, layers_per_block + 1, i != n - 1,
-                norm_num_groups, dtype))
+                **blk))
             if i != n - 1:
                 resolution *= 2
             use = resolution <= max_att_resolution
@@ -156,17 +169,23 @@ class ConditionalDecoder(nn.Module):
             if use:
                 self.cross_att_blocks.append(CrossAttentionBlock(
                     c, resolution, context_length, cross_attn_heads,
-                    norm_num_groups, dtype))
+                    norm_num_groups, cross_attn_dropout, dtype))
         self.conv_norm_out = GroupNorm(norm_num_groups, rev[-1], 1e-6, dtype)
         self.conv_out = Conv(rev[-1], out_channels, 3, padding=1, dtype=dtype)
 
-    def forward(self, sample, cond_features):
+    def forward(self, sample, cond_features, deterministic: bool = True,
+                generator=None, return_pre_out: bool = False):
+        """``return_pre_out`` also returns the input of ``conv_out`` (the
+        trainer's adaptive GAN weight differentiates through it)."""
+        drop = (deterministic, generator)
         sample = self.conv_in(sample)
-        sample = self.mid_block(sample)
-        sample = self.cross_att_blocks[0](sample, cond_features[1])
+        sample = self.mid_block(sample, *drop)
+        sample = self.cross_att_blocks[0](sample, cond_features[1], *drop)
         att = iter(self.cross_att_blocks[1:])
         for i, block in enumerate(self.up_blocks):
-            sample = block(sample)
+            sample = block(sample, *drop)
             if self._att_after[i]:
-                sample = next(att)(sample, cond_features[i + 2])
-        return self.conv_out(F.silu(self.conv_norm_out(sample)))
+                sample = next(att)(sample, cond_features[i + 2], *drop)
+        pre_out = F.silu(self.conv_norm_out(sample))
+        out = self.conv_out(pre_out)
+        return (out, pre_out) if return_pre_out else out

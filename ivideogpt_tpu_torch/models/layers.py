@@ -1,4 +1,4 @@
-"""Linear and conv layers that compute in a set dtype.
+"""Linear and conv layers that compute in a set dtype, and dropout.
 
 Parameters stay in whatever dtype they hold (fp32 masters, or bf16 after
 ``generation.cast_matmul_params`` / ``cast_conv_params``) and are cast to
@@ -9,9 +9,24 @@ costs nothing.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate). The draws come from
+    ``generator`` (on x's device); they cannot be JAX's."""
+    if deterministic or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, device=x.device, generator=generator) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 class Dense(nn.Linear):

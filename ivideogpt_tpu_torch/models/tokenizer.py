@@ -6,14 +6,15 @@ Context frames are encoded at full spatial detail (16x16 tokens a frame at
 4x4 patchify into a 16-token dynamics grid. The pixel API is [B, T, H, W, C]
 as in the JAX package; the conv stacks run NCHW inside.
 
-This slice carries the inference paths: ``encode_context``, ``tokenize`` and
-``detokenize``. They run with TF32 off, so an fp32 model computes in IEEE
+The inference paths are ``encode_context``, ``tokenize`` and ``detokenize``;
+``forward`` is the training forward (straight-through quantize, commit
+losses, dropout). All run with TF32 off, so an fp32 model computes in IEEE
 fp32 (token-id parity with the JAX package); a bf16 model is unaffected.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -103,10 +104,12 @@ class CompressiveVQModel(nn.Module):
         self.dtype = dtype
         blocks = dict(block_out_channels=c.block_out_channels,
                       layers_per_block=c.layers_per_block,
-                      norm_num_groups=c.norm_num_groups, dtype=dtype)
+                      norm_num_groups=c.norm_num_groups, dropout=c.dropout,
+                      dtype=dtype)
         cond = dict(max_att_resolution=c.max_att_resolution,
                     context_length=c.context_length,
-                    cross_attn_heads=c.cross_attn_heads, **blocks)
+                    cross_attn_heads=c.cross_attn_heads,
+                    cross_attn_dropout=c.cross_attn_dropout, **blocks)
         self.encoder = Encoder(c.in_channels, c.latent_channels,
                                mid_block_add_attention=c.mid_block_add_attention,
                                **blocks)
@@ -198,3 +201,48 @@ class CompressiveVQModel(nn.Module):
             _nhwc(context_dec).reshape(B, context_length, H, H, c.out_channels),
             _nhwc(dec).reshape(B, F, H, H, c.out_channels),
         ], dim=1)
+
+    def forward(self, sample: torch.Tensor, dyn_sample: torch.Tensor,
+                segment_len: int, deterministic: bool = True,
+                return_pre_out: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Training forward, the JAX model's ``__call__``.
+
+        sample: context frames [B*ctx, H, W, C]; dyn_sample: future frames
+        [B*F, H, W, C]; segment_len: F. Dropout applies unless
+        ``deterministic``, drawn from ``generator``. Returns, in NHWC,
+        (dec [B*F, H, W, C], ref_dec [B*ctx, H, W, C], commit_loss,
+        dyn_commit_loss[, pre_out [B*F, H, W, C0]]), pre_out being the input
+        of ``cond_decoder.conv_out``. The forward runs with TF32 off; run the
+        backward under ``utils.platform.full_fp32`` too for IEEE fp32."""
+        c = self.config
+        if c.remat:
+            raise NotImplementedError(
+                "remat (the 256px tokenizer's activation checkpointing) is "
+                "not ported")
+        B = dyn_sample.shape[0] // segment_len
+        drop = dict(deterministic=deterministic, generator=generator)
+        r = c.latent_resolution
+        with full_fp32():
+            h, feats = self.encoder(_nchw(sample), return_features=True,
+                                    **drop)
+            h = _nhwc(self.quant_conv(h))
+            d = self.cond_encoder(
+                _nchw(dyn_sample),
+                _tile_cond_features(feats, B, c.context_length, segment_len),
+                **drop)
+            d = self.quant_linear(patchify(_nhwc(d), c.patch_size))
+            q = vq_ops.quantize(h, self.quantize.embedding.weight)
+            q_d = vq_ops.quantize(d, self.dynamics_quantize.embedding.weight)
+            quant2 = self.post_quant_conv(_nchw(q.quantized))
+            quant2_d = _nchw(depatchify(self.post_quant_linear(q_d.quantized),
+                                        r, r, c.patch_size, c.latent_channels))
+            ref_dec, dec_feats = self.decoder(quant2, return_features=True,
+                                              **drop)
+            out = self.cond_decoder(
+                quant2_d, _tile_cond_features(dec_feats, B, c.context_length,
+                                              segment_len),
+                return_pre_out=return_pre_out, **drop)
+        dec, pre_out = out if return_pre_out else (out, None)
+        res = (_nhwc(dec), _nhwc(ref_dec), q.commit_loss, q_d.commit_loss)
+        return res + (_nhwc(pre_out),) if return_pre_out else res

@@ -8,8 +8,10 @@
 - Encoder/Decoder return their feature pyramids when ``return_features``,
   for the cross-attention conditioning.
 
-Inference only: dropout is not applied. Module and parameter names follow
-the torch names of ``ivideogpt_tpu.utils.checkpoint.flax_to_torch_tokenizer``.
+Every forward takes ``deterministic`` (dropout off, the default) and the
+``generator`` its dropout draws from; the ResnetBlock dropout sits before
+conv2, as in the JAX package. Module and parameter names follow the torch
+names of ``ivideogpt_tpu.utils.checkpoint.flax_to_torch_tokenizer``.
 """
 
 from __future__ import annotations
@@ -20,14 +22,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ivideogpt_tpu_torch.models.layers import Conv, Dense
+from ivideogpt_tpu_torch.models.layers import Conv, Dense, dropout
 from ivideogpt_tpu_torch.ops.norms import GroupNorm
 
 
 class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
-                 eps: float = 1e-6, dtype: torch.dtype = torch.float32):
+                 eps: float = 1e-6, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dropout = dropout
         self.norm1 = GroupNorm(groups, in_channels, eps, dtype)
         self.conv1 = Conv(in_channels, out_channels, 3, padding=1, dtype=dtype)
         self.norm2 = GroupNorm(groups, out_channels, eps, dtype)
@@ -35,9 +39,11 @@ class ResnetBlock(nn.Module):
         self.conv_shortcut = (Conv(in_channels, out_channels, 1, dtype=dtype)
                               if in_channels != out_channels else None)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator=None):
         h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = dropout(F.silu(self.norm2(h)), self.dropout, deterministic,
+                    generator)
+        h = self.conv2(h)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -86,36 +92,39 @@ class AttnBlock(nn.Module):
 
 class MidBlock(nn.Module):
     def __init__(self, channels: int, add_attention: bool = True,
-                 groups: int = 32, dtype: torch.dtype = torch.float32):
+                 groups: int = 32, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock(channels, channels, groups, dtype=dtype)
+            ResnetBlock(channels, channels, groups, dropout=dropout,
+                        dtype=dtype)
             for _ in range(2)])
         self.attentions = (nn.ModuleList([AttnBlock(channels, groups,
                                                     dtype=dtype)])
                            if add_attention else None)
 
-    def forward(self, x):
-        x = self.resnets[0](x)
+    def forward(self, x, deterministic: bool = True, generator=None):
+        x = self.resnets[0](x, deterministic, generator)
         if self.attentions is not None:
             x = self.attentions[0](x)
-        return self.resnets[1](x)
+        return self.resnets[1](x, deterministic, generator)
 
 
 class DownBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, num_layers: int,
                  add_downsample: bool, groups: int = 32,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock(in_channels if i == 0 else out_channels, out_channels,
-                        groups, dtype=dtype) for i in range(num_layers)])
+                        groups, dropout=dropout, dtype=dtype)
+            for i in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample(out_channels, dtype)])
                              if add_downsample else None)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator=None):
         for r in self.resnets:
-            x = r(x)
+            x = r(x, deterministic, generator)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
         return x
@@ -124,17 +133,18 @@ class DownBlock(nn.Module):
 class UpBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, num_layers: int,
                  add_upsample: bool, groups: int = 32,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock(in_channels if i == 0 else out_channels, out_channels,
-                        groups, dtype=dtype) for i in range(num_layers)])
+                        groups, dropout=dropout, dtype=dtype)
+            for i in range(num_layers)])
         self.upsamplers = (nn.ModuleList([Upsample(out_channels, dtype)])
                            if add_upsample else None)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator=None):
         for r in self.resnets:
-            x = r(x)
+            x = r(x, deterministic, generator)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x
@@ -146,28 +156,29 @@ class Encoder(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  block_out_channels: Sequence[int] = (128, 256, 512),
                  layers_per_block: int = 2, norm_num_groups: int = 32,
-                 mid_block_add_attention: bool = True,
+                 mid_block_add_attention: bool = True, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         ch = list(block_out_channels)
         n = len(ch)
+        blk = dict(groups=norm_num_groups, dropout=dropout, dtype=dtype)
         self.conv_in = Conv(in_channels, ch[0], 3, padding=1, dtype=dtype)
         self.down_blocks = nn.ModuleList([
             DownBlock(ch[max(i - 1, 0)], c, layers_per_block, i != n - 1,
-                      norm_num_groups, dtype) for i, c in enumerate(ch)])
-        self.mid_block = MidBlock(ch[-1], mid_block_add_attention,
-                                  norm_num_groups, dtype)
+                      **blk) for i, c in enumerate(ch)])
+        self.mid_block = MidBlock(ch[-1], mid_block_add_attention, **blk)
         self.conv_norm_out = GroupNorm(norm_num_groups, ch[-1], 1e-6, dtype)
         self.conv_out = Conv(ch[-1], out_channels, 3, padding=1, dtype=dtype)
 
-    def forward(self, sample, return_features: bool = False):
+    def forward(self, sample, return_features: bool = False,
+                deterministic: bool = True, generator=None):
         features: List[torch.Tensor] = []
         sample = self.conv_in(sample)
         features.append(sample)
         for block in self.down_blocks:
-            sample = block(sample)
+            sample = block(sample, deterministic, generator)
             features.append(sample)
-        sample = self.mid_block(sample)
+        sample = self.mid_block(sample, deterministic, generator)
         features.append(sample)
         sample = self.conv_out(F.silu(self.conv_norm_out(sample)))
         return (sample, features) if return_features else sample
@@ -179,28 +190,29 @@ class Decoder(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  block_out_channels: Sequence[int] = (128, 256, 512),
                  layers_per_block: int = 2, norm_num_groups: int = 32,
-                 mid_block_add_attention: bool = True,
+                 mid_block_add_attention: bool = True, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         rev = list(reversed(block_out_channels))
         n = len(rev)
+        blk = dict(groups=norm_num_groups, dropout=dropout, dtype=dtype)
         self.conv_in = Conv(in_channels, rev[0], 3, padding=1, dtype=dtype)
-        self.mid_block = MidBlock(rev[0], mid_block_add_attention,
-                                  norm_num_groups, dtype)
+        self.mid_block = MidBlock(rev[0], mid_block_add_attention, **blk)
         self.up_blocks = nn.ModuleList([
             UpBlock(rev[max(i - 1, 0)], c, layers_per_block + 1, i != n - 1,
-                    norm_num_groups, dtype) for i, c in enumerate(rev)])
+                    **blk) for i, c in enumerate(rev)])
         self.conv_norm_out = GroupNorm(norm_num_groups, rev[-1], 1e-6, dtype)
         self.conv_out = Conv(rev[-1], out_channels, 3, padding=1, dtype=dtype)
 
-    def forward(self, sample, return_features: bool = False):
+    def forward(self, sample, return_features: bool = False,
+                deterministic: bool = True, generator=None):
         features: List[torch.Tensor] = []
         sample = self.conv_in(sample)
         features.append(sample)
-        sample = self.mid_block(sample)
+        sample = self.mid_block(sample, deterministic, generator)
         features.append(sample)
         for block in self.up_blocks:
-            sample = block(sample)
+            sample = block(sample, deterministic, generator)
             features.append(sample)
         sample = self.conv_out(F.silu(self.conv_norm_out(sample)))
         return (sample, features) if return_features else sample

@@ -2,12 +2,18 @@
 
 The port's own copy of the mapping of ``flax_to_torch_tokenizer``,
 ``flax_to_torch_llama`` and ``flax_to_torch_action_model`` in
-``ivideogpt_tpu/utils/checkpoint.py``. Each takes the Flax tree as nested
-dicts of numpy arrays (``{"params": {...}}``) and returns torch tensors under
-the torch names, which the port's modules load with ``strict=True``:
+``ivideogpt_tpu/utils/checkpoint.py``, and of the discriminator's and
+LPIPS's trees (which the JAX package never exports). Each takes the Flax
+tree as nested dicts of numpy arrays (``{"params": {...}}``) and returns
+torch tensors under the torch names, which the port's modules load with
+``strict=True``:
 - conv kernels HWIO -> OIHW, dense kernels transposed;
 - GroupNorm ``scale`` -> ``weight``; ``name_0`` -> ``name.0``;
-- cross-attention q/k/v packed into ``att.in_proj_weight``/``in_proj_bias``.
+- cross-attention q/k/v packed into ``att.in_proj_weight``/``in_proj_bias``;
+- the discriminator's spectral-norm ``batch_stats`` -> the buffers ``u`` and
+  ``sigma`` of each conv.
+The ``*_flax_path``/``*_flax_tree`` functions go the other way, so that the
+port's gradients can be grouped and named as the JAX package's.
 """
 
 from __future__ import annotations
@@ -75,6 +81,87 @@ def tokenizer_state_dict(params: dict) -> Dict[str, torch.Tensor]:
             [t["q_proj.bias"], t["k_proj.bias"], t["v_proj.bias"]], axis=0)
         sd[f"{name}.att.out_proj.weight"] = t["out_proj.kernel"].T
         sd[f"{name}.att.out_proj.bias"] = t["out_proj.bias"]
+    return _to_torch(sd)
+
+
+_CODEBOOKS = {"quantize.embedding.weight": "codebook",
+              "dynamics_quantize.embedding.weight": "dyn_codebook"}
+
+
+def tokenizer_flax_tree(named: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """The port's tokenizer tensors by name (parameters, or their
+    gradients) -> the same values under the "/"-joined Flax paths (under
+    ``params``) that :func:`tokenizer_state_dict` reads them from: the
+    inverse of the bridge, as views (packed q/k/v split, kernels back to
+    HWIO or transposed)."""
+    out = {}
+    for name, t in named.items():
+        if name in _CODEBOOKS:
+            out[_CODEBOOKS[name]] = t
+            continue
+        parts = name.replace(".to_out.0.", ".to_out.").split(".")
+        mods: list = []
+        for part in parts[:-1]:
+            if part.isdigit():
+                mods[-1] += f"_{part}"
+            elif part != "att":   # the packed-attention holder
+                mods.append(part)
+        base, leaf = "/".join(mods), parts[-1]
+        if leaf in ("in_proj_weight", "in_proj_bias"):
+            for proj, chunk in zip(("q_proj", "k_proj", "v_proj"), t.chunk(3)):
+                if leaf == "in_proj_weight":
+                    out[f"{base}/{proj}/kernel"] = chunk.t()
+                else:
+                    out[f"{base}/{proj}/bias"] = chunk
+        elif leaf == "weight" and t.ndim == 4:
+            out[f"{base}/kernel"] = t.permute(2, 3, 1, 0)
+        elif leaf == "weight" and t.ndim == 2:
+            out[f"{base}/kernel"] = t.t()
+        elif leaf == "weight":
+            out[f"{base}/scale"] = t
+        else:
+            out[f"{base}/{leaf}"] = t
+    return out
+
+
+def _disc_module(flax_name: str) -> str:
+    m = re.fullmatch(r"conv_(\d+)", flax_name)
+    return f"convs.{m.group(1)}" if m else flax_name
+
+
+def discriminator_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
+    """Discriminator variables -> the port's state dict: the parameters,
+    and, where ``variables`` holds them, the spectral-norm ``batch_stats``
+    as each conv's ``u`` [1, O] and ``sigma`` buffers (Flax names them
+    "<conv>/kernel/u" inside ``SpectralNorm_<i>``)."""
+    sd = {}
+    for path, v in _flatten(variables["params"]).items():
+        mod, leaf = path.split("/")
+        if leaf == "kernel":
+            sd[f"{_disc_module(mod)}.weight"] = _conv_out(v)
+        else:
+            sd[f"{_disc_module(mod)}.{leaf}"] = v
+    for group in variables.get("batch_stats", {}).values():
+        for key, v in group.items():
+            mod, _, leaf = key.split("/")
+            sd[f"{_disc_module(mod)}.{leaf}"] = np.asarray(v)
+    return _to_torch(sd)
+
+
+def lpips_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """LPIPS parameters -> the port's state dict (``vgg.conv{s}_{i}``
+    kernels to OIHW, the ``lin{s}`` heads as they are)."""
+    sd = {}
+    for path, v in _flatten(params["params"]).items():
+        parts = path.split("/")
+        if parts[0] == "vgg":
+            _, conv, leaf = parts
+            sd[f"vgg.{conv}.weight" if leaf == "kernel"
+               else f"vgg.{conv}.{leaf}"] = (_conv_out(v) if leaf == "kernel"
+                                             else v)
+        else:
+            sd[path] = v
     return _to_torch(sd)
 
 

@@ -7,8 +7,9 @@ without it:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py
 
 The checks at the main path's full shapes are ``chip_smoke.py``'s phases;
-these cover the edges: ragged tiles, small D, fp32 queries, a single live
-slot, strided bshd views, and the wrappers' refusals.
+these cover the edges: ragged tiles, small D, ties across K2's codebook
+splits, fp32 queries, a single live slot, strided views, and the wrappers'
+refusals.
 """
 
 import pytest
@@ -46,6 +47,86 @@ def test_vq_argmin_refuses_unsupported_width(cuda):
     with pytest.raises(ValueError):
         vq.vq_argmin(torch.zeros(4, 12, device=cuda),
                      torch.zeros(8, 12, device=cuda))
+
+
+@pytest.mark.parametrize("d", [4, 72, 128, 256])
+@pytest.mark.parametrize("k", [1, 7, 2500, 16384])   # 2500: a ragged tile
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1536])
+def test_vq_argmin_tiled_matches_plain(cuda, n, k, d):
+    from ivideogpt_tpu_torch.ops import vq
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    g = torch.Generator(device=cuda).manual_seed(n * k + d)
+    z = torch.randint(-3, 4, (n, d), device=cuda, generator=g).float()
+    e = torch.randint(-3, 4, (k, d), device=cuda, generator=g).float()
+    before = vq.vq_argmin_tiled.launches
+    with full_fp32():
+        ours = vq.vq_argmin_tiled(z, e)
+        ref = vq.vq_lookup_plain(z, e)
+    assert vq.vq_argmin_tiled.launches == before + 1
+    assert ours.dtype == torch.int64 and ours.shape == (n,)
+    # small integers: every distance is exact, ties included
+    torch.testing.assert_close(ours, ref, rtol=0, atol=0)
+
+
+def test_vq_argmin_tiled_ties_across_a_split_go_to_the_smallest_index(cuda):
+    from ivideogpt_tpu_torch.ops import vq
+    n, k, d = 100, 16384, 256
+    g = torch.Generator(device=cuda).manual_seed(0)
+    e = torch.randn(k, d, device=cuda, generator=g)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits, per = vq.k2_splits(n, k, sms)
+    assert splits > 1
+    for s in range(1, splits):   # copies of rows 0..49 on every boundary
+        e[s * per - 25:s * per + 25] = e[:50]
+    z = torch.cat([e[:50], torch.randn(n - 50, d, device=cuda, generator=g)])
+    ids = vq.vq_argmin_tiled(z, e)
+    assert (ids[:50] == torch.arange(50, device=cuda)).all()
+    for s in range(1, splits):
+        assert not ((ids >= s * per - 25) & (ids < s * per + 25)).any()
+
+
+def test_vq_argmin_tiled_takes_views_and_other_dtypes(cuda):
+    from ivideogpt_tpu_torch.ops import vq
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    g = torch.Generator(device=cuda).manual_seed(1)
+    zt = torch.randint(-3, 4, (72, 300), device=cuda, generator=g).float()
+    e2 = torch.randint(-3, 4, (900, 144), device=cuda, generator=g).float()
+    z, e = zt.t(), e2[::3, ::2]          # (300, 72) and (300, 72) views
+    assert not z.is_contiguous() and not e.is_contiguous()
+    with full_fp32():
+        ref = vq.vq_lookup_plain(z, e)
+        torch.testing.assert_close(vq.vq_argmin_tiled(z, e), ref, rtol=0,
+                                   atol=0)
+        # bf16 queries are upcast, as the plain version does
+        zb = z.bfloat16()
+        torch.testing.assert_close(vq.vq_argmin_tiled(zb, e),
+                                   vq.vq_lookup_plain(zb, e), rtol=0, atol=0)
+
+
+def test_vq_argmin_tiled_refuses_what_it_does_not_take(cuda):
+    from ivideogpt_tpu_torch.ops import vq
+    for z, e in ((torch.zeros(4, 16, device=cuda), torch.zeros(8, 16)),
+                 (torch.zeros(4, 516, device=cuda),
+                  torch.zeros(8, 516, device=cuda)),
+                 (torch.zeros(4, 16, device=cuda),
+                  torch.zeros(0, 16, device=cuda)),
+                 (torch.zeros(4, 16, device=cuda),
+                  torch.zeros(8, 12, device=cuda))):
+        with pytest.raises(ValueError):
+            vq.vq_argmin_tiled(z, e)
+
+
+def test_vq_lookup_routes_to_k1_and_k2(cuda):
+    from ivideogpt_tpu_torch.ops import vq
+    counts = (vq.vq_argmin.launches, vq.vq_argmin_tiled.launches)
+    vq.vq_lookup(torch.zeros(2, 3, 64, device=cuda),
+                 torch.zeros(8192, 64, device=cuda))
+    vq.vq_lookup(torch.zeros(2, 3, 256, device=cuda),
+                 torch.zeros(16384, 256, device=cuda))
+    vq.vq_lookup(torch.zeros(2, 3, 72, device=cuda),
+                 torch.zeros(64, 72, device=cuda))
+    assert (vq.vq_argmin.launches, vq.vq_argmin_tiled.launches) == (
+        counts[0] + 1, counts[1] + 2)
 
 
 @pytest.mark.parametrize("valid", [1, 127, 128, 129, 200])

@@ -51,15 +51,20 @@ def test_scan_sees_the_whole_package():
     rels = {os.path.relpath(p, PKG) for p in _port_files()}
     for must in ("rollout.py", "generation.py", "ops/vq.py",
                  "ops/decode_attention.py", "ops/flash_attention.py",
-                 "models/llama.py", "train/gpt_trainer.py", "train/optim.py"):
+                 "models/llama.py", "models/discriminator.py",
+                 "models/lpips.py", "train/gpt_trainer.py",
+                 "train/tokenizer_trainer.py", "train/optim.py"):
         assert must in rels
-    for src in ("vq_argmin", "decode_attention", "flash_attention"):
+    for src in ("vq_argmin", "vq_argmin_tiled", "decode_attention",
+                "flash_attention"):
         assert os.path.exists(os.path.join(PKG, "csrc", f"{src}.cu"))
 
 
 def test_entry_point_wants_cuda():
     from ivideogpt_tpu_torch.rollout import build_models
     from ivideogpt_tpu_torch.train.gpt_trainer import build_train_models
+    from ivideogpt_tpu_torch.train.tokenizer_trainer import (
+        build_tokenizer_train_models)
     from ivideogpt_tpu_torch.utils.platform import resolve_device
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
@@ -70,6 +75,8 @@ def test_entry_point_wants_cuda():
         build_models()
     with pytest.raises(RuntimeError, match="CUDA"):
         build_train_models()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_tokenizer_train_models()
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -80,8 +87,9 @@ def test_wrappers_raise_on_non_cuda_accelerator_tensors():
     from ivideogpt_tpu_torch.ops import flash_attention as tfa
     from ivideogpt_tpu_torch.ops import vq as tvq
     z = torch.zeros((4, 8), device="meta")
-    with pytest.raises(ValueError):
-        tvq.vq_argmin(z, torch.zeros((16, 8), device="meta"))
+    for argmin in (tvq.vq_argmin, tvq.vq_argmin_tiled):
+        with pytest.raises(ValueError):
+            argmin(z, torch.zeros((16, 8), device="meta"))
     q = torch.zeros((1, 1, 64), device="meta", dtype=torch.bfloat16)
     kv = torch.zeros((1, 4, 1, 64), device="meta", dtype=torch.int8)
     s = torch.zeros((1, 4, 1), device="meta", dtype=torch.bfloat16)

@@ -1,6 +1,7 @@
-"""VQ lookup of the PyTorch port: the plain version of kernel K1 against the
+"""VQ of the PyTorch port: the plain version of kernels K1 and K2 against the
 JAX package's Pallas kernel (interpret mode) and its XLA oracle."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,3 +65,116 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
     np.testing.assert_array_equal(
         ids.reshape(-1).numpy(), tvq.vq_lookup_plain(z.reshape(-1, 16), e).numpy())
     assert tvq.vq_argmin.launches == before
+
+
+# ----------------------------------------------------------------------
+# K2's plain version against the tiled TPU kernel, the routing, quantize
+
+def _tiled_ids(z, e):
+    from ivideogpt_tpu.ops.vq import _vq_lookup_pallas
+    return np.asarray(_vq_lookup_pallas(jnp.asarray(z), jnp.asarray(e),
+                                        interpret=True))
+
+
+def test_plain_version_matches_the_tiled_kernel_exactly_on_integers():
+    """K=2500 spans two of the TPU kernel's 2048-code tiles; D=72 is none of
+    K1's widths. Small integers make every distance exact, ties included."""
+    rng = np.random.default_rng(11)
+    n, k, d = 300, 2500, 72
+    e = rng.integers(-3, 4, (k, d)).astype(np.float32)
+    e[2047:2047 + 3] = e[5]        # copies on both sides of the tile edge
+    z = rng.integers(-3, 4, (n, d)).astype(np.float32)
+    z[:4] = e[5]
+    ours = tvq.vq_argmin_tiled(torch.from_numpy(z), torch.from_numpy(e))
+    np.testing.assert_array_equal(ours.numpy(), _tiled_ids(z, e))
+    assert (ours[:4] == 5).all()
+
+
+def test_plain_version_matches_the_tiled_kernel_but_for_near_ties():
+    rng = np.random.default_rng(12)
+    n, k, d = 300, 2500, 72
+    z = rng.normal(size=(n, d)).astype(np.float32)
+    e = rng.normal(size=(k, d)).astype(np.float32)
+    ours = tvq.vq_lookup_plain(torch.from_numpy(z), torch.from_numpy(e)).numpy()
+    ref = _tiled_ids(z, e)
+    diff = np.nonzero(ours != ref)[0]
+    # fp32 distances summed in another order: a pick may differ only where
+    # the two candidates' exact distances are within rounding
+    gap = np.abs(_dist64(z[diff], e, ours[diff]) - _dist64(z[diff], e,
+                                                            ref[diff]))
+    scale = (z[diff].astype(np.float64) ** 2).sum(1) \
+        + (e[ours[diff]].astype(np.float64) ** 2).sum(1)
+    assert (gap < 1e-5 * scale).all(), (diff, gap, scale)
+    assert len(diff) <= n // 100
+
+
+def test_routing_follows_the_jax_packages_rule(monkeypatch):
+    """Over a grid of (K, D): K1 where the JAX package takes its flash
+    kernel (vq.py:274) and K1 takes the width, K2 everywhere else."""
+    import ivideogpt_tpu.ops.vq as jvq
+    taken = []
+    monkeypatch.setattr(jvq, "_vq_lookup_pallas_flash",
+                        lambda z, e: taken.append("flash") or z[:, 0])
+    monkeypatch.setattr(jvq, "_vq_lookup_pallas",
+                        lambda z, e: taken.append("tiled") or z[:, 0])
+    routed = []
+    monkeypatch.setattr(tvq, "vq_argmin",
+                        lambda z, e: routed.append("k1") or z[:, 0].long())
+    monkeypatch.setattr(tvq, "vq_argmin_tiled",
+                        lambda z, e: routed.append("k2") or z[:, 0].long())
+    for k in (1, 7, 2048, 8192, 12288, 12289, 16384, 65536):
+        for d in (4, 8, 16, 32, 64, 72, 128, 129, 256):
+            taken.clear()
+            routed.clear()
+            jvq._vq_lookup_nondiff(jnp.zeros((3, d)), jnp.zeros((k, d)), True)
+            tvq.vq_lookup(torch.zeros(1, 3, d), torch.zeros(k, d))
+            want = ("k1" if taken == ["flash"] and d in tvq.K1_WIDTHS
+                    else "k2")
+            assert routed == [want], (k, d, taken, routed)
+    # the published tokenizers stay on K1; the wide codebooks go to K2
+    assert tvq.uses_k1(8192, 64) and not tvq.uses_k1(16384, 256)
+
+
+@pytest.mark.parametrize("n,k", [(8192, 16384), (1536, 16384), (131072, 8192),
+                                 (1, 1), (65, 7), (1000, 300)])
+def test_k2_splits_cover_the_codebook_and_fill_the_card(n, k):
+    splits, per = tvq.k2_splits(n, k, sms=132)
+    assert per % tvq.K2_CODES == 0
+    assert (splits - 1) * per < k <= splits * per     # none empty
+    row_tiles = -(-n // tvq.K2_ROWS)
+    tiles = -(-k // tvq.K2_CODES)
+    # at least 2 blocks an SM, unless every split is already one tile
+    assert row_tiles * splits >= 2 * 132 or splits == tiles
+
+
+@pytest.mark.parametrize("shape,k", [((2, 5, 16), 40), ((37, 72), 300)])
+def test_quantize_matches_jax(shape, k):
+    """Ids, the straight-through output, the commit loss, and the gradients
+    to z and to the codebook of a loss on the output plus the commit."""
+    from ivideogpt_tpu.ops.vq import quantize as jquantize
+    rng = np.random.default_rng(k)
+    z = rng.normal(size=shape).astype(np.float32)
+    e = rng.normal(size=(k, shape[-1])).astype(np.float32)
+    w = rng.normal(size=shape).astype(np.float32)
+
+    def jloss(z, e):
+        q = jquantize(z, e, use_pallas=False)
+        return jnp.sum(q.quantized * w) + 3.0 * q.commit_loss, q
+    (jl, jq), (jgz, jge) = jax.value_and_grad(jloss, (0, 1), has_aux=True)(
+        jnp.asarray(z), jnp.asarray(e))
+    zt = torch.from_numpy(z).requires_grad_()
+    et = torch.from_numpy(e).requires_grad_()
+    q = tvq.quantize(zt, et)
+    loss = (q.quantized * torch.from_numpy(w)).sum() + 3.0 * q.commit_loss
+    loss.backward()
+    np.testing.assert_array_equal(q.indices.numpy(), np.asarray(jq.indices))
+    assert q.indices.shape == shape[:-1] and q.quantized.dtype == zt.dtype
+    # fp32: the same elementwise ops, means summed in another order
+    for ours, theirs in ((q.quantized, jq.quantized),
+                         (q.commit_loss, jq.commit_loss), (loss, jl),
+                         (zt.grad, jgz), (et.grad, jge)):
+        np.testing.assert_allclose(ours.detach().numpy(), np.asarray(theirs),
+                                   rtol=1e-5, atol=1e-6)
+    # the codebook gets its gradient through the gather only: unused rows 0
+    unused = np.setdiff1d(np.arange(k), q.indices.numpy())
+    assert (et.grad.numpy()[unused] == 0).all()
