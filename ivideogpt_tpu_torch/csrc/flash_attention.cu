@@ -1,4 +1,5 @@
-// K4, K5, K6: causal flash attention, forward and backward, sm_90a.
+// K4, K5, K6: causal flash attention, forward and backward, sm_90a: the
+// C entry points, the fp32 kernels of all three, and the bf16 K6.
 //
 // Replaces the stock TPU kernel that the JAX package calls at
 // ivideogpt_tpu/models/llama.py:97 (jax/experimental/pallas/ops/tpu/
@@ -6,6 +7,8 @@
 //   K4  _flash_attention_kernel      :331 (launched :758)
 //   K5  _flash_attention_dkv_kernel  :796 (launched :1121)
 //   K6  _flash_attention_dq_kernel   :1146 (launched :1456)
+// The bf16 K4 and K5 are TMA-fed wgmma kernels in flash_attention_sm90.cu,
+// a library of its own (ivg_flash_fwd_bf16, ivg_flash_bwd_dkv_bf16).
 //
 // For one (b, h), with s = q.k * hd^-0.5 and keys j <= query i only:
 //   K4  O = softmax(s) V, and lse_i = log sum_j exp(s_ij)  (fp32)
@@ -21,11 +24,9 @@
 // multiple as on the TPU (llama.py:88-99): rows at or past S read as 0 and
 // the ragged last tile is masked. hd = 64, 1 <= S <= 1024.
 //
-// Bound on the H100. At the training shape (B=16, H=12, S=751) K4 moves
-// q, k, v, O (~74 MB in bf16: ~22 us at 3.35 TB/s) and does ~1.4e10 causal
-// FLOP (~14 us at 989 TFLOP/s bf16): bytes bound it. K5+K6 move q, k, v, dO,
-// dQ, dK, dV plus lse and di (~150 MB, ~45 us). At the prefill shape
-// (B=256, S=514) K4 moves ~0.81 GB (~0.24 ms).
+// Bound on the H100. At the training shape (B=16, H=12, S=751) K6 moves
+// q, k, v, dO, dQ plus lse and di (~93 MB in bf16: ~28 us at 3.35 TB/s)
+// and does ~2.1e10 causal FLOP (~21 us at 989 TFLOP/s bf16): bytes bound it.
 //
 // Design. Every block works on 64-row tiles of one (b, h):
 //   K4: one block per 64-query tile; loops over key tiles up to the
@@ -37,15 +38,13 @@
 // dK/dV and dQ come from separate kernels, as on the TPU, so no block adds
 // into another's output: no atomics, and the gradients are deterministic.
 // Blocks are ordered heaviest tile first (blockIdx.y) to shorten the tail.
-// Two arithmetic routes, chosen by the input type:
-//   bf16: tensor cores through mma.sync m16n8k16 (bf16 operands, fp32
+// Two arithmetic routes here, chosen by the input type:
+//   bf16 K6: tensor cores through mma.sync m16n8k16 (bf16 operands, fp32
 //     accumulators). 4 warps own 16 rows each; a warp keeps its rows of
-//     the resident tile (Q, dO in K4/K6; K, V in K5) as A fragments in
-//     registers, and feeds the streamed tile from shared memory (bf16, row
-//     stride 72 halves: fragment reads hit distinct banks). The first
-//     product's accumulators become the second product's A fragments in
-//     registers. P and dS are rounded to bf16 before their products, where
-//     the TPU kernel rounds them too (p.astype(v.dtype), ds.astype(...)).
+//     Q and dO as A fragments in registers, and feeds the streamed K and V
+//     tiles from shared memory (bf16, row stride 72 halves: fragment reads
+//     hit distinct banks). dS is rounded to bf16 before its product, where
+//     the TPU kernel rounds it too (ds.astype(...)).
 //   fp32: the same tiles as 64 x 64 x 64 products in fp32 FMAs, so fp32
 //     inputs are never rounded to bf16 or TF32. 256 threads, fp32 tiles in
 //     shared memory with a row stride of 65 floats (a row walk and a column
@@ -75,7 +74,7 @@ Strides contiguous_strides(int S, int H) {
                  static_cast<int64_t>(H) * kHd, kHd};
 }
 
-// ===================== bf16: mma.sync on tensor cores =====================
+// ================== bf16 K6: mma.sync on tensor cores ====================
 
 constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
 constexpr int kLdh = kHd + 8;     // shared row stride in halves (144 bytes)
@@ -168,208 +167,6 @@ __device__ __forceinline__ void store_rows_bf16(bf16* out, const float c[8][4],
       *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) =
           __floats2bfloat162_rn(c[j][2 * r] * mul, c[j][2 * r + 1] * mul);
   }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// K4, bf16 ----------------------------------------------------------------
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, Strides qs, Strides ks,
-                     Strides vs, int S, int H, float scale) {
-  __shared__ __align__(16) bf16 q_s[kTileHalves];
-  __shared__ __align__(16) bf16 k_s[kTileHalves];  // [key][d]
-  __shared__ __align__(16) bf16 v_s[kTileHalves];  // [key][e]
-  const int nt = (S + kTile - 1) / kTile;
-  const int qt = nt - 1 - static_cast<int>(blockIdx.y);
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / H;
-  const int64_t h = bh % H;
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int q0 = qt * kTile;
-  const int row[2] = {q0 + (threadIdx.x >> 5) * 16 + g,
-                      q0 + (threadIdx.x >> 5) * 16 + g + 8};
-
-  load_tile_bf16(q_s, q, qs, b, h, q0, S);
-  __syncthreads();
-  uint32_t qa[4][4];
-  load_rows_a(q_s, qa);
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  float acc[8][4] = {};
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's reads of k_s and v_s are done
-    load_tile_bf16(k_s, k, ks, b, h, k0, S);
-    load_tile_bf16(v_s, v, vs, b, h, k0, S);
-    __syncthreads();
-
-    float s[8][4] = {};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t bb[2];
-        load_b<1, kLdh>(k_s, 16 * kk, 8 * j, bb);  // B(d, key) = K[key][d]
-        mma(s[j], qa[kk], bb);
-      }
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        const int r = e >> 1;
-        s[j][e] = (col <= row[r] && col < S) ? s[j][e] * scale : -CUDART_INF_F;
-        mx[r] = fmaxf(mx[r], s[j][e]);
-      }
-    float base[2], alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      base[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
-      alpha[r] = expf(m[r] - base[r]);  // 0 on the first tile
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - base[e >> 1]);
-        sum[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
-    // O += P V: the score tiles 2kk, 2kk+1 are the A fragment of k-step kk
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                              pack(s[2 * kk][2], s[2 * kk][3]),
-                              pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t bb[2];
-        load_b<kLdh, 1>(v_s, 16 * kk, 8 * j, bb);  // B(key, e) = V[key][e]
-        mma(acc[j], pa, bb);
-      }
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    inv[r] = 1.f / l[r];
-    if (t == 0 && row[r] < S) lse[bh * S + row[r]] = m[r] + logf(l[r]);
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] *= inv[e >> 1];
-  store_rows_bf16(o, acc, 1.f, b, h, H, q0, S);
-}
-
-// K5, bf16 ----------------------------------------------------------------
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ di, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, Strides qs, Strides ks,
-                         Strides vs, Strides dos, int S, int H, float scale) {
-  __shared__ __align__(16) bf16 kv_s[kTileHalves];  // K, then V, for A frags
-  __shared__ __align__(16) bf16 q_s[kTileHalves];   // [query][d]
-  __shared__ __align__(16) bf16 do_s[kTileHalves];  // [query][e]
-  __shared__ float lse_s[kTile];
-  __shared__ float di_s[kTile];
-  const int nt = (S + kTile - 1) / kTile;
-  const int kt = blockIdx.y;  // key tile 0 meets the most query tiles
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / H;
-  const int64_t h = bh % H;
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int k0 = kt * kTile;
-  const int key[2] = {k0 + (threadIdx.x >> 5) * 16 + g,
-                      k0 + (threadIdx.x >> 5) * 16 + g + 8};
-
-  uint32_t ka[4][4], va[4][4];  // this warp's keys: rows key, k = d / e
-  load_tile_bf16(kv_s, k, ks, b, h, k0, S);
-  __syncthreads();
-  load_rows_a(kv_s, ka);
-  __syncthreads();
-  load_tile_bf16(kv_s, v, vs, b, h, k0, S);
-  __syncthreads();
-  load_rows_a(kv_s, va);
-  float dk_acc[8][4] = {}, dv_acc[8][4] = {};
-
-  for (int qt = kt; qt < nt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous tile's reads of q_s, do_s, lse_s, di_s
-    load_tile_bf16(q_s, q, qs, b, h, q0, S);
-    load_tile_bf16(do_s, dout, dos, b, h, q0, S);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < S ? lse[bh * S + row] : 0.f;
-      di_s[threadIdx.x] = row < S ? di[bh * S + row] : 0.f;
-    }
-    __syncthreads();
-
-    uint32_t pa[4][4], dsa[4][4];  // P^T, dS^T: rows key, k = query
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float st[4] = {}, dpt[4] = {};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t bb[2];
-        load_b<1, kLdh>(q_s, 16 * kk, 8 * j, bb);  // B(d, query) = Q[query][d]
-        mma(st, ka[kk], bb);
-        load_b<1, kLdh>(do_s, 16 * kk, 8 * j, bb);  // B(e, query) = dO[q][e]
-        mma(dpt, va[kk], bb);
-      }
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = 8 * j + 2 * t + (e & 1);
-        const int query = q0 + qi;
-        p[e] = (query >= key[e >> 1] && query < S)
-                   ? expf(st[e] * scale - lse_s[qi])
-                   : 0.f;
-        ds[e] = p[e] * (dpt[e] - di_s[qi]);
-      }
-      pa[j >> 1][(j & 1) * 2] = pack(p[0], p[1]);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack(p[2], p[3]);
-      dsa[j >> 1][(j & 1) * 2] = pack(ds[0], ds[1]);
-      dsa[j >> 1][(j & 1) * 2 + 1] = pack(ds[2], ds[3]);
-    }
-    // dV += P^T dO, dK += dS^T Q: B(query, e) = dO[query][e], Q likewise
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t bb[2];
-        load_b<kLdh, 1>(do_s, 16 * kk, 8 * j, bb);
-        mma(dv_acc[j], pa[kk], bb);
-        load_b<kLdh, 1>(q_s, 16 * kk, 8 * j, bb);
-        mma(dk_acc[j], dsa[kk], bb);
-      }
-  }
-  store_rows_bf16(dk, dk_acc, scale, b, h, H, k0, S);
-  store_rows_bf16(dv, dv_acc, 1.f, b, h, H, k0, S);
 }
 
 // K6, bf16 ----------------------------------------------------------------
@@ -791,66 +588,53 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 
 }  // namespace
 
-// q/k/v: [B, S, H, 64] bf16 (is_bf16=1) or fp32, read through the given
+// q/k/v: [B, S, H, 64] fp32 (ivg_flash_fwd_fp32, ivg_flash_bwd_dkv_fp32;
+// flash_attention_sm90.cu takes bf16 with the same arguments) or bf16 or
+// fp32 (ivg_flash_bwd_dq, by is_bf16), read through the given
 // batch/sequence/head strides (elements), head dim contiguous; in bf16 the
 // base pointers are 16-byte aligned and the strides multiples of 8. Outputs
 // are contiguous: o, dq, dk, dv [B, S, H, 64] in the input type, lse
 // [B, H, S] fp32. dout is contiguous [B, S, H, 64]; di is fp32 [B, H, S].
 // Each function launches one kernel on `stream` and returns the
 // cudaError_t of the launch (0 on success).
-extern "C" int ivg_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, float* lse, int B, int S, int H, int hd,
-                             int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                             int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                             int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                             int is_bf16, void* stream) {
+extern "C" int ivg_flash_fwd_fp32(const void* q, const void* k, const void* v,
+                                  void* o, float* lse, int B, int S, int H,
+                                  int hd, int64_t q_sb, int64_t q_ss,
+                                  int64_t q_sh, int64_t k_sb, int64_t k_ss,
+                                  int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                                  int64_t v_sh, void* stream) {
   if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    flash_fwd_mma_kernel<<<grid(B, S, H), kMmaThreads, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, qs, ks, vs,
-        S, H, softmax_scale());
-  } else {
-    const cudaError_t err = allow_smem(flash_fwd_fp32_kernel, kFwdSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_fp32_kernel<<<grid(B, S, H), kThreads, kFwdSmem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, qs, ks, vs,
-        S, H, softmax_scale());
-  }
+  const cudaError_t err = allow_smem(flash_fwd_fp32_kernel, kFwdSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_fp32_kernel<<<grid(B, S, H), kThreads, kFwdSmem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, qs, ks, vs, S,
+      H, softmax_scale());
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ivg_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                 const void* dout, const float* lse,
-                                 const float* di, void* dk, void* dv, int B,
-                                 int S, int H, int hd, int64_t q_sb,
-                                 int64_t q_ss, int64_t q_sh, int64_t k_sb,
-                                 int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                                 int64_t v_ss, int64_t v_sh, int is_bf16,
-                                 void* stream) {
+extern "C" int ivg_flash_bwd_dkv_fp32(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const float* lse, const float* di,
+                                      void* dk, void* dv, int B, int S, int H,
+                                      int hd, int64_t q_sb, int64_t q_ss,
+                                      int64_t q_sh, int64_t k_sb, int64_t k_ss,
+                                      int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                                      int64_t v_sh, void* stream) {
   if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, dos = contiguous_strides(S, H);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    flash_bwd_dkv_mma_kernel<<<grid(B, S, H), kMmaThreads, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, di,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), qs, ks, vs, dos, S, H,
-        softmax_scale());
-  } else {
-    const cudaError_t err = allow_smem(flash_bwd_dkv_fp32_kernel, kDkvSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dkv_fp32_kernel<<<grid(B, S, H), kThreads, kDkvSmem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        di, static_cast<float*>(dk), static_cast<float*>(dv), qs, ks, vs, dos,
-        S, H, softmax_scale());
-  }
+  const cudaError_t err = allow_smem(flash_bwd_dkv_fp32_kernel, kDkvSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkv_fp32_kernel<<<grid(B, S, H), kThreads, kDkvSmem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
+      static_cast<float*>(dk), static_cast<float*>(dv), qs, ks, vs, dos, S, H,
+      softmax_scale());
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
 """Causal attention over fresh q/k/v: kernels K4 (forward), K5 (dK, dV) and
-K6 (dQ) in ``csrc/flash_attention.cu``, and their plain PyTorch version.
+K6 (dQ) in ``csrc/flash_attention.cu`` (bf16 K4 and K5 in
+``csrc/flash_attention_sm90.cu``), and their plain PyTorch versions.
 
 One function serves the KV-cached prefill and the training forward:
 
@@ -22,11 +23,17 @@ kernel, round P and dS to bf16 before multiplying them; on fp32 inputs
 nothing is rounded below fp32. The plain version rounds the scores and P
 to bf16 on a bf16 input (``einsum`` of bf16 operands returns bf16), so in
 bf16 the two agree to bf16 rounding, and in fp32 to fp32 rounding.
+
+``flash_fwd_plain``, ``flash_bwd_dkv_plain`` and ``flash_bwd_dq_plain``
+compute what each kernel computes, at its own interface (lse and di in,
+lse out, natural log), in fp32 whatever the input type; the tests and
+``chip_smoke.py`` hold the kernels against them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -53,6 +60,67 @@ def causal_attention_plain(q, k, v, dtype, chunk: int = 128):
         attn = torch.softmax(attn, dim=-1)
         outs.append(torch.einsum("bhqk,bkhd->bqhd", attn.to(dtype), vb))
     return torch.cat(outs, dim=1).reshape(B, S, H * hd)
+
+
+def _chunks(q, k, chunk=128):
+    """(q0, cs, scores [B, H, cs, q0 + cs] fp32 * hd^-0.5, causal mask) by
+    query chunk: a chunk's scores reach only the keys it may attend."""
+    B, S, H, hd = q.shape
+    qf, kf = q.float(), k.float()
+    for q0 in range(0, S, chunk):
+        cs = min(chunk, S - q0)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf[:, q0:q0 + cs],
+                         kf[:, :q0 + cs]) * (hd ** -0.5)
+        live = (torch.arange(q0 + cs, device=q.device)[None, :]
+                <= (q0 + torch.arange(cs, device=q.device))[:, None])
+        yield q0, cs, s, live
+
+
+def flash_fwd_plain(q, k, v):
+    """K4's function: (O [B, S, H, hd] in q's dtype, lse [B, H, S] fp32,
+    the natural log of each row's sum of exp(scores)), in fp32."""
+    o, lse = torch.empty(q.shape, dtype=q.dtype, device=q.device), []
+    vf = v.float()
+    for q0, cs, s, live in _chunks(q, k):
+        s = s.masked_fill(~live, float("-inf"))
+        lse.append(torch.logsumexp(s, dim=-1))
+        p = torch.exp(s - lse[-1][..., None])
+        o[:, q0:q0 + cs] = torch.einsum("bhqk,bkhd->bqhd", p,
+                                        vf[:, :q0 + cs]).to(q.dtype)
+    return o, torch.cat(lse, dim=-1)
+
+
+def _plain_p_ds(s, live, q0, cs, v, do, lse, di):
+    """P = exp(s - lse) and dS = P (dO V^T - di) of one query chunk."""
+    p = torch.exp(s - lse[:, :, q0:q0 + cs, None]) * live
+    dp = torch.einsum("bqhd,bkhd->bhqk", do[:, q0:q0 + cs].float(),
+                      v[:, :q0 + cs].float())
+    return p, p * (dp - di[:, :, q0:q0 + cs, None])
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, di):
+    """K5's function: (dK, dV) [B, S, H, hd] in q's dtype from lse and di
+    [B, H, S] fp32, in fp32."""
+    dk = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0, cs, s, live in _chunks(q, k):
+        p, ds = _plain_p_ds(s, live, q0, cs, v, do, lse, di)
+        dv[:, :q0 + cs] += torch.einsum("bhqk,bqhd->bkhd", p,
+                                        do[:, q0:q0 + cs].float())
+        dk[:, :q0 + cs] += torch.einsum("bhqk,bqhd->bkhd", ds,
+                                        q[:, q0:q0 + cs].float())
+    return (dk * q.shape[-1] ** -0.5).to(q.dtype), dv.to(q.dtype)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, di):
+    """K6's function: dQ [B, S, H, hd] in q's dtype, in fp32."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for q0, cs, s, live in _chunks(q, k):
+        _, ds = _plain_p_ds(s, live, q0, cs, v, do, lse, di)
+        dq[:, q0:q0 + cs] = (torch.einsum("bhqk,bkhd->bqhd", ds,
+                                          k[:, :q0 + cs].float())
+                             * q.shape[-1] ** -0.5).to(q.dtype)
+    return dq
 
 
 def causal_attention(q, k, v, dtype):
@@ -132,9 +200,9 @@ def flash_fwd(q, k, v):
     B, S, H = _check(q, k, v)
     o = torch.empty((B, S, H, HEAD_DIM), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _launch(_lib().ivg_flash_fwd, "flash_fwd", q.data_ptr(), k.data_ptr(),
+    _launch(_entry("fwd", q.dtype), "flash_fwd", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, H, HEAD_DIM,
-            *_strides(q, k, v), int(q.dtype == torch.bfloat16),
+            *_strides(q, k, v),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_fwd.launches += 1
     return o, lse
@@ -159,10 +227,10 @@ def flash_bwd_dkv(q, k, v, do, lse, di):
     B, S, H = _check_bwd(q, k, v, do, lse, di)
     dk = torch.empty((B, S, H, HEAD_DIM), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    _launch(_lib().ivg_flash_bwd_dkv, "flash_bwd_dkv", q.data_ptr(),
+    _launch(_entry("bwd_dkv", q.dtype), "flash_bwd_dkv", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, HEAD_DIM,
-            *_strides(q, k, v), int(q.dtype == torch.bfloat16),
+            *_strides(q, k, v),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -172,7 +240,7 @@ def flash_bwd_dq(q, k, v, do, lse, di):
     """K6: dQ, contiguous [B, S, H, hd] in q's dtype."""
     B, S, H = _check_bwd(q, k, v, do, lse, di)
     dq = torch.empty((B, S, H, HEAD_DIM), dtype=q.dtype, device=q.device)
-    _launch(_lib().ivg_flash_bwd_dq, "flash_bwd_dq", q.data_ptr(),
+    _launch(_entry("bwd_dq", q.dtype), "flash_bwd_dq", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), dq.data_ptr(), B, S, H, HEAD_DIM,
             *_strides(q, k, v), int(q.dtype == torch.bfloat16),
@@ -186,13 +254,22 @@ flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    strides = [i64] * 9
-    lib.ivg_flash_fwd.argtypes = [p] * 5 + [i] * 4 + strides + [i, p]
-    lib.ivg_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 4 + strides + [i, p]
-    lib.ivg_flash_bwd_dq.argtypes = [p] * 7 + [i] * 4 + strides + [i, p]
-    for fn in (lib.ivg_flash_fwd, lib.ivg_flash_bwd_dkv, lib.ivg_flash_bwd_dq):
-        fn.restype = ctypes.c_int
-    return lib
+@functools.lru_cache(maxsize=None)
+def _entry(kernel, dtype):
+    """The C entry point of kernel "fwd", "bwd_dkv" or "bwd_dq" for
+    ``dtype`` inputs, its argument types set: pointers, B, S, H, hd, 9
+    strides, [is_bf16 for dQ,] stream. The bf16 K4 and K5 are
+    ``csrc/flash_attention_sm90.cu``; the rest ``csrc/flash_attention.cu``."""
+    if kernel == "bwd_dq":
+        lib, sym = "flash_attention", "ivg_flash_bwd_dq"
+    elif dtype == torch.bfloat16:
+        lib, sym = "flash_attention_sm90", f"ivg_flash_{kernel}_bf16"
+    else:
+        lib, sym = "flash_attention", f"ivg_flash_{kernel}_fp32"
+    fn = getattr(_build.load(lib), sym)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    n_ptrs = {"fwd": 5, "bwd_dkv": 8, "bwd_dq": 7}[kernel]
+    flag = [i] if kernel == "bwd_dq" else []
+    fn.argtypes = [p] * n_ptrs + [i] * 4 + [ctypes.c_int64] * 9 + flag + [p]
+    fn.restype = ctypes.c_int
+    return fn

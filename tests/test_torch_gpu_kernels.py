@@ -8,8 +8,9 @@ without it:
 
 The checks at the main path's full shapes are ``chip_smoke.py``'s phases;
 these cover the edges: ragged tiles, small D, ties across K2's codebook
-splits, fp32 queries, a single live slot, strided views, and the wrappers'
-refusals.
+splits, fp32 queries, a single live slot, strided views, the bf16 K4 and
+K5 at their own interface (lse in, lse out) and launch to launch, and the
+wrappers' refusals.
 """
 
 import pytest
@@ -200,6 +201,93 @@ def test_flash_attention_matches_plain(cuda, S, dtype):
     torch.testing.assert_close(out.float(), ref, **tol)
     for ours, theirs in zip(grads, ref_grads):
         torch.testing.assert_close(ours.float(), theirs, **tol)
+
+
+def _bf16_qkv_do(cuda, B, S, H, seed, fused):
+    """bf16 q, k, v, dO [B, S, H, 64]; fused: q/k/v are strided views of
+    one [B, S, 3, H, 64] tensor, as a fused qkv projection gives them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if fused:
+        x = torch.randn(B, S, 3, H, 64, device=cuda, generator=g).bfloat16()
+        q, k, v = x.unbind(2)
+        assert q.stride(1) == 3 * H * 64
+    else:
+        q, k, v = (torch.randn(B, S, H, 64, device=cuda, generator=g)
+                   .bfloat16() for _ in range(3))
+    return q, k, v, torch.randn(B, S, H, 64, device=cuda,
+                                generator=g).bfloat16()
+
+
+def _gate(got, want, what):
+    """chip_smoke.py's bf16 flash gates: elementwise within 2e-2, and the
+    relative L2 error within 3.8e-3 (1.5x the worst the mma.sync kernels
+    read); the 1e-4 RMS floor covers outputs that are ~0 (dK at S=1)."""
+    diff = (got.float() - want).norm()
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2,
+                               msg=what)
+    assert diff <= 3.8e-3 * want.norm() + 1e-4 * want.numel() ** 0.5, what
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("B,H", [(1, 1), (32, 12)])   # one head; ~6 waves
+@pytest.mark.parametrize("S", [1, 2, 63, 64, 65, 127, 128, 129, 514, 751,
+                               1024])
+def test_flash_sm90_kernels_match_plain_at_their_interface(cuda, S, B, H,
+                                                           fused):
+    """The bf16 K4 (O, lse) and K5 (dK, dV) against flash_fwd_plain and
+    flash_bwd_dkv_plain in fp32 on the same bf16 inputs; K5 is fed the
+    plain lse and di, so it is tested apart from K4."""
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    q, k, v, do = _bf16_qkv_do(cuda, B, S, H, S * B, fused)
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v)
+    with full_fp32():
+        ref_o, ref_lse = fa.flash_fwd_plain(q.float(), k.float(), v.float())
+        di = (ref_o * do.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, di)
+        again = fa.flash_bwd_dkv(q, k, v, do, ref_lse, di)
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q.float(), k.float(),
+                                                v.float(), do.float(),
+                                                ref_lse, di)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches) == (
+        counts[0] + 1, counts[1] + 2)
+    assert o.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    _gate(o, ref_o, "K4 O")
+    # natural log, as K6 and the backward read it
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    _gate(dk, ref_dk, "K5 dK")
+    _gate(dv, ref_dv, "K5 dV")
+    # no atomics, no sums across blocks: bit-identical launch to launch
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+def test_flash_sm90_kernels_refuse_what_tma_cannot_read(cuda):
+    """TMA needs a 16-byte aligned base and 16-byte strides, and the head
+    dim contiguous; dO must be contiguous. The wrappers raise on the rest."""
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _bf16_qkv_do(cuda, 2, 70, 3, 0, fused=False)
+    wide = torch.zeros(2, 70, 3, 72, device=cuda, dtype=torch.bfloat16)
+    bad = {"misaligned": wide[..., 1:65],          # base 2 bytes off
+           "sequence stride 220": torch.zeros(
+               2, 70, 3 * 72 + 4, device=cuda, dtype=torch.bfloat16)
+           [..., :3 * 72].view(2, 70, 3, 72)[..., :64],
+           "head dim stride 2": torch.zeros(
+               2, 70, 3, 128, device=cuda, dtype=torch.bfloat16)[..., ::2]}
+    for name, t in bad.items():
+        assert t.shape == q.shape, name
+        for args in ((t, k, v), (q, t, v), (q, k, t)):
+            with pytest.raises(ValueError):
+                fa.flash_fwd(*args)
+    o, lse = fa.flash_fwd(q, k, v)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    for args in ((bad["misaligned"], k, v, do, lse, di),
+                 (q, k, v, do.transpose(1, 2).contiguous().transpose(1, 2),
+                  lse, di),
+                 (q, k, v, do, lse.transpose(1, 2).contiguous(), di)):
+        with pytest.raises(ValueError):
+            fa.flash_bwd_dkv(*args)
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda):

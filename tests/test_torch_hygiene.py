@@ -56,7 +56,7 @@ def test_scan_sees_the_whole_package():
                  "train/tokenizer_trainer.py", "train/optim.py"):
         assert must in rels
     for src in ("vq_argmin", "vq_argmin_tiled", "decode_attention",
-                "flash_attention"):
+                "flash_attention", "flash_attention_sm90"):
         assert os.path.exists(os.path.join(PKG, "csrc", f"{src}.cu"))
 
 
