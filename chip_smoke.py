@@ -3,27 +3,29 @@
 against their plain PyTorch versions.
 
     python3 chip_smoke.py
+    python3 <path to>/chip_smoke.py --ab-turn   # one A/B turn, see ab_turn
 
 Phases, each printed on its own lines; any failure exits non-zero without
 the final result line:
   1. card      the nvidia-smi name and power limit
   2. build     nvcc for sm_90a of every csrc/*.cu, all at once (-Xptxas -v)
-  3. K1        VQ argmin at N=131072, K=8192, D=64 fp32 against the plain
-               version (TF32 off), plus a codebook with duplicated rows
+  3. K1        VQ argmin at every shape of the main paths (N=131072, 8192,
+               3584, 1536; K=8192, D=64 fp32) against the plain version
+               (TF32 off) and K2 (bit for bit), ties across a codebook
+               split; timed beside K2, the plain version, cdist+argmin
      K2        the tiled VQ argmin at the wide training step's shapes
                (N=8192 and 1536, K=16384, D=256) and the rollout's (also
-               against K1), plus duplicated rows across a codebook split;
-               then K1 and K2 at the tokenizer-train lookups (N=8192 and
-               1536, K=8192, D=64) against the plain version, timed
+               against K1), plus duplicated rows across a codebook split
   4. K3        int8 decode attention at B=256, H=12, hd=64, M=752 for
                valid in {515, 633, 751} against the plain version
   5. flash     K4 (causal flash-attention forward) at the training shape
                (B=16, H=12, S=751) and the prefill shape (B=256, S=514), K5
                (dK, dV) and K6 (dQ) at the training shape, bf16, against the
                plain version and autograd through it; K4's lse against
-               flash_fwd_plain's, K5 fed the plain lse against
-               flash_bwd_dkv_plain and bit-identical across two launches;
-               SDPA timed beside them, each kernel's ratio to it printed
+               flash_fwd_plain's, K5 and K6 fed the plain lse against
+               flash_bwd_dkv_plain and flash_bwd_dq_plain and bit-identical
+               across two launches; SDPA timed beside them, each kernel's
+               ratio to it printed
   6. main      the rollout (TOKENIZER_64 + LLAMA_BASE + action head, bf16
                under the cast rules, int8 KV cache, ctx=2, T=16, B=256) with
                random weights from a seed: shapes, token ranges, launch
@@ -72,6 +74,12 @@ TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 16, 3, 10
 TOK_T, TOK_CTX = 8, 2          # the tokenizer trainer's clips (B=TRAIN_B)
 TOK_WARMUP, TOK_TIMED = 3, 10
 TOK_WIDE_WARMUP, TOK_WIDE_TIMED = 1, 3
+# K1's lookups on the main paths (K=8192, D=64): the rollout's context
+# frames, the context frames of a B=16 GPT step and tokenizer pair, and the
+# dynamics frames of the GPT step (16 x 14 x 16) and of the pair (16 x 6 x 16)
+K1_SHAPES = (("rollout", B * CTX * 256), ("context", TRAIN_B * CTX * 256),
+             ("GPT-step dynamics", TRAIN_B * (T - CTX) * 16),
+             ("tokenizer dynamics", TRAIN_B * (TOK_T - TOK_CTX) * 16))
 
 
 class PhaseError(Exception):
@@ -158,56 +166,93 @@ def near_tie_gate(torch, what, z, e, ids, ref):
     return max_err
 
 
+def k1_ties(torch, vq, name, z, e, sms):
+    """Copies of codes 0..255 on both sides of a split boundary of K1's plan
+    for z (the middle of the codebook where there is one split); rows of z
+    equal to codes 0..255 must resolve to them, the smallest index."""
+    n, k = z.shape[0], e.shape[0]
+    splits, per = vq.k1_splits(n, k, sms)
+    edge = per if splits > 1 else k // 2
+    e_dup = e.clone()
+    e_dup[edge - 128:edge + 128] = e[:256]
+    ids = vq.vq_argmin(torch.cat([e[:256], z[:n - 256]]), e_dup)
+    check(bool(((ids < edge - 128) | (ids >= edge + 128)).all()),
+          f"K1 {name}: a tie did not go to the smallest index")
+    check(bool((ids[:256] == torch.arange(256, device="cuda")).all()),
+          f"K1 {name}: exact matches not found at the smaller index")
+    where = "the split at" if splits > 1 else "index"
+    print(f"K1 {name} ties: codes copied across {where} {edge} ({splits} "
+          f"splits of {per} codes) resolve to the smallest index")
+
+
 def phase_k1(torch):
+    """K1 at every shape the main paths give it (K=8192, D=64, fp32;
+    K1_SHAPES), TF32 off: ids against the plain version by near_tie_gate,
+    and equal to K2's bit for bit (the same fp32 arithmetic); ties across a
+    split boundary. Times by cuda_ms and queued_ms, beside K2, the plain
+    version and cdist+argmin. The kernels line keeps the rollout shape's
+    numbers and, under ``at_n``, every shape's."""
     from ivideogpt_tpu_torch.ops import vq
     from ivideogpt_tpu_torch.utils.platform import full_fp32
-    n, k, d = B * CTX * 256, 8192, 64
+    k, d = 8192, 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda").manual_seed(1)
-    z = torch.randn(n, d, device="cuda", generator=g)
-    e = torch.randn(k, d, device="cuda", generator=g)
-    with full_fp32():
-        ids = vq.vq_argmin(z, e)
-        ref = vq.vq_lookup_plain(z, e)
-        torch.cuda.synchronize()
-        max_err = near_tie_gate(torch, "K1 ids against the plain version", z,
-                                e, ids, ref)
+    row, worst, at_n = None, 0.0, {}
+    for name, n in K1_SHAPES:
+        z = torch.randn(n, d, device="cuda", generator=g)
+        e = torch.randn(k, d, device="cuda", generator=g)
+        splits, _ = vq.k1_splits(n, k, sms)
+        iters = 10 if n > 8192 else 50
+        with full_fp32():
+            ids = vq.vq_argmin(z, e)
+            ref = vq.vq_lookup_plain(z, e)
+            torch.cuda.synchronize()
+            worst = max(worst, near_tie_gate(
+                torch, f"K1 {name} N={n} ids against the plain version", z,
+                e, ids, ref))
+            check(torch.equal(ids, vq.vq_argmin_tiled(z, e)),
+                  f"K1 {name} N={n}: ids differ from K2's")
+            print(f"K1 {name} N={n}: ids equal to K2's bit for bit")
+            k1_ties(torch, vq, name, z, e, sms)
+            ms = cuda_ms(lambda: vq.vq_argmin(z, e), iters)
+            q_ms, host_ms = queued_ms(lambda: vq.vq_argmin(z, e), iters)
+            k2_ms = cuda_ms(lambda: vq.vq_argmin_tiled(z, e), iters)
+            plain_ms = cuda_ms(lambda: vq.vq_lookup_plain(z, e), 5)
+            lib_ms = cuda_ms(lambda: torch.cdist(z, e).argmin(1), 5)
+        b_ms, b_by = bound(n * d * 4 + k * d * 4 + k * 4 + n * 8,
+                           2 * n * k * d, FP32_PEAK)
+        print(f"K1 {name} N={n} K={k} D={d} splits={splits}: "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} (cdist+argmin) K2 {k2_ms:.4f} ms "
+              f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound="
+              f"{b_ms / ms:.3f}; "
+              f"queued: kernel_ms={q_ms:.4f} (share {b_ms / q_ms:.3f}), "
+              f"host_ms per call {host_ms:.4f}")
+        at_n[n] = dict(path=name, splits=splits, ms=ms, queued_ms=q_ms,
+                       host_ms=host_ms, k2_ms=k2_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms)
+        if row is None:
+            row = dict(name="vq_argmin", route="cuda",
+                       source="ivideogpt_tpu_torch/csrc/vq_argmin.cu",
+                       replaces="ivideogpt_tpu/ops/vq.py:89",
+                       shape=f"{name} N={n} K={k} D={d}", ms=ms,
+                       queued_ms=q_ms, host_ms=host_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       library="cdist+argmin")
+        del z, e, ids, ref
+    torch.cuda.empty_cache()
+    row["max_abs_err"] = worst
+    row["at_n"] = at_n
+    return row
 
-        # duplicated codebook rows: an exact tie must go to the smaller index
-        e_dup = e.clone()
-        e_dup[4096:4096 + 512] = e[:512]
-        z_dup = torch.cat([e[:512], z[:4096]])
-        ids_dup = vq.vq_argmin(z_dup, e_dup)
-        check(bool(((ids_dup < 4096) | (ids_dup >= 4096 + 512)).all()),
-              "K1 tie did not go to the smallest index")
-        check(bool((ids_dup[:512] == torch.arange(512, device="cuda")).all()),
-              "K1 exact matches not found at the smaller index")
-        print("K1 ties: duplicated rows resolve to the smallest index")
 
-        ms = cuda_ms(lambda: vq.vq_argmin(z, e), 10)
-        plain_ms = cuda_ms(lambda: vq.vq_lookup_plain(z, e), 5)
-        lib_ms = cuda_ms(lambda: torch.cdist(z, e).argmin(1), 5)
-    b_ms, b_by = bound(n * d * 4 + k * d * 4 + k * 4 + n * 8, 2 * n * k * d,
-                       FP32_PEAK)
-    print(f"K1 kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={lib_ms:.4f} (cdist+argmin) bound_ms={b_ms:.4f} "
-          f"({b_by}) share_of_bound={b_ms / ms:.3f}")
-    return dict(name="vq_argmin", route="cuda",
-                source="ivideogpt_tpu_torch/csrc/vq_argmin.cu",
-                replaces="ivideogpt_tpu/ops/vq.py:89", max_abs_err=max_err,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
-
-
-def phase_k2(torch, k1):
+def phase_k2(torch):
     """K2 against its plain version, TF32 off, at the wide training step's
     shapes (context N=8192 and dynamics N=1536 against a 16384 x 256
     codebook) and at the rollout's (N=131072, K=8192, D=64), where it is
-    also held against K1; duplicated rows across a codebook split resolve
-    to the smallest index. Then K1 and K2 at the tokenizer-train lookups
-    (N=8192 and 1536, K=8192, D=64), against the plain version, timed side
-    by side; K1's gap there goes into its row ``k1``. The kernels line
-    keeps the wide context shape's times, the largest lookup of the wide
-    step."""
+    also held against K1 bit for bit; duplicated rows across a codebook
+    split resolve to the smallest index. The kernels line keeps the wide
+    context shape's times, the largest lookup of the wide step."""
     from ivideogpt_tpu_torch.ops import vq
     from ivideogpt_tpu_torch.utils.platform import full_fp32
     g = torch.Generator(device="cuda").manual_seed(20)
@@ -226,8 +271,9 @@ def phase_k2(torch, k1):
                 torch, f"K2 {name} ids against the plain version", z, e, ids,
                 ref))
             if name == "rollout":
-                near_tie_gate(torch, "K2 rollout ids against K1's", z, e, ids,
-                              vq.vq_argmin(z, e))
+                check(torch.equal(ids, vq.vq_argmin(z, e)),
+                      "K2 rollout ids differ from K1's")
+                print("K2 rollout ids equal to K1's bit for bit")
             else:
                 # copies of rows 0..511 straddling the first split boundary
                 n_dup = 512 + 4096
@@ -265,23 +311,6 @@ def phase_k2(torch, k1):
                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib_ms)
         del z, e, ids, ref
-    # the tokenizer-train lookups (K=8192, D=64) route to K1: both held
-    # against the plain version at these shapes, then timed
-    for n in (8192, 1536):
-        z = torch.randn(n, 64, device="cuda", generator=g)
-        e = torch.randn(8192, 64, device="cuda", generator=g)
-        with full_fp32():
-            ref = vq.vq_lookup_plain(z, e)
-            k1["max_abs_err"] = max(k1["max_abs_err"], near_tie_gate(
-                torch, f"K1 tokenizer-train N={n} ids against the plain "
-                f"version", z, e, vq.vq_argmin(z, e), ref))
-            worst = max(worst, near_tie_gate(
-                torch, f"K2 tokenizer-train N={n} ids against the plain "
-                f"version", z, e, vq.vq_argmin_tiled(z, e), ref))
-            k1_ms = cuda_ms(lambda: vq.vq_argmin(z, e), 10)
-            k2_ms = cuda_ms(lambda: vq.vq_argmin_tiled(z, e), 10)
-        print(f"K1 and K2 at the tokenizer-train shape N={n} K=8192 D=64: "
-              f"K1 {k1_ms:.4f} ms, K2 {k2_ms:.4f} ms")
     torch.cuda.empty_cache()
     row["max_abs_err"] = worst
     return row
@@ -337,8 +366,9 @@ def phase_flash(torch):
     with TF32 off: the kernels keep fp32 scores and sums and round P and dS
     to bf16 where the TPU kernel does, the plain bf16 version rounds the
     scores too, so fp32 is the reference for the algorithm. Also at their
-    own interface: K4's lse against ``flash_fwd_plain``'s, and K5 fed the
-    plain lse and di against ``flash_bwd_dkv_plain``, twice (bit-identical).
+    own interface: K4's lse against ``flash_fwd_plain``'s, and K5 and K6
+    fed the plain lse and di against ``flash_bwd_dkv_plain`` and
+    ``flash_bwd_dq_plain``, twice (bit-identical).
     Times: the kernels, the plain version in bf16 and SDPA (is_causal=True)
     on the same inputs, by cuda_ms; each kernel's ratio to SDPA. Beside
     them, by queued_ms, the kernels' and SDPA's card time without the
@@ -353,9 +383,9 @@ def phase_flash(torch):
     # bf16 O: bf16 rounding of values up to ~10 in dK/dV
     tol = dict(rtol=2e-2, atol=2e-2)
     # the same roundings over a whole tensor: ~3e-3 of its norm; a wrong
-    # tile or mask reads O(1e-1) and more. The wgmma K4 and K5 are held to
-    # 1.5x the worst the mma.sync kernels read (2.51e-3)
-    rel_tol, rel_tol_sm90, lse_tol = 1e-2, 3.8e-3, 1e-3
+    # tile or mask reads O(1e-1) and more. The wgmma K4, K5 and K6 are held
+    # to 1.5x the worst the mma.sync kernels read (2.51e-3)
+    rel_tol, lse_tol = 3.8e-3, 1e-3
     rows, sdpa = {}, {}
 
     def inputs(b, s, seed):
@@ -363,7 +393,7 @@ def phase_flash(torch):
         return [torch.randn(b, s, H, hd, device="cuda", generator=g).bfloat16()
                 for _ in range(4)]
 
-    def err(got, want, what, rel_max=rel_tol):
+    def err(got, want, what):
         """Gate got against want elementwise and by norm; returns max |diff|
         and ||diff|| / ||want||."""
         want = want.detach()
@@ -372,8 +402,8 @@ def phase_flash(torch):
         rel = float(diff.norm() / want.norm())
         check(torch.allclose(got.float(), want, **tol),
               f"{what} disagrees with the plain version elementwise")
-        check(rel < rel_max, f"{what}: relative L2 error {rel:.3e} is over "
-              f"{rel_max}")
+        check(rel < rel_tol, f"{what}: relative L2 error {rel:.3e} is over "
+              f"{rel_tol}")
         return e, rel
 
     for name, b, s in (("train", 16, 751), ("prefill", B, 514)):
@@ -387,8 +417,7 @@ def phase_flash(torch):
                       for t in (q, k, v)]
             ref = fa.causal_attention_plain(*ref_in, torch.float32)
             _, ref_lse = fa.flash_fwd_plain(*(t.detach() for t in ref_in))
-        e4, r4 = err(out.flatten(2), ref, f"K4 O at the {name} shape",
-                     rel_tol_sm90)
+        e4, r4 = err(out.flatten(2), ref, f"K4 O at the {name} shape")
         e_lse = float((lse - ref_lse).abs().max())
         check(e_lse < lse_tol, f"K4 lse at the {name} shape: {e_lse:.3e} "
               f"from flash_fwd_plain's")
@@ -406,7 +435,7 @@ def phase_flash(torch):
         b_ms, b_by = bound(4 * elems * 2 + b * H * s * 4, 4 * hd * pairs,
                            BF16_PEAK)
         print(f"K4 {name} B={b} S={s}: max_abs_err={e4:.3e} (rtol 2e-2, "
-              f"atol 2e-2) rel_l2_err={r4:.3e} (< {rel_tol_sm90}) "
+              f"atol 2e-2) rel_l2_err={r4:.3e} (< {rel_tol}) "
               f"lse_max_abs_err={e_lse:.3e} (< {lse_tol}) "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} (SDPA forward) bound_ms={b_ms:.4f} "
@@ -430,8 +459,8 @@ def phase_flash(torch):
         with full_fp32():
             rq, rk, rv = torch.autograd.grad(ref, ref_in,
                                              do.float().flatten(2))
-        (ek, rel_k), (ev, rel_v) = (err(dk, rk, "K5 dK", rel_tol_sm90),
-                                    err(dv, rv, "K5 dV", rel_tol_sm90))
+        (ek, rel_k) = err(dk, rk, "K5 dK")
+        (ev, rel_v) = err(dv, rv, "K5 dV")
         e5, r5 = max(ek, ev), max(rel_k, rel_v)
         e6, r6 = err(dq, rq, "K6 dQ")
         # K5 at its own interface, apart from K4: the plain lse and di
@@ -442,16 +471,28 @@ def phase_flash(torch):
             pk, pv = fa.flash_bwd_dkv_plain(*(t.detach() for t in ref_in),
                                             do.float(), ref_lse, di_ref)
         (ek_p, rk_p), (ev_p, rv_p) = (
-            err(dk_p, pk, "K5 dK fed the plain lse", rel_tol_sm90),
-            err(dv_p, pv, "K5 dV fed the plain lse", rel_tol_sm90))
+            err(dk_p, pk, "K5 dK fed the plain lse"),
+            err(dv_p, pv, "K5 dV fed the plain lse"))
         again = fa.flash_bwd_dkv(q, k, v, do, ref_lse, di_ref)
         check(torch.equal(dk_p, again[0]) and torch.equal(dv_p, again[1]),
               "K5 is not bit-identical across two launches")
         print(f"K5 fed the plain lse and di: dK max_abs_err={ek_p:.3e} "
               f"rel_l2_err={rk_p:.3e}, dV {ev_p:.3e} / {rv_p:.3e} "
-              f"(< {rel_tol_sm90}); bit-identical across two launches")
+              f"(< {rel_tol}); bit-identical across two launches")
+        # K6 at its own interface too
+        dq_p = fa.flash_bwd_dq(q, k, v, do, ref_lse, di_ref)
+        with full_fp32():
+            pq = fa.flash_bwd_dq_plain(*(t.detach() for t in ref_in),
+                                       do.float(), ref_lse, di_ref)
+        eq_p, rq_p = err(dq_p, pq, "K6 dQ fed the plain lse")
+        check(torch.equal(dq_p, fa.flash_bwd_dq(q, k, v, do, ref_lse,
+                                                di_ref)),
+              "K6 is not bit-identical across two launches")
+        print(f"K6 fed the plain lse and di: dQ max_abs_err={eq_p:.3e} "
+              f"rel_l2_err={rq_p:.3e} (< {rel_tol}); bit-identical across "
+              f"two launches")
         del ref, ref_in, ref_lse, rq, rk, rv, di_ref, dk_p, dv_p, pk, pv
-        del again
+        del again, dq_p, pq
 
         def plain_fwd_bwd(bwd):
             ins = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -476,8 +517,7 @@ def phase_flash(torch):
         for key, kname, source, line, fn, e, rel, n_io, per_pair in (
                 ("K5", "flash_attention_bwd_dkv", sm90, "796",
                  lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di), e5, r5, 6, 8),
-                ("K6", "flash_attention_bwd_dq",
-                 "ivideogpt_tpu_torch/csrc/flash_attention.cu", "1146",
+                ("K6", "flash_attention_bwd_dq", sm90, "1146",
                  lambda: fa.flash_bwd_dq(q, k, v, do, lse, di), e6, r6, 5,
                  6)):
             ms = cuda_ms(fn, iters)
@@ -487,7 +527,7 @@ def phase_flash(torch):
                                per_pair * hd * pairs, BF16_PEAK)
             print(f"{key} train B={b} S={s}: max_abs_err={e:.3e} (rtol 2e-2, "
                   f"atol 2e-2) rel_l2_err={rel:.3e} (< "
-                  f"{rel_tol_sm90 if key == 'K5' else rel_tol}) "
+                  f"{rel_tol}) "
                   f"kernel_ms={ms:.4f} plain_ms="
                   f"{plain_bwd:.4f} (plain backward, dQ/dK/dV together) "
                   f"library_ms={lib_bwd:.4f} (SDPA forward+backward minus "
@@ -1222,6 +1262,59 @@ def phase_train_check(torch):
           f"the CPU path")
 
 
+def ab_kernel_times(torch):
+    """K1 at K1_SHAPES, and K5, K6 and SDPA's backward at the training
+    shape, by cuda_ms and queued_ms, through the interfaces every tree of
+    the port has: the kernel half of an A/B turn (``--ab-turn``)."""
+    import torch.nn.functional as F
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.ops import vq
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for _, n in K1_SHAPES:
+        z = torch.randn(n, 64, device="cuda", generator=g)
+        e = torch.randn(8192, 64, device="cuda", generator=g)
+        iters = 10 if n > 8192 else 50
+        with full_fp32():
+            out[f"K1 N={n}"] = (
+                cuda_ms(lambda: vq.vq_argmin(z, e), iters),
+                queued_ms(lambda: vq.vq_argmin(z, e), iters)[0])
+    q, k, v, do = (torch.randn(TRAIN_B, 751, 12, 64, device="cuda",
+                               generator=g).bfloat16() for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    for key, fn in (("K5", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di)),
+                    ("K6", lambda: fa.flash_bwd_dq(q, k, v, do, lse, di))):
+        out[key] = (cuda_ms(fn, 50), queued_ms(fn, 50)[0])
+    qt, kt, vt = (t.transpose(1, 2).requires_grad_() for t in (q, k, v))
+
+    def sdpa(bwd):
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        if bwd:
+            torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2))
+    out["SDPA backward"] = (
+        cuda_ms(lambda: sdpa(True), 50) - cuda_ms(lambda: sdpa(False), 50),
+        queued_ms(lambda: sdpa(True), 50)[0]
+        - queued_ms(lambda: sdpa(False), 50)[0])
+    print("ab: kernel ms (cuda_ms, queued_ms) "
+          + json.dumps({k: [round(x, 4) for x in v]
+                        for k, v in out.items()}))
+    return out
+
+
+def ab_turn(torch):
+    """One turn of an A/B between two trees of the port on one card, run as
+    ``python3 <this file> --ab-turn`` from the root of the tree to measure
+    (its package is the one imported): the kernels' times, then the
+    rollout, the GPT step and the tokenizer pair, each with its profiled
+    device seconds. Turns alternate between the trees, parent first."""
+    ab_kernel_times(torch)
+    phase_main(torch)
+    phase_train(torch)
+    phase_tok_train(torch, wide=False)
+
+
 def main():
     try:
         import torch
@@ -1232,11 +1325,13 @@ def main():
         print("FAIL: no CUDA device; this script measures the GPU port",
               file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(REPO, "ivideogpt_tpu_torch")):
+    ab = sys.argv[1:] == ["--ab-turn"]
+    tree = os.getcwd() if ab else REPO
+    if not os.path.isdir(os.path.join(tree, "ivideogpt_tpu_torch")):
         print("FAIL: run from a checkout that holds ivideogpt_tpu_torch/",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, tree)
     torch.backends.cuda.matmul.allow_tf32 = False
 
     try:
@@ -1251,10 +1346,13 @@ def main():
         print(f"build: {len(logs)} sources in {time.time() - t0:.1f}s")
         for name, log in logs.items():
             for line in log.splitlines():
-                if "ptxas info" in line:
+                if "ptxas info" in line or "spill" in line:
                     print(f"build[{name}]: {line.strip()}")
+        if ab:
+            ab_turn(torch)
+            return 0
         k1 = phase_k1(torch)
-        k2 = phase_k2(torch, k1)
+        k2 = phase_k2(torch)
         k3 = phase_k3(torch)
         flash = phase_flash(torch)
         by_path = {"rollout": phase_main(torch)}
@@ -1288,7 +1386,8 @@ def main():
                                  for key, (path, n) in per_run.items()}
     keys = ("name", "shape", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "queued_ms", "host_ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "library")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "at_n")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(card)

@@ -1,14 +1,15 @@
-// K4, K5, K6: causal flash attention, forward and backward, sm_90a: the
-// C entry points, the fp32 kernels of all three, and the bf16 K6.
+// K4, K5, K6: causal flash attention, forward and backward, on fp32
+// inputs, sm_90a: the C entry points and kernels of the fp32 check paths.
 //
-// Replaces the stock TPU kernel that the JAX package calls at
-// ivideogpt_tpu/models/llama.py:97 (jax/experimental/pallas/ops/tpu/
+// Replaces, for fp32 q/k/v, the stock TPU kernel that the JAX package calls
+// at ivideogpt_tpu/models/llama.py:97 (jax/experimental/pallas/ops/tpu/
 // flash_attention.py, JAX 0.9.0):
 //   K4  _flash_attention_kernel      :331 (launched :758)
 //   K5  _flash_attention_dkv_kernel  :796 (launched :1121)
 //   K6  _flash_attention_dq_kernel   :1146 (launched :1456)
-// The bf16 K4 and K5 are TMA-fed wgmma kernels in flash_attention_sm90.cu,
-// a library of its own (ivg_flash_fwd_bf16, ivg_flash_bwd_dkv_bf16).
+// The bf16 kernels, which the training step and the rollout run, are
+// TMA-fed wgmma kernels in flash_attention_sm90.cu, a library of its own
+// (ivg_flash_fwd_bf16, ivg_flash_bwd_dkv_bf16, ivg_flash_bwd_dq_bf16).
 //
 // For one (b, h), with s = q.k * hd^-0.5 and keys j <= query i only:
 //   K4  O = softmax(s) V, and lse_i = log sum_j exp(s_ij)  (fp32)
@@ -24,9 +25,9 @@
 // multiple as on the TPU (llama.py:88-99): rows at or past S read as 0 and
 // the ragged last tile is masked. hd = 64, 1 <= S <= 1024.
 //
-// Bound on the H100. At the training shape (B=16, H=12, S=751) K6 moves
-// q, k, v, dO, dQ plus lse and di (~93 MB in bf16: ~28 us at 3.35 TB/s)
-// and does ~2.1e10 causal FLOP (~21 us at 989 TFLOP/s bf16): bytes bound it.
+// Bound on the H100: fp32 inputs cannot use the bf16 tensor cores, and
+// these kernels serve the fp32 checks against the CPU, not a timed path:
+// the 67 TFLOP/s fp32 FMA rate bounds them.
 //
 // Design. Every block works on 64-row tiles of one (b, h):
 //   K4: one block per 64-query tile; loops over key tiles up to the
@@ -38,28 +39,18 @@
 // dK/dV and dQ come from separate kernels, as on the TPU, so no block adds
 // into another's output: no atomics, and the gradients are deterministic.
 // Blocks are ordered heaviest tile first (blockIdx.y) to shorten the tail.
-// Two arithmetic routes here, chosen by the input type:
-//   bf16 K6: tensor cores through mma.sync m16n8k16 (bf16 operands, fp32
-//     accumulators). 4 warps own 16 rows each; a warp keeps its rows of
-//     Q and dO as A fragments in registers, and feeds the streamed K and V
-//     tiles from shared memory (bf16, row stride 72 halves: fragment reads
-//     hit distinct banks). dS is rounded to bf16 before its product, where
-//     the TPU kernel rounds it too (ds.astype(...)).
-//   fp32: the same tiles as 64 x 64 x 64 products in fp32 FMAs, so fp32
-//     inputs are never rounded to bf16 or TF32. 256 threads, fp32 tiles in
-//     shared memory with a row stride of 65 floats (a row walk and a column
-//     walk both free of bank conflicts); each thread owns a 4 x 4 piece of
-//     every result (rows ty + 16 i, columns tx + 16 j), and a row's 16
-//     owners are one half warp, so row max and row sum are shuffles.
+// The tiles are 64 x 64 x 64 products in fp32 FMAs, so fp32 inputs are
+// never rounded to bf16 or TF32. 256 threads, fp32 tiles in shared memory
+// with a row stride of 65 floats (a row walk and a column walk both free of
+// bank conflicts); each thread owns a 4 x 4 piece of every result (rows
+// ty + 16 i, columns tx + 16 j), and a row's 16 owners are one half warp,
+// so row max and row sum are shuffles.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kHd = 64;    // head dim = the inner dim of every product
 constexpr int kTile = 64;  // rows of a query tile and of a key tile
@@ -72,184 +63,6 @@ struct Strides {
 Strides contiguous_strides(int S, int H) {
   return Strides{static_cast<int64_t>(S) * H * kHd,
                  static_cast<int64_t>(H) * kHd, kHd};
-}
-
-// ================== bf16 K6: mma.sync on tensor cores ====================
-
-constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
-constexpr int kLdh = kHd + 8;     // shared row stride in halves (144 bytes)
-constexpr int kTileHalves = kTile * kLdh;
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  return pack(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-// c += a b for one m16n8k16 tile: a 16x16 row-major, b 16x8 column-major.
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Fragment layouts of m16n8k16 (PTX ISA), g = lane / 4, t = lane % 4:
-//   A reg 0: (g, 2t..2t+1)  1: (g+8, 2t..)  2: (g, 2t+8..)  3: (g+8, 2t+8..)
-//   B reg 0: (k 2t..2t+1, n g)  1: (k 2t+8..2t+9, n g)
-//   C 0,1: (g, 2t..2t+1)  2,3: (g+8, 2t..2t+1)
-// A fragment of the 16 x 16 block at (r0, c0) of M(r, c) = s[r * RS + c].
-__device__ __forceinline__ void load_a(const bf16* s, int r0, int c0,
-                                       uint32_t a[4]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const bf16* p = s + (r0 + g) * kLdh + c0 + 2 * t;
-  a[0] = pack(p[0], p[1]);
-  a[1] = pack(p[8 * kLdh], p[8 * kLdh + 1]);
-  a[2] = pack(p[8], p[9]);
-  a[3] = pack(p[8 * kLdh + 8], p[8 * kLdh + 9]);
-}
-
-// B fragment of the 16 x 8 block at (k0, n0) of M(k, n) = s[k * KS + n * NS].
-template <int KS, int NS>
-__device__ __forceinline__ void load_b(const bf16* s, int k0, int n0,
-                                       uint32_t b[2]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const bf16* p = s + (k0 + 2 * t) * KS + (n0 + g) * NS;
-  b[0] = pack(p[0], p[KS]);
-  b[1] = pack(p[8 * KS], p[9 * KS]);
-}
-
-// A fragments (4 k-steps of 16) of this warp's 16 rows of a [64][kLdh] tile.
-__device__ __forceinline__ void load_rows_a(const bf16* s, uint32_t a[4][4]) {
-  const int r0 = (threadIdx.x >> 5) * 16;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) load_a(s, r0, 16 * kk, a[kk]);
-}
-
-// Rows [row0, row0 + 64) of one (b, h) of a bf16 [B, S, H, 64] tensor into
-// dst[64][kLdh]; rows at or past S are 0. 16-byte loads (the wrapper checks
-// that base and strides are multiples of 8 elements).
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               Strides st, int64_t b,
-                                               int64_t h, int row0, int S) {
-  const bf16* base = src + b * st.b + h * st.h;
-  for (int i = threadIdx.x; i < kTile * kHd / 8; i += kMmaThreads) {
-    const int r = i / (kHd / 8);
-    const int c = (i % (kHd / 8)) * 8;
-    const int row = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S)
-      v = *reinterpret_cast<const uint4*>(
-          base + static_cast<int64_t>(row) * st.s + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdh + c) = v;
-  }
-}
-
-// The C fragments of a 16 x 64 result (8 n-tiles) times `mul`, into rows
-// row0 + (warp rows) of a contiguous bf16 [B, S, H, 64] output.
-__device__ __forceinline__ void store_rows_bf16(bf16* out, const float c[8][4],
-                                                float mul, int64_t b,
-                                                int64_t h, int H, int row0,
-                                                int S) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + (threadIdx.x >> 5) * 16 + g + 8 * r;
-    if (row >= S) continue;
-    bf16* p = out + ((b * S + row) * H + h) * kHd + 2 * t;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) =
-          __floats2bfloat162_rn(c[j][2 * r] * mul, c[j][2 * r + 1] * mul);
-  }
-}
-
-// K6, bf16 ----------------------------------------------------------------
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ di, bf16* __restrict__ dq,
-                        Strides qs, Strides ks, Strides vs, Strides dos,
-                        int S, int H, float scale) {
-  __shared__ __align__(16) bf16 q_s[kTileHalves];   // Q, then dO, for A frags
-  __shared__ __align__(16) bf16 k_s[kTileHalves];   // [key][d]
-  __shared__ __align__(16) bf16 v_s[kTileHalves];   // [key][e]
-  const int nt = (S + kTile - 1) / kTile;
-  const int qt = nt - 1 - static_cast<int>(blockIdx.y);
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / H;
-  const int64_t h = bh % H;
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int q0 = qt * kTile;
-  const int row[2] = {q0 + (threadIdx.x >> 5) * 16 + g,
-                      q0 + (threadIdx.x >> 5) * 16 + g + 8};
-  float lse_r[2], di_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse_r[r] = row[r] < S ? lse[bh * S + row[r]] : 0.f;
-    di_r[r] = row[r] < S ? di[bh * S + row[r]] : 0.f;
-  }
-
-  uint32_t qa[4][4], doa[4][4];  // this warp's queries: rows query, k = d / e
-  load_tile_bf16(q_s, q, qs, b, h, q0, S);
-  __syncthreads();
-  load_rows_a(q_s, qa);
-  __syncthreads();
-  load_tile_bf16(q_s, dout, dos, b, h, q0, S);
-  __syncthreads();
-  load_rows_a(q_s, doa);
-  float dq_acc[8][4] = {};
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's reads of k_s and v_s are done
-    load_tile_bf16(k_s, k, ks, b, h, k0, S);
-    load_tile_bf16(v_s, v, vs, b, h, k0, S);
-    __syncthreads();
-
-    uint32_t dsa[4][4];  // dS: rows query, k = key
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float s[4] = {}, dp[4] = {};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t bb[2];
-        load_b<1, kLdh>(k_s, 16 * kk, 8 * j, bb);  // B(d, key) = K[key][d]
-        mma(s, qa[kk], bb);
-        load_b<1, kLdh>(v_s, 16 * kk, 8 * j, bb);  // B(e, key) = V[key][e]
-        mma(dp, doa[kk], bb);
-      }
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        const int r = e >> 1;
-        const float p = (col <= row[r] && row[r] < S)
-                            ? expf(s[e] * scale - lse_r[r])
-                            : 0.f;
-        ds[e] = p * (dp[e] - di_r[r]);
-      }
-      dsa[j >> 1][(j & 1) * 2] = pack(ds[0], ds[1]);
-      dsa[j >> 1][(j & 1) * 2 + 1] = pack(ds[2], ds[3]);
-    }
-    // dQ += dS K: B(key, d) = K[key][d]
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t bb[2];
-        load_b<kLdh, 1>(k_s, 16 * kk, 8 * j, bb);
-        mma(dq_acc[j], dsa[kk], bb);
-      }
-  }
-  store_rows_bf16(dq, dq_acc, scale, b, h, H, q0, S);
 }
 
 // ======================= fp32: FMA tile products ==========================
@@ -588,13 +401,11 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 
 }  // namespace
 
-// q/k/v: [B, S, H, 64] fp32 (ivg_flash_fwd_fp32, ivg_flash_bwd_dkv_fp32;
-// flash_attention_sm90.cu takes bf16 with the same arguments) or bf16 or
-// fp32 (ivg_flash_bwd_dq, by is_bf16), read through the given
-// batch/sequence/head strides (elements), head dim contiguous; in bf16 the
-// base pointers are 16-byte aligned and the strides multiples of 8. Outputs
-// are contiguous: o, dq, dk, dv [B, S, H, 64] in the input type, lse
-// [B, H, S] fp32. dout is contiguous [B, S, H, 64]; di is fp32 [B, H, S].
+// q/k/v: fp32 [B, S, H, 64] (flash_attention_sm90.cu takes bf16 with the
+// same arguments), read through the given batch/sequence/head strides
+// (elements), head dim contiguous. Outputs are contiguous: o, dq, dk, dv
+// [B, S, H, 64] fp32, lse [B, H, S] fp32. dout is contiguous fp32
+// [B, S, H, 64]; di is fp32 [B, H, S].
 // Each function launches one kernel on `stream` and returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int ivg_flash_fwd_fp32(const void* q, const void* k, const void* v,
@@ -638,29 +449,23 @@ extern "C" int ivg_flash_bwd_dkv_fp32(const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ivg_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* dout, const float* lse,
-                                const float* di, void* dq, int B, int S,
-                                int H, int hd, int64_t q_sb, int64_t q_ss,
-                                int64_t q_sh, int64_t k_sb, int64_t k_ss,
-                                int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                                int64_t v_sh, int is_bf16, void* stream) {
+extern "C" int ivg_flash_bwd_dq_fp32(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* di,
+                                     void* dq, int B, int S, int H, int hd,
+                                     int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                                     int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                                     int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                                     void* stream) {
   if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, dos = contiguous_strides(S, H);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    flash_bwd_dq_mma_kernel<<<grid(B, S, H), kMmaThreads, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, di,
-        static_cast<bf16*>(dq), qs, ks, vs, dos, S, H, softmax_scale());
-  } else {
-    const cudaError_t err = allow_smem(flash_bwd_dq_fp32_kernel, kDqSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dq_fp32_kernel<<<grid(B, S, H), kThreads, kDqSmem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        di, static_cast<float*>(dq), qs, ks, vs, dos, S, H, softmax_scale());
-  }
+  const cudaError_t err = allow_smem(flash_bwd_dq_fp32_kernel, kDqSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_fp32_kernel<<<grid(B, S, H), kThreads, kDqSmem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
+      static_cast<float*>(dq), qs, ks, vs, dos, S, H, softmax_scale());
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,19 +1,22 @@
-// K4 (forward) and K5 (dK, dV) of causal flash attention on bf16 inputs,
-// for Hopper (sm_90a): TMA copies into shared memory and wgmma products.
+// K4 (forward), K5 (dK, dV) and K6 (dQ) of causal flash attention on bf16
+// inputs, for Hopper (sm_90a): TMA copies into shared memory and wgmma
+// products.
 //
 // Replaces, for bf16 q/k/v, the stock TPU kernels that the JAX package calls
 // at ivideogpt_tpu/models/llama.py:97 (jax/experimental/pallas/ops/tpu/
 // flash_attention.py, JAX 0.9.0):
 //   K4  _flash_attention_kernel      :331 (launched :758)
 //   K5  _flash_attention_dkv_kernel  :796 (launched :1121)
+//   K6  _flash_attention_dq_kernel   :1146 (launched :1456)
 // A library of its own, with its own C entry points (ivg_flash_fwd_bf16,
-// ivg_flash_bwd_dkv_bf16, at the end). The fp32 kernels and K6 (dQ) are in
-// flash_attention.cu.
+// ivg_flash_bwd_dkv_bf16, ivg_flash_bwd_dq_bf16, at the end). The fp32
+// kernels are in flash_attention.cu.
 //
 // What they compute, for one (b, h), s = q.k * hd^-0.5, keys j <= query i:
 //   K4  O = softmax(s) V, lse_i = log sum_j exp(s_ij) (natural log, fp32)
 //   K5  P = exp(s - lse), dS = P * (dO V^T - di), dV = P^T dO,
 //       dK = dS^T Q * hd^-0.5
+//   K6  dQ = dS K * hd^-0.5
 // Scores, softmax statistics and sums are fp32; P and dS are rounded to
 // bf16 before their products, where the TPU kernel rounds them.
 //
@@ -22,7 +25,8 @@
 //   K4 train (B=16, S=751, H=12): 74 MB -> 22 us; 1.4e10 FLOP -> 14 us.
 //   K4 prefill (B=256, S=514):    0.81 GB -> 0.24 ms; 1.04e11 FLOP -> 0.105 ms.
 //   K5 train: 112 MB -> 33 us; 2.8e10 FLOP -> 28 us.
-// (FLOP counts the causal pairs only.) Bytes bound all three. Next come,
+//   K6 train: 93 MB -> 28 us; 2.1e10 FLOP -> 21 us.
+// (FLOP counts the causal pairs only.) Bytes bound all four. Next come,
 // on whole 64 x 64 tiles, the products and the exponentials (one MUFU ex2
 // per score, 16 a clock an SM): at the prefill about 0.15 ms each, so if a
 // CTA runs copy, products and softmax in series rather than overlapped,
@@ -40,11 +44,12 @@
 //     The streamed tiles sit in a 2-stage ring: tile j+1's copy is in
 //     flight while tile j's products run.
 //   - Products: wgmma.mma_async m64n64k16, bf16 in, fp32 out, from
-//     descriptors of the swizzled tiles. The first product of each pair
-//     reads both operands from shared memory (K-major); the second takes
-//     its A operand (P or dS) from registers, the first product's fp32
-//     accumulator rounded to bf16 in its own layout, and its B operand (V,
-//     dO or Q) from shared memory as an MN-major operand (transpose bit).
+//     descriptors of the swizzled tiles. The products of scores read both
+//     operands from shared memory (K-major); the products that follow take
+//     their A operand (P or dS) from registers, a score product's fp32
+//     accumulator rounded to bf16 in its own layout, and their B operand
+//     (V, dO, Q or K) from shared memory as an MN-major operand (transpose
+//     bit).
 //   - Scores: scale * log2(e) folded into one FMA before ex2; the causal
 //     and col < S masks only on the diagonal tile and the ragged last tile;
 //     lse is kept in log2 units inside the kernels and written in natural
@@ -53,11 +58,15 @@
 // copies; several CTAs an SM overlap one CTA's softmax with another's
 // products. K4: one CTA per (b*h, query tile). K5: one CTA per (b*h, key
 // tile); K and V are loaded once, Q, dO and the tile's lse and di flow
-// through the ring. The grid is one dimension, a head's tiles next to each
-// other (heaviest first: K4's last query tile, K5's key tile 0), so the
-// CTAs resident at once share few heads and the tiles they read again come
-// from L2: ordered by head first, the ~660 resident CTAs of the prefill
-// belong to as many heads, whose K and V (86 MB) overflow the 50 MB L2.
+// through the ring. K6: one CTA per (b*h, query tile); Q, dO and the rows'
+// lse and di are loaded once, K and V flow through the ring, and each key
+// tile takes three products: S = Q K^T and dP = dO V^T (shared x shared),
+// then dQ += dS K with dS from registers and K as an MN-major B. The grid
+// is one dimension, a head's tiles next to each other (heaviest first:
+// K4's and K6's last query tile, K5's key tile 0), so the CTAs resident at
+// once share few heads and the tiles they read again come from L2: ordered
+// by head first, the ~660 resident CTAs of the prefill belong to as many
+// heads, whose K and V (86 MB) overflow the 50 MB L2.
 // No atomics and no sums across CTAs: the gradients are deterministic.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -81,7 +90,9 @@ constexpr float kLn2 = 0.6931471805599453f;
 // Dynamic shared memory, from a base rounded up to kAlign:
 //   K4: Q | K0 | V0 | K1 | V1 | 3 mbarriers
 //   K5: K | V | Q0 | dO0 | Q1 | dO1 | lse[2][64] | di[2][64] | 3 mbarriers
+//   K6: Q | dO | K0 | V0 | K1 | V1 | 3 mbarriers
 constexpr int kFwdSmem = 5 * kTileBytes + 64 + kAlign;
+constexpr int kDqSmem = 6 * kTileBytes + 64 + kAlign;
 constexpr int kDkvLse = 6 * kTileBytes;
 constexpr int kDkvDi = kDkvLse + 2 * kTile * 4;
 constexpr int kDkvBars = kDkvDi + 2 * kTile * 4;
@@ -542,6 +553,122 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   store_tile(smem + kTileBytes, dv_acc, dv_mul, dv, b, h, H, k0, S);
 }
 
+// K6 ----------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di, bf16* __restrict__ dq,
+                         int S, int H, float scale, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  uint32_t base;
+  uint8_t* smem = aligned_smem(smem_raw, &base);
+  const uint32_t q_s = base, do_s = base + kTileBytes;
+  auto k_s = [&](int st) { return base + (2 + 2 * st) * kTileBytes; };
+  auto v_s = [&](int st) { return base + (3 + 2 * st) * kTileBytes; };
+  const uint32_t bar_q = base + 6 * kTileBytes;
+  auto bar_kv = [&](int st) { return bar_q + 8 * (1 + st); };
+
+  const int nt = (S + kTile - 1) / kTile;
+  const int bh = blockIdx.x / nt;
+  const int qt = nt - 1 - static_cast<int>(blockIdx.x % nt);
+  const int b = bh / H, h = bh % H;
+  const int q0 = qt * kTile;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row = q0 + 16 * (threadIdx.x >> 5) + g;  // and row + 8
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_kv(0), 1);
+    mbar_init(bar_kv(1), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_q, 2 * kTileBytes);
+    tma_load(q_s, &q_map, bar_q, h, q0, b);
+    tma_load(do_s, &do_map, bar_q, h, q0, b);
+    mbar_expect_tx(bar_kv(0), 2 * kTileBytes);
+    tma_load(k_s(0), &k_map, bar_kv(0), h, 0, b);
+    tma_load(v_s(0), &v_map, bar_kv(0), h, 0, b);
+  }
+  // lse (times log2(e)) and di of this thread's two rows; rows past S read
+  // zero Q and dO, so their dS is 0 and they are never stored
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool live = row + 8 * r < S;
+    const int64_t at = static_cast<int64_t>(bh) * S + row + 8 * r;
+    lse_r[r] = live ? lse[at] * kLog2e : 0.f;
+    di_r[r] = live ? di[at] : 0.f;
+  }
+  __syncthreads();
+
+  float dq_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+  const uint64_t q_desc = desc(q_s), do_desc = desc(do_s);
+  mbar_wait(bar_q, 0);
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int st = kt & 1;
+    // every thread is done with tile kt - 1, whose stage takes tile kt + 1
+    if (kt > 0) __syncthreads();
+    if (threadIdx.x == 0 && kt < qt) {
+      mbar_expect_tx(bar_kv(st ^ 1), 2 * kTileBytes);
+      tma_load(k_s(st ^ 1), &k_map, bar_kv(st ^ 1), h, (kt + 1) * kTile, b);
+      tma_load(v_s(st ^ 1), &v_map, bar_kv(st ^ 1), h, (kt + 1) * kTile, b);
+    }
+    mbar_wait(bar_kv(st), (kt >> 1) & 1);
+
+    // S = Q K^T, dP = dO V^T
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    const uint64_t k_desc = desc(k_s(st)), v_desc = desc(v_s(st));
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(s, q_desc + kStepK * kk, k_desc + kStepK * kk, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(dp, do_desc + kStepK * kk, v_desc + kStepK * kk, kk > 0);
+    wg_commit();
+    wg_wait_all();
+    reg_fence(s);
+    reg_fence(dp);
+
+    // P = exp(s - lse), dS = P (dP - di); the diagonal tile holds the
+    // causal edge and, on the last query tile, the ragged one (col >= S)
+    const bool diag = kt == qt;
+    const int k0 = kt * kTile;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = ex2(fmaf(s[i], scale_log2, -lse_r[r]));
+      if (diag) {
+        const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (col > row + 8 * r || col >= S) p = 0.f;
+      }
+      s[i] = p * (dp[i] - di_r[r]);
+    }
+    uint32_t dsa[4][4];  // dS rounded to bf16, as the TPU kernel rounds it
+    to_a(s, dsa);
+
+    // dQ += dS K
+    reg_fence(dq_acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dq_acc, dsa[kk], k_desc + kStepMN * kk);
+    wg_commit();
+    wg_wait_all();
+    reg_fence(dq_acc);
+  }
+
+  const float mul[2] = {scale, scale};
+  store_tile(smem, dq_acc, mul, dq, b, h, H, q0, S);
+}
+
 // ------------------------------- host --------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -601,8 +728,8 @@ bool bad_shape(int B, int S, int H, int hd) {
 
 // q/k/v: bf16 [B, S, H, 64] read through the given batch/sequence/head
 // strides (elements), head dim contiguous, base pointers 16-byte aligned and
-// strides multiples of 8 (TMA's rule). Outputs are contiguous: o, dk, dv
-// [B, S, H, 64] bf16, lse [B, H, S] fp32 (natural log). dout is contiguous
+// strides multiples of 8 (TMA's rule). Outputs are contiguous: o, dk, dv,
+// dq [B, S, H, 64] bf16, lse [B, H, S] fp32 (natural log). dout is contiguous
 // [B, S, H, 64] bf16; di is fp32 [B, H, S]. The same arguments as
 // flash_attention.cu's fp32 entry points. Each function encodes its tensor
 // maps, launches one kernel on `stream` and returns the first cudaError_t
@@ -659,5 +786,37 @@ extern "C" int ivg_flash_bwd_dkv_bf16(const void* q, const void* k,
                               static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), S, H, kScale, kScale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ivg_flash_bwd_dq_bf16(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* di,
+                                     void* dq, int B, int S, int H, int hd,
+                                     int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                                     int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                                     int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                                     void* stream) {
+  if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t sts[4][3] = {{q_sb, q_ss, q_sh},
+                             {k_sb, k_ss, k_sh},
+                             {v_sb, v_ss, v_sh},
+                             {static_cast<int64_t>(S) * H * kHd,
+                              static_cast<int64_t>(H) * kHd, kHd}};
+  const void* ptrs[4] = {q, k, v, dout};
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = make_map(&maps[i], ptrs[i], B, S, H, sts[i]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kDqSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H * ((S + kTile - 1) / kTile));
+  flash_bwd_dq_sm90_kernel<<<grid, kThreads, kDqSmem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<bf16*>(dq), S,
+      H, kScale, kScale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 """Causal attention over fresh q/k/v: kernels K4 (forward), K5 (dK, dV) and
-K6 (dQ) in ``csrc/flash_attention.cu`` (bf16 K4 and K5 in
-``csrc/flash_attention_sm90.cu``), and their plain PyTorch versions.
+K6 (dQ), bf16 in ``csrc/flash_attention_sm90.cu`` and fp32 in
+``csrc/flash_attention.cu``, and their plain PyTorch versions.
 
 One function serves the KV-cached prefill and the training forward:
 
@@ -243,7 +243,7 @@ def flash_bwd_dq(q, k, v, do, lse, di):
     _launch(_entry("bwd_dq", q.dtype), "flash_bwd_dq", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), dq.data_ptr(), B, S, H, HEAD_DIM,
-            *_strides(q, k, v), int(q.dtype == torch.bfloat16),
+            *_strides(q, k, v),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_bwd_dq.launches += 1
     return dq
@@ -254,22 +254,23 @@ flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0
 
 
+def _library(kernel, dtype):
+    """(library, C symbol) of kernel "fwd", "bwd_dkv" or "bwd_dq" for
+    ``dtype`` inputs: bf16 in ``csrc/flash_attention_sm90.cu`` (TMA +
+    ``wgmma``), fp32 in ``csrc/flash_attention.cu`` (FMA)."""
+    if dtype == torch.bfloat16:
+        return "flash_attention_sm90", f"ivg_flash_{kernel}_bf16"
+    return "flash_attention", f"ivg_flash_{kernel}_fp32"
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(kernel, dtype):
-    """The C entry point of kernel "fwd", "bwd_dkv" or "bwd_dq" for
-    ``dtype`` inputs, its argument types set: pointers, B, S, H, hd, 9
-    strides, [is_bf16 for dQ,] stream. The bf16 K4 and K5 are
-    ``csrc/flash_attention_sm90.cu``; the rest ``csrc/flash_attention.cu``."""
-    if kernel == "bwd_dq":
-        lib, sym = "flash_attention", "ivg_flash_bwd_dq"
-    elif dtype == torch.bfloat16:
-        lib, sym = "flash_attention_sm90", f"ivg_flash_{kernel}_bf16"
-    else:
-        lib, sym = "flash_attention", f"ivg_flash_{kernel}_fp32"
+    """The C entry point of :func:`_library`, its argument types set:
+    pointers, B, S, H, hd, 9 strides, stream."""
+    lib, sym = _library(kernel, dtype)
     fn = getattr(_build.load(lib), sym)
     p, i = ctypes.c_void_p, ctypes.c_int
     n_ptrs = {"fwd": 5, "bwd_dkv": 8, "bwd_dq": 7}[kernel]
-    flag = [i] if kernel == "bwd_dq" else []
-    fn.argtypes = [p] * n_ptrs + [i] * 4 + [ctypes.c_int64] * 9 + flag + [p]
+    fn.argtypes = [p] * n_ptrs + [i] * 4 + [ctypes.c_int64] * 9 + [p]
     fn.restype = ctypes.c_int
     return fn

@@ -10,11 +10,14 @@ computed in fp32 whatever the input dtype, with exact ties going to the
 smallest index (the semantics of ``ivideogpt_tpu/ops/vq.py``).
 
 K1 replaces the TPU kernel ``ivideogpt_tpu/ops/vq.py::_vq_argmin_kernel_flash``
-and K2 ``_vq_argmin_kernel``. :func:`vq_lookup` routes as the JAX package
-does (``vq.py:271-276``): K1 where the JAX package takes its flash kernel
-(padded fp32 codebook of at most 6 MB) and K1 takes the width, K2 everywhere
-else. Both are compute-bound on the H100's fp32 FMA rate (2*N*K*D FLOP);
-see the sources for their designs. The ids carry no gradient: ``quantize``
+and K2 ``_vq_argmin_kernel``. Both split the codebook across CTAs where N
+alone does not fill the card (:func:`k1_splits`, :func:`k2_splits`) and
+take the same fp32 arithmetic, so they give the same ids bit for bit.
+:func:`vq_lookup` routes as the JAX package does (``vq.py:271-276``): K1
+where the JAX package takes its flash kernel (padded fp32 codebook of at
+most 6 MB) and K1 takes the width, K2 everywhere else. Both are
+compute-bound on the H100's fp32 FMA rate (2*N*K*D FLOP); see the sources
+for their designs. The ids carry no gradient: ``quantize``
 sends the codebook's gradient through the gather, as the JAX package's
 ``custom_vjp`` does.
 """
@@ -22,6 +25,7 @@ sends the codebook's gradient through the gather, as the JAX package's
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -30,6 +34,10 @@ import torch.nn.functional as F
 from ivideogpt_tpu_torch import _build
 
 K1_WIDTHS = (8, 16, 32, 64)
+K1_ROWS = 128      # rows of z a K1 CTA
+K1_CODES = 128     # codes a K1 chunk; splits are whole chunks
+K1_CTAS_PER_SM = 1  # K1's residency (167 registers a thread at D=64)
+K1_MIN_CTAS_PER_SM = 2  # the grid's floor, where the codebook allows it
 K2_MAX_D = 512
 K2_ROWS = 64       # rows of z a K2 block
 K2_CODES = 64      # codes a K2 tile; splits are whole tiles
@@ -63,6 +71,29 @@ def uses_k1(k: int, d: int) -> bool:
     padded to 128, ``vq.py:274``) and K1 takes the width."""
     fits = _round_up(k, 128) * _round_up(d, 128) * 4 <= FLASH_LIMIT_BYTES
     return fits and d in K1_WIDTHS
+
+
+@functools.lru_cache(maxsize=None)
+def k1_splits(n: int, k: int, sms: int) -> Tuple[int, int]:
+    """(splits, codes_per_split) of K1's codebook, in whole chunks of
+    ``K1_CODES``, none empty. Of the plans whose grid of (row tiles,
+    splits) holds at least ``K1_MIN_CTAS_PER_SM`` CTAs an SM (or, where
+    the codebook has too few chunks for that, one chunk a split), the one
+    whose waves of ``K1_CTAS_PER_SM`` CTAs an SM take the least time,
+    counting a CTA as its chunks plus half a chunk for its z tile and
+    first copy; on a tie the fewer splits."""
+    row_tiles = -(-n // K1_ROWS)
+    chunks = -(-k // K1_CODES)
+    slots = K1_CTAS_PER_SM * sms
+    plan, cost = (chunks, 1), None
+    for per in range(chunks, 0, -1):
+        splits = -(-chunks // per)
+        if row_tiles * splits < K1_MIN_CTAS_PER_SM * sms and per > 1:
+            continue
+        c = -(-row_tiles * splits // slots) * (per + 0.5)
+        if cost is None or c < cost:
+            plan, cost = (splits, per), c
+    return plan[0], plan[1] * K1_CODES
 
 
 def k2_splits(n: int, k: int, sms: int) -> Tuple[int, int]:
@@ -101,18 +132,30 @@ def vq_argmin(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     _check("vq_argmin", z, codebook)
     n, d = z.shape
     k = codebook.shape[0]
-    if d not in K1_WIDTHS:
-        raise ValueError(f"vq_argmin: the kernel takes D in {K1_WIDTHS}, "
-                         f"got {d}")
+    if d not in K1_WIDTHS or k < 1:
+        raise ValueError(f"vq_argmin: the kernel takes D in {K1_WIDTHS} and "
+                         f"K >= 1, got D={d}, K={k}")
+    out = torch.empty(n, dtype=torch.int64, device=z.device)
+    if n == 0:
+        return out
     zf = z.float().contiguous()
     ef = codebook.float().contiguous()
-    en = (ef * ef).sum(1)
-    out = torch.empty(n, dtype=torch.int64, device=z.device)
-    _aligned("vq_argmin", zf, ef)
-    lib = _vq_lib()
-    err = lib.ivg_vq_argmin(zf.data_ptr(), ef.data_ptr(), en.data_ptr(),
-                            out.data_ptr(), n, k, d,
-                            torch.cuda.current_stream(z.device).cuda_stream)
+    en = (ef * ef).sum(1)   # the plain version's and K2's ||E||^2
+    _aligned("vq_argmin", zf)
+    splits, per_split = k1_splits(n, k, _sms(z.device))
+    # one scratch allocation: E^T [D, K rounded up to 4] (written by the
+    # library), then, with splits, their fp32 distances and int32 ids
+    et_size = d * _round_up(k, 4)
+    part_size = 2 * splits * n if splits > 1 else 0
+    scratch = torch.empty(et_size + part_size, dtype=torch.float32,
+                          device=z.device)
+    et = scratch.data_ptr()
+    part_d = et + 4 * et_size if splits > 1 else None
+    part_i = part_d + 4 * splits * n if splits > 1 else None
+    err = _k1_entry()(zf.data_ptr(), ef.data_ptr(), et, en.data_ptr(),
+                      part_d, part_i, out.data_ptr(), n, k, d, splits,
+                      per_split,
+                      torch.cuda.current_stream(z.device).cuda_stream)
     if err:
         raise RuntimeError(f"vq_argmin kernel launch failed: cudaError {err}")
     vq_argmin.launches += 1
@@ -146,8 +189,7 @@ def vq_argmin_tiled(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     zf = F.pad(zf, (0, dp - d)).contiguous()
     ef = F.pad(ef, (0, dp - d)).contiguous()
     _aligned("vq_argmin_tiled", zf, ef)
-    sms = torch.cuda.get_device_properties(z.device).multi_processor_count
-    splits, per_split = k2_splits(n, k, sms)
+    splits, per_split = k2_splits(n, k, _sms(z.device))
     part_d = torch.empty(splits, n, dtype=torch.float32, device=z.device)
     part_i = torch.empty(splits, n, dtype=torch.int32, device=z.device)
     lib = _vq_tiled_lib()
@@ -165,12 +207,18 @@ def vq_argmin_tiled(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
 vq_argmin_tiled.launches = 0
 
 
-def _vq_lib() -> ctypes.CDLL:
-    lib = _build.load("vq_argmin")
-    fn = lib.ivg_vq_argmin
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_entry():
+    fn = _build.load("vq_argmin").ivg_vq_argmin
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _vq_tiled_lib() -> ctypes.CDLL:

@@ -16,6 +16,8 @@ JAX as the fp32 values of the same bf16 numbers, since the plain versions
 compute in fp32 and round only their outputs to the input type.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +25,9 @@ import torch
 from jax.experimental.pallas.ops.tpu.flash_attention import (
     mha_reference_bwd, mha_reference_no_custom_vjp)
 
-from ivideogpt_tpu_torch.ops.flash_attention import (flash_bwd_dkv_plain,
+from ivideogpt_tpu_torch import _build
+from ivideogpt_tpu_torch.ops.flash_attention import (_library,
+                                                     flash_bwd_dkv_plain,
                                                      flash_bwd_dq_plain,
                                                      flash_fwd_plain)
 
@@ -108,3 +112,22 @@ def test_plain_forward_and_backward_agree_with_autograd():
     dq = flash_bwd_dq_plain(q, k, v, do, lse, di)
     for ours, theirs in zip((dq, dk, dv), grads):
         torch.testing.assert_close(ours, theirs, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd_dkv", "bwd_dq"])
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_entry_points_by_dtype(kernel, dt):
+    """bf16 K4, K5 and K6 are the TMA + wgmma kernels of
+    flash_attention_sm90.cu; fp32 the FMA kernels of flash_attention.cu.
+    Decided without loading a library."""
+    lib, sym = _library(kernel, DT[dt])
+    if dt == "bf16":
+        assert (lib, sym) == ("flash_attention_sm90",
+                              f"ivg_flash_{kernel}_bf16")
+    else:
+        assert (lib, sym) == ("flash_attention", f"ivg_flash_{kernel}_fp32")
+    # each symbol is defined by its library's source, and only there
+    for name in ("flash_attention", "flash_attention_sm90"):
+        with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
+            defined = f'extern "C" int {sym}(' in f.read()
+        assert defined == (name == lib), (name, sym)

@@ -4,13 +4,13 @@ Marked ``gpu``; each test decides inside itself whether a card is present
 and skips when there is none. Imports no JAX, so it runs on a machine
 without it:
 
-    python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu_*.py
 
 The checks at the main path's full shapes are ``chip_smoke.py``'s phases;
-these cover the edges: ragged tiles, small D, ties across K2's codebook
-splits, fp32 queries, a single live slot, strided views, the bf16 K4 and
-K5 at their own interface (lse in, lse out) and launch to launch, and the
-wrappers' refusals.
+these cover the edges: ragged tiles, small D, K1 equal to K2 bit for bit,
+ties across K1's and K2's codebook splits, fp32 queries, a single live
+slot, strided views, the bf16 K4, K5 and K6 at their own interface (lse
+in, lse out) and launch to launch, and the wrappers' refusals.
 """
 
 import pytest
@@ -41,6 +41,47 @@ def test_vq_argmin_matches_plain(cuda, n, k, d):
     assert vq.vq_argmin.launches == before + 1
     # small integers: every distance is exact, ties included
     torch.testing.assert_close(ours, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 8192])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1536, 3584, 8192])
+def test_vq_argmin_equals_k2_bit_for_bit(cuda, n, d, k):
+    """K1 and K2 take the same fp32 arithmetic (one fmaf chain over d, the
+    wrapper's ||E||^2, a strict < in k, ties to the smallest index), so on
+    random inputs their ids are equal, not merely close. A duplicated code
+    and a row equal to it plant an exact tie."""
+    from ivideogpt_tpu_torch.ops import vq
+    g = torch.Generator(device=cuda).manual_seed(n * 1000 + d * 10 + k)
+    z = torch.randn(n, d, device=cuda, generator=g)
+    e = torch.randn(k, d, device=cuda, generator=g)
+    if k > 1:
+        e[k - 1] = e[k // 2]
+        z[0] = e[k // 2]
+    before = vq.vq_argmin.launches
+    ours = vq.vq_argmin(z, e)
+    assert vq.vq_argmin.launches == before + 1
+    assert ours.dtype == torch.int64 and ours.shape == (n,)
+    assert torch.equal(ours, vq.vq_argmin_tiled(z, e))
+    if k > 1:
+        assert int(ours[0]) == k // 2
+
+
+def test_vq_argmin_ties_across_every_split_go_to_the_smallest_index(cuda):
+    from ivideogpt_tpu_torch.ops import vq
+    n, k, d = 1536, 8192, 64
+    g = torch.Generator(device=cuda).manual_seed(0)
+    e = torch.randn(k, d, device=cuda, generator=g)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits, per = vq.k1_splits(n, k, sms)
+    assert splits > 1
+    for s in range(1, splits):   # copies of codes 0..49 on every boundary
+        e[s * per - 25:s * per + 25] = e[:50]
+    z = torch.cat([e[:50], torch.randn(n - 50, d, device=cuda, generator=g)])
+    ids = vq.vq_argmin(z, e)
+    assert (ids[:50] == torch.arange(50, device=cuda)).all()
+    for s in range(1, splits):
+        assert not ((ids >= s * per - 25) & (ids < s * per + 25)).any()
 
 
 def test_vq_argmin_refuses_unsupported_width(cuda):
@@ -263,6 +304,33 @@ def test_flash_sm90_kernels_match_plain_at_their_interface(cuda, S, B, H,
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
 
 
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("B,H", [(1, 1), (32, 12)])
+@pytest.mark.parametrize("S", [1, 2, 63, 64, 65, 127, 128, 129, 514, 751,
+                               1024])
+def test_flash_sm90_dq_matches_plain_at_its_interface(cuda, S, B, H, fused):
+    """The bf16 K6 (dQ) against flash_bwd_dq_plain in fp32 on the same bf16
+    inputs, both fed the plain lse and di, so it is tested apart from K4;
+    bit-identical launch to launch."""
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    q, k, v, do = _bf16_qkv_do(cuda, B, S, H, S * B + 1, fused)
+    with full_fp32():
+        ref_o, lse = fa.flash_fwd_plain(q.float(), k.float(), v.float())
+        di = (ref_o * do.float()).sum(-1).transpose(1, 2).contiguous()
+        ref = fa.flash_bwd_dq_plain(q.float(), k.float(), v.float(),
+                                    do.float(), lse, di)
+    before = fa.flash_bwd_dq.launches
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, di)
+    again = fa.flash_bwd_dq(q, k, v, do, lse, di)
+    assert fa.flash_bwd_dq.launches == before + 2
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    assert dq.is_contiguous()
+    _gate(dq, ref, "K6 dQ")
+    # no atomics, no sums across blocks: bit-identical launch to launch
+    assert torch.equal(dq, again)
+
+
 def test_flash_sm90_kernels_refuse_what_tma_cannot_read(cuda):
     """TMA needs a 16-byte aligned base and 16-byte strides, and the head
     dim contiguous; dO must be contiguous. The wrappers raise on the rest."""
@@ -283,11 +351,13 @@ def test_flash_sm90_kernels_refuse_what_tma_cannot_read(cuda):
     o, lse = fa.flash_fwd(q, k, v)
     di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     for args in ((bad["misaligned"], k, v, do, lse, di),
+                 (q, k, bad["head dim stride 2"], do, lse, di),
                  (q, k, v, do.transpose(1, 2).contiguous().transpose(1, 2),
                   lse, di),
                  (q, k, v, do, lse.transpose(1, 2).contiguous(), di)):
-        with pytest.raises(ValueError):
-            fa.flash_bwd_dkv(*args)
+        for bwd in (fa.flash_bwd_dkv, fa.flash_bwd_dq):
+            with pytest.raises(ValueError):
+                bwd(*args)
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda):

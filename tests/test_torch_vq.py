@@ -147,6 +147,69 @@ def test_k2_splits_cover_the_codebook_and_fill_the_card(n, k):
     assert row_tiles * splits >= 2 * 132 or splits == tiles
 
 
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("k", [1, 63, 64, 8192])
+@pytest.mark.parametrize("n", [1, 127, 1536, 3584, 8192, 131072])
+def test_k1_splits_cover_the_codebook_and_fill_the_card(n, k, sms):
+    splits, per = tvq.k1_splits(n, k, sms)
+    assert per % tvq.K1_CODES == 0
+    # every code in exactly one split, none empty
+    assert (splits - 1) * per < k <= splits * per
+    row_tiles = -(-n // tvq.K1_ROWS)
+    chunks = -(-k // tvq.K1_CODES)
+    # at least 2 CTAs an SM, unless every split is already one chunk
+    assert tvq.K1_MIN_CTAS_PER_SM == 2
+    assert (row_tiles * splits >= tvq.K1_MIN_CTAS_PER_SM * sms
+            or splits == chunks)
+    if n == 131072 and sms == 132:
+        assert splits == 1          # the rollout's lookup needs no split
+
+
+def _split_then_combine(z, e, splits, per):
+    """K1's two passes in plain torch: each split's first-index argmin and
+    its distance, then the lexicographic (dist, idx) minimum over splits."""
+    zt, et = torch.from_numpy(z), torch.from_numpy(e)
+    dist = (et * et).sum(1)[None, :] - 2.0 * (zt @ et.t())
+    best_d = torch.full((z.shape[0],), float("inf"))
+    best_i = torch.full((z.shape[0],), np.iinfo(np.int32).max)
+    for s in range(splits):
+        part = dist[:, s * per:(s + 1) * per]
+        i = part.argmin(1)
+        d = part.gather(1, i[:, None])[:, 0]
+        i = i + s * per
+        better = (d < best_d) | ((d == best_d) & (i < best_i))
+        best_d = torch.where(better, d, best_d)
+        best_i = torch.where(better, i, best_i)
+    return best_i.numpy()
+
+
+@pytest.mark.parametrize("n,k,d,sms", [(300, 2000, 8, 132),
+                                       (1536, 8192, 16, 114)])
+def test_k1_split_then_combine_is_the_lookup(n, k, d, sms):
+    """At the split plan's boundaries, with exact ties planted across each,
+    combining per-split argmins gives the plain lookup's ids and the TPU
+    flash kernel's (interpret mode): ties go to the smallest index across
+    splits too. Small integers make every distance exact."""
+    splits, per = tvq.k1_splits(n, k, sms)
+    assert splits > 1
+    rng = np.random.default_rng(n + k)
+    e = rng.integers(-3, 4, (k, d)).astype(np.float32)
+    z = rng.integers(-3, 4, (n, d)).astype(np.float32)
+    planted = {}
+    for s in range(1, splits):
+        c = s - 1                                  # a code of split 0
+        e[s * per - 1] = e[s * per] = e[c]         # copies on both sides
+        z[s] = e[c]
+        planted[s] = np.flatnonzero((e == e[c]).all(1))[0]
+    ours = _split_then_combine(z, e, splits, per)
+    np.testing.assert_array_equal(
+        ours, tvq.vq_lookup_plain(torch.from_numpy(z),
+                                  torch.from_numpy(e)).numpy())
+    np.testing.assert_array_equal(ours, _jax_ids(z, e)[0])
+    for row, first in planted.items():
+        assert ours[row] == first <= row - 1
+
+
 @pytest.mark.parametrize("shape,k", [((2, 5, 16), 40), ((37, 72), 300)])
 def test_quantize_matches_jax(shape, k):
     """Ids, the straight-through output, the commit loss, and the gradients
