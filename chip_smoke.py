@@ -4,6 +4,7 @@ against their plain PyTorch versions.
 
     python3 chip_smoke.py
     python3 <path to>/chip_smoke.py --ab-turn   # one A/B turn, see ab_turn
+    python3 chip_smoke.py --vq-routing   # K1 against K2, see vq_routing
 
 Phases, each printed on its own lines; any failure exits non-zero without
 the final result line:
@@ -14,8 +15,10 @@ the final result line:
                (TF32 off) and K2 (bit for bit), ties across a codebook
                split; timed beside K2, the plain version, cdist+argmin
      K2        the tiled VQ argmin at the wide training step's shapes
-               (N=8192 and 1536, K=16384, D=256) and the rollout's (also
-               against K1), plus duplicated rows across a codebook split
+               (N=8192 and 1536, K=16384, D=256) and the rollout's (there
+               against K1 bit for bit and timed beside it), two launches
+               bit-identical, ties across a codebook split; timed beside
+               the plain version and cdist+argmin
   4. K3        int8 decode attention at B=256, H=12, hd=64, M=752 for
                valid in {515, 633, 751} against the plain version
   5. flash     K4 (causal flash-attention forward) at the training shape
@@ -80,6 +83,12 @@ TOK_WIDE_WARMUP, TOK_WIDE_TIMED = 1, 3
 K1_SHAPES = (("rollout", B * CTX * 256), ("context", TRAIN_B * CTX * 256),
              ("GPT-step dynamics", TRAIN_B * (T - CTX) * 16),
              ("tokenizer dynamics", TRAIN_B * (TOK_T - TOK_CTX) * 16))
+# K2's: the wide tokenizer pair's context and dynamics lookups against
+# 16384 x 256 codebooks, and the rollout's lookup, which the routing sends
+# to K1 (one timed shape on each side of it)
+K2_SHAPES = (("context", TRAIN_B * TOK_CTX * 256, 16384, 256),
+             ("dynamics", TRAIN_B * (TOK_T - TOK_CTX) * 16, 16384, 256),
+             ("rollout", B * CTX * 256, 8192, 64))
 
 
 class PhaseError(Exception):
@@ -166,22 +175,21 @@ def near_tie_gate(torch, what, z, e, ids, ref):
     return max_err
 
 
-def k1_ties(torch, vq, name, z, e, sms):
-    """Copies of codes 0..255 on both sides of a split boundary of K1's plan
-    for z (the middle of the codebook where there is one split); rows of z
-    equal to codes 0..255 must resolve to them, the smallest index."""
+def split_ties(torch, what, argmin, z, e, splits, per):
+    """Copies of codes 0..255 on both sides of the first split boundary of a
+    plan for z (the middle of the codebook where there is one split); rows
+    of z equal to codes 0..255 must resolve to them, the smallest index."""
     n, k = z.shape[0], e.shape[0]
-    splits, per = vq.k1_splits(n, k, sms)
     edge = per if splits > 1 else k // 2
     e_dup = e.clone()
     e_dup[edge - 128:edge + 128] = e[:256]
-    ids = vq.vq_argmin(torch.cat([e[:256], z[:n - 256]]), e_dup)
+    ids = argmin(torch.cat([e[:256], z[:n - 256]]), e_dup)
     check(bool(((ids < edge - 128) | (ids >= edge + 128)).all()),
-          f"K1 {name}: a tie did not go to the smallest index")
+          f"{what}: a tie did not go to the smallest index")
     check(bool((ids[:256] == torch.arange(256, device="cuda")).all()),
-          f"K1 {name}: exact matches not found at the smaller index")
+          f"{what}: exact matches not found at the smaller index")
     where = "the split at" if splits > 1 else "index"
-    print(f"K1 {name} ties: codes copied across {where} {edge} ({splits} "
+    print(f"{what} ties: codes copied across {where} {edge} ({splits} "
           f"splits of {per} codes) resolve to the smallest index")
 
 
@@ -201,7 +209,7 @@ def phase_k1(torch):
     for name, n in K1_SHAPES:
         z = torch.randn(n, d, device="cuda", generator=g)
         e = torch.randn(k, d, device="cuda", generator=g)
-        splits, _ = vq.k1_splits(n, k, sms)
+        splits, per = vq.vq_splits(n, k, sms, vq.K1_FIXED_TILES)
         iters = 10 if n > 8192 else 50
         with full_fp32():
             ids = vq.vq_argmin(z, e)
@@ -213,7 +221,7 @@ def phase_k1(torch):
             check(torch.equal(ids, vq.vq_argmin_tiled(z, e)),
                   f"K1 {name} N={n}: ids differ from K2's")
             print(f"K1 {name} N={n}: ids equal to K2's bit for bit")
-            k1_ties(torch, vq, name, z, e, sms)
+            split_ties(torch, f"K1 {name}", vq.vq_argmin, z, e, splits, per)
             ms = cuda_ms(lambda: vq.vq_argmin(z, e), iters)
             q_ms, host_ms = queued_ms(lambda: vq.vq_argmin(z, e), iters)
             k2_ms = cuda_ms(lambda: vq.vq_argmin_tiled(z, e), iters)
@@ -246,23 +254,25 @@ def phase_k1(torch):
     return row
 
 
-def phase_k2(torch):
-    """K2 against its plain version, TF32 off, at the wide training step's
-    shapes (context N=8192 and dynamics N=1536 against a 16384 x 256
-    codebook) and at the rollout's (N=131072, K=8192, D=64), where it is
-    also held against K1 bit for bit; duplicated rows across a codebook
-    split resolve to the smallest index. The kernels line keeps the wide
-    context shape's times, the largest lookup of the wide step."""
+def phase_k2(torch, k1):
+    """K2 at K2_SHAPES, TF32 off: ids against the plain version by
+    near_tie_gate and, at the rollout's shape, equal to K1's bit for bit;
+    ties across a split boundary. Times by cuda_ms and queued_ms beside the
+    plain version and cdist+argmin; at the rollout's shape, where the
+    routing sends K1 (one timed shape on each side of it), K1's times from
+    phase_k1's row ``k1``. The kernels line keeps the wide context shape's
+    numbers, the largest lookup of the wide step, and every shape's under
+    ``at_shape``."""
     from ivideogpt_tpu_torch.ops import vq
     from ivideogpt_tpu_torch.utils.platform import full_fp32
     g = torch.Generator(device="cuda").manual_seed(20)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    row, worst = None, 0.0
-    for name, n, k, d in (("context", 8192, 16384, 256),
-                          ("dynamics", 1536, 16384, 256),
-                          ("rollout", B * CTX * 256, 8192, 64)):
+    row, worst, at_shape = None, 0.0, {}
+    for name, n, k, d in K2_SHAPES:
         z = torch.randn(n, d, device="cuda", generator=g)
         e = torch.randn(k, d, device="cuda", generator=g)
+        splits, per = vq.vq_splits(n, k, sms, vq.k2_fixed(d))
+        iters = 10 if n * k * d > 2**34 else 30
         with full_fp32():
             ids = vq.vq_argmin_tiled(z, e)
             ref = vq.vq_lookup_plain(z, e)
@@ -270,50 +280,88 @@ def phase_k2(torch):
             worst = max(worst, near_tie_gate(
                 torch, f"K2 {name} ids against the plain version", z, e, ids,
                 ref))
-            if name == "rollout":
+            check(torch.equal(ids, vq.vq_argmin_tiled(z, e)),
+                  f"K2 {name}: two launches differ")
+            split_ties(torch, f"K2 {name}", vq.vq_argmin_tiled, z, e, splits,
+                       per)
+            extra = {}
+            if d in vq.K1_WIDTHS:
                 check(torch.equal(ids, vq.vq_argmin(z, e)),
-                      "K2 rollout ids differ from K1's")
-                print("K2 rollout ids equal to K1's bit for bit")
-            else:
-                # copies of rows 0..511 straddling the first split boundary
-                n_dup = 512 + 4096
-                splits, per = vq.k2_splits(n_dup, k, sms)
-                e_dup = e.clone()
-                e_dup[per - 256:per + 256] = e[:512]
-                ids_dup = vq.vq_argmin_tiled(
-                    torch.cat([e[:512], z[:4096]]), e_dup)
-                check(bool(((ids_dup < per - 256) | (ids_dup >= per + 256))
-                           .all()), f"K2 {name}: a tie did not go to the "
-                      f"smallest index")
-                check(bool((ids_dup[:512] == torch.arange(
-                    512, device="cuda")).all()), f"K2 {name}: exact matches "
-                      f"not found at the smaller index")
-                print(f"K2 {name} ties: rows copied across the split at "
-                      f"{per} ({splits} splits) resolve to the smallest "
-                      f"index")
-            ms = cuda_ms(lambda: vq.vq_argmin_tiled(z, e), 10)
+                      f"K2 {name} ids differ from K1's")
+                print(f"K2 {name} ids equal to K1's bit for bit")
+                at = k1["at_n"][n]   # phase_k1 timed K1 at K=8192, D=64
+                extra = dict(k1_ms=at["ms"], k1_queued_ms=at["queued_ms"])
+            ms = cuda_ms(lambda: vq.vq_argmin_tiled(z, e), iters)
+            q_ms, host_ms = queued_ms(lambda: vq.vq_argmin_tiled(z, e), iters)
+            resident, smem = vq.k2_route(d)
             plain_ms = cuda_ms(lambda: vq.vq_lookup_plain(z, e), 5)
             lib_ms = cuda_ms(lambda: torch.cdist(z, e).argmin(1), 5)
+            lib_q_ms = queued_ms(lambda: torch.cdist(z, e).argmin(1), 5)[0]
         b_ms, b_by = bound(n * d * 4 + k * d * 4 + k * 4 + n * 8,
                            2 * n * k * d, FP32_PEAK)
-        # the z tile [D][64], a 32 x 64 codebook chunk and its 64 norms
-        smem = (d * vq.K2_ROWS + 32 * vq.K2_CODES + vq.K2_CODES) * 4
-        print(f"K2 {name} N={n} K={k} D={d} splits="
-              f"{vq.k2_splits(n, k, sms)[0]}: kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-              f"(cdist+argmin) bound_ms={b_ms:.4f} ({b_by}) "
-              f"share_of_bound={b_ms / ms:.3f}; dynamic shared memory "
-              f"{smem} bytes a block")
+        print(f"K2 {name} N={n} K={k} D={d} splits={splits}: "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} (cdist+argmin; queued "
+              f"{lib_q_ms:.4f}, K2 {lib_q_ms / q_ms:.3f}x faster) "
+              f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f}; "
+              f"queued: kernel_ms={q_ms:.4f} (share {b_ms / q_ms:.3f}), "
+              f"host_ms per call {host_ms:.4f}; z "
+              f"{'resident' if resident else 'streamed'}, dynamic shared "
+              f"memory {smem} bytes a CTA"
+              + "".join(f"; {key} {v:.4f}" for key, v in extra.items()))
+        at_shape[name] = dict(n=n, k=k, d=d, splits=splits, ms=ms,
+                              queued_ms=q_ms, host_ms=host_ms,
+                              plain_ms=plain_ms, library_ms=lib_ms,
+                              library_queued_ms=lib_q_ms, bound_ms=b_ms,
+                              z_resident=resident, smem=smem, **extra)
         if row is None:
             row = dict(name="vq_argmin_tiled", route="cuda",
                        source="ivideogpt_tpu_torch/csrc/vq_argmin_tiled.cu",
-                       replaces="ivideogpt_tpu/ops/vq.py:46", ms=ms,
-                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=lib_ms)
+                       replaces="ivideogpt_tpu/ops/vq.py:46",
+                       shape=f"{name} N={n} K={k} D={d}", ms=ms,
+                       queued_ms=q_ms, host_ms=host_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       library="cdist+argmin")
         del z, e, ids, ref
     torch.cuda.empty_cache()
     row["max_abs_err"] = worst
+    row["at_shape"] = at_shape
     return row
+
+
+def vq_routing(torch):
+    """K1 and K2 side by side at K in {8192, 16384, 32768} x D in K1's
+    widths {8, 16, 32, 64} x N in {1536, 8192, 131072}, by cuda_ms and
+    queued_ms, their ids held equal: the measurement behind ops/vq.uses_k1
+    (``--vq-routing``)."""
+    from ivideogpt_tpu_torch.ops import vq
+    g = torch.Generator(device="cuda").manual_seed(30)
+    out = []
+    for d in vq.K1_WIDTHS:
+        for k in (8192, 16384, 32768):
+            for n in (1536, 8192, 131072):
+                z = torch.randn(n, d, device="cuda", generator=g)
+                e = torch.randn(k, d, device="cuda", generator=g)
+                check(torch.equal(vq.vq_argmin(z, e),
+                                  vq.vq_argmin_tiled(z, e)),
+                      f"routing N={n} K={k} D={d}: K1 and K2 ids differ")
+                iters = 5 if n == 131072 else 30
+                r = dict(n=n, k=k, d=d)
+                for key, fn in (("k1", vq.vq_argmin),
+                                ("k2", vq.vq_argmin_tiled)):
+                    r[key + "_ms"] = cuda_ms(lambda: fn(z, e), iters)
+                    r[key + "_queued_ms"] = queued_ms(lambda: fn(z, e),
+                                                      iters)[0]
+                r["k2_over_k1_queued"] = r["k2_queued_ms"] / r["k1_queued_ms"]
+                print(f"routing N={n} K={k} D={d}: K1 {r['k1_ms']:.4f} ms "
+                      f"(queued {r['k1_queued_ms']:.4f}), K2 "
+                      f"{r['k2_ms']:.4f} (queued {r['k2_queued_ms']:.4f}); "
+                      f"K2 / K1 queued {r['k2_over_k1_queued']:.3f}")
+                out.append(r)
+                del z, e
+    torch.cuda.empty_cache()
+    print("routing: " + json.dumps(out))
+    return out
 
 
 def phase_k3(torch):
@@ -1263,23 +1311,27 @@ def phase_train_check(torch):
 
 
 def ab_kernel_times(torch):
-    """K1 at K1_SHAPES, and K5, K6 and SDPA's backward at the training
-    shape, by cuda_ms and queued_ms, through the interfaces every tree of
-    the port has: the kernel half of an A/B turn (``--ab-turn``)."""
+    """K1 at K1_SHAPES, K2 at the wide shapes of K2_SHAPES, and K5, K6 and
+    SDPA's backward at the training shape, by cuda_ms and queued_ms,
+    through the interfaces every tree of the port has: the kernel half of
+    an A/B turn (``--ab-turn``)."""
     import torch.nn.functional as F
     from ivideogpt_tpu_torch.ops import flash_attention as fa
     from ivideogpt_tpu_torch.ops import vq
     from ivideogpt_tpu_torch.utils.platform import full_fp32
     out = {}
     g = torch.Generator(device="cuda").manual_seed(1)
-    for _, n in K1_SHAPES:
-        z = torch.randn(n, 64, device="cuda", generator=g)
-        e = torch.randn(8192, 64, device="cuda", generator=g)
-        iters = 10 if n > 8192 else 50
+    shapes = ([(f"K1 N={n}", vq.vq_argmin, n, 8192, 64)
+               for _, n in K1_SHAPES]
+              + [(f"K2 N={n} K={k} D={d}", vq.vq_argmin_tiled, n, k, d)
+                 for _, n, k, d in K2_SHAPES if d not in vq.K1_WIDTHS])
+    for key, fn, n, k, d in shapes:
+        z = torch.randn(n, d, device="cuda", generator=g)
+        e = torch.randn(k, d, device="cuda", generator=g)
+        iters = 10 if n * k * d > 2**34 else 50
         with full_fp32():
-            out[f"K1 N={n}"] = (
-                cuda_ms(lambda: vq.vq_argmin(z, e), iters),
-                queued_ms(lambda: vq.vq_argmin(z, e), iters)[0])
+            out[key] = (cuda_ms(lambda: fn(z, e), iters),
+                        queued_ms(lambda: fn(z, e), iters)[0])
     q, k, v, do = (torch.randn(TRAIN_B, 751, 12, 64, device="cuda",
                                generator=g).bfloat16() for _ in range(4))
     o, lse = fa.flash_fwd(q, k, v)
@@ -1307,12 +1359,14 @@ def ab_turn(torch):
     """One turn of an A/B between two trees of the port on one card, run as
     ``python3 <this file> --ab-turn`` from the root of the tree to measure
     (its package is the one imported): the kernels' times, then the
-    rollout, the GPT step and the tokenizer pair, each with its profiled
-    device seconds. Turns alternate between the trees, parent first."""
+    rollout, the GPT step, the tokenizer pair and the wide pair, each with
+    its profiled device seconds. Turns alternate between the trees, parent
+    first."""
     ab_kernel_times(torch)
     phase_main(torch)
     phase_train(torch)
     phase_tok_train(torch, wide=False)
+    phase_tok_train(torch, wide=True)
 
 
 def main():
@@ -1325,7 +1379,12 @@ def main():
         print("FAIL: no CUDA device; this script measures the GPU port",
               file=sys.stderr)
         return 1
-    ab = sys.argv[1:] == ["--ab-turn"]
+    mode = sys.argv[1:]
+    ab = mode == ["--ab-turn"]
+    if mode not in ([], ["--ab-turn"], ["--vq-routing"]):
+        print(f"FAIL: usage: {sys.argv[0]} [--ab-turn | --vq-routing]",
+              file=sys.stderr)
+        return 1
     tree = os.getcwd() if ab else REPO
     if not os.path.isdir(os.path.join(tree, "ivideogpt_tpu_torch")):
         print("FAIL: run from a checkout that holds ivideogpt_tpu_torch/",
@@ -1351,8 +1410,11 @@ def main():
         if ab:
             ab_turn(torch)
             return 0
+        if mode == ["--vq-routing"]:
+            vq_routing(torch)
+            return 0
         k1 = phase_k1(torch)
-        k2 = phase_k2(torch)
+        k2 = phase_k2(torch, k1)
         k3 = phase_k3(torch)
         flash = phase_flash(torch)
         by_path = {"rollout": phase_main(torch)}
@@ -1387,7 +1449,7 @@ def main():
     keys = ("name", "shape", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "queued_ms", "host_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
-            "at_n")
+            "at_n", "at_shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(card)

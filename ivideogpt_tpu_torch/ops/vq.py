@@ -10,15 +10,14 @@ computed in fp32 whatever the input dtype, with exact ties going to the
 smallest index (the semantics of ``ivideogpt_tpu/ops/vq.py``).
 
 K1 replaces the TPU kernel ``ivideogpt_tpu/ops/vq.py::_vq_argmin_kernel_flash``
-and K2 ``_vq_argmin_kernel``. Both split the codebook across CTAs where N
-alone does not fill the card (:func:`k1_splits`, :func:`k2_splits`) and
-take the same fp32 arithmetic, so they give the same ids bit for bit.
-:func:`vq_lookup` routes as the JAX package does (``vq.py:271-276``): K1
-where the JAX package takes its flash kernel (padded fp32 codebook of at
-most 6 MB) and K1 takes the width, K2 everywhere else. Both are
-compute-bound on the H100's fp32 FMA rate (2*N*K*D FLOP); see the sources
-for their designs. The ids carry no gradient: ``quantize``
-sends the codebook's gradient through the gather, as the JAX package's
+and K2 ``_vq_argmin_kernel``. Both tile z in 128 rows and the codebook in
+128 codes, split the codebook across CTAs where N alone does not fill the
+card (:func:`vq_splits`) and take the same fp32 arithmetic, so they give
+the same ids bit for bit. K1 holds D whole (D in ``K1_WIDTHS``); K2 streams
+it and takes any D up to 512. :func:`vq_lookup` routes by :func:`uses_k1`.
+Both are compute-bound on the H100's fp32 FMA rate (2*N*K*D FLOP); see the
+sources for their designs. The ids carry no gradient: ``quantize`` sends
+the codebook's gradient through the gather, as the JAX package's
 ``custom_vjp`` does.
 """
 
@@ -29,19 +28,17 @@ import functools
 from typing import NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ivideogpt_tpu_torch import _build
 
 K1_WIDTHS = (8, 16, 32, 64)
-K1_ROWS = 128      # rows of z a K1 CTA
-K1_CODES = 128     # codes a K1 chunk; splits are whole chunks
-K1_CTAS_PER_SM = 1  # K1's residency (167 registers a thread at D=64)
-K1_MIN_CTAS_PER_SM = 2  # the grid's floor, where the codebook allows it
+VQ_ROWS = 128       # rows of z a CTA, K1 and K2
+VQ_CODES = 128      # codes a tile; splits are whole tiles
+VQ_CTAS_PER_SM = 1  # both kernels' residency (K1 167, K2 141-149 registers)
+VQ_MIN_CTAS_PER_SM = 2  # the grid's floor, where the codebook allows it
+K1_FIXED_TILES = 0.5    # a K1 CTA's z tile and first copy, in tiles
 K2_MAX_D = 512
-K2_ROWS = 64       # rows of z a K2 block
-K2_CODES = 64      # codes a K2 tile; splits are whole tiles
-FLASH_LIMIT_BYTES = 6 * 1024 * 1024   # the JAX package's VMEM rule
+K2_STAGE_DIMS = 32  # dimensions a K2 stage; D is padded to a multiple
 
 
 class QuantizeResult(NamedTuple):
@@ -65,46 +62,42 @@ def vq_lookup_plain(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     return dist.argmin(dim=1)
 
 
-def uses_k1(k: int, d: int) -> bool:
-    """Whether :func:`vq_lookup` sends a (K, D) codebook to K1: where the
-    JAX package takes the flash kernel (``kp * dp * 4 <= 6 MB`` with K and D
-    padded to 128, ``vq.py:274``) and K1 takes the width."""
-    fits = _round_up(k, 128) * _round_up(d, 128) * 4 <= FLASH_LIMIT_BYTES
-    return fits and d in K1_WIDTHS
+def uses_k1(d: int) -> bool:
+    """Whether :func:`vq_lookup` sends a codebook of width D to K1: every D
+    that K1 takes, whatever K and N (on an H100, K1 was the faster at every
+    D in {8, 16, 32, 64}, K up to 32768 and N up to 131072 that
+    ``chip_smoke.py --vq-routing`` times; PERF.md section 6); K2 takes
+    every other D."""
+    return d in K1_WIDTHS
 
 
 @functools.lru_cache(maxsize=None)
-def k1_splits(n: int, k: int, sms: int) -> Tuple[int, int]:
-    """(splits, codes_per_split) of K1's codebook, in whole chunks of
-    ``K1_CODES``, none empty. Of the plans whose grid of (row tiles,
-    splits) holds at least ``K1_MIN_CTAS_PER_SM`` CTAs an SM (or, where
-    the codebook has too few chunks for that, one chunk a split), the one
-    whose waves of ``K1_CTAS_PER_SM`` CTAs an SM take the least time,
-    counting a CTA as its chunks plus half a chunk for its z tile and
-    first copy; on a tie the fewer splits."""
-    row_tiles = -(-n // K1_ROWS)
-    chunks = -(-k // K1_CODES)
-    slots = K1_CTAS_PER_SM * sms
-    plan, cost = (chunks, 1), None
-    for per in range(chunks, 0, -1):
-        splits = -(-chunks // per)
-        if row_tiles * splits < K1_MIN_CTAS_PER_SM * sms and per > 1:
+def vq_splits(n: int, k: int, sms: int, fixed: float) -> Tuple[int, int]:
+    """(splits, codes_per_split) of K1's or K2's codebook, in whole tiles of
+    ``VQ_CODES``, none empty. Of the plans whose grid of (row tiles,
+    splits) holds at least ``VQ_MIN_CTAS_PER_SM`` CTAs an SM (or, where
+    the codebook has too few tiles for that, one tile a split), the one
+    whose waves of ``VQ_CTAS_PER_SM`` CTAs an SM take the least time,
+    counting a CTA as its tiles plus ``fixed`` tiles of fixed cost (K1:
+    ``K1_FIXED_TILES``; K2: one stage, ``K2_STAGE_DIMS`` over the padded
+    D); on a tie the fewer splits."""
+    row_tiles = -(-n // VQ_ROWS)
+    tiles = -(-k // VQ_CODES)
+    slots = VQ_CTAS_PER_SM * sms
+    plan, cost = (tiles, 1), None
+    for per in range(tiles, 0, -1):
+        splits = -(-tiles // per)
+        if row_tiles * splits < VQ_MIN_CTAS_PER_SM * sms and per > 1:
             continue
-        c = -(-row_tiles * splits // slots) * (per + 0.5)
+        c = -(-row_tiles * splits // slots) * (per + fixed)
         if cost is None or c < cost:
             plan, cost = (splits, per), c
-    return plan[0], plan[1] * K1_CODES
+    return plan[0], plan[1] * VQ_CODES
 
 
-def k2_splits(n: int, k: int, sms: int) -> Tuple[int, int]:
-    """(splits, codes_per_split) of K2's codebook: enough splits that the
-    grid of (row tiles, splits) has at least 2 blocks an SM, in whole tiles
-    of codes, none empty."""
-    row_tiles = -(-n // K2_ROWS)
-    tiles = -(-k // K2_CODES)
-    want = max(1, min(tiles, -(-2 * sms // row_tiles)))
-    per = -(-tiles // want)
-    return -(-tiles // per), per * K2_CODES
+def k2_fixed(d: int) -> float:
+    """K2's fixed cost a CTA for :func:`vq_splits`: one stage, in tiles."""
+    return K2_STAGE_DIMS / _round_up(d, K2_STAGE_DIMS)
 
 
 def _check(name: str, z: torch.Tensor, codebook: torch.Tensor) -> None:
@@ -142,7 +135,7 @@ def vq_argmin(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     ef = codebook.float().contiguous()
     en = (ef * ef).sum(1)   # the plain version's and K2's ||E||^2
     _aligned("vq_argmin", zf)
-    splits, per_split = k1_splits(n, k, _sms(z.device))
+    splits, per_split = vq_splits(n, k, _sms(z.device), K1_FIXED_TILES)
     # one scratch allocation: E^T [D, K rounded up to 4] (written by the
     # library), then, with splits, their fp32 distances and int32 ids
     et_size = d * _round_up(k, 4)
@@ -170,7 +163,9 @@ def vq_argmin_tiled(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     any K >= 1 and D <= 512.
 
     On a CPU tensor this is :func:`vq_lookup_plain`; on a CUDA tensor it
-    launches K2 or raises."""
+    launches K2 or raises. K2 keeps the z tile in shared memory where it
+    fits (D <= 320) and streams it beside the codebook otherwise
+    (:func:`k2_route`)."""
     if z.device.type == "cpu":
         return vq_lookup_plain(z, codebook)
     _check("vq_argmin_tiled", z, codebook)
@@ -182,21 +177,28 @@ def vq_argmin_tiled(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.int64, device=z.device)
     if n == 0:
         return out
-    zf = z.float()
-    ef = codebook.float()
-    en = (ef * ef).sum(1)   # the plain version's ||E||^2, before any padding
-    dp = _round_up(d, 4)    # zero columns leave every distance unchanged
-    zf = F.pad(zf, (0, dp - d)).contiguous()
-    ef = F.pad(ef, (0, dp - d)).contiguous()
-    _aligned("vq_argmin_tiled", zf, ef)
-    splits, per_split = k2_splits(n, k, _sms(z.device))
-    part_d = torch.empty(splits, n, dtype=torch.float32, device=z.device)
-    part_i = torch.empty(splits, n, dtype=torch.int32, device=z.device)
-    lib = _vq_tiled_lib()
-    err = lib.ivg_vq_argmin_tiled(
-        zf.data_ptr(), ef.data_ptr(), en.data_ptr(), part_d.data_ptr(),
-        part_i.data_ptr(), out.data_ptr(), n, k, dp, splits, per_split,
-        torch.cuda.current_stream(z.device).cuda_stream)
+    # the library reads rows through their stride: no copy of an fp32 view
+    # whose columns are contiguous
+    zf = _unit_columns(z.float())
+    ef = _unit_columns(codebook.float())
+    en = (ef * ef).sum(1)   # the plain version's and K1's ||E||^2
+    splits, per_split = vq_splits(n, k, _sms(z.device), k2_fixed(d))
+    # one scratch allocation: z^T [Dp, N rounded up to 4] and E^T [Dp, K
+    # rounded up to 4] (written by the library), then, with splits, their
+    # fp32 distances and int32 ids
+    dp = _round_up(d, K2_STAGE_DIMS)
+    zt_size, et_size = dp * _round_up(n, 4), dp * _round_up(k, 4)
+    part_size = 2 * splits * n if splits > 1 else 0
+    scratch = torch.empty(zt_size + et_size + part_size, dtype=torch.float32,
+                          device=z.device)
+    zt = scratch.data_ptr()
+    et = zt + 4 * zt_size
+    part_d = et + 4 * et_size if splits > 1 else None
+    part_i = part_d + 4 * splits * n if splits > 1 else None
+    err = _k2_entry()(zf.data_ptr(), zf.stride(0), ef.data_ptr(),
+                      ef.stride(0), zt, et, en.data_ptr(), part_d, part_i,
+                      out.data_ptr(), n, k, d, splits, per_split,
+                      torch.cuda.current_stream(z.device).cuda_stream)
     if err:
         raise RuntimeError(f"vq_argmin_tiled kernel launch failed: "
                            f"cudaError {err}")
@@ -205,6 +207,10 @@ def vq_argmin_tiled(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
 
 
 vq_argmin_tiled.launches = 0
+
+
+def _unit_columns(t: torch.Tensor) -> torch.Tensor:
+    return t if t.stride(1) == 1 else t.contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -221,21 +227,32 @@ def _k1_entry():
     return fn
 
 
-def _vq_tiled_lib() -> ctypes.CDLL:
-    lib = _build.load("vq_argmin_tiled")
-    fn = lib.ivg_vq_argmin_tiled
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+@functools.lru_cache(maxsize=None)
+def _k2_entry():
+    fn = _build.load("vq_argmin_tiled").ivg_vq_argmin_tiled
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64] * 2
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def k2_route(d: int) -> Tuple[bool, int]:
+    """(z resident, dynamic shared memory bytes of a CTA) of K2 at width d,
+    as the library decides them."""
+    fn = _build.load("vq_argmin_tiled").ivg_vq_argmin_tiled_route
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    smem = ctypes.c_int()
+    resident = fn(d, ctypes.byref(smem))
+    return bool(resident), smem.value
 
 
 def vq_lookup(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Nearest-codebook ids for z [..., D] against codebook [K, D], through
     K1 or K2 as :func:`uses_k1` says."""
     shape = z.shape[:-1]
-    k, d = codebook.shape
-    argmin = vq_argmin if uses_k1(k, d) else vq_argmin_tiled
+    argmin = vq_argmin if uses_k1(codebook.shape[1]) else vq_argmin_tiled
     return argmin(z.reshape(-1, z.shape[-1]), codebook).reshape(shape)
 
 

@@ -73,7 +73,7 @@ def test_vq_argmin_ties_across_every_split_go_to_the_smallest_index(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     e = torch.randn(k, d, device=cuda, generator=g)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    splits, per = vq.k1_splits(n, k, sms)
+    splits, per = vq.vq_splits(n, k, sms, vq.K1_FIXED_TILES)
     assert splits > 1
     for s in range(1, splits):   # copies of codes 0..49 on every boundary
         e[s * per - 25:s * per + 25] = e[:50]
@@ -91,10 +91,14 @@ def test_vq_argmin_refuses_unsupported_width(cuda):
                      torch.zeros(8, 12, device=cuda))
 
 
-@pytest.mark.parametrize("d", [4, 72, 128, 256])
-@pytest.mark.parametrize("k", [1, 7, 2500, 16384])   # 2500: a ragged tile
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 1536])
+@pytest.mark.parametrize("d", [1, 3, 5, 63, 65, 255, 256, 257, 320, 321,
+                               511, 512])
+@pytest.mark.parametrize("k", [1, 127, 128, 129, 16385])
+@pytest.mark.parametrize("n", [1, 127, 129, 1536])
 def test_vq_argmin_tiled_matches_plain(cuda, n, k, d):
+    """Ragged N, K and D around K2's 128-row and 128-code tiles, its
+    32-dimension stages and its two routes (z^T resident up to D=320,
+    streamed beyond)."""
     from ivideogpt_tpu_torch.ops import vq
     from ivideogpt_tpu_torch.utils.platform import full_fp32
     g = torch.Generator(device=cuda).manual_seed(n * k + d)
@@ -110,13 +114,47 @@ def test_vq_argmin_tiled_matches_plain(cuda, n, k, d):
     torch.testing.assert_close(ours, ref, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n,k,d", [(1536, 16384, 256), (4097, 1000, 72),
+                                   (300, 16385, 512)])
+def test_vq_argmin_tiled_agrees_with_plain_but_for_near_ties(cuda, n, k, d):
+    """Random normal inputs: ids may differ from the plain version's (fp32
+    sums in another order) only where the two picks' float64 distances are
+    within 1e-5 of the distances' scale, at most N/1000 rows; two launches
+    give the same ids bit for bit."""
+    from ivideogpt_tpu_torch.ops import vq
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    g = torch.Generator(device=cuda).manual_seed(n + k + d)
+    z = torch.randn(n, d, device=cuda, generator=g)
+    e = torch.randn(k, d, device=cuda, generator=g)
+    with full_fp32():
+        ours = vq.vq_argmin_tiled(z, e)
+        ref = vq.vq_lookup_plain(z, e)
+    assert torch.equal(ours, vq.vq_argmin_tiled(z, e))
+    diff = (ours != ref).nonzero()[:, 0]
+    z64, e64 = z[diff].double(), e.double()
+    gap = (((z64 - e64[ours[diff]]) ** 2).sum(1)
+           - ((z64 - e64[ref[diff]]) ** 2).sum(1)).abs()
+    scale = (z64 ** 2).sum(1) + (e64[ours[diff]] ** 2).sum(1)
+    assert bool((gap < 1e-5 * scale).all()) and len(diff) <= n // 1000
+
+
+@pytest.mark.parametrize("d", [64, 256, 320, 321, 512])
+def test_vq_argmin_tiled_route_follows_the_width(cuda, d):
+    """K2 keeps z^T in shared memory up to D=320 and streams it beyond,
+    within the shared memory a CTA may take; test_vq_argmin_tiled_matches_plain
+    holds the ids of both routes (D up to 320 and past it)."""
+    from ivideogpt_tpu_torch.ops import vq
+    resident, smem = vq.k2_route(d)
+    assert resident == (d <= 320) and 0 < smem <= 232448
+
+
 def test_vq_argmin_tiled_ties_across_a_split_go_to_the_smallest_index(cuda):
     from ivideogpt_tpu_torch.ops import vq
     n, k, d = 100, 16384, 256
     g = torch.Generator(device=cuda).manual_seed(0)
     e = torch.randn(k, d, device=cuda, generator=g)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    splits, per = vq.k2_splits(n, k, sms)
+    splits, per = vq.vq_splits(n, k, sms, vq.k2_fixed(d))
     assert splits > 1
     for s in range(1, splits):   # copies of rows 0..49 on every boundary
         e[s * per - 25:s * per + 25] = e[:50]
@@ -125,6 +163,27 @@ def test_vq_argmin_tiled_ties_across_a_split_go_to_the_smallest_index(cuda):
     assert (ids[:50] == torch.arange(50, device=cuda)).all()
     for s in range(1, splits):
         assert not ((ids >= s * per - 25) & (ids < s * per + 25)).any()
+
+
+@pytest.mark.parametrize("n", [5, 1536])
+def test_vq_argmin_tiled_rows_without_a_finite_distance_get_0(cuda, n):
+    """NaN distances never win; a row whose every distance is NaN or inf
+    gets 0, as K1 and the TPU kernels give; K1 agrees bit for bit."""
+    from ivideogpt_tpu_torch.ops import vq
+    g = torch.Generator(device=cuda).manual_seed(n)
+    k, d = 16384, 64
+    z = torch.randn(n, d, device=cuda, generator=g)
+    e = torch.randn(k, d, device=cuda, generator=g)
+    z[0] = float("nan")                 # every distance NaN
+    z[1] = float("inf")                 # every distance NaN or inf
+    z[2, 0] = float("nan")
+    e[7, 3] = float("nan")              # code 7 never wins
+    z[3] = e[7]
+    z[3, 3] = 0.5
+    ids = vq.vq_argmin_tiled(z, e)
+    assert int(ids[0]) == 0 and int(ids[1]) == 0 and int(ids[2]) == 0
+    assert int(ids[3]) != 7
+    assert torch.equal(ids, vq.vq_argmin(z, e))
 
 
 def test_vq_argmin_tiled_takes_views_and_other_dtypes(cuda):
@@ -139,6 +198,11 @@ def test_vq_argmin_tiled_takes_views_and_other_dtypes(cuda):
         ref = vq.vq_lookup_plain(z, e)
         torch.testing.assert_close(vq.vq_argmin_tiled(z, e), ref, rtol=0,
                                    atol=0)
+        # rows through their stride, from no 16-byte boundary: no copy
+        er = e2[::3, 10:82]
+        assert er.stride(1) == 1 and er.data_ptr() % 16
+        torch.testing.assert_close(vq.vq_argmin_tiled(z, er),
+                                   vq.vq_lookup_plain(z, er), rtol=0, atol=0)
         # bf16 queries are upcast, as the plain version does
         zb = z.bfloat16()
         torch.testing.assert_close(vq.vq_argmin_tiled(zb, e),

@@ -108,9 +108,15 @@ def test_plain_version_matches_the_tiled_kernel_but_for_near_ties():
     assert len(diff) <= n // 100
 
 
-def test_routing_follows_the_jax_packages_rule(monkeypatch):
-    """Over a grid of (K, D): K1 where the JAX package takes its flash
-    kernel (vq.py:274) and K1 takes the width, K2 everywhere else."""
+@pytest.mark.parametrize("d", [4, 8, 16, 32, 64, 72, 128, 129, 256])
+def test_routing_follows_the_jax_packages_rule(monkeypatch, d):
+    """The port's rule, measured on the card: K1 for D in {8, 16, 32, 64}
+    whatever K, K2 for every other D. The JAX package routes by its VMEM
+    limit instead (its flash kernel for padded codebooks of at most 6 MB,
+    vq.py:274): wherever it takes its flash kernel at a width K1 takes, the
+    published 8192 x 64 codebooks among them, the port takes K1, and
+    wherever it takes its tiled kernel at a width K1 does not take, the
+    port takes K2. K1 and K2 give the same ids wherever both run."""
     import ivideogpt_tpu.ops.vq as jvq
     taken = []
     monkeypatch.setattr(jvq, "_vq_lookup_pallas_flash",
@@ -122,44 +128,58 @@ def test_routing_follows_the_jax_packages_rule(monkeypatch):
                         lambda z, e: routed.append("k1") or z[:, 0].long())
     monkeypatch.setattr(tvq, "vq_argmin_tiled",
                         lambda z, e: routed.append("k2") or z[:, 0].long())
-    for k in (1, 7, 2048, 8192, 12288, 12289, 16384, 65536):
-        for d in (4, 8, 16, 32, 64, 72, 128, 129, 256):
-            taken.clear()
-            routed.clear()
-            jvq._vq_lookup_nondiff(jnp.zeros((3, d)), jnp.zeros((k, d)), True)
-            tvq.vq_lookup(torch.zeros(1, 3, d), torch.zeros(k, d))
-            want = ("k1" if taken == ["flash"] and d in tvq.K1_WIDTHS
-                    else "k2")
-            assert routed == [want], (k, d, taken, routed)
-    # the published tokenizers stay on K1; the wide codebooks go to K2
-    assert tvq.uses_k1(8192, 64) and not tvq.uses_k1(16384, 256)
+    k1_width = d in (8, 16, 32, 64)
+    jax_flash = {}
+    for k in (1, 7, 2048, 8192, 12288, 12289, 16384, 32768, 65536):
+        taken.clear()
+        routed.clear()
+        jvq._vq_lookup_nondiff(jnp.zeros((3, d)), jnp.zeros((k, d)), True)
+        jax_flash[k] = taken == ["flash"]
+        tvq.vq_lookup(torch.zeros(1, 3, d), torch.zeros(k, d))
+        assert routed == ["k1" if k1_width else "k2"], (k, d, routed)
+        assert tvq.uses_k1(d) == k1_width
+        if jax_flash[k] and k1_width:
+            assert routed == ["k1"], (k, d, taken, routed)
+        if taken == ["tiled"] and not k1_width:
+            assert routed == ["k2"], (k, d, taken, routed)
+    # the published tokenizers' 8192 x 64 codebooks: the JAX package's
+    # flash kernel and K1; the wide 16384 x 256 ones go to K2
+    if d == 64:
+        assert jax_flash[8192] and tvq.uses_k1(64)
+    assert not tvq.uses_k1(256)
 
 
-@pytest.mark.parametrize("n,k", [(8192, 16384), (1536, 16384), (131072, 8192),
-                                 (1, 1), (65, 7), (1000, 300)])
-def test_k2_splits_cover_the_codebook_and_fill_the_card(n, k):
-    splits, per = tvq.k2_splits(n, k, sms=132)
-    assert per % tvq.K2_CODES == 0
+@pytest.mark.parametrize("n,k,d", [(8192, 16384, 256), (1536, 16384, 256),
+                                   (131072, 8192, 64), (1, 1, 1), (65, 7, 3),
+                                   (1000, 300, 512)])
+def test_k2_splits_cover_the_codebook_and_fill_the_card(n, k, d):
+    """K2's plan: vq_splits at one CTA an SM with one stage of fixed cost."""
+    splits, per = tvq.vq_splits(n, k, 132, tvq.k2_fixed(d))
+    assert per % tvq.VQ_CODES == 0
     assert (splits - 1) * per < k <= splits * per     # none empty
-    row_tiles = -(-n // tvq.K2_ROWS)
-    tiles = -(-k // tvq.K2_CODES)
-    # at least 2 blocks an SM, unless every split is already one tile
+    row_tiles = -(-n // tvq.VQ_ROWS)
+    tiles = -(-k // tvq.VQ_CODES)
+    # at least 2 CTAs an SM, unless every split is already one tile
     assert row_tiles * splits >= 2 * 132 or splits == tiles
+    # the wide lookups: 8 and 22 splits, 4 and 2 waves of one CTA an SM
+    want = {8192: 8, 1536: 22, 131072: 1}
+    if n in want:
+        assert splits == want[n]
 
 
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("k", [1, 63, 64, 8192])
 @pytest.mark.parametrize("n", [1, 127, 1536, 3584, 8192, 131072])
 def test_k1_splits_cover_the_codebook_and_fill_the_card(n, k, sms):
-    splits, per = tvq.k1_splits(n, k, sms)
-    assert per % tvq.K1_CODES == 0
+    splits, per = tvq.vq_splits(n, k, sms, tvq.K1_FIXED_TILES)
+    assert per % tvq.VQ_CODES == 0
     # every code in exactly one split, none empty
     assert (splits - 1) * per < k <= splits * per
-    row_tiles = -(-n // tvq.K1_ROWS)
-    chunks = -(-k // tvq.K1_CODES)
+    row_tiles = -(-n // tvq.VQ_ROWS)
+    chunks = -(-k // tvq.VQ_CODES)
     # at least 2 CTAs an SM, unless every split is already one chunk
-    assert tvq.K1_MIN_CTAS_PER_SM == 2
-    assert (row_tiles * splits >= tvq.K1_MIN_CTAS_PER_SM * sms
+    assert tvq.VQ_MIN_CTAS_PER_SM == 2
+    assert (row_tiles * splits >= tvq.VQ_MIN_CTAS_PER_SM * sms
             or splits == chunks)
     if n == 131072 and sms == 132:
         assert splits == 1          # the rollout's lookup needs no split
@@ -190,7 +210,7 @@ def test_k1_split_then_combine_is_the_lookup(n, k, d, sms):
     combining per-split argmins gives the plain lookup's ids and the TPU
     flash kernel's (interpret mode): ties go to the smallest index across
     splits too. Small integers make every distance exact."""
-    splits, per = tvq.k1_splits(n, k, sms)
+    splits, per = tvq.vq_splits(n, k, sms, tvq.K1_FIXED_TILES)
     assert splits > 1
     rng = np.random.default_rng(n + k)
     e = rng.integers(-3, 4, (k, d)).astype(np.float32)
@@ -206,6 +226,32 @@ def test_k1_split_then_combine_is_the_lookup(n, k, d, sms):
         ours, tvq.vq_lookup_plain(torch.from_numpy(z),
                                   torch.from_numpy(e)).numpy())
     np.testing.assert_array_equal(ours, _jax_ids(z, e)[0])
+    for row, first in planted.items():
+        assert ours[row] == first <= row - 1
+
+
+@pytest.mark.parametrize("n,k,d,sms", [(300, 2500, 72, 132),
+                                       (200, 1000, 5, 114)])
+def test_k2_split_then_combine_is_the_lookup(n, k, d, sms):
+    """K2's plan, split then combined as the combine kernel does, with exact
+    ties planted across every boundary: the plain lookup's ids and the TPU
+    tiled kernel's (interpret mode), ties to the smallest index."""
+    splits, per = tvq.vq_splits(n, k, sms, tvq.k2_fixed(d))
+    assert splits > 1
+    rng = np.random.default_rng(n + k + d)
+    e = rng.integers(-3, 4, (k, d)).astype(np.float32)
+    z = rng.integers(-3, 4, (n, d)).astype(np.float32)
+    planted = {}
+    for s in range(1, splits):
+        c = s - 1                                  # a code of split 0
+        e[s * per - 1] = e[s * per] = e[c]         # copies on both sides
+        z[s] = e[c]
+        planted[s] = np.flatnonzero((e == e[c]).all(1))[0]
+    ours = _split_then_combine(z, e, splits, per)
+    np.testing.assert_array_equal(
+        ours, tvq.vq_lookup_plain(torch.from_numpy(z),
+                                  torch.from_numpy(e)).numpy())
+    np.testing.assert_array_equal(ours, _tiled_ids(z, e))
     for row, first in planted.items():
         assert ours[row] == first <= row - 1
 
