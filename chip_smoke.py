@@ -11,7 +11,7 @@ the final result line:
   1. card      the nvidia-smi name and power limit
   2. build     nvcc for sm_90a of every csrc/*.cu, all at once (-Xptxas -v)
   3. K1        VQ argmin at every shape of the main paths (N=131072, 8192,
-               3584, 1536; K=8192, D=64 fp32) against the plain version
+               3584, 1536, 16384; K=8192, D=64 fp32) against the plain version
                (TF32 off) and K2 (bit for bit), ties across a codebook
                split; timed beside K2, the plain version, cdist+argmin
      K2        the tiled VQ argmin at the wide training step's shapes
@@ -19,11 +19,14 @@ the final result line:
                against K1 bit for bit and timed beside it), two launches
                bit-identical, ties across a codebook split; timed beside
                the plain version and cdist+argmin
-  4. K3        int8 decode attention at B=256, H=12, hd=64, M=752 for
-               valid in {515, 633, 751} against the plain version
+  4. K3        int8 decode attention, H=12, hd=64, at B=256, M=752 for
+               valid in {515, 633, 751} and at the MBRL rollout's B=32,
+               M=684 for valid in {514, 599, 683}, against the plain version
   5. flash     K4 (causal flash-attention forward) at the training shape
-               (B=16, H=12, S=751) and the prefill shape (B=256, S=514), K5
-               (dK, dV) and K6 (dQ) at the training shape, bf16, against the
+               (B=16, H=12, S=751), the prefill shape (B=256, S=514), the
+               MBRL train() shape (B=16, S=683) and the MBRL prefill (B=32,
+               S=513), K5 (dK, dV) and K6 (dQ) at both training shapes,
+               bf16, against the
                plain version and autograd through it; K4's lse against
                flash_fwd_plain's, K5 and K6 fed the plain lse against
                flash_bwd_dkv_plain and flash_bwd_dq_plain and bit-identical
@@ -54,6 +57,21 @@ the final result line:
                discriminator depth 4, the training CLI's) on the card held
                against the CPU's plain path: losses, the adaptive weight,
                grad norms, every gradient, the updated u
+ 13. mbrl      the MBRL world model (mbrl/video_predictor.py): TOKENIZER_64 +
+               LLAMA_BASE + the action and reward heads, bf16 over fp32
+               masters, int8 KV cache; B=32 frame stacks of 3, horizon 10,
+               the DrQ-v2 policy inside: shapes, action and reward ranges,
+               launches a rollout (K1 1, K4 12, K3 2040), imagined frames/s
+               over 3 pipelined rollouts, one profiled rollout by part
+ 14. mbrl check  a B=2 fp32 rollout with replayed actions held against the
+               CPU's plain path on its own stream: context ids, teacher-
+               forced logits, rewards, frames
+ 15. mbrl train  train() at B=16, T=12, 5 target frames, frozen codebooks:
+               1 warm-up and 3 timed calls, finite losses, codebooks bit-
+               unchanged, launches a call (K1 4, K4/K5/K6 12), ms a call
+ 16. mbrl train check  one fp32 train() call at B=2 (tokenizer at full
+               width, LLAMA_BASE widths at 2 layers) on the card and the CPU:
+               metrics, grad norms, the updates' signs, frozen codebooks
 Then the launches by path, the kernels' JSON line, the card line again, and
 the result line.
 Imports nothing of JAX or of the JAX package.
@@ -77,12 +95,26 @@ TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 16, 3, 10
 TOK_T, TOK_CTX = 8, 2          # the tokenizer trainer's clips (B=TRAIN_B)
 TOK_WARMUP, TOK_TIMED = 3, 10
 TOK_WIDE_WARMUP, TOK_WIDE_TIMED = 1, 3
+# the MBRL world model (MBPO's defaults, bench.py's run_mbrl): imagination
+# at gen_batch 32, horizon 10, frame stack 3, ctx 2, segment 12; train()
+# at B=16 on 12-frame segments with at most 5 target frames
+MB_B, MB_H, MB_K, MB_SEG, MB_A = 32, 10, 3, 12, 4
+MB_TRAIN_B, MB_TARGETS, MB_TIMED = 16, 5, 3
+MB_P1 = 257 * CTX                       # prelude + first sdf: 514
+MB_M = MB_P1 + 17 * MB_H                # the rollout's KV cache: 684 slots
+MB_L = MB_P1 - 1 + 17 * (MB_SEG - CTX)  # a train() segment's stream: 683
 # K1's lookups on the main paths (K=8192, D=64): the rollout's context
 # frames, the context frames of a B=16 GPT step and tokenizer pair, and the
-# dynamics frames of the GPT step (16 x 14 x 16) and of the pair (16 x 6 x 16)
+# dynamics frames of the GPT step (16 x 14 x 16) and of the pair (16 x 6 x
+# 16); the MBRL rollout's context frames (32 x 2 x 256); train()'s target
+# frames (16 x 5 x 16) and its LM step's dynamics frames (16 x 10 x 16), its
+# context lookups being the "context" shape
 K1_SHAPES = (("rollout", B * CTX * 256), ("context", TRAIN_B * CTX * 256),
              ("GPT-step dynamics", TRAIN_B * (T - CTX) * 16),
-             ("tokenizer dynamics", TRAIN_B * (TOK_T - TOK_CTX) * 16))
+             ("tokenizer dynamics", TRAIN_B * (TOK_T - TOK_CTX) * 16),
+             ("mbrl rollout", MB_B * CTX * 256),
+             ("mbrl train targets", MB_TRAIN_B * MB_TARGETS * 16),
+             ("mbrl train dynamics", MB_TRAIN_B * (MB_SEG - CTX) * 16))
 # K2's: the wide tokenizer pair's context and dynamics lookups against
 # 16384 x 256 codebooks, and the rollout's lookup, which the routing sends
 # to K1 (one timed shape on each side of it)
@@ -176,11 +208,13 @@ def near_tie_gate(torch, what, z, e, ids, ref):
 
 
 def split_ties(torch, what, argmin, z, e, splits, per):
-    """Copies of codes 0..255 on both sides of the first split boundary of a
-    plan for z (the middle of the codebook where there is one split); rows
-    of z equal to codes 0..255 must resolve to them, the smallest index."""
+    """Copies of codes 0..255 on both sides of the first split boundary at
+    or past index 384 of a plan for z (the middle of the codebook where
+    there is one split), so that the copies leave codes 0..255 in place;
+    rows of z equal to codes 0..255 must resolve to them, the smallest
+    index."""
     n, k = z.shape[0], e.shape[0]
-    edge = per if splits > 1 else k // 2
+    edge = per * -(-384 // per) if splits > 1 else k // 2
     e_dup = e.clone()
     e_dup[edge - 128:edge + 128] = e[:256]
     ids = argmin(torch.cat([e[:256], z[:n - 256]]), e_dup)
@@ -365,52 +399,74 @@ def vq_routing(torch):
 
 
 def phase_k3(torch):
+    """K3 at the main rollout's shape (B=256, M=752, valid 515, 633, 751)
+    and the MBRL rollout's (B=32, M=684, valid 514, 599, 683), H=12, hd=64,
+    against the plain version; times by cuda_ms and, for the card alone,
+    queued_ms (at B=32 the host's launch is the slower). The kernels line
+    keeps B=256 at valid 751 and every shape under ``at_shape``."""
     from ivideogpt_tpu_torch.ops import decode_attention as da
-    H, hd, M = 12, 64, 752
+    H, hd = 12, 64
     g = torch.Generator(device="cuda").manual_seed(2)
+    max_err, row, at_shape = 0.0, None, {}
+    for b, M, valids in ((B, 752, (515, 633, 751)),
+                         (MB_B, MB_M, (MB_P1, 599, MB_M - 1))):
+        k, v = (torch.randint(-127, 128, (b, M, H, hd), device="cuda",
+                              generator=g, dtype=torch.int8)
+                for _ in range(2))
+        ks, vs = ((torch.rand(b, M, H, device="cuda", generator=g) * 0.02
+                   + 0.001).bfloat16() for _ in range(2))
+        q = torch.randn(b, H, hd, device="cuda", generator=g).bfloat16()
+        for valid in valids:
+            out = da.decode_attention(q, k, ks, v, vs, valid)
+            ref = da.decode_attention_plain(q, k, ks, v, vs, valid)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            max_err = max(max_err, err)
+            # bf16 outputs of two fp32 sums taken in another order: a bf16
+            # ulp
+            ok = torch.allclose(out.float(), ref.float(), rtol=2e-2,
+                                atol=2e-3)
 
-    def ints():
-        return torch.randint(-127, 128, (B, M, H, hd), device="cuda",
-                             generator=g, dtype=torch.int8)
-
-    def scales():
-        return (torch.rand(B, M, H, device="cuda", generator=g) * 0.02
-                + 0.001).bfloat16()
-    q = torch.randn(B, H, hd, device="cuda", generator=g).bfloat16()
-    k, v, ks, vs = ints(), ints(), scales(), scales()
-    max_err = 0.0
-    row = None
-    for valid in (515, 633, 751):
-        out = da.decode_attention(q, k, ks, v, vs, valid)
-        ref = da.decode_attention_plain(q, k, ks, v, vs, valid)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        max_err = max(max_err, err)
-        # bf16 outputs of two fp32 sums taken in another order: a bf16 ulp
-        ok = torch.allclose(out.float(), ref.float(), rtol=2e-2, atol=2e-3)
-        ms = cuda_ms(lambda: da.decode_attention(q, k, ks, v, vs, valid), 50)
-        plain_ms = cuda_ms(
-            lambda: da.decode_attention_plain(q, k, ks, v, vs, valid), 5)
-        nbytes = 2 * B * valid * H * hd + 2 * B * valid * H * 2 \
-            + 2 * B * H * hd * 2
-        b_ms, b_by = bound(nbytes, 4 * B * H * valid * hd, FP32_PEAK)
-        print(f"K3 valid={valid}: max_abs_err={err:.3e} (rtol 2e-2, atol "
-              f"2e-3) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms=null bound_ms={b_ms:.4f} ({b_by}) "
-              f"share_of_bound={b_ms / ms:.3f}")
-        check(ok, f"K3 disagrees with the plain version at valid={valid}")
-        row = dict(name="decode_attention", route="cuda",
-                   source="ivideogpt_tpu_torch/csrc/decode_attention.cu",
-                   replaces="ivideogpt_tpu/ops/decode_attention.py:45",
-                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None)
+            def fn():
+                da.decode_attention(q, k, ks, v, vs, valid)
+            ms = cuda_ms(fn, 50)
+            q_ms, host_ms = queued_ms(fn, 200)
+            plain_ms = cuda_ms(
+                lambda: da.decode_attention_plain(q, k, ks, v, vs, valid), 5)
+            nbytes = 2 * b * valid * H * hd + 2 * b * valid * H * 2 \
+                + 2 * b * H * hd * 2
+            b_ms, b_by = bound(nbytes, 4 * b * H * valid * hd, FP32_PEAK)
+            print(f"K3 B={b} M={M} valid={valid}: max_abs_err={err:.3e} "
+                  f"(rtol 2e-2, atol 2e-3) kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms=null "
+                  f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound="
+                  f"{b_ms / ms:.3f}; queued: kernel_ms={q_ms:.4f} (share "
+                  f"{b_ms / q_ms:.3f}), host_ms per call {host_ms:.4f}")
+            check(ok, f"K3 disagrees with the plain version at B={b}, "
+                  f"valid={valid}")
+            at_shape[f"B={b} valid={valid}"] = dict(
+                ms=ms, queued_ms=q_ms, host_ms=host_ms, plain_ms=plain_ms,
+                bound_ms=b_ms)
+            if b == B:
+                row = dict(name="decode_attention", route="cuda",
+                           source="ivideogpt_tpu_torch/csrc/"
+                                  "decode_attention.cu",
+                           replaces="ivideogpt_tpu/ops/decode_attention.py:45",
+                           shape=f"B={b} M={M} valid={valid}", ms=ms,
+                           queued_ms=q_ms, host_ms=host_ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del k, v, ks, vs, q
+    torch.cuda.empty_cache()
     row["max_abs_err"] = max_err
+    row["at_shape"] = at_shape
     return row
 
 
 def phase_flash(torch):
-    """K4 at the training and prefill shapes, K5/K6 at the training shape,
-    bf16, against the plain version in fp32 on the same (upcast) inputs
+    """K4 at the training and prefill shapes of the main paths (B=16,
+    S=751; B=256, S=514) and of the MBRL world model (train(): B=16,
+    S=683; the rollout's prefill: B=32, S=513), K5/K6 at both training
+    shapes, bf16, against the plain version in fp32 on the same (upcast) inputs
     with TF32 off: the kernels keep fp32 scores and sums and round P and dS
     to bf16 where the TPU kernel does, the plain bf16 version rounds the
     scores too, so fp32 is the reference for the algorithm. Also at their
@@ -454,14 +510,20 @@ def phase_flash(torch):
               f"{rel_tol}")
         return e, rel
 
-    for name, b, s in (("train", 16, 751), ("prefill", B, 514)):
+    paths = {"train": "train", "prefill": "rollout",
+             "mbrl_train": "mbrl_train", "mbrl_prefill": "mbrl_rollout"}
+    for name, b, s in (("train", TRAIN_B, 751), ("prefill", B, 514),
+                       ("mbrl_train", MB_TRAIN_B, MB_L),
+                       ("mbrl_prefill", MB_B, MB_P1 - 1)):
+        training = name.endswith("train")
+        suffix = "" if name == "train" else f"_{name}"
         q, k, v, do = inputs(b, s, seed=s)
         elems = b * s * H * hd
         pairs = b * H * s * (s + 1) // 2   # causal (query, key) pairs
-        iters = 50 if name == "train" else 10
+        iters = 50 if b * s < 20000 else 10
         out, lse = fa.flash_fwd(q, k, v)
         with full_fp32():
-            ref_in = [t.float().requires_grad_(name == "train")
+            ref_in = [t.float().requires_grad_(training)
                       for t in (q, k, v)]
             ref = fa.causal_attention_plain(*ref_in, torch.float32)
             _, ref_lse = fa.flash_fwd_plain(*(t.detach() for t in ref_in))
@@ -493,11 +555,11 @@ def phase_flash(torch):
         rows[f"K4_{name}"] = dict(
             name="flash_attention_fwd", route="cuda", source=sm90,
             replaces=stock + "331", shape=f"{name} B={b} S={s}",
-            paths=("rollout",) if name == "prefill" else ("train",),
+            paths=(paths[name],),
             max_abs_err=e4, ms=ms, queued_ms=q_ms, host_ms=host_ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms, library="SDPA forward")
-        if name != "train":
+        if not training:
             del q, k, v, do, qt, kt, vt, out, lse, ref, ref_in, ref_lse
             continue
 
@@ -507,10 +569,10 @@ def phase_flash(torch):
         with full_fp32():
             rq, rk, rv = torch.autograd.grad(ref, ref_in,
                                              do.float().flatten(2))
-        (ek, rel_k) = err(dk, rk, "K5 dK")
-        (ev, rel_v) = err(dv, rv, "K5 dV")
+        (ek, rel_k) = err(dk, rk, f"K5 dK at the {name} shape")
+        (ev, rel_v) = err(dv, rv, f"K5 dV at the {name} shape")
         e5, r5 = max(ek, ev), max(rel_k, rel_v)
-        e6, r6 = err(dq, rq, "K6 dQ")
+        e6, r6 = err(dq, rq, f"K6 dQ at the {name} shape")
         # K5 at its own interface, apart from K4: the plain lse and di
         di_ref = (ref.detach().view(b, s, H, hd) * do.float()).sum(-1) \
             .transpose(1, 2).contiguous()
@@ -573,7 +635,7 @@ def phase_flash(torch):
             bwd[key] = (ms, q_ms)
             b_ms, b_by = bound(n_io * elems * 2 + 2 * b * H * s * 4,
                                per_pair * hd * pairs, BF16_PEAK)
-            print(f"{key} train B={b} S={s}: max_abs_err={e:.3e} (rtol 2e-2, "
+            print(f"{key} {name} B={b} S={s}: max_abs_err={e:.3e} (rtol 2e-2, "
                   f"atol 2e-2) rel_l2_err={rel:.3e} (< "
                   f"{rel_tol}) "
                   f"kernel_ms={ms:.4f} plain_ms="
@@ -583,14 +645,15 @@ def phase_flash(torch):
                   f"{b_ms / ms:.3f}; queued: kernel_ms={q_ms:.4f} "
                   f"library_ms={lib_bwd_q:.4f}, host_ms per call "
                   f"{host_ms:.4f}")
-            rows[key] = dict(
+            rows[key + suffix] = dict(
                 name=kname, route="cuda", source=source,
-                replaces=stock + line, max_abs_err=e, ms=ms, queued_ms=q_ms,
+                replaces=stock + line, shape=f"{name} B={b} S={s}",
+                paths=(paths[name],), max_abs_err=e, ms=ms, queued_ms=q_ms,
                 host_ms=host_ms, plain_ms=plain_bwd, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_bwd, library=lib_what)
-        sdpa["K5 alone"] = (bwd["K5"][0], lib_bwd, bwd["K5"][1], lib_bwd_q,
-                            lib_what)
-        sdpa["K5+K6, the port's backward"] = (
+        sdpa[f"K5 alone at the {name} shape"] = (
+            bwd["K5"][0], lib_bwd, bwd["K5"][1], lib_bwd_q, lib_what)
+        sdpa[f"K5+K6, the port's backward, at the {name} shape"] = (
             bwd["K5"][0] + bwd["K6"][0], lib_bwd,
             bwd["K5"][1] + bwd["K6"][1], lib_bwd_q, lib_what)
         del q, k, v, do, qt, kt, vt, out, lse, di, dk, dv, dq
@@ -1070,6 +1133,390 @@ def phase_tok_train(torch, wide):
     return launches
 
 
+def mbrl_models(torch, dtype, seed, lm_cfg=None):
+    """The MBRL world model at MBPO's shapes (TOKENIZER_64, LLAMA_BASE or
+    ``lm_cfg``, the action head with the reward head, ctx 2, segment 12,
+    frozen codebooks, at most 5 target frames) with random weights from
+    ``seed``, computing in ``dtype`` over fp32 masters, on the card."""
+    from ivideogpt_tpu_torch.configs import (LLAMA_BASE, TOKENIZER_64,
+                                             ActionModelConfig)
+    from ivideogpt_tpu_torch.mbrl.video_predictor import VideoPredictor
+    head = ActionModelConfig(action_dim=MB_A, context_length=CTX,
+                             segment_length=MB_SEG, reward_prediction=True)
+    return VideoPredictor(TOKENIZER_64, lm_cfg or LLAMA_BASE, head,
+                          freeze_codebook=True,
+                          max_target_frames=MB_TARGETS, seed=seed,
+                          compute_dtype=dtype)
+
+
+def rollout_parts(torch, prof, names):
+    """(host s, device s) of each record_function range in ``names`` from
+    a kineto trace: a kernel (or copy) counts for the range during which
+    the host called the CUDA runtime (or driver) to launch it, the call
+    found by the kernel's correlation id. (Ops and ranges number their
+    correlation ids apart from CUPTI's, so only runtime and driver calls,
+    named cuda* and cu*, are matched.)"""
+    import bisect
+    from torch.autograd import DeviceType
+    events = list(prof.profiler.kineto_results.events())
+    spans, launched_at = [], {}
+    for e in events:
+        if e.device_type() != DeviceType.CPU:
+            continue
+        if e.name() in names:
+            spans.append((e.start_ns(), e.end_ns(), e.name()))
+        elif e.name().startswith("cu"):
+            launched_at[e.correlation_id()] = e.start_ns()
+    spans.sort()   # the ranges do not nest or overlap
+    starts = [a for a, _, _ in spans]
+    host, device = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    for a, b, n in spans:
+        host[n] += (b - a) / 1e9
+    for e in events:
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or e.name() in names):
+            continue
+        t = launched_at.get(e.correlation_id())
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        if i >= 0 and t <= spans[i][1]:
+            device[spans[i][2]] += e.duration_ns() / 1e9
+    return host, device
+
+
+def phase_mbrl(torch, vp):
+    """The MBRL imagination rollout at MBPO's shapes through the port's
+    ``VideoPredictor``: B=32 frame stacks of 3 (64 px) from a seed, horizon
+    10, the DrQ-v2 policy (Encoder + Actor, feature 50, hidden 1024, random
+    weights, stddev 0.1) inside, bf16 over fp32 masters, int8 KV cache.
+    One warm-up rollout (its launches: K1 1, K4 12, K3 2040, nothing else),
+    then 3 timed rollouts pipelined as bench.py's run_mbrl does (the next
+    dispatched before the previous one is fetched; the clock starts with
+    one in flight), then one profiled rollout split by part."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ivideogpt_tpu_torch.mbrl import drqv2
+    from ivideogpt_tpu_torch.mbrl.video_predictor import ROLLOUT_RANGES
+    policy = drqv2.build_policy((64, 64, 3 * MB_K), MB_A, seed=60)
+    obs = np.random.default_rng(61).integers(
+        0, 256, (MB_B, 64, 64, 3 * MB_K)).astype(np.uint8)
+    gen = torch.Generator(device="cuda").manual_seed(62)
+
+    def dispatch():
+        return vp.rollout_async(obs, drqv2.batched_policy, policy, MB_H,
+                                frame_stack=MB_K, policy_stddev=0.1,
+                                generator=gen)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    obss, actions, rewards = dispatch().fetch()
+    first_s = time.time() - t0
+    launches = read_counts()
+    print(f"mbrl: first rollout {first_s:.2f}s, launches {launches}, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = {"vq_argmin": 1, "vq_argmin_tiled": 0,
+            "decode_attention": 10 * 17 * 12, "flash_attention_fwd": 12,
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
+    for name, n in want.items():
+        check(launches[name] == n, f"mbrl: {name} ran {launches[name]} "
+              f"times in a rollout, not {n}")
+    check(obss.shape == (MB_B, MB_H + 1, 64, 64, 3 * MB_K)
+          and obss.dtype == np.uint8, f"mbrl: obs {obss.shape} {obss.dtype}")
+    check(actions.shape == (MB_B, MB_H + 1, MB_A)
+          and rewards.shape == (MB_B, MB_H + 1),
+          f"mbrl: actions {actions.shape}, rewards {rewards.shape}")
+    check(bool((np.abs(actions) < 1).all()), "mbrl: an action outside "
+          "(-1, 1)")
+    check(bool(np.isfinite(rewards).all()), "mbrl: a reward is not finite")
+    check(bool((obss[:, 0] == obs).all()), "mbrl: the first stack is not "
+          "the input")
+    print(f"mbrl: obs {obss.shape} uint8, actions {actions.shape} in "
+          f"[{actions.min():.4f}, {actions.max():.4f}], rewards "
+          f"{rewards.shape} finite, in [{rewards.min():.4f}, "
+          f"{rewards.max():.4f}]")
+
+    pending = dispatch()
+    t0 = time.time()
+    for _ in range(MB_TIMED):
+        nxt = dispatch()
+        pending.fetch()
+        pending = nxt
+    dt = (time.time() - t0) / MB_TIMED
+    pending.fetch()
+    frames = MB_B * MB_H
+    print(f"mbrl: {MB_TIMED} timed rollouts (pipelined), {dt:.4f} "
+          f"s/rollout, {frames / dt:.2f} imagined frames/s ({frames} frames "
+          f"a rollout); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        dispatch().fetch()
+        wall = time.time() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.self_device_time_total for e in kernels) / 1e6
+    if not total:
+        print("mbrl: the profiler recorded no device time: device seconds "
+              "not measured")
+        return launches
+    host, device = rollout_parts(torch, prof, ROLLOUT_RANGES)
+    print(f"mbrl: one profiled rollout: wall {wall:.4f} s (profiled), "
+          f"device {total:.4f} s, busy share {total / dt:.4f} of the "
+          f"unprofiled rollout ({total / wall:.4f} of the profiled one)")
+    print("mbrl: by part, host s " + json.dumps(
+        {k: round(v, 4) for k, v in host.items()}) + ", device s "
+        + json.dumps({k: round(v, 4) for k, v in device.items()})
+        + f" (device s not attributed to a part "
+        f"{total - sum(device.values()):.4f})")
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print("mbrl: top kernels (name, launches, device s): "
+          + json.dumps(top_kernels(kernels, 12, width=70)))
+    return launches
+
+
+def mbrl_batch(torch, b, seed):
+    """A train() batch from a seed: uint8-valued frames [b, 12, 64, 64, 3],
+    actions [b, 12, 4] in (-1, 1), rewards [b, 12]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    obs = torch.randint(0, 256, (b, MB_SEG, 64, 64, 3), device="cuda",
+                        generator=g).float()
+    action = torch.rand(b, MB_SEG, MB_A, device="cuda", generator=g) * 2 - 1
+    reward = torch.randn(b, MB_SEG, device="cuda", generator=g)
+    return obs, action, reward
+
+
+def phase_mbrl_train(torch, vp):
+    """The world model's online finetuning at MBPO's shapes: train() at
+    B=16, T=12, at most 5 target frames, frozen codebooks, bf16 over fp32
+    masters: 1 warm-up and 3 timed calls (each one tokenizer step and one
+    LM step, synchronised by its float metrics). Losses finite, the
+    codebooks bit-unchanged; launches a call: K1 4 (the tokenizer step's
+    context and target lookups, the LM step's tokenize), K4/K5/K6 12."""
+    from ivideogpt_tpu_torch.mbrl.video_predictor import CODEBOOKS
+    batch = mbrl_batch(torch, MB_TRAIN_B, 63)
+    books = {n: p.detach().clone() for n, p in vp.tokenizer.named_parameters()
+             if n in CODEBOOKS}
+    vp.train(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    metrics = [vp.train(batch) for _ in range(MB_TIMED)]
+    dt = (time.time() - t0) / MB_TIMED
+    launches = read_counts()
+    keys = ("tokenizer_loss", "recon_loss", "perceptual_loss", "ce_loss",
+            "reward_loss", "tokenizer_grad_norm", "model_grad_norm")
+    print("mbrl train: " + "; ".join(
+        f"{k} {[round(m[k], 5) for m in metrics]}" for k in keys))
+    check(all(v == v and abs(v) != float("inf") for m in metrics
+              for v in m.values()), "mbrl train: a metric is not finite")
+    for n, p in vp.tokenizer.named_parameters():
+        if n in CODEBOOKS:
+            check(torch.equal(p, books[n]), f"mbrl train: {n} moved")
+    want = {"vq_argmin": 4, "vq_argmin_tiled": 0, "decode_attention": 0,
+            "flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
+            "flash_attention_bwd_dq": 12}
+    for name, n in want.items():
+        check(launches[name] == n * MB_TIMED,
+              f"mbrl train: {name} ran {launches[name]} times in "
+              f"{MB_TIMED} calls, not {n} a call")
+    print(f"mbrl train: {MB_TIMED} timed calls, {dt * 1e3:.2f} ms a call "
+          f"(model_update_time "
+          f"{[round(m['model_update_time'] * 1e3, 2) for m in metrics]} ms),"
+          f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB;"
+          f" codebooks bit-unchanged; launches a call "
+          f"{json.dumps({k: v // MB_TIMED for k, v in launches.items()})}")
+    return launches
+
+
+def phase_mbrl_check(torch):
+    """A B=2 fp32 rollout on the card (K1, the fp32 K4 prefill, K3 over the
+    int8 cache) with replayed actions, held against the CPU's plain path on
+    the rollout's own token stream: context ids, teacher-forced logits over
+    an int8 cache, the rewards from the same replay's hidden states, and
+    the frames decoded from the sampled ids; each at the check phase's
+    tolerance. The full TOKENIZER_64 and LLAMA_BASE."""
+    import copy
+    import numpy as np
+    from ivideogpt_tpu_torch import generation, tokens
+    from ivideogpt_tpu_torch.mbrl.utils import symlog
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    b = 2
+    vp = mbrl_models(torch, torch.float32, seed=64)
+    rng = np.random.default_rng(65)
+    obs = rng.integers(0, 256, (b, 64, 64, 3 * MB_K)).astype(np.uint8)
+    replay = rng.uniform(-1, 1, (b, MB_H, MB_A)).astype(np.float32)
+    reset_counts()
+    pending = vp.rollout_async(obs, None, None, MB_H, frame_stack=MB_K,
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(66),
+                               replay_actions=replay)
+    obss, actions, rewards = pending.fetch()
+    counts = read_counts()
+    check(counts["vq_argmin"] == 1 and counts["flash_attention_fwd"] == 12
+          and counts["decode_attention"] == 10 * 17 * 12,
+          f"mbrl check: launches {counts}")
+    toks = pending.result.tokens
+    cfg = vp.tok_cfg
+    frames = torch.from_numpy(obs).cuda().float().div(255).view(
+        b, 64, 64, MB_K, 3).movedim(3, 1)[:, -CTX:].contiguous()
+    action = np.zeros((b, MB_SEG, MB_A), np.float32)
+    action[:, CTX - 1:CTX - 1 + MB_H] = replay
+    action = torch.from_numpy(action)
+
+    def stream_of(idx_c):
+        sdf = toks.new_full((b, MB_H, 1), cfg.sdf_token)
+        dyn = torch.cat([toks, sdf], 2).reshape(b, -1)[:, :-1]
+        return torch.cat([tokens.make_prelude(
+            idx_c, cfg.num_vq_embeddings, cfg.num_dyn_embeddings), dyn], 1)
+
+    with torch.inference_mode(), full_fp32():
+        ids = vp.tokenizer.encode_context(frames)
+        stream = stream_of(ids)
+        logits = generation.replay_logits(
+            vp.model, stream, segment_length=MB_SEG, context_length=CTX,
+            action=action.cuda(), cache_dtype=torch.int8).cpu()
+    torch.set_num_threads(os.cpu_count() or 1)
+    tok_cpu = copy.deepcopy(vp.tokenizer).cpu()
+    lm_cpu = copy.deepcopy(vp.model).cpu()
+    hidden = []   # the replay's hidden states, the reward head's input
+    decode = lm_cpu.decode_cached
+
+    def keep_hidden(embeds, cache, index):
+        out = decode(embeds, cache, index)
+        hidden.append(out[0][:, -1])
+        return out
+    lm_cpu.decode_cached = keep_hidden
+    with torch.inference_mode():
+        ids_cpu = tok_cpu.encode_context(frames.cpu())
+        ref_logits = generation.replay_logits(
+            lm_cpu, stream.cpu(), segment_length=MB_SEG, context_length=CTX,
+            action=action, cache_dtype=torch.int8)
+        last = torch.arange(MB_H) * 17 + 16   # after each frame's 16th token
+        ref_rewards = lm_cpu.reward(torch.stack(hidden)[last]).T
+        _, dcache = tok_cpu.build_decode_cache(ids.cpu())
+        dyn = (toks.cpu() - cfg.num_vq_embeddings).clamp(
+            0, cfg.num_dyn_embeddings - 1)
+        ref_frames = torch.stack([tok_cpu.decode_dyn_frame(dyn[:, f], dcache)
+                                  for f in range(MB_H)], 1)
+    ref_u8 = torch.round(ref_frames.clamp(0, 1) * 255)
+    same = float((ids.cpu() == ids_cpu).float().mean())
+    dl = float((logits - ref_logits).abs().max())
+    dr = float((symlog(torch.from_numpy(rewards[:, 1:])) - ref_rewards)
+               .abs().max())
+    got = torch.from_numpy(obss[:, 1:, ..., -3:]).float()
+    df = float((got - ref_u8).abs().max())
+    print(f"mbrl check: context ids equal to the CPU path {same:.4f}; max "
+          f"|logit diff| {dl:.3e} (tolerance 2e-2); max |reward diff| "
+          f"{dr:.3e} (symlog space, tolerance 2e-2); max |frame diff| {df} "
+          f"levels of 255 (tolerance 1: the check phase's 1e-3 before "
+          f"rounding)")
+    # fp32 on both sides, TF32 off: ids may flip only at near ties; an int8
+    # cache rounding may flip where the card's k/v differ in the last bits
+    check(same >= 0.99, "mbrl check: context ids differ from the CPU path")
+    check(dl < 2e-2, "mbrl check: teacher-forced logits differ from the "
+          "CPU path")
+    check(dr < 2e-2, "mbrl check: rewards differ from the CPU path")
+    check(df <= 1, "mbrl check: frames differ from the CPU path")
+    del vp
+    torch.cuda.empty_cache()
+
+
+def phase_mbrl_train_check(torch):
+    """One fp32 train() on the card and on the CPU from the same weights
+    and batch, B=2: the tokenizer at full widths, LLAMA_BASE widths at 2
+    layers, frozen codebooks, the same target frames (each side's
+    generator from the same seed). The two steps are held apart: the
+    tokenizer step first, then the LM step with the CPU's tokenizer set to
+    the card's updated one and fed the card's token ids (the CPU's ids are
+    compared first, as in the train check), so neither step's differences
+    reach the other. The metrics (losses, grad norms) within 1e-4 relative
+    (the train checks' tolerance); the updated parameters: AdamW's first
+    step moves an element by about lr, with the sign of its gradient, so at
+    least 99 % of each model's elements must move the same way on both (an
+    element whose gradient is near zero, or behind an LPIPS kink, can
+    flip); the codebooks bit-unchanged on both."""
+    from ivideogpt_tpu_torch.configs import LLAMA_BASE
+    from ivideogpt_tpu_torch.mbrl.video_predictor import (CODEBOOKS,
+                                                          VideoPredictor)
+    lm_cfg = LLAMA_BASE.replace(num_hidden_layers=2)
+    card = mbrl_models(torch, torch.float32, seed=67, lm_cfg=lm_cfg)
+
+    def on_cpu(module):
+        return {k: v.cpu() for k, v in module.state_dict().items()}
+    host = VideoPredictor(
+        card.tok_cfg, lm_cfg, card.head_cfg, freeze_codebook=True,
+        max_target_frames=MB_TARGETS, seed=67, compute_dtype=torch.float32,
+        tok_state_dict=on_cpu(card.tokenizer),
+        lm_state_dict=on_cpu(card.model),
+        lpips_state_dict=on_cpu(card.lpips), device="cpu")
+    before = {n: p.detach().cpu().clone() for m in (card.tokenizer,
+                                                    card.model)
+              for n, p in m.named_parameters()}
+    batch = mbrl_batch(torch, 2, 68)
+    batch_cpu = tuple(t.cpu() for t in batch)
+    torch.set_num_threads(os.cpu_count() or 1)
+    reset_counts()
+    m_card = card.train(batch, update_model=False)
+    m_cpu = host.train(batch_cpu, update_model=False)
+    host.tokenizer.load_state_dict(on_cpu(card.tokenizer))
+    ids = []
+    tokenize = card.tokenizer.tokenize
+    card.tokenizer.tokenize = lambda *a: ids.append(tokenize(*a)) or ids[-1]
+    host_tokenize = host.tokenizer.tokenize
+    same = []
+
+    def card_ids(*a):
+        mine = host_tokenize(*a)
+        same.append(float((mine[0] == ids[0][0].cpu()).float().mean()))
+        return tuple(t.cpu() for t in ids[0])
+    host.tokenizer.tokenize = card_ids
+    m_card.update(card.train(batch, update_tokenizer=False))
+    counts = read_counts()
+    m_cpu.update(host.train(batch_cpu, update_tokenizer=False))
+    check(counts["vq_argmin"] == 4 and counts["flash_attention_fwd"] == 2
+          and counts["flash_attention_bwd_dq"] == 2,
+          f"mbrl train check: launches {counts}")
+    rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+           for k in m_cpu if k != "model_update_time"}
+    agree = {}
+    for label, mc, mh in (("tokenizer", card.tokenizer, host.tokenizer),
+                          ("LM", card.model, host.model)):
+        moved_same = total = 0
+        for (n, p), q in zip(mc.named_parameters(), mh.parameters()):
+            d_card = p.detach().cpu() - before[n]
+            d_cpu = q.detach() - before[n]
+            if n in CODEBOOKS:
+                check(not d_card.any() and not d_cpu.any(),
+                      f"mbrl train check: {n} moved")
+                continue
+            moved_same += int((torch.sign(d_card) == torch.sign(d_cpu))
+                              .sum())
+            total += d_card.numel()
+        agree[label] = moved_same / total
+    print(f"mbrl train check: the LM step's ids equal to the CPU "
+          f"tokenizer's {same[0]:.4f}; relative diffs " + json.dumps(
+              {k: float(f"{v:.3e}") for k, v in rel.items()})
+          + " (tolerance 1e-4); share of elements moved the same way "
+          + json.dumps({k: round(v, 6) for k, v in agree.items()})
+          + " (at least 0.99); codebooks bit-unchanged on both")
+    failed = [k for k, v in rel.items() if not v <= 1e-4]
+    check(same[0] >= 0.99, "mbrl train check: ids differ from the CPU "
+          "tokenizer")
+    check(not failed, f"mbrl train check: {', '.join(failed)} differ from "
+          f"the CPU path")
+    check(min(agree.values()) >= 0.99, "mbrl train check: the updates "
+          "differ from the CPU path")
+    del card, host
+    torch.cuda.empty_cache()
+
+
 def grad_errors(names, grads, grads_ref):
     """The worst (error, name) of a model's gradients against the reference
     gradients, by the norm of the difference over the reference's norm and
@@ -1424,24 +1871,37 @@ def main():
         by_path["tokenizer_train"] = phase_tok_train(torch, wide=False)
         by_path["tokenizer_train_wide"] = phase_tok_train(torch, wide=True)
         phase_tok_train_check(torch)
+        vp = mbrl_models(torch, torch.bfloat16, seed=59)
+        by_path["mbrl_rollout"] = phase_mbrl(torch, vp)
+        phase_mbrl_check(torch)
+        by_path["mbrl_train"] = phase_mbrl_train(torch, vp)
+        del vp
+        torch.cuda.empty_cache()
+        phase_mbrl_train_check(torch)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     print("launches by path (rollout: the first B=256 rollout; train: the "
           f"{TRAIN_TIMED} timed steps; tokenizer_train: the {TOK_TIMED} timed "
           f"G+D pairs; tokenizer_train_wide: the {TOK_WIDE_TIMED} timed "
-          f"pairs): " + json.dumps(by_path))
+          f"pairs; mbrl_rollout: the first B={MB_B} imagination rollout; "
+          f"mbrl_train: the {MB_TIMED} timed train() calls): "
+          + json.dumps(by_path))
     per_run = {"rollout": ("rollout", 1), "train_step": ("train", TRAIN_TIMED),
                "tokenizer_train": ("tokenizer_train", TOK_TIMED),
                "tokenizer_train_wide": ("tokenizer_train_wide",
-                                        TOK_WIDE_TIMED)}
-    rows = (k1, k2, k3, flash["K4_train"], flash["K4_prefill"], flash["K5"],
-            flash["K6"])
+                                        TOK_WIDE_TIMED),
+               "mbrl_rollout": ("mbrl_rollout", 1),
+               "mbrl_train": ("mbrl_train", MB_TIMED)}
+    rows = (k1, k2, k3, flash["K4_train"], flash["K4_prefill"],
+            flash["K4_mbrl_prefill"], flash["K4_mbrl_train"], flash["K5"],
+            flash["K5_mbrl_train"], flash["K6"], flash["K6_mbrl_train"])
     for r in rows:
-        # launches: all the path runs read (one rollout + the timed steps
-        # and pairs), or those of the row's own paths (K4 at the training
-        # shape: train; at the prefill shape: rollout); launches_by_path: a
-        # rollout's, a train step's and a tokenizer G+D pair's
+        # launches: all the path runs read (the first rollouts + the timed
+        # steps, pairs and calls), or those of the row's own paths (the
+        # flash rows: the path of their shape); launches_by_path: a
+        # rollout's, a train step's, a tokenizer G+D pair's, an imagination
+        # rollout's and a train() call's
         r["launches"] = sum(by_path[p][r["name"]]
                             for p in r.get("paths", by_path))
         r["launches_by_path"] = {key: by_path[path][r["name"]] // n

@@ -15,10 +15,11 @@ top-k sets, never token for token.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 
 class GenerateResult(NamedTuple):
@@ -115,16 +116,25 @@ def sample_top_k(logits: torch.Tensor, generator: torch.Generator,
 def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
              context_length: int, generator: torch.Generator,
              action: Optional[torch.Tensor] = None,
+             action_fn: Optional[Callable[[int], torch.Tensor]] = None,
+             on_frame: Optional[Callable] = None,
              tokens_per_dyna: int = 16, top_k: int = 100,
              temperature: float = 1.0, reward_prediction: bool = False,
              cache_dtype: torch.dtype = torch.bfloat16) -> GenerateResult:
     """Autoregressive rollout of (segment_length - context_length) frames.
 
     model: a HeadModelWithAction; prelude_tokens [B, P1] context tokens and
-    the first sdf; action [B, T, A] or None. Forced sdf tokens carry
-    action[ctx + f] (the first sdf, in the prelude, carries action[ctx-1]);
-    the final sampled token is not decoded unless rewards are wanted;
-    rewards are read after each frame's last dyn token.
+    the first sdf. Frame f's sdf carries action[:, ctx - 1 + f] from
+    action [B, T, A], or the [B, A] that ``action_fn(f)`` returns; with
+    ``action_fn`` every sdf, the first one too, is decoded on its own step
+    once its action is known (the prefill stops before the prelude's sdf),
+    so an action may depend on the frames before it. ``on_frame(f, tokens
+    [B, D], reward [B] or None)`` is called once frame f is sampled. The
+    final sampled token is not decoded unless rewards are wanted; rewards
+    are read after each frame's last dyn token. The prefill and each
+    frame's decode steps run inside the profiler ranges
+    ``generation.prefill`` and ``generation.decode``; the callbacks outside
+    them.
     """
     B, P1 = prelude_tokens.shape
     F = segment_length - context_length
@@ -133,47 +143,55 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
     total = P1 + D1 * F
     sdf_token = model.llm_config.vocab_size - 1
     bf16_exact = model.dtype == torch.bfloat16
-
-    embeds = model.embed_tokens(prelude_tokens)
-    action_embeds = None
-    if action is not None:
-        action_embeds = model.action_embeds(action)    # [B, T, hidden]
-        embeds[:, P1 - 1] += action_embeds[:, context_length - 1].to(
-            embeds.dtype)
+    if action is not None and action_fn is not None:
+        raise ValueError("pass action or action_fn, not both")
 
     cache = model.init_cache(B, total, cache_dtype, prelude_tokens.device)
-    hidden, _ = model.decode_cached(embeds, cache, 0)
-    last_logits = model.unembed(hidden[:, -1])
+    with record_function("generation.prefill"):
+        if action_fn is None:
+            embeds = model.embed_tokens(prelude_tokens)
+        else:
+            embeds = model.embed_tokens(prelude_tokens[:, :-1])
+        action_embeds = None
+        if action is not None:
+            action_embeds = model.action_embeds(action)    # [B, T, hidden]
+            embeds[:, P1 - 1] += action_embeds[:, context_length - 1].to(
+                embeds.dtype)
+        hidden, _ = model.decode_cached(embeds, cache, 0)
+        sdf_emb = model.embed_tokens(prelude_tokens.new_full((B, 1),
+                                                             sdf_token))
 
     buf = prelude_tokens.new_zeros((B, total))
     buf[:, :P1] = prelude_tokens
-    sdf_ids = prelude_tokens.new_full((B, 1), sdf_token)
-    sdf_emb = model.embed_tokens(sdf_ids)
     rewards = []
     for f in range(F):
-        s0 = f * D1
-        last_frame = f == F - 1
-        for j in range(D):
-            pos = P1 + s0 + j
-            token = sample_top_k(last_logits, generator, top_k, temperature,
-                                 bf16_exact)
-            buf[:, pos] = token
-            if last_frame and j == D - 1 and not reward_prediction:
-                break  # its logits would only feed the dropped final sdf
-            hidden, _ = model.decode_cached(
-                model.embed_tokens(token[:, None]), cache, pos)
-            last_logits = model.unembed(hidden[:, 0])
-        if reward_prediction:
-            rewards.append(model.reward(hidden[:, 0]).float())
-        if not last_frame:
-            pos = P1 + s0 + D
-            buf[:, pos] = sdf_token
-            emb = sdf_emb
-            if action_embeds is not None:
-                emb = emb + action_embeds[:, context_length + f, None].to(
-                    emb.dtype)
-            hidden, _ = model.decode_cached(emb, cache, pos)
-            last_logits = model.unembed(hidden[:, 0])
+        s0 = P1 + f * D1   # the frame's first token; its sdf just before
+        act = action_fn(f) if action_fn is not None else None
+        with record_function("generation.decode"):
+            if f or action_fn is not None:
+                emb = sdf_emb
+                if act is not None:
+                    emb = emb + model.action_embeds(act)[:, None].to(
+                        emb.dtype)
+                elif action_embeds is not None:
+                    emb = emb + action_embeds[
+                        :, context_length - 1 + f, None].to(emb.dtype)
+                buf[:, s0 - 1] = sdf_token
+                hidden, _ = model.decode_cached(emb, cache, s0 - 1)
+            for j in range(D):
+                token = sample_top_k(model.unembed(hidden[:, -1]), generator,
+                                     top_k, temperature, bf16_exact)
+                buf[:, s0 + j] = token
+                if f == F - 1 and j == D - 1 and not reward_prediction:
+                    break  # its logits would only feed the dropped final sdf
+                hidden, _ = model.decode_cached(
+                    model.embed_tokens(token[:, None]), cache, s0 + j)
+            reward = (model.reward(hidden[:, -1]).float()
+                      if reward_prediction else None)
+        if reward is not None:
+            rewards.append(reward)
+        if on_frame is not None:
+            on_frame(f, buf[:, s0:s0 + D], reward)
     tokens = buf[:, :-1]  # the final sdf slot is never written nor needed
     return GenerateResult(tokens,
                           torch.stack(rewards, 1) if reward_prediction else None)

@@ -6,10 +6,12 @@ Context frames are encoded at full spatial detail (16x16 tokens a frame at
 4x4 patchify into a 16-token dynamics grid. The pixel API is [B, T, H, W, C]
 as in the JAX package; the conv stacks run NCHW inside.
 
-The inference paths are ``encode_context``, ``tokenize`` and ``detokenize``;
-``forward`` is the training forward (straight-through quantize, commit
-losses, dropout). All run with TF32 off, so an fp32 model computes in IEEE
-fp32 (token-id parity with the JAX package); a bf16 model is unaffected.
+The inference paths are ``encode_context``, ``tokenize`` and ``detokenize``,
+and, for the MBRL rollout's frame-by-frame decode, ``build_decode_cache``
+and ``decode_dyn_frame``; ``forward`` is the training forward
+(straight-through quantize, commit losses, dropout). All run with TF32
+off, so an fp32 model computes in IEEE fp32 (token-id parity with the JAX
+package); a bf16 model is unaffected.
 """
 
 from __future__ import annotations
@@ -183,24 +185,60 @@ class CompressiveVQModel(nn.Module):
             ctx_tokens=c.ctx_tokens_per_frame,
             dyn_tokens=c.dyn_tokens_per_frame)
         F = idx_d.shape[1]
-        r = c.latent_resolution
         with full_fp32():
-            quant = self.quantize.embedding.weight[idx_c.reshape(-1)]
-            quant = quant.view(B * context_length, r, r, c.embed_dim)
-            quant_d = self.dynamics_quantize.embedding.weight[idx_d.reshape(-1)]
-            quant_d = quant_d.view(B * F, c.dyn_tokens_per_frame, c.embed_dim)
-            quant2 = self.post_quant_conv(_nchw(quant.to(self.dtype)))
-            quant2_d = self.post_quant_linear(quant_d.to(self.dtype))
-            quant2_d = _nchw(depatchify(quant2_d, r, r, c.patch_size,
-                                        c.latent_channels))
-            context_dec, feats = self.decoder(quant2, return_features=True)
+            context_dec, feats = self._decode_context(idx_c)
             dec = self.cond_decoder(
-                quant2_d, _tile_cond_features(feats, B, context_length, F))
+                self._dyn_latent(idx_d.reshape(B * F, -1)),
+                _tile_cond_features(feats, B, context_length, F))
         H = context_dec.shape[-1]
         return torch.cat([
             _nhwc(context_dec).reshape(B, context_length, H, H, c.out_channels),
             _nhwc(dec).reshape(B, F, H, H, c.out_channels),
         ], dim=1)
+
+    def build_decode_cache(self, ctx_indices: torch.Tensor):
+        """Decode the context grid [B, ctx, ctx_tokens] once: (context_dec
+        [B*ctx, H, W, C], cache), the cache holding context_dec and the
+        decoder's features tiled for one future frame, as
+        :meth:`decode_dyn_frame` reads them."""
+        B, ctx = ctx_indices.shape[:2]
+        with full_fp32():
+            context_dec, feats = self._decode_context(ctx_indices)
+        context_dec = _nhwc(context_dec)
+        return context_dec, {
+            "context_dec": context_dec,
+            "cond_features": _tile_cond_features(feats, B, ctx, 1)}
+
+    def decode_dyn_frame(self, dyn_indices: torch.Tensor, cache
+                         ) -> torch.Tensor:
+        """[B, dyn_tokens] raw (un-offset) dynamics ids -> one frame
+        [B, H, W, C], cross-attending into the features of
+        :meth:`build_decode_cache`."""
+        with full_fp32():
+            dec = self.cond_decoder(self._dyn_latent(dyn_indices),
+                                    cache["cond_features"])
+        return _nhwc(dec)
+
+    def _decode_context(self, idx_c: torch.Tensor):
+        """Raw context ids [B, ctx, ctx_tokens] -> (decoded context frames
+        [B*ctx, C, H, W], the decoder's features); TF32 off by the caller."""
+        c = self.config
+        r = c.latent_resolution
+        quant = self.quantize.embedding.weight[idx_c.reshape(-1)]
+        quant = quant.view(-1, r, r, c.embed_dim)
+        return self.decoder(self.post_quant_conv(_nchw(quant.to(self.dtype))),
+                            return_features=True)
+
+    def _dyn_latent(self, idx_d: torch.Tensor) -> torch.Tensor:
+        """Raw dynamics ids [N, dyn_tokens] -> the cond decoder's input
+        [N, latent_channels, r, r]; TF32 off by the caller."""
+        c = self.config
+        r = c.latent_resolution
+        quant_d = self.dynamics_quantize.embedding.weight[idx_d.reshape(-1)]
+        quant_d = quant_d.view(-1, c.dyn_tokens_per_frame, c.embed_dim)
+        quant2_d = self.post_quant_linear(quant_d.to(self.dtype))
+        return _nchw(depatchify(quant2_d, r, r, c.patch_size,
+                                c.latent_channels))
 
     def forward(self, sample: torch.Tensor, dyn_sample: torch.Tensor,
                 segment_len: int, deterministic: bool = True,

@@ -3,7 +3,8 @@
 
 - schedules: ``constant`` (with a linear warmup), ``cosine`` and ``linear``,
   computed in float32 with optax's formulas and read at the update count
-  *before* it is incremented, so the first warmup step has lr 0;
+  *before* it is incremented, so the first warmup step has lr 0; and
+  ``fixed``, a plain float learning rate;
 - AdamW with decoupled weight decay and no decay for parameters with
   ndim < 2 or whose name holds ``embed``, ``codebook`` or ``pos_emb``
   (``torch.optim.AdamW`` over two parameter groups is ``optax.adamw``);
@@ -60,7 +61,11 @@ def _join(first: Schedule, second: Schedule, boundary: int) -> Schedule:
 
 def make_lr_schedule(kind: str, base_lr: float, warmup_steps: int,
                      total_steps: int) -> Schedule:
-    """update count -> learning rate (a float32 value)."""
+    """update count -> learning rate (a float32 value). ``"fixed"`` is a
+    plain float learning rate, as ``optax.adamw(lr)`` takes it: no warmup,
+    so the first update moves too."""
+    if kind == "fixed":
+        return lambda count: _f32(base_lr)
     w = max(warmup_steps, 1)
     warmup = _linear(0.0, base_lr, w)
     if kind in ("constant", "constant_with_warmup"):
@@ -103,20 +108,26 @@ class TrainState:
     """Model, AdamW, schedule and step counters of one training run.
 
     ``step`` counts :meth:`apply_gradients` calls (micro-batches);
-    ``updates`` counts optimiser updates, which the schedule reads."""
+    ``updates`` counts optimiser updates, which the schedule reads.
+    Parameters named in ``frozen`` keep their gradients in the clip's global
+    norm but are never updated."""
 
     def __init__(self, model: nn.Module, *, learning_rate: float,
                  lr_scheduler: str = "cosine", warmup_steps: int = 0,
                  total_steps: int = 1_000_000, weight_decay: float = 0.0,
                  embed_no_wd: bool = True, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, max_grad_norm: Optional[float] = 1.0,
-                 gradient_accumulation_steps: int = 1):
+                 gradient_accumulation_steps: int = 1,
+                 frozen: Iterable[str] = ()):
         self.model = model
         self.schedule = make_lr_schedule(lr_scheduler, learning_rate,
                                          warmup_steps, total_steps)
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         self.params = [p for _, p in named]
+        frozen = set(frozen)
+        self._trained = [n not in frozen for n, _ in named]
+        named = [(n, p) for n, p in named if n not in frozen]
         decay = [p for n, p in named if not embed_no_wd or decays(n, p)]
         keep = [p for n, p in named if embed_no_wd and not decays(n, p)]
         groups = [{"params": decay, "weight_decay": weight_decay}]
@@ -153,8 +164,9 @@ class TrainState:
             self.step += 1
         if self.max_grad_norm is not None:
             clip_by_global_norm_(grads, self.max_grad_norm)
-        for p, g in zip(self.params, grads):
-            p.grad = g
+        for p, g, trained in zip(self.params, grads, self._trained):
+            if trained:
+                p.grad = g
         lr = float(self.schedule(self.updates))
         for group in self.optimizer.param_groups:
             group["lr"] = lr

@@ -2,8 +2,9 @@
 
 The port's own copy of the mapping of ``flax_to_torch_tokenizer``,
 ``flax_to_torch_llama`` and ``flax_to_torch_action_model`` in
-``ivideogpt_tpu/utils/checkpoint.py``, and of the discriminator's and
-LPIPS's trees (which the JAX package never exports). Each takes the Flax
+``ivideogpt_tpu/utils/checkpoint.py``, and of the discriminator's, LPIPS's
+and the DrQ-v2 encoder's and actor's trees (which the JAX package never
+exports). Each takes the Flax
 tree as nested dicts of numpy arrays (``{"params": {...}}``) and returns
 torch tensors under the torch names, which the port's modules load with
 ``strict=True``:
@@ -162,6 +163,36 @@ def lpips_state_dict(params: dict) -> Dict[str, torch.Tensor]:
                                              else v)
         else:
             sd[path] = v
+    return _to_torch(sd)
+
+
+_DRQV2_ACTOR = {"Dense_0": "trunk.0", "LayerNorm_0": "trunk.1",
+                "Dense_1": "policy.0", "Dense_2": "policy.2",
+                "Dense_3": "policy.4"}
+
+
+def drqv2_state_dict(encoder_params: dict, actor_params: dict
+                     ) -> Dict[str, torch.Tensor]:
+    """DrQ-v2 ``Encoder`` and ``Actor`` parameters -> the state dict of
+    ``mbrl.drqv2.DrQV2Policy``: ``Conv_i`` -> ``encoder.convnet.{2i}``
+    (HWIO -> OIHW), the actor's ``Dense``/``LayerNorm`` layers ->
+    ``actor.trunk``/``actor.policy`` (kernels transposed, ``scale`` ->
+    ``weight``)."""
+    sd = {}
+    for path, v in _flatten(encoder_params["params"]).items():
+        mod, leaf = path.split("/")
+        name = f"encoder.convnet.{2 * int(mod[len('Conv_'):])}"
+        sd[f"{name}.weight" if leaf == "kernel" else f"{name}.{leaf}"] = (
+            _conv_out(v) if leaf == "kernel" else v)
+    for path, v in _flatten(actor_params["params"]).items():
+        mod, leaf = path.split("/")
+        name = f"actor.{_DRQV2_ACTOR[mod]}"
+        if leaf == "kernel":
+            sd[f"{name}.weight"] = v.T
+        elif leaf == "scale":
+            sd[f"{name}.weight"] = v
+        else:
+            sd[f"{name}.{leaf}"] = v
     return _to_torch(sd)
 
 

@@ -259,6 +259,25 @@ def test_decode_attention_matches_plain(cuda, valid, qdtype):
     torch.testing.assert_close(ours, ref, **tol)
 
 
+@pytest.mark.parametrize("valid", [514, 599, 683])
+def test_decode_attention_at_the_mbrl_rollouts_shape(cuda, valid):
+    """The MBRL imagination rollout's K3 calls: B=32, H=12, a cache of
+    514 + 17 * 10 slots, valid from the first frame's sdf to the last
+    token (384 (b, h) blocks, fewer than 3 an SM)."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    B, M, H, hd = 32, 684, 12, 64
+    g = torch.Generator(device=cuda).manual_seed(valid)
+    q = torch.randn(B, H, hd, device=cuda, generator=g).bfloat16()
+    k, v = (torch.randint(-127, 128, (B, M, H, hd), device=cuda,
+                          generator=g, dtype=torch.int8) for _ in range(2))
+    ks, vs = ((torch.rand(B, M, H, device=cuda, generator=g) * 0.02
+               + 0.001).bfloat16() for _ in range(2))
+    ours = da.decode_attention(q, k, ks, v, vs, valid)
+    ref = da.decode_attention_plain(q, k, ks, v, vs, valid)
+    # fp32 sums in another order; a bf16 output may differ by one ulp
+    torch.testing.assert_close(ours, ref, rtol=2e-2, atol=2e-3)
+
+
 def test_decode_attention_refuses_bad_valid(cuda):
     from ivideogpt_tpu_torch.ops import decode_attention as da
     q = torch.zeros(1, 1, 64, device=cuda, dtype=torch.bfloat16)
@@ -280,7 +299,7 @@ def _qkv(cuda, S, dtype, seed, strided=False):
     return [t.requires_grad_(i < 3) for i, t in enumerate(ts)]
 
 
-@pytest.mark.parametrize("S", [1, 63, 64, 65, 751])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 513, 683, 751])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_matches_plain(cuda, S, dtype):
     from ivideogpt_tpu_torch.ops import flash_attention as fa
@@ -335,8 +354,8 @@ def _gate(got, want, what):
 
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("B,H", [(1, 1), (32, 12)])   # one head; ~6 waves
-@pytest.mark.parametrize("S", [1, 2, 63, 64, 65, 127, 128, 129, 514, 751,
-                               1024])
+@pytest.mark.parametrize("S", [1, 2, 63, 64, 65, 127, 128, 129, 513, 514,
+                               683, 751, 1024])
 def test_flash_sm90_kernels_match_plain_at_their_interface(cuda, S, B, H,
                                                            fused):
     """The bf16 K4 (O, lse) and K5 (dK, dV) against flash_fwd_plain and
@@ -370,8 +389,8 @@ def test_flash_sm90_kernels_match_plain_at_their_interface(cuda, S, B, H,
 
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("B,H", [(1, 1), (32, 12)])
-@pytest.mark.parametrize("S", [1, 2, 63, 64, 65, 127, 128, 129, 514, 751,
-                               1024])
+@pytest.mark.parametrize("S", [1, 2, 63, 64, 65, 127, 128, 129, 513, 514,
+                               683, 751, 1024])
 def test_flash_sm90_dq_matches_plain_at_its_interface(cuda, S, B, H, fused):
     """The bf16 K6 (dQ) against flash_bwd_dq_plain in fp32 on the same bf16
     inputs, both fed the plain lse and di, so it is tested apart from K4;

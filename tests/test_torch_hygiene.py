@@ -53,7 +53,9 @@ def test_scan_sees_the_whole_package():
                  "ops/decode_attention.py", "ops/flash_attention.py",
                  "models/llama.py", "models/discriminator.py",
                  "models/lpips.py", "train/gpt_trainer.py",
-                 "train/tokenizer_trainer.py", "train/optim.py"):
+                 "train/tokenizer_trainer.py", "train/optim.py",
+                 "mbrl/video_predictor.py", "mbrl/drqv2.py",
+                 "mbrl/utils.py"):
         assert must in rels
     for src in ("vq_argmin", "vq_argmin_tiled", "decode_attention",
                 "flash_attention", "flash_attention_sm90"):
@@ -61,6 +63,9 @@ def test_scan_sees_the_whole_package():
 
 
 def test_entry_point_wants_cuda():
+    from ivideogpt_tpu_torch.configs import (LLAMA_BASE, TOKENIZER_64,
+                                             ActionModelConfig)
+    from ivideogpt_tpu_torch.mbrl.video_predictor import VideoPredictor
     from ivideogpt_tpu_torch.rollout import build_models
     from ivideogpt_tpu_torch.train.gpt_trainer import build_train_models
     from ivideogpt_tpu_torch.train.tokenizer_trainer import (
@@ -77,6 +82,9 @@ def test_entry_point_wants_cuda():
         build_train_models()
     with pytest.raises(RuntimeError, match="CUDA"):
         build_tokenizer_train_models()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VideoPredictor(TOKENIZER_64, LLAMA_BASE,
+                       ActionModelConfig(reward_prediction=True))
     assert resolve_device("cpu").type == "cpu"
 
 
