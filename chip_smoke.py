@@ -5,6 +5,7 @@ against their plain PyTorch versions.
     python3 chip_smoke.py
     python3 <path to>/chip_smoke.py --ab-turn   # one A/B turn, see ab_turn
     python3 chip_smoke.py --vq-routing   # K1 against K2, see vq_routing
+    python3 chip_smoke.py --k3-splits    # K3's split counts, see k3_splits
 
 Phases, each printed on its own lines; any failure exits non-zero without
 the final result line:
@@ -21,7 +22,10 @@ the final result line:
                the plain version and cdist+argmin
   4. K3        int8 decode attention, H=12, hd=64, at B=256, M=752 for
                valid in {515, 633, 751} and at the MBRL rollout's B=32,
-               M=684 for valid in {514, 599, 683}, against the plain version
+               M=684 for valid in {514, 599, 683}, against the plain
+               version, two launches bit-identical, valid on the card
+               bit-equal to the host int, one CUDA graph a shape replayed
+               at two lengths; its split plan; timed against a cold L2
   5. flash     K4 (causal flash-attention forward) at the training shape
                (B=16, H=12, S=751), the prefill shape (B=256, S=514), the
                MBRL train() shape (B=16, S=683) and the MBRL prefill (B=32,
@@ -103,6 +107,12 @@ MB_TRAIN_B, MB_TARGETS, MB_TIMED = 16, 5, 3
 MB_P1 = 257 * CTX                       # prelude + first sdf: 514
 MB_M = MB_P1 + 17 * MB_H                # the rollout's KV cache: 684 slots
 MB_L = MB_P1 - 1 + 17 * (MB_SEG - CTX)  # a train() segment's stream: 683
+# K3's shapes: the main rollout's cache (B=256, 752 slots) at three
+# lengths of its decode, and the MBRL rollout's (B=32, 684 slots) from the
+# first frame's sdf to its last token; the split counts --k3-splits times
+K3_SHAPES = ((B, 752, (515, 633, 751)), (MB_B, MB_M, (MB_P1, 599, MB_M - 1)))
+K3_SPLIT_CANDIDATES = {B: (1, 2, 3, 4), MB_B: (1, 2, 3, 4, 5, 6, 8, 11)}
+L2_ROTATION_BYTES = 200_000_000  # >= 4 x the H100's 50 MB L2
 # K1's lookups on the main paths (K=8192, D=64): the rollout's context
 # frames, the context frames of a B=16 GPT step and tokenizer pair, and the
 # dynamics frames of the GPT step (16 x 14 x 16) and of the pair (16 x 6 x
@@ -398,26 +408,102 @@ def vq_routing(torch):
     return out
 
 
-def phase_k3(torch):
-    """K3 at the main rollout's shape (B=256, M=752, valid 515, 633, 751)
-    and the MBRL rollout's (B=32, M=684, valid 514, 599, 683), H=12, hd=64,
-    against the plain version; times by cuda_ms and, for the card alone,
-    queued_ms (at B=32 the host's launch is the slower). The kernels line
-    keeps B=256 at valid 751 and every shape under ``at_shape``."""
-    from ivideogpt_tpu_torch.ops import decode_attention as da
-    H, hd = 12, 64
-    g = torch.Generator(device="cuda").manual_seed(2)
-    max_err, row, at_shape = 0.0, None, {}
-    for b, M, valids in ((B, 752, (515, 633, 751)),
-                         (MB_B, MB_M, (MB_P1, 599, MB_M - 1))):
-        k, v = (torch.randint(-127, 128, (b, M, H, hd), device="cuda",
+def k3_caches(torch, b, M, g, H=12):
+    """Int8 caches (k, ks, v, vs) at batch b, M slots, H=12, hd=64, from g:
+    as many as hold ``L2_ROTATION_BYTES`` together (one at B=256, 305 MB;
+    six at B=32, 35 MB each), so that a call that takes the next one finds
+    its bytes outside the 50 MB L2, as each of a rollout's 12 layers does."""
+    one = 2 * b * M * H * 64 + 2 * b * M * H * 2
+    caches = []
+    for _ in range(-(-L2_ROTATION_BYTES // one)):
+        k, v = (torch.randint(-127, 128, (b, M, H, 64), device="cuda",
                               generator=g, dtype=torch.int8)
                 for _ in range(2))
         ks, vs = ((torch.rand(b, M, H, device="cuda", generator=g) * 0.02
                    + 0.001).bfloat16() for _ in range(2))
+        caches.append((k, ks, v, vs))
+    return caches
+
+
+def rotating(caches, fn):
+    """A call of fn(k, ks, v, vs) on the next cache of the rotation."""
+    turn = [0]
+
+    def call():
+        k, ks, v, vs = caches[turn[0] % len(caches)]
+        turn[0] += 1
+        return fn(k, ks, v, vs)
+    return call
+
+
+def k3_bound(b, valid, H=12):
+    """(bound_ms, by) of one K3 call: the live int8 K and V and their bf16
+    scales read once, q read and out written once (bf16), against 4 FLOP a
+    cached value at the fp32 rate."""
+    nbytes = 2 * b * valid * H * 64 + 2 * b * valid * H * 2 \
+        + 2 * b * H * 64 * 2
+    return bound(nbytes, 4 * b * H * valid * 64, FP32_PEAK)
+
+
+def k3_graph_gate(torch, da, q, cache, valids):
+    """Capture one K3 call with valid on the card; replay it after
+    valid.fill_() at each of valids: bit for bit the host-int path's, and
+    within the plain version's tolerance."""
+    k, ks, v, vs = cache
+    vt = torch.full((1,), valids[0], dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.decode_attention(q, k, ks, v, vs, vt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, k, ks, v, vs, vt)
+    for valid in valids:
+        vt.fill_(valid)
+        graph.replay()
+        want = da.decode_attention(q, k, ks, v, vs, valid)
+        ref = da.decode_attention_plain(q, k, ks, v, vs, valid)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"K3: the graph replayed at valid="
+              f"{valid} differs from the host-int path")
+        check(torch.allclose(out.float(), ref.float(), rtol=2e-2, atol=2e-3),
+              f"K3: the graph replayed at valid={valid} disagrees with the "
+              f"plain version")
+    del graph
+
+
+def phase_k3(torch):
+    """K3 at the main rollout's shape (B=256, M=752, valid 515, 633, 751)
+    and the MBRL rollout's (B=32, M=684, valid 514, 599, 683), H=12, hd=64.
+    Gates at each valid: the plain version within its tolerance, two
+    launches bit-identical, valid as an int32 on the card bit-equal to the
+    host int; at each shape one CUDA graph of K3 alone (valid on the card)
+    replayed at two lengths, bit-equal to the host-int path. Prints the
+    split plan. Times by cuda_ms and, for the card alone, queued_ms (at
+    B=32 the host's launch is the slower), each call on the next cache of a
+    rotation that holds >= 200 MB (``k3_caches``): one cache at B=32 (35
+    MB) would sit in the 50 MB L2 across calls, where the rollout's 12
+    layers never find theirs. The kernels line keeps B=256 at valid 751 and
+    every shape under ``at_shape``."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    H, hd = 12, 64
+    g = torch.Generator(device="cuda").manual_seed(2)
+    max_err, row, at_shape = 0.0, None, {}
+    for b, M, valids in K3_SHAPES:
+        splits = da.decode_splits(b, H, M, da._sms(torch.device("cuda")))
+        per = da.split_len(M, splits)
+        blocks = b * da.head_groups(H) * splits
+        print(f"K3 B={b} M={M}: plan {splits} split(s) of {per} slots, "
+              f"{blocks} blocks of {H} heads")
+        caches = k3_caches(torch, b, M, g)
         q = torch.randn(b, H, hd, device="cuda", generator=g).bfloat16()
+        k, ks, v, vs = caches[0]
         for valid in valids:
             out = da.decode_attention(q, k, ks, v, vs, valid)
+            again = da.decode_attention(q, k, ks, v, vs, valid)
+            on_card = da.decode_attention(q, k, ks, v, vs, torch.tensor(
+                [valid], dtype=torch.int32, device="cuda"))
             ref = da.decode_attention_plain(q, k, ks, v, vs, valid)
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
@@ -426,27 +512,31 @@ def phase_k3(torch):
             # ulp
             ok = torch.allclose(out.float(), ref.float(), rtol=2e-2,
                                 atol=2e-3)
-
-            def fn():
-                da.decode_attention(q, k, ks, v, vs, valid)
-            ms = cuda_ms(fn, 50)
-            q_ms, host_ms = queued_ms(fn, 200)
-            plain_ms = cuda_ms(
-                lambda: da.decode_attention_plain(q, k, ks, v, vs, valid), 5)
-            nbytes = 2 * b * valid * H * hd + 2 * b * valid * H * 2 \
-                + 2 * b * H * hd * 2
-            b_ms, b_by = bound(nbytes, 4 * b * H * valid * hd, FP32_PEAK)
-            print(f"K3 B={b} M={M} valid={valid}: max_abs_err={err:.3e} "
-                  f"(rtol 2e-2, atol 2e-3) kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} library_ms=null "
-                  f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound="
-                  f"{b_ms / ms:.3f}; queued: kernel_ms={q_ms:.4f} (share "
-                  f"{b_ms / q_ms:.3f}), host_ms per call {host_ms:.4f}")
             check(ok, f"K3 disagrees with the plain version at B={b}, "
                   f"valid={valid}")
+            check(torch.equal(out, again), f"K3: two launches differ at "
+                  f"B={b}, valid={valid}")
+            check(torch.equal(out, on_card), f"K3: valid on the card "
+                  f"differs from the host int at B={b}, valid={valid}")
+
+            fn = rotating(caches, lambda k, ks, v, vs:
+                          da.decode_attention(q, k, ks, v, vs, valid))
+            ms = cuda_ms(fn, 60)
+            q_ms, host_ms = queued_ms(fn, 240)
+            plain_ms = cuda_ms(
+                lambda: da.decode_attention_plain(q, k, ks, v, vs, valid), 5)
+            b_ms, b_by = k3_bound(b, valid)
+            print(f"K3 B={b} M={M} valid={valid}: max_abs_err={err:.3e} "
+                  f"(rtol 2e-2, atol 2e-3), two launches and the device "
+                  f"valid bit-equal; cold L2 ({len(caches)} caches): "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms=null bound_ms={b_ms:.4f} ({b_by}) "
+                  f"share_of_bound={b_ms / ms:.3f}; queued: kernel_ms="
+                  f"{q_ms:.4f} (share {b_ms / q_ms:.3f}), host_ms per call "
+                  f"{host_ms:.4f}")
             at_shape[f"B={b} valid={valid}"] = dict(
                 ms=ms, queued_ms=q_ms, host_ms=host_ms, plain_ms=plain_ms,
-                bound_ms=b_ms)
+                bound_ms=b_ms, splits=splits, split_len=per)
             if b == B:
                 row = dict(name="decode_attention", route="cuda",
                            source="ivideogpt_tpu_torch/csrc/"
@@ -455,11 +545,66 @@ def phase_k3(torch):
                            shape=f"B={b} M={M} valid={valid}", ms=ms,
                            queued_ms=q_ms, host_ms=host_ms, plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        del k, v, ks, vs, q
+        k3_graph_gate(torch, da, q, caches[0], valids[:2])
+        print(f"K3 B={b}: one CUDA graph (valid on the card) replayed at "
+              f"valid {valids[0]} and {valids[1]}: bit-equal to the host-int "
+              f"path, within rtol 2e-2, atol 2e-3 of the plain version")
+        del caches, k, ks, v, vs, q
     torch.cuda.empty_cache()
     row["max_abs_err"] = max_err
     row["at_shape"] = at_shape
     return row
+
+
+def k3_splits(torch):
+    """K3 at the six shapes of ``phase_k3`` for every split count in
+    K3_SPLIT_CANDIDATES, by cuda_ms and queued_ms over the cold-L2
+    rotation, each held against the plan's output: the measurement behind
+    ops/decode_attention.decode_splits (``--k3-splits``). Then K3's fixed
+    cost a launch: queued_ms of a one-element add (the card's floor for
+    back-to-back launches) beside K3 at valid=1, with one split and with
+    the plan's (the difference: the merge's chain of fence, count and
+    reads)."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    H = 12
+    g = torch.Generator(device="cuda").manual_seed(31)
+    out = []
+    tiny = torch.zeros(1, device="cuda")
+    floor_ms = queued_ms(lambda: tiny.add_(1), 240)[0]
+    for b, M, valids in K3_SHAPES:
+        plan = da.decode_splits(b, H, M, da._sms(torch.device("cuda")))
+        caches = k3_caches(torch, b, M, g)
+        q = torch.randn(b, H, 64, device="cuda", generator=g).bfloat16()
+        for valid in valids:
+            want = da.decode_attention(q, *caches[0], valid)
+            b_ms, _ = k3_bound(b, valid)
+            for splits in K3_SPLIT_CANDIDATES[b]:
+                got = da._launch(q, *caches[0], valid, splits)
+                check(torch.allclose(got.float(), want.float(), rtol=2e-2,
+                                     atol=2e-3),
+                      f"k3 splits: {splits} splits disagree at B={b}")
+                fn = rotating(caches, lambda k, ks, v, vs:
+                              da._launch(q, k, ks, v, vs, valid, splits))
+                r = dict(b=b, valid=valid, splits=splits, plan=plan,
+                         ms=cuda_ms(fn, 60), queued_ms=queued_ms(fn, 240)[0],
+                         bound_ms=b_ms)
+                r["share_queued"] = b_ms / r["queued_ms"]
+                print(f"k3 splits B={b} valid={valid} splits={splits}"
+                      f"{' (plan)' if splits == plan else ''}: "
+                      f"{r['ms']:.4f} ms, queued {r['queued_ms']:.4f} "
+                      f"(share {r['share_queued']:.3f})")
+                out.append(r)
+        fixed = {f"splits={n}": queued_ms(rotating(
+            caches, lambda k, ks, v, vs: da._launch(q, k, ks, v, vs, 1, n)),
+            240)[0] for n in sorted({1, plan})}
+        print(f"k3 fixed cost B={b}: a one-element add {floor_ms:.4f} ms "
+              f"queued; K3 at valid=1 " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in fixed.items()))
+        out.append(dict(b=b, valid=1, floor_ms=floor_ms, fixed_ms=fixed))
+        del caches, q
+        torch.cuda.empty_cache()
+    print("k3 splits: " + json.dumps(out))
+    return out
 
 
 def phase_flash(torch):
@@ -1758,16 +1903,28 @@ def phase_train_check(torch):
 
 
 def ab_kernel_times(torch):
-    """K1 at K1_SHAPES, K2 at the wide shapes of K2_SHAPES, and K5, K6 and
-    SDPA's backward at the training shape, by cuda_ms and queued_ms,
-    through the interfaces every tree of the port has: the kernel half of
-    an A/B turn (``--ab-turn``)."""
+    """K1 at K1_SHAPES, K2 at the wide shapes of K2_SHAPES, K3 at the six
+    shapes of K3_SHAPES (the host-int valid, over phase_k3's cold-L2
+    rotation of caches), and K5, K6 and SDPA's backward at the training
+    shape, by cuda_ms and queued_ms, through the interfaces every tree of
+    the port has: the kernel half of an A/B turn (``--ab-turn``)."""
     import torch.nn.functional as F
+    from ivideogpt_tpu_torch.ops import decode_attention as da
     from ivideogpt_tpu_torch.ops import flash_attention as fa
     from ivideogpt_tpu_torch.ops import vq
     from ivideogpt_tpu_torch.utils.platform import full_fp32
     out = {}
     g = torch.Generator(device="cuda").manual_seed(1)
+    for b, M, valids in K3_SHAPES:
+        caches = k3_caches(torch, b, M, g)
+        q = torch.randn(b, 12, 64, device="cuda", generator=g).bfloat16()
+        for valid in valids:
+            fn = rotating(caches, lambda k, ks, v, vs:
+                          da.decode_attention(q, k, ks, v, vs, valid))
+            out[f"K3 B={b} valid={valid}"] = (cuda_ms(fn, 60),
+                                              queued_ms(fn, 240)[0])
+        del caches, q
+        torch.cuda.empty_cache()
     shapes = ([(f"K1 N={n}", vq.vq_argmin, n, 8192, 64)
                for _, n in K1_SHAPES]
               + [(f"K2 N={n} K={k} D={d}", vq.vq_argmin_tiled, n, k, d)
@@ -1807,13 +1964,16 @@ def ab_turn(torch):
     ``python3 <this file> --ab-turn`` from the root of the tree to measure
     (its package is the one imported): the kernels' times, then the
     rollout, the GPT step, the tokenizer pair and the wide pair, each with
-    its profiled device seconds. Turns alternate between the trees, parent
-    first."""
+    its profiled device seconds, and the MBRL imagination rollout with its
+    device seconds by part (``generation.decode`` holds its K3 calls).
+    Turns alternate between the trees, parent first."""
     ab_kernel_times(torch)
     phase_main(torch)
     phase_train(torch)
     phase_tok_train(torch, wide=False)
     phase_tok_train(torch, wide=True)
+    vp = mbrl_models(torch, torch.bfloat16, seed=59)
+    phase_mbrl(torch, vp)
 
 
 def main():
@@ -1828,9 +1988,9 @@ def main():
         return 1
     mode = sys.argv[1:]
     ab = mode == ["--ab-turn"]
-    if mode not in ([], ["--ab-turn"], ["--vq-routing"]):
-        print(f"FAIL: usage: {sys.argv[0]} [--ab-turn | --vq-routing]",
-              file=sys.stderr)
+    if mode not in ([], ["--ab-turn"], ["--vq-routing"], ["--k3-splits"]):
+        print(f"FAIL: usage: {sys.argv[0]} [--ab-turn | --vq-routing | "
+              f"--k3-splits]", file=sys.stderr)
         return 1
     tree = os.getcwd() if ab else REPO
     if not os.path.isdir(os.path.join(tree, "ivideogpt_tpu_torch")):
@@ -1859,6 +2019,9 @@ def main():
             return 0
         if mode == ["--vq-routing"]:
             vq_routing(torch)
+            return 0
+        if mode == ["--k3-splits"]:
+            k3_splits(torch)
             return 0
         k1 = phase_k1(torch)
         k2 = phase_k2(torch, k1)

@@ -9,8 +9,10 @@ without it:
 The checks at the main path's full shapes are ``chip_smoke.py``'s phases;
 these cover the edges: ragged tiles, small D, K1 equal to K2 bit for bit,
 ties across K1's and K2's codebook splits, fp32 queries, a single live
-slot, strided views, the bf16 K4, K5 and K6 at their own interface (lse
-in, lse out) and launch to launch, and the wrappers' refusals.
+slot, K3's split edges, split counts, head groups, determinism, valid on
+the card, its CUDA graph and its trap, strided views, the bf16 K4, K5 and
+K6 at their own interface (lse in, lse out) and launch to launch, and the
+wrappers' refusals.
 """
 
 import pytest
@@ -286,6 +288,164 @@ def test_decode_attention_refuses_bad_valid(cuda):
     for valid in (0, 5):
         with pytest.raises(ValueError):
             da.decode_attention(q, kv, s, kv, s, valid)
+    for bad in (torch.tensor([1], dtype=torch.int64, device=cuda),
+                torch.tensor([1, 1], dtype=torch.int32, device=cuda),
+                torch.tensor([1], dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            da.decode_attention(q, kv, s, kv, s, bad)
+
+
+def _k3_inputs(cuda, B, M, H, qdtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, H, 64, device=cuda, generator=g).to(qdtype)
+    k, v = (torch.randint(-127, 128, (B, M, H, 64), device=cuda, generator=g,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = ((torch.rand(B, M, H, device=cuda, generator=g) * 0.02
+               + 0.001).bfloat16() for _ in range(2))
+    return q, k, ks, v, vs
+
+
+def _k3_tol(qdtype):
+    # fp32 sums in another order; a bf16 output may differ by one ulp
+    return dict(rtol=2e-2, atol=2e-3) if qdtype == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,M", [(1, 684), (3, 684), (32, 684), (256, 100)])
+def test_decode_attention_at_split_edges(cuda, B, M, qdtype):
+    """K3 against the plain version and the plain split-then-merge at 1, M
+    and the edges (+-1) of the plan's first two splits: 43 splits of one
+    16-slot tile at B=1 and 3, 4 of 176 slots at B=32, one split (no
+    merge) at B=256."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    H = 12
+    splits = da.decode_splits(B, H, M, da._sms(cuda))
+    per = da.split_len(M, splits)
+    q, k, ks, v, vs = _k3_inputs(cuda, B, M, H, qdtype, B)
+    edges = {1, 2, 15, 16, 17, per - 1, per, per + 1, 2 * per - 1, 2 * per,
+             2 * per + 1, M - 1, M}
+    for valid in sorted(x for x in edges if 1 <= x <= M):
+        ours = da.decode_attention(q, k, ks, v, vs, valid)
+        assert ours.dtype == qdtype
+        tol = _k3_tol(qdtype)
+        torch.testing.assert_close(
+            ours, da.decode_attention_plain(q, k, ks, v, vs, valid), **tol)
+        torch.testing.assert_close(
+            ours, da.decode_attention_split_plain(q, k, ks, v, vs, valid,
+                                                  splits), **tol)
+
+
+@pytest.mark.parametrize("H", [1, 5, 12, 16])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 19])
+def test_decode_attention_at_every_split_count(cuda, splits, H):
+    """Any split count (runs of 16 slots up to 160, ragged last runs,
+    trailing empty ones), through the launch the wrapper's plan feeds, with
+    one head, an odd head count and two head groups, at a single slot,
+    ragged tiles and a full cache; two launches the same bits. M=301: at
+    H in {1, 5} the scale tensors end off a 16-byte boundary, where the
+    last tile's scales are copied plainly."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    B, M = 2, 301
+    q, k, ks, v, vs = _k3_inputs(cuda, B, M, H, torch.float32, splits)
+    for valid in (1, 17, 97, 150, 300, 301):
+        ours = da._launch(q, k, ks, v, vs, valid, splits)
+        torch.testing.assert_close(
+            ours, da.decode_attention_plain(q, k, ks, v, vs, valid),
+            **_k3_tol(torch.float32))
+        torch.testing.assert_close(
+            ours, da.decode_attention_split_plain(q, k, ks, v, vs, valid,
+                                                  splits),
+            **_k3_tol(torch.float32))
+        assert torch.equal(ours, da._launch(q, k, ks, v, vs, valid, splits))
+
+
+@pytest.mark.parametrize("H", [16, 25])
+def test_decode_attention_head_groups(cuda, H):
+    """More heads than a block holds (12): 2 groups of 8 (one row a
+    slot row copy each), 3 of 9 (the last one 7)."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    q, k, ks, v, vs = _k3_inputs(cuda, 3, 300, H, torch.bfloat16, H)
+    for valid in (1, 150, 300):
+        torch.testing.assert_close(
+            da.decode_attention(q, k, ks, v, vs, valid),
+            da.decode_attention_plain(q, k, ks, v, vs, valid),
+            **_k3_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("B", [1, 32, 256])
+def test_decode_attention_is_deterministic_and_reads_valid_on_the_card(
+        cuda, B):
+    """Two launches give the same bits (the splits merge in split order,
+    whichever block finishes last), and an int32 valid on the card gives
+    the bits the host int gives, one launch a call either way."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    M, H = (684, 12) if B < 256 else (100, 12)
+    q, k, ks, v, vs = _k3_inputs(cuda, B, M, H, torch.bfloat16, 7)
+    for valid in (1, 17, M // 2, M):
+        before = da.decode_attention.launches
+        a = da.decode_attention(q, k, ks, v, vs, valid)
+        b = da.decode_attention(q, k, ks, v, vs, valid)
+        dev = da.decode_attention(q, k, ks, v, vs, torch.tensor(
+            [valid], dtype=torch.int32, device=cuda))
+        assert da.decode_attention.launches == before + 3
+        assert torch.equal(a, b) and torch.equal(a, dev)
+
+
+def test_decode_attention_graph_replays_at_two_lengths(cuda):
+    """One capture of K3 with valid on the card serves every length: fill
+    valid, replay, and the output is the host-int path's, bit for bit."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    B, M, H = 32, 684, 12
+    q, k, ks, v, vs = _k3_inputs(cuda, B, M, H, torch.bfloat16, 11)
+    vt = torch.full((1,), M, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.decode_attention(q, k, ks, v, vs, vt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, k, ks, v, vs, vt)
+    for valid in (599, 514):
+        vt.fill_(valid)
+        before = da.decode_attention.launches
+        graph.replay()
+        assert da.decode_attention.launches == before
+        want = da.decode_attention(q, k, ks, v, vs, valid)
+        assert torch.equal(out, want), valid
+        torch.testing.assert_close(
+            out, da.decode_attention_plain(q, k, ks, v, vs, valid),
+            **_k3_tol(torch.bfloat16))
+
+
+def test_decode_attention_traps_on_a_bad_valid_on_the_card(cuda):
+    """valid outside [1, M] on the card is never clamped: the kernel traps,
+    which ends the process's CUDA context (so it runs in a child)."""
+    import os
+    import subprocess
+    import sys
+    code = ("import torch\n"
+            "from ivideogpt_tpu_torch.ops import decode_attention as da\n"
+            "q = torch.zeros(1, 1, 64, device='cuda', dtype=torch.bfloat16)\n"
+            "kv = torch.zeros(1, 4, 1, 64, device='cuda', dtype=torch.int8)\n"
+            "s = torch.zeros(1, 4, 1, device='cuda', dtype=torch.bfloat16)\n"
+            "vt = torch.tensor([VALID], dtype=torch.int32, device='cuda')\n"
+            "da.decode_attention(q, kv, s, kv, s, vt)\n"
+            "torch.cuda.synchronize()\n"
+            "print('no trap')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for valid in (0, 5):
+        res = subprocess.run(
+            [sys.executable, "-c", code.replace("VALID", str(valid))],
+            cwd=root, capture_output=True, text=True, timeout=300)
+        assert res.returncode != 0 and "no trap" not in res.stdout, \
+            res.stdout + res.stderr
+
+
+def test_decode_attention_head_limit_matches_the_library(cuda):
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    assert da.kernel_max_heads() == da.K3_MAX_HEADS
 
 
 def _qkv(cuda, S, dtype, seed, strided=False):
