@@ -12,7 +12,9 @@ the final result line:
   1. card      the nvidia-smi name and power limit
   2. build     nvcc for sm_90a of every csrc/*.cu, all at once (-Xptxas -v)
   3. K1        VQ argmin at every shape of the main paths (N=131072, 8192,
-               3584, 1536, 16384; K=8192, D=64 fp32) against the plain version
+               3584, 1536, 16384, 1280, 2560, and the inference entry
+               points' 512, 224 and 65536; K=8192, D=64 fp32) against the
+               plain version
                (TF32 off) and K2 (bit for bit), ties across a codebook
                split; timed beside K2, the plain version, cdist+argmin
      K2        the tiled VQ argmin at the wide training step's shapes
@@ -21,21 +23,25 @@ the final result line:
                bit-identical, ties across a codebook split; timed beside
                the plain version and cdist+argmin
   4. K3        int8 decode attention, H=12, hd=64, at B=256, M=752 for
-               valid in {515, 633, 751} and at the MBRL rollout's B=32,
-               M=684 for valid in {514, 599, 683}, against the plain
+               valid in {515, 633, 751}, at the MBRL rollout's B=32,
+               M=684 for valid in {514, 599, 683} and at the ctx=1
+               rollout's B=256, M=512 for valid in {258, 384, 510}, against
+               the plain
                version, two launches bit-identical, valid on the card
                bit-equal to the host int, one CUDA graph a shape replayed
                at two lengths; its split plan; timed against a cold L2
   5. flash     K4 (causal flash-attention forward) at the training shape
                (B=16, H=12, S=751), the prefill shape (B=256, S=514), the
-               MBRL train() shape (B=16, S=683) and the MBRL prefill (B=32,
-               S=513), K5 (dK, dV) and K6 (dQ) at both training shapes,
-               bf16, against the
+               MBRL train() shape (B=16, S=683), the MBRL prefill (B=32,
+               S=513) and the ctx=1 prefill (B=256, S=257), K5 (dK, dV) and
+               K6 (dQ) at both training shapes, bf16, against the
                plain version and autograd through it; K4's lse against
                flash_fwd_plain's, K5 and K6 fed the plain lse against
                flash_bwd_dkv_plain and flash_bwd_dq_plain and bit-identical
-               across two launches; SDPA timed beside them, each kernel's
-               ratio to it printed
+               across two launches; the fp32 K4 at predict's prefill (B=5,
+               S=514) and VP2's (B=100, S=514) against the plain version in
+               fp32; SDPA timed beside them, each kernel's ratio to it
+               printed
   6. main      the rollout (TOKENIZER_64 + LLAMA_BASE + action head, bf16
                under the cast rules, int8 KV cache, ctx=2, T=16, B=256) with
                random weights from a seed: shapes, token ranges, launch
@@ -76,6 +82,27 @@ the final result line:
  16. mbrl train check  one fp32 train() call at B=2 (tokenizer at full
                width, LLAMA_BASE widths at 2 layers) on the card and the CPU:
                metrics, grad norms, the updates' signs, frozen codebooks
+ 17. hub       TOKENIZER_64 + LLAMA_BASE with the action head, fp32, random
+               weights from a seed, written by the port's own safetensors
+               writer as a hub (the tokenizer, an action-conditioned
+               transformer, a bare LLaMA, and VP2's transformer with
+               action_dim 5) in a temporary directory under outputs/, read
+               back bit-equal
+ 18. predict   inference/predict.py's path: load_models from that hub onto
+               the card, predict on inference/samples/synthetic_sample.npz
+               (ctx 2, seg 16, repeat_times 5, top-k 100, action-
+               conditioned): launches a call (K1 2, K4 12 fp32, K3 0), fp32
+               ids bit-equal to the CPU's, teacher-forced logits against
+               the CPU, frames finite in [0, 1], seconds a call
+ 19. rollout_ctx1  the BAIR protocol: the hub's tokenizer re-sliced to
+               ctx=1, bf16 under the cast rules, the B=256, T=16 int8-cache
+               rollout: launches (K1 1, K4 12, K3 3036), frames/s, the stage
+               split
+ 20. vp2       the VP2 predictor from the hub with the yaml's chunks (100 to
+               generate, 67 to decode), a CEM population of 200 sharing one
+               context, actions [200, 10, 5]: launches a query (K1 and 12 K4
+               a chunk, K3 0), rgb [200, 11, 64, 64, 3] finite in [0, 1],
+               seconds a query, peak memory
 Then the launches by path, the kernels' JSON line, the card line again, and
 the result line.
 Imports nothing of JAX or of the JAX package.
@@ -86,6 +113,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -110,7 +138,20 @@ MB_L = MB_P1 - 1 + 17 * (MB_SEG - CTX)  # a train() segment's stream: 683
 # K3's shapes: the main rollout's cache (B=256, 752 slots) at three
 # lengths of its decode, and the MBRL rollout's (B=32, 684 slots) from the
 # first frame's sdf to its last token; the split counts --k3-splits times
-K3_SHAPES = ((B, 752, (515, 633, 751)), (MB_B, MB_M, (MB_P1, 599, MB_M - 1)))
+# the inference entry points: predict on one clip (fp32, repeat_times 5,
+# top-k 100, action-conditioned; its prefill B=5, S=514), the VP2 planner's
+# query (fp32, a CEM population of 200 sharing one context, actions
+# [200, 10, 5], the yaml's chunks of 100 to generate and 67 to decode) and
+# the BAIR protocol's ctx=1 rollout (bf16 under the cast rules, int8 cache,
+# B=256, T=16: prefill S=257, 257 + 17 * 15 = 512 cache slots, decodes at
+# valid 258 .. 510)
+PRED_R, PRED_SAMPLE = 5, "inference/samples/synthetic_sample.npz"
+VP2_B, VP2_A, VP2_T, VP2_SEG = 200, 5, 10, 12
+VP2_CHUNK, VP2_DECODE = 100, 67
+CTX1_P1 = 257
+CTX1_M = CTX1_P1 + 17 * (T - 1)
+K3_SHAPES = ((B, 752, (515, 633, 751)), (MB_B, MB_M, (MB_P1, 599, MB_M - 1)),
+             (B, CTX1_M, (CTX1_P1 + 1, 384, CTX1_M - 2)))
 K3_SPLIT_CANDIDATES = {B: (1, 2, 3, 4), MB_B: (1, 2, 3, 4, 5, 6, 8, 11)}
 L2_ROTATION_BYTES = 200_000_000  # >= 4 x the H100's 50 MB L2
 # K1's lookups on the main paths (K=8192, D=64): the rollout's context
@@ -124,7 +165,10 @@ K1_SHAPES = (("rollout", B * CTX * 256), ("context", TRAIN_B * CTX * 256),
              ("tokenizer dynamics", TRAIN_B * (TOK_T - TOK_CTX) * 16),
              ("mbrl rollout", MB_B * CTX * 256),
              ("mbrl train targets", MB_TRAIN_B * MB_TARGETS * 16),
-             ("mbrl train dynamics", MB_TRAIN_B * (MB_SEG - CTX) * 16))
+             ("mbrl train dynamics", MB_TRAIN_B * (MB_SEG - CTX) * 16),
+             ("predict and VP2 context", CTX * 256),
+             ("predict dynamics", (T - CTX) * 16),
+             ("ctx1 rollout", B * 256))
 # K2's: the wide tokenizer pair's context and dynamics lookups against
 # 16384 x 256 codebooks, and the rollout's lookup, which the routing sends
 # to K1 (one timed shape on each side of it)
@@ -537,7 +581,7 @@ def phase_k3(torch):
             at_shape[f"B={b} valid={valid}"] = dict(
                 ms=ms, queued_ms=q_ms, host_ms=host_ms, plain_ms=plain_ms,
                 bound_ms=b_ms, splits=splits, split_len=per)
-            if b == B:
+            if b == B and M == 752:
                 row = dict(name="decode_attention", route="cuda",
                            source="ivideogpt_tpu_torch/csrc/"
                                   "decode_attention.cu",
@@ -656,10 +700,13 @@ def phase_flash(torch):
         return e, rel
 
     paths = {"train": "train", "prefill": "rollout",
-             "mbrl_train": "mbrl_train", "mbrl_prefill": "mbrl_rollout"}
+             "mbrl_train": "mbrl_train", "mbrl_prefill": "mbrl_rollout",
+             "ctx1_prefill": "rollout_ctx1", "predict_prefill": "predict",
+             "vp2_prefill": "vp2"}
     for name, b, s in (("train", TRAIN_B, 751), ("prefill", B, 514),
                        ("mbrl_train", MB_TRAIN_B, MB_L),
-                       ("mbrl_prefill", MB_B, MB_P1 - 1)):
+                       ("mbrl_prefill", MB_B, MB_P1 - 1),
+                       ("ctx1_prefill", B, CTX1_P1)):
         training = name.endswith("train")
         suffix = "" if name == "train" else f"_{name}"
         q, k, v, do = inputs(b, s, seed=s)
@@ -803,6 +850,59 @@ def phase_flash(torch):
             bwd["K5"][1] + bwd["K6"][1], lib_bwd_q, lib_what)
         del q, k, v, do, qt, kt, vt, out, lse, di, dk, dv, dq
     torch.cuda.empty_cache()
+
+    # the fp32 K4 (FMA, no rounding below fp32) at the inference entry
+    # points' prefills, against the plain version in fp32, TF32 off, at the
+    # GPU tests' fp32 tolerance
+    fp32 = "ivideogpt_tpu_torch/csrc/flash_attention.cu"
+    for name, b, s in (("predict_prefill", PRED_R, 2 * 257),
+                       ("vp2_prefill", VP2_CHUNK, 2 * 257)):
+        g = torch.Generator(device="cuda").manual_seed(s + b)
+        q, k, v = (torch.randn(b, s, H, hd, device="cuda", generator=g)
+                   for _ in range(3))
+        elems = b * s * H * hd
+        pairs = b * H * s * (s + 1) // 2
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa_fp32():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        with full_fp32():
+            out, lse = fa.flash_fwd(q, k, v)
+            ref = fa.causal_attention_plain(q, k, v, torch.float32)
+            _, ref_lse = fa.flash_fwd_plain(q, k, v)
+            torch.cuda.synchronize()
+            e4 = float((out.flatten(2) - ref).abs().max())
+            check(torch.allclose(out.flatten(2), ref, rtol=1e-4, atol=1e-5),
+                  f"fp32 K4 O at the {name} shape disagrees with the plain "
+                  f"version ({e4:.3e})")
+            e_lse = float((lse - ref_lse).abs().max())
+            check(e_lse < 1e-4, f"fp32 K4 lse at the {name} shape: "
+                  f"{e_lse:.3e} from flash_fwd_plain's")
+            ms = cuda_ms(lambda: fa.flash_fwd(q, k, v), 20)
+            q_ms, host_ms = queued_ms(lambda: fa.flash_fwd(q, k, v), 20)
+            plain_ms = cuda_ms(lambda: fa.causal_attention_plain(
+                q, k, v, torch.float32), 3)
+            lib_ms = cuda_ms(sdpa_fp32, 20)
+            lib_q = queued_ms(sdpa_fp32, 20)[0]
+        b_ms, b_by = bound(4 * elems * 4 + b * H * s * 4, 4 * hd * pairs,
+                           FP32_PEAK)
+        print(f"K4 fp32 {name} B={b} S={s}: max_abs_err={e4:.3e} (rtol "
+              f"1e-4, atol 1e-5) lse_max_abs_err={e_lse:.3e} (< 1e-4) "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} (SDPA forward, fp32, TF32 off) "
+              f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f}"
+              f"; queued: kernel_ms={q_ms:.4f} library_ms={lib_q:.4f}, "
+              f"host_ms per call {host_ms:.4f}")
+        rows[f"K4_{name}"] = dict(
+            name="flash_attention_fwd", route="cuda", source=fp32,
+            replaces=stock + "331", shape=f"{name} fp32 B={b} S={s}",
+            paths=(paths[name],), max_abs_err=e4, ms=ms, queued_ms=q_ms,
+            host_ms=host_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, library="SDPA forward, fp32, TF32 off")
+        sdpa[f"K4 fp32 {name}"] = (ms, lib_ms, q_ms, lib_q,
+                                   "SDPA forward, fp32")
+        del q, k, v, qt, kt, vt, out, lse, ref, ref_lse
+    torch.cuda.empty_cache()
     card = card_line()
     for key, (ms, lib, q_ms, lib_q, what) in sdpa.items():
         print(f"ratio to SDPA ({what}; this run, {card}): {key} "
@@ -810,16 +910,16 @@ def phase_flash(torch):
     return rows
 
 
-def check_stream(torch, tokens_mod, cfg, toks, batch):
-    L = tokens_mod.seq_len(CTX, T)
+def check_stream(torch, tokens_mod, cfg, toks, batch, ctx=CTX):
+    L = tokens_mod.seq_len(ctx, T)
     check(tuple(toks.shape) == (batch, L), f"tokens {tuple(toks.shape)}")
-    c, d = tokens_mod.disassemble(toks, CTX, cfg.num_vq_embeddings,
+    c, d = tokens_mod.disassemble(toks, ctx, cfg.num_vq_embeddings,
                                   cfg.num_dyn_embeddings)
-    check(tuple(c.shape) == (batch, CTX, 256)
-          and tuple(d.shape) == (batch, T - CTX, 16), "disassembled grids")
-    P = tokens_mod.prelude_len(CTX)
+    check(tuple(c.shape) == (batch, ctx, 256)
+          and tuple(d.shape) == (batch, T - ctx, 16), "disassembled grids")
+    P = tokens_mod.prelude_len(ctx)
     check(bool((toks[:, :P] <= cfg.scf_token).all()), "prelude out of range")
-    sdf = tokens_mod.sdf_positions(CTX, T, device=toks.device)
+    sdf = tokens_mod.sdf_positions(ctx, T, device=toks.device)
     check(bool((toks[:, sdf] == cfg.sdf_token).all()), "sdf slots")
     # sampling runs over the whole vocabulary, as in the JAX package: with
     # random weights a sampled slot may hold any id, which disassemble clamps
@@ -907,25 +1007,33 @@ def phase_main(torch):
           f"{fps:.2f} frames/s ({frames_per_rollout} generated frames a "
           f"rollout)")
 
-    wall = stage_seconds(torch, tokenizer, lm, px, action, gen, None)
-    print("main: stage wall seconds " + json.dumps(wall))
-    device = profile_stages(torch, tokenizer, lm, px, action, gen)
-    if device is not None:
-        busy = {k: round(device[k] / wall[k], 4) for k in wall}
-        print("main: stage device seconds " + json.dumps(device)
-              + " busy share " + json.dumps(busy))
+    stage_report(torch, "main", tokenizer, lm, px, action, gen)
     del tokenizer, lm, res
     torch.cuda.empty_cache()
     return launches
 
 
+def stage_report(torch, tag, tokenizer, lm, px, action, gen):
+    """Print a rollout's stage wall seconds, and their device seconds and
+    busy shares from a kernel trace of each stage."""
+    wall = stage_seconds(torch, tokenizer, lm, px, action, gen, None)
+    print(f"{tag}: stage wall seconds " + json.dumps(wall))
+    device = profile_stages(torch, tag, tokenizer, lm, px, action, gen)
+    if device is not None:
+        busy = {k: round(device[k] / wall[k], 4) for k in wall}
+        print(f"{tag}: stage device seconds " + json.dumps(device)
+              + " busy share " + json.dumps(busy))
+
+
 def stage_seconds(torch, tokenizer, lm, px, action, gen, timer):
     """Run the rollout's three stages once each, through the same calls
-    ``rollout`` makes; ``timer(name)`` is a context manager around each
-    stage (None: host wall seconds after a synchronize)."""
+    ``rollout`` makes (the context length is px's); ``timer(name)`` is a
+    context manager around each stage (None: host wall seconds after a
+    synchronize)."""
     from ivideogpt_tpu_torch import generation
     from ivideogpt_tpu_torch import tokens as tok
     cfg = tokenizer.config
+    ctx = px.shape[1]
     out = {}
 
     @contextlib.contextmanager
@@ -944,11 +1052,11 @@ def stage_seconds(torch, tokenizer, lm, px, action, gen, timer):
                                        cfg.num_dyn_embeddings)
         with timer("generate"):
             res = generation.generate(lm, prelude, segment_length=T,
-                                      context_length=CTX, generator=gen,
+                                      context_length=ctx, generator=gen,
                                       action=action, cache_dtype=torch.int8)
         with timer("detokenize"):
             for i in range(0, B, 128):
-                tokenizer.detokenize(res.tokens[i:i + 128], CTX)
+                tokenizer.detokenize(res.tokens[i:i + 128], ctx)
     return out
 
 
@@ -958,11 +1066,12 @@ def kernel_trace(torch, out):
     kernels' device seconds (one stream, so kernels do not overlap) and
     out["kernels"] their averages by name, largest first. Ranges that
     annotate the device timeline (``Optimizer.step#AdamW.step``) overlap
-    the kernels they hold and are left out."""
+    the kernels they hold and are left out. The device activity alone is
+    traced: nothing here reads the CPU's ops, which only lengthen reading
+    the trace back (a B=256 generate launches over 200k kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         yield
         torch.cuda.synchronize()
     kernels = sorted((e for e in prof.key_averages()
@@ -979,7 +1088,7 @@ def top_kernels(kernels, n, width=60):
             for e in kernels[:n]]
 
 
-def profile_stages(torch, tokenizer, lm, px, action, gen):
+def profile_stages(torch, tag, tokenizer, lm, px, action, gen):
     """Device seconds of each stage from a kernel trace of that stage. None,
     with the reason printed, when the trace has no device time."""
     out, top, ours = {}, {}, {}
@@ -998,13 +1107,13 @@ def profile_stages(torch, tokenizer, lm, px, action, gen):
 
     stage_seconds(torch, tokenizer, lm, px, action, gen, traced)
     if not any(out.values()):
-        print("main: the profiler recorded no device time: device seconds "
+        print(f"{tag}: the profiler recorded no device time: device seconds "
               "not measured")
         return None
     for name, rows in top.items():
-        print(f"main: top kernels in {name} (name, launches, device s): "
+        print(f"{tag}: top kernels in {name} (name, launches, device s): "
               + json.dumps(rows))
-    print("main: the port's kernels by stage (device s, by name fragment): "
+    print(f"{tag}: the port's kernels by stage (device s, by name fragment): "
           + json.dumps(ours))
     return out
 
@@ -1902,6 +2011,266 @@ def phase_train_check(torch):
           f"the CPU path")
 
 
+def hub_models(torch):
+    """TOKENIZER_64 and LLAMA_BASE with the action head (action_dim 4) in
+    fp32 at full width and depth, random weights from a seed (the action
+    head's too, so that actions move the logits), on the CPU."""
+    from ivideogpt_tpu_torch import rollout as ro
+    tok, lm = ro.build_models(context_length=CTX, segment_length=T,
+                              dtype=torch.float32, seed=90, device="cpu")
+    g = torch.Generator().manual_seed(91)
+    with torch.no_grad():
+        lm.action_linear.weight.normal_(0, 0.02, generator=g)
+    return tok, lm
+
+
+def phase_hub(torch, root):
+    """Write a hub with the port's own writer under ``root``: ``cond`` (the
+    tokenizer and the action-conditioned transformer), ``free/transformer``
+    (the bare LLaMA) and ``vp2/transformer`` (the same LLaMA under an
+    action head of action_dim 5); read every file back bit-equal, the bare
+    LLaMA also through ``load_llm_only_safetensors``. Returns the ``cond``
+    hub dir and the CPU models it holds."""
+    import shutil
+    from ivideogpt_tpu_torch.utils import checkpoint as ckpt
+    from ivideogpt_tpu_torch.utils import safetensors as st
+    t0 = time.time()
+    tok, lm = hub_models(torch)
+    cond = ckpt.export_hub(os.path.join(root, "cond"), tok, lm)
+    free = os.path.join(root, "free", "transformer")
+    ckpt.export_llama_safetensors(lm.llm,
+                                  os.path.join(free, ckpt.TRANSFORMER_FILE))
+    vp2 = os.path.join(root, "vp2", "transformer")
+    vp2_sd = dict(lm.state_dict())
+    vp2_sd["action_linear.weight"] = torch.randn(
+        lm.llm_config.hidden_size, VP2_A,
+        generator=torch.Generator().manual_seed(92)) * 0.02
+    st.save_file(vp2_sd, os.path.join(vp2, ckpt.TRANSFORMER_FILE))
+    shutil.copy(os.path.join(cond, "transformer", "config.json"), vp2)
+    write_s = time.time() - t0
+    for what, got, want in (
+            ("tokenizer", st.load(os.path.join(cond, "tokenizer")),
+             tok.state_dict()),
+            ("transformer", st.load(os.path.join(cond, "transformer")),
+             lm.state_dict()),
+            ("bare LLaMA", st.load(free), lm.llm.state_dict()),
+            ("bare LLaMA by load_llm_only_safetensors",
+             ckpt.load_llm_only_safetensors(free), lm.llm.state_dict()),
+            ("VP2 transformer", st.load(vp2), vp2_sd)):
+        check(sorted(got) == sorted(want), f"hub: the {what} holds other "
+              f"names than the model")
+        for k, v in want.items():
+            check(got[k].dtype == v.dtype and torch.equal(got[k], v),
+                  f"hub: {what}: {k} differs after the round trip")
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+    print(f"hub: wrote {size / 2**20:.1f} MiB in {write_s:.1f}s (tokenizer "
+          f"{sum(p.numel() for p in tok.parameters()) / 1e6:.1f}M, LM "
+          f"{sum(p.numel() for p in lm.parameters()) / 1e6:.1f}M params, "
+          f"fp32); every tensor of the tokenizer, the action-conditioned "
+          f"transformer, the bare LLaMA and VP2's transformer read back "
+          f"bit-equal")
+    return cond, tok, lm
+
+
+def phase_predict(torch, hub, tok_cpu, lm_cpu):
+    """``inference/predict.py``'s path on the card: ``load_models`` from
+    the hub (fp32) and ``predict`` on the synthetic sample (ctx 2, seg 16,
+    repeat_times 5, top-k 100, action-conditioned). Gates: the launches of
+    the first call (K1 2: the context and dynamics lookups; K4 12, fp32;
+    K3 0: a bf16 cache decodes in plain torch), the stream, frames finite
+    in [0, 1]; K1's ids bit-equal to the port's on the CPU; teacher-forced
+    logits over the card's stream on the card against the CPU, within the
+    check phase's 2e-2. Times a call, mean of 3 after the first."""
+    import numpy as np
+    from ivideogpt_tpu_torch import generation
+    from ivideogpt_tpu_torch import tokens as tok_lib
+    from ivideogpt_tpu_torch.inference import predict as pr
+    from ivideogpt_tpu_torch.inference.utils import NPZParser
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    args = pr.parse_args([
+        "--pretrained_model_name_or_path", hub,
+        "--input_path", os.path.join(REPO, PRED_SAMPLE),
+        "--dataset_name", "bair", "--action_conditioned",
+        "--repeat_times", str(PRED_R), "--seed", "95"])
+    t0 = time.time()
+    tokenizer, model = pr.load_models(args)
+    print(f"predict: load_models from the hub in {time.time() - t0:.1f}s")
+    pixels, actions = NPZParser(T, 64).parse(args.input_path,
+                                             args.dataset_name, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    res = pr.predict(args, tokenizer, model, pixels, actions)
+    first_s = time.time() - t0
+    launches = read_counts()
+    want = {"vq_argmin": 2, "vq_argmin_tiled": 0, "decode_attention": 0,
+            "flash_attention_fwd": 12, "flash_attention_bwd_dkv": 0,
+            "flash_attention_bwd_dq": 0}
+    for name, n in want.items():
+        check(launches[name] == n, f"predict: {name} ran {launches[name]} "
+              f"times in a call, not {n}")
+    check_stream(torch, tok_lib, tokenizer.config, res.tokens, PRED_R)
+    f = res.frames
+    check(f.shape == (PRED_R, T, 64, 64, 3), f"predict: frames {f.shape}")
+    check(bool(np.isfinite(f).all() and f.min() >= 0 and f.max() <= 1),
+          "predict: frames not finite in [0, 1]")
+    print(f"predict: first call {first_s:.2f}s, launches {launches}; "
+          f"tokens {tuple(res.tokens.shape)}, frames {f.shape} finite in "
+          f"[0, 1]")
+
+    px = torch.from_numpy(pixels)[None]
+    act = torch.from_numpy(actions)[None].repeat(2, 1, 1)
+    stream = res.tokens[:2]
+    with torch.inference_mode(), full_fp32():
+        ids, _ = tokenizer.tokenize(px.cuda(), CTX)
+        ids_cpu, _ = tok_cpu.tokenize(px, CTX)
+        logits = generation.replay_logits(
+            model, stream, segment_length=T, context_length=CTX,
+            action=act.cuda()).cpu()
+        ref = generation.replay_logits(
+            lm_cpu, stream.cpu(), segment_length=T, context_length=CTX,
+            action=act)
+    same = int((ids.cpu() == ids_cpu).sum())
+    dl = float((logits - ref).abs().max())
+    print(f"predict: fp32 ids on the card equal to the CPU's {same}/"
+          f"{ids.numel()}; teacher-forced logits (bf16 cache, 2 samples) "
+          f"max |card - CPU| {dl:.3e} (tolerance 2e-2)")
+    check(torch.equal(ids.cpu(), ids_cpu), "predict: K1's ids differ from "
+          "the port's on the CPU")
+    check(dl < 2e-2, "predict: teacher-forced logits differ from the CPU's")
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(N_TIMED):
+        pr.predict(args, tokenizer, model, pixels, actions)
+    dt = (time.time() - t0) / N_TIMED
+    print(f"predict: {N_TIMED} timed calls, {dt:.4f} s a call ({PRED_R} "
+          f"futures of {T - CTX} frames, {PRED_R * (T - CTX) / dt:.2f} "
+          f"frames/s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del tokenizer, model, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_rollout_ctx1(torch, hub):
+    """The BAIR protocol's ctx=1 rollout: the hub's ctx=2 tokenizer
+    re-sliced to ctx=1 (``load_tokenizer_for_context``), bf16 under the
+    cast rules, ``rollout.rollout`` at B=256, T=16 over the int8 cache.
+    Gates: the first rollout's launches (K1 1, K4 12 at S=257, K3
+    12 x 253 = 3036), the stream, finite frames. Frames/s, mean of 3
+    after it, and the stage split as the main phase prints it."""
+    from ivideogpt_tpu_torch import rollout as ro
+    from ivideogpt_tpu_torch import tokens as tok_lib
+    tokenizer, lm = ro.load_hub_models(hub, context_length=1,
+                                       segment_length=T)
+    check(tokenizer.config.context_length == 1, "rollout_ctx1: the "
+          "tokenizer was not re-sliced")
+    g = torch.Generator(device="cuda").manual_seed(93)
+    px = torch.rand(B, 1, 64, 64, 3, device="cuda", generator=g)
+    action = torch.randn(B, T, 4, device="cuda", generator=g)
+
+    def run(gen):
+        return ro.rollout(tokenizer, lm, px, action, segment_length=T,
+                          generator=gen, cache_dtype=torch.int8)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    res = run(torch.Generator(device="cuda").manual_seed(96))
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = read_counts()
+    decodes = (T - 1) * 16 - 1 + (T - 2)
+    want = {"vq_argmin": 1, "vq_argmin_tiled": 0,
+            "decode_attention": 12 * decodes, "flash_attention_fwd": 12,
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
+    for name, n in want.items():
+        check(launches[name] == n, f"rollout_ctx1: {name} ran "
+              f"{launches[name]} times in a rollout, not {n}")
+    check_stream(torch, tok_lib, tokenizer.config, res.tokens, B, ctx=1)
+    check(tuple(res.frames.shape) == (B, T, 64, 64, 3)
+          and bool(torch.isfinite(res.frames).all()),
+          f"rollout_ctx1: frames {tuple(res.frames.shape)} not finite")
+    print(f"rollout_ctx1: first rollout {first_s:.2f}s, launches "
+          f"{launches}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; tokens "
+          f"{tuple(res.tokens.shape)} in range, frames finite")
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(N_TIMED):
+        run(gen)
+    torch.cuda.synchronize()
+    dt = (time.time() - t0) / N_TIMED
+    frames = B * (T - 1)
+    print(f"rollout_ctx1: {N_TIMED} timed rollouts, {dt:.4f} s/rollout, "
+          f"{frames / dt:.2f} frames/s ({frames} generated frames a "
+          f"rollout)")
+    stage_report(torch, "rollout_ctx1", tokenizer, lm, px, action, gen)
+    del tokenizer, lm, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vp2(torch, hub, root):
+    """The VP2 predictor from the hub (its ``vp2`` transformer: action_dim
+    5) with the yaml's defaults (chunks of 100 to generate, 67 to
+    decode), queried by a CEM population of 200 sharing one context, with
+    actions [200, 10, 5]. Gates: the first query's launches (K1 once a
+    chunk, K4 12 a chunk, fp32; K3 0), the output [200, 11, 64, 64, 3]
+    finite in [0, 1]. Seconds a query, mean of 3 after it, and the peak
+    memory."""
+    import numpy as np
+    from ivideogpt_tpu_torch.vp.interface import IVideoGPTPredictor
+    pred = IVideoGPTPredictor(
+        pretrained_vqgan_name_or_path=os.path.join(hub, "tokenizer"),
+        pretrained_transformer_path=os.path.join(root, "vp2",
+                                                 "transformer"),
+        action_dim=VP2_A, generate_max_batchsize=VP2_CHUNK,
+        decode_max_batchsize=VP2_DECODE, seed=0)
+    rng = np.random.default_rng(94)
+    batch = {"video": np.repeat(rng.uniform(0, 1, (1, CTX, 64, 64, 3))
+                                .astype(np.float32), VP2_B, axis=0),
+             "actions": rng.uniform(-1, 1, (VP2_B, VP2_T, VP2_A))
+             .astype(np.float32)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    out = pred(batch)["rgb"]
+    first_s = time.time() - t0
+    launches = read_counts()
+    chunks = VP2_B // VP2_CHUNK
+    want = {"vq_argmin": chunks, "vq_argmin_tiled": 0, "decode_attention": 0,
+            "flash_attention_fwd": 12 * chunks, "flash_attention_bwd_dkv": 0,
+            "flash_attention_bwd_dq": 0}
+    for name, n in want.items():
+        check(launches[name] == n, f"vp2: {name} ran {launches[name]} "
+              f"times in a query, not {n}")
+    check(out.shape == (VP2_B, VP2_SEG - 1, 64, 64, 3)
+          and out.dtype == np.float32,
+          f"vp2: rgb {out.shape} {out.dtype}")
+    check(bool(np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1),
+          "vp2: rgb not finite in [0, 1]")
+    print(f"vp2: first query {first_s:.2f}s, launches {launches}; rgb "
+          f"{out.shape} float32 finite in [0, 1]")
+    t0 = time.time()
+    for _ in range(N_TIMED):
+        pred(batch)
+    dt = (time.time() - t0) / N_TIMED
+    print(f"vp2: {N_TIMED} timed queries, {dt:.4f} s a query ({VP2_B} "
+          f"candidates, {VP2_B * (VP2_SEG - 1) / dt:.2f} predicted "
+          f"frames/s), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del pred
+    torch.cuda.empty_cache()
+    return launches
+
+
 def ab_kernel_times(torch):
     """K1 at K1_SHAPES, K2 at the wide shapes of K2_SHAPES, K3 at the six
     shapes of K3_SHAPES (the host-int valid, over phase_k3's cold-L2
@@ -2041,6 +2410,14 @@ def main():
         del vp
         torch.cuda.empty_cache()
         phase_mbrl_train_check(torch)
+        scratch = os.path.join(REPO, "outputs")
+        os.makedirs(scratch, exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix="hub-", dir=scratch) as root:
+            hub, tok_cpu, lm_cpu = phase_hub(torch, root)
+            by_path["predict"] = phase_predict(torch, hub, tok_cpu, lm_cpu)
+            del tok_cpu, lm_cpu
+            by_path["rollout_ctx1"] = phase_rollout_ctx1(torch, hub)
+            by_path["vp2"] = phase_vp2(torch, hub, root)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2048,17 +2425,22 @@ def main():
           f"{TRAIN_TIMED} timed steps; tokenizer_train: the {TOK_TIMED} timed "
           f"G+D pairs; tokenizer_train_wide: the {TOK_WIDE_TIMED} timed "
           f"pairs; mbrl_rollout: the first B={MB_B} imagination rollout; "
-          f"mbrl_train: the {MB_TIMED} timed train() calls): "
-          + json.dumps(by_path))
+          f"mbrl_train: the {MB_TIMED} timed train() calls; predict: the "
+          f"first call; rollout_ctx1: the first B={B} ctx=1 rollout; vp2: "
+          f"the first B={VP2_B} query): " + json.dumps(by_path))
     per_run = {"rollout": ("rollout", 1), "train_step": ("train", TRAIN_TIMED),
                "tokenizer_train": ("tokenizer_train", TOK_TIMED),
                "tokenizer_train_wide": ("tokenizer_train_wide",
                                         TOK_WIDE_TIMED),
                "mbrl_rollout": ("mbrl_rollout", 1),
-               "mbrl_train": ("mbrl_train", MB_TIMED)}
+               "mbrl_train": ("mbrl_train", MB_TIMED),
+               "predict": ("predict", 1), "rollout_ctx1": ("rollout_ctx1", 1),
+               "vp2": ("vp2", 1)}
     rows = (k1, k2, k3, flash["K4_train"], flash["K4_prefill"],
-            flash["K4_mbrl_prefill"], flash["K4_mbrl_train"], flash["K5"],
-            flash["K5_mbrl_train"], flash["K6"], flash["K6_mbrl_train"])
+            flash["K4_mbrl_prefill"], flash["K4_mbrl_train"],
+            flash["K4_ctx1_prefill"], flash["K4_predict_prefill"],
+            flash["K4_vp2_prefill"], flash["K5"], flash["K5_mbrl_train"],
+            flash["K6"], flash["K6_mbrl_train"])
     for r in rows:
         # launches: all the path runs read (the first rollouts + the timed
         # steps, pairs and calls), or those of the row's own paths (the

@@ -66,7 +66,8 @@ from ivideogpt_tpu_torch.models.lpips import LPIPS
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
 from ivideogpt_tpu_torch.train.optim import TrainState, global_norm
 from ivideogpt_tpu_torch.train.tokenizer_trainer import recon_loss
-from ivideogpt_tpu_torch.utils.platform import full_fp32, resolve_device
+from ivideogpt_tpu_torch.utils.platform import (full_fp32, resolve_device,
+                                                to_device)
 
 CODEBOOKS = ("quantize.embedding.weight",
              "dynamics_quantize.embedding.weight")
@@ -74,18 +75,6 @@ ROLLOUT_RANGES = ("mbrl.encode_context", "generation.prefill",
                   "mbrl.policy", "generation.decode", "mbrl.decode_dyn_frame")
 
 PolicyFn = Callable[..., torch.Tensor]
-
-
-def _to_device(x, dev: torch.device) -> torch.Tensor:
-    """An array or tensor on ``dev`` without waiting for the card: a host
-    array is staged through pinned memory, whose copy is queued on the
-    stream (a copy from pageable memory would first wait for everything
-    queued before it)."""
-    t = x.detach() if torch.is_tensor(x) else torch.from_numpy(
-        np.ascontiguousarray(x))
-    if dev.type != "cuda" or t.is_cuda:
-        return t.to(dev)
-    return t.contiguous().pin_memory().to(dev, non_blocking=True)
 
 
 @torch.no_grad()
@@ -327,10 +316,10 @@ class VideoPredictor:
             generator.seed()
         obs_host = (obs.detach().cpu().numpy() if torch.is_tensor(obs)
                     else np.array(obs))
-        stack = _to_device(obs_host, dev).float() / 255.0
+        stack = to_device(obs_host, dev).float() / 255.0
         B, h, w = stack.shape[:3]
         if replay_actions is not None:
-            replay_actions = _to_device(replay_actions, dev).float()
+            replay_actions = to_device(replay_actions, dev).float()
 
         # one buffer for the host: fp32 actions and rewards, uint8 frames
         n_act, n_rew = B * (horizon + 1) * A, B * (horizon + 1)

@@ -9,11 +9,14 @@ action head, bf16 under the cast rules, int8 KV cache):
                      segment_length=16, generator=torch.Generator("cuda"))
 
 ``build_models`` runs on CUDA unless given ``device="cpu"`` and raises
-when CUDA is absent.
+when CUDA is absent. ``load_hub_models`` builds the same pair from a
+published hub dir instead, its tokenizer re-sliced to a shorter context
+where asked: the ctx=2 hub tokenizer at ctx=1 is the BAIR eval protocol.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -25,6 +28,7 @@ from ivideogpt_tpu_torch.configs import (LLAMA_BASE, TOKENIZER_64,
                                          TransformerConfig)
 from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+from ivideogpt_tpu_torch.utils import checkpoint as ckpt
 from ivideogpt_tpu_torch.utils.platform import resolve_device
 
 
@@ -55,10 +59,43 @@ def build_models(tok_cfg: CompressiveVQConfig = TOKENIZER_64,
         torch.manual_seed(seed)
         tokenizer = CompressiveVQModel(tok_cfg, dtype)
         lm = HeadModelWithAction(lm_cfg, head_cfg, dtype)
+    return _place(tokenizer, lm, dtype, dev)
+
+
+def _place(tokenizer, lm, dtype, dev):
+    """The cast rules for a dtype other than fp32, then onto ``dev``."""
     if dtype != torch.float32:
         generation.cast_conv_params(tokenizer, dtype)
         generation.cast_matmul_params(lm, dtype)
     return tokenizer.to(dev).eval(), lm.to(dev).eval()
+
+
+def load_hub_models(root: str, *, context_length: int, segment_length: int,
+                    device=None
+                    ) -> Tuple[CompressiveVQModel, HeadModelWithAction]:
+    """Tokenizer and action-conditioned LM from the hub dir ``root`` (the
+    action width is the file's), the tokenizer re-sliced to
+    ``context_length`` (``utils.checkpoint.load_tokenizer_for_context``:
+    raises where the checkpoint's context is shorter), in bf16 under the
+    cast rules, as :func:`build_models` makes them."""
+    dev = resolve_device(device)
+    tok_sd, tok_cfg = ckpt.load_tokenizer_for_context(
+        os.path.join(root, "tokenizer"), context_length)
+    if tok_cfg is None:
+        raise FileNotFoundError(f"{root}/tokenizer has no config.json")
+    tf_dir = os.path.join(root, "transformer")
+    lm_cfg = ckpt.llama_config_from_hub(
+        ckpt.read_json(os.path.join(tf_dir, "config.json")),
+        vocab_size=tok_cfg.vocab_size)
+    lm_sd = ckpt.load_action_model_safetensors(tf_dir)
+    dtype = torch.bfloat16
+    tokenizer = CompressiveVQModel(tok_cfg, dtype)
+    tokenizer.load_state_dict(tok_sd)
+    lm = HeadModelWithAction(lm_cfg, ckpt.action_head_config(
+        lm_sd, tok_cfg, action_dim=lm_sd["action_linear.weight"].shape[1],
+        context_length=context_length, segment_length=segment_length), dtype)
+    lm.load_state_dict(lm_sd)
+    return _place(tokenizer, lm, dtype, dev)
 
 
 @torch.inference_mode()

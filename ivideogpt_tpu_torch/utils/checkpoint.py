@@ -15,15 +15,33 @@ torch tensors under the torch names, which the port's modules load with
   ``sigma`` of each conv.
 The ``*_flax_path``/``*_flax_tree`` functions go the other way, so that the
 port's gradients can be grouped and named as the JAX package's.
+
+The second half reads and writes the published HF hub layout
+(``{model}/tokenizer``, ``{model}/transformer``; ``tools/make_fake_hub.py``)
+through the hand-written ``utils/safetensors.py``: the hub files already
+hold the port's names, so a loader returns a state dict that the port's
+modules take with ``strict=True``, after folding peft adapters, stripping
+``llm.`` where asked and refusing any name that does not map. Config
+readers turn the hub's ``config.json`` files into the port's dataclasses,
+and ``load_tokenizer_for_context`` re-slices a tokenizer to a shorter
+context.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+
+from ivideogpt_tpu_torch.configs import (ActionModelConfig,
+                                         CompressiveVQConfig,
+                                         TransformerConfig)
+from ivideogpt_tpu_torch.utils import safetensors
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -250,3 +268,322 @@ def action_model_flax_path(name: str) -> str:
     i, mod = m.groups()
     leaf = "weight" if mod.endswith("layernorm") else "kernel"
     return f"llm/layers_{i}/{mod.replace('.', '/')}/{leaf}"
+
+
+# ---------------------------------------------------------------------------
+# The published hub layout
+# ---------------------------------------------------------------------------
+
+TOKENIZER_FILE = "diffusion_pytorch_model.safetensors"
+TRANSFORMER_FILE = "model.safetensors"
+HEADS = ("action_linear", "reward_linear", "action_recon_linear")
+StateDict = Dict[str, torch.Tensor]
+
+
+def is_peft_state_dict(sd: StateDict) -> bool:
+    return any(".lora_A." in k or ".lora_embedding_A." in k for k in sd)
+
+
+def merge_peft_state_dict(sd: StateDict, alpha: Optional[float] = None,
+                          rank: Optional[int] = None) -> StateDict:
+    """Fold a peft-wrapped state dict into a plain one (the port of
+    ``merge_peft_state_dict``, ``ivideogpt_tpu/utils/checkpoint.py:271``).
+
+    An adapted Linear is ``X.base_layer.weight`` + ``X.lora_A.default.weight``
+    [r, in] + ``X.lora_B.default.weight`` [out, r], folded as
+    W += (alpha/r) B @ A; an adapted embedding is ``X.base_layer.weight`` +
+    ``X.lora_embedding_A.default`` [r, n] + ``X.lora_embedding_B.default``
+    [d, r], folded as W += (alpha/r) (B @ A)^T. ``base_model.model.`` and
+    ``.base_layer.`` leave the names; every tensor comes back fp32. A plain
+    state dict comes back as it is.
+
+    The file does not record alpha and rank, so a peft-wrapped state dict
+    needs both: without them this raises, where the JAX function folds at
+    scale 1.0 (ROADMAP Queue 3)."""
+    if not is_peft_state_dict(sd):
+        return sd
+    if alpha is None and rank is None:
+        raise ValueError(
+            "the state dict holds LoRA adapters; pass the alpha and rank "
+            "they were trained with (the file does not record them)")
+    if alpha is None or rank is None:
+        raise ValueError("pass both alpha and rank")
+    rank_seen = next(v.shape[0] for k, v in sd.items()
+                     if ".lora_A.default.weight" in k
+                     or ".lora_embedding_A.default" in k)
+    if rank != rank_seen:
+        raise ValueError(f"rank={rank} but the adapters in the file have "
+                         f"rank {rank_seen}")
+    scale = alpha / rank
+    out = {}
+    for k, v in sd.items():
+        if ".lora_" in k:
+            continue
+        v = v.float()
+        if ".base_layer.weight" in k:
+            a = sd.get(k.replace(".base_layer.weight",
+                                 ".lora_A.default.weight"))
+            ea = sd.get(k.replace(".base_layer.weight",
+                                  ".lora_embedding_A.default"))
+            if a is not None:
+                b = sd[k.replace(".base_layer.weight",
+                                 ".lora_B.default.weight")]
+                v = v + scale * (b.float() @ a.float())
+            elif ea is not None:
+                eb = sd[k.replace(".base_layer.weight",
+                                  ".lora_embedding_B.default")]
+                v = v + scale * (eb.float() @ ea.float()).t()
+        out[k.replace("base_model.model.", "").replace(".base_layer.",
+                                                       ".")] = v
+    return out
+
+
+def llama_names(sd: StateDict) -> StateDict:
+    """A LlamaForCausalLM state dict, with or without the ``model.``
+    prefix, under the port's (HF) names; ``rotary_emb`` buffers of older
+    exports are dropped and any other name that does not map raises."""
+    out = {}
+    for key, v in sd.items():
+        k = key[len("model."):] if key.startswith("model.") else key
+        if "rotary_emb" in k:
+            continue
+        if k == "lm_head.weight":
+            out[k] = v
+        elif (k in ("embed_tokens.weight", "norm.weight")
+              or re.match(r"layers\.\d+\..*\.weight$", k)):
+            out["model." + k] = v
+        else:
+            raise ValueError(f"unmapped llama key {key}")
+    return out
+
+
+def action_model_names(sd: StateDict, lora_alpha: Optional[float] = None,
+                       lora_rank: Optional[int] = None) -> StateDict:
+    """A HeadModelWithAction state dict (``llm.*`` and the head linears),
+    plain or peft-wrapped, under the port's names; a name that is neither
+    raises."""
+    sd = merge_peft_state_dict(sd, lora_alpha, lora_rank)
+    heads = {f"{h}.{leaf}" for h in HEADS for leaf in ("weight", "bias")}
+    unknown = sorted(k for k in sd
+                     if not k.startswith("llm.") and k not in heads)
+    if unknown:
+        raise ValueError(f"unmapped action-model keys {unknown[:5]}")
+    llm = llama_names({k[len("llm."):]: v for k, v in sd.items()
+                       if k.startswith("llm.")})
+    out = {f"llm.{k}": v for k, v in llm.items()}
+    out.update({k: v for k, v in sd.items() if k in heads})
+    return out
+
+
+def load_tokenizer_safetensors(path: str) -> StateDict:
+    """The tokenizer's state dict from a hub file or directory: the file's
+    names are the port's."""
+    return safetensors.load(path)
+
+
+def load_llama_safetensors(path: str, alpha: Optional[float] = None,
+                           rank: Optional[int] = None) -> StateDict:
+    """A bare LlamaForCausalLM file (peft-wrapped: pass alpha and rank)."""
+    return llama_names(merge_peft_state_dict(safetensors.load(path), alpha,
+                                             rank))
+
+
+def load_llm_only_safetensors(path: str, alpha: Optional[float] = None,
+                              rank: Optional[int] = None) -> StateDict:
+    """Only the LLaMA of a transformer file: a bare-LLaMA file as it is, or
+    the ``llm.`` subtree of a HeadModelWithAction export (its heads
+    dropped)."""
+    sd = merge_peft_state_dict(safetensors.load(path), alpha, rank)
+    if any(k.startswith("llm.") for k in sd):
+        sd = {k[len("llm."):]: v for k, v in sd.items()
+              if k.startswith("llm.")}
+    return llama_names(sd)
+
+
+def load_action_model_safetensors(path: str,
+                                  lora_alpha: Optional[float] = None,
+                                  lora_rank: Optional[int] = None
+                                  ) -> StateDict:
+    return action_model_names(safetensors.load(path), lora_alpha, lora_rank)
+
+
+def tokenizer_config_from_hub(d: dict) -> CompressiveVQConfig:
+    """A diffusers tokenizer ``config.json`` (as a dict) -> the port's
+    config: the keys that ``vp/interface.py:45-58`` reads, with its
+    defaults, plus the channel counts and ``vq_embed_dim``."""
+    return CompressiveVQConfig(
+        in_channels=d.get("in_channels", 3),
+        out_channels=d.get("out_channels", 3),
+        block_out_channels=tuple(d["block_out_channels"]),
+        layers_per_block=d.get("layers_per_block", 2),
+        latent_channels=d["latent_channels"],
+        num_vq_embeddings=d["num_vq_embeddings"],
+        num_dyn_embeddings=d.get("num_dyn_embeddings",
+                                 d["num_vq_embeddings"]),
+        norm_num_groups=d.get("norm_num_groups", 32),
+        vq_embed_dim=d.get("vq_embed_dim"),
+        mid_block_add_attention=d.get("mid_block_add_attention", True),
+        context_length=d.get("context_length", 1),
+        resolution=d.get("resolution", 64),
+        max_att_resolution=d.get("max_att_resolution", 16),
+        patch_size=d.get("patch_size", 4),
+        cross_attn_heads=d.get("cross_attn_heads", 4))
+
+
+def llama_config_from_hub(d: dict, vocab_size: Optional[int] = None
+                          ) -> TransformerConfig:
+    """An HF ``LlamaConfig`` json (as a dict) -> the port's config: the keys
+    that ``vp/interface.py:62-73`` reads, with its defaults, plus
+    ``rope_theta`` and ``tie_word_embeddings``. ``vocab_size`` (the
+    tokenizer's) is used where the json has none and must equal it where
+    it has one. Raises on a setting the port's LLaMA does not compute."""
+    heads = d["num_attention_heads"]
+    odd = {k: d.get(k) for k, want in (
+        ("rope_scaling", None), ("hidden_act", "silu"),
+        ("attention_bias", False), ("mlp_bias", False),
+        ("head_dim", d["hidden_size"] // heads)) if d.get(k, want) != want}
+    if odd:
+        raise ValueError(f"the port's LLaMA does not compute {odd}")
+    vocab = d.get("vocab_size", vocab_size)
+    if vocab_size is not None and vocab != vocab_size:
+        raise ValueError(f"transformer vocab {vocab} != the tokenizer's "
+                         f"{vocab_size}")
+    return TransformerConfig(
+        vocab_size=vocab, hidden_size=d["hidden_size"],
+        intermediate_size=d["intermediate_size"],
+        num_hidden_layers=d["num_hidden_layers"],
+        num_attention_heads=heads,
+        num_key_value_heads=d.get("num_key_value_heads", heads),
+        max_position_embeddings=d.get("max_position_embeddings", 1024),
+        rms_norm_eps=d.get("rms_norm_eps", 1e-6),
+        rope_theta=d.get("rope_theta", 10000.0),
+        tie_word_embeddings=d.get("tie_word_embeddings", False))
+
+
+def action_head_config(sd: StateDict, tok_cfg: CompressiveVQConfig, *,
+                       action_dim: int, context_length: int,
+                       segment_length: int) -> ActionModelConfig:
+    """The action head's config for a HeadModelWithAction state dict: the
+    tokenizer's frame geometry, with the reward and action-reconstruction
+    heads where the state dict holds them."""
+    return ActionModelConfig(
+        action_dim=action_dim, context_length=context_length,
+        segment_length=segment_length,
+        tokens_per_context=tok_cfg.ctx_tokens_per_frame,
+        tokens_per_dyna=tok_cfg.dyn_tokens_per_frame,
+        reward_prediction="reward_linear.weight" in sd,
+        action_recon=0.0 if "action_recon_linear.weight" in sd else None)
+
+
+def read_json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def set_context_length(sd: StateDict, old_context: int, new_context: int
+                       ) -> StateDict:
+    """Keep the last ``new_context * R^2`` rows of every ``kv_pos_emb``
+    (``set_context_length``, ``ivideogpt_tpu/utils/checkpoint.py:430``):
+    the reference slices these embeddings, never grows them."""
+    if new_context == old_context:
+        return sd
+    if new_context > old_context:
+        raise ValueError(f"context {new_context} > {old_context}: kv "
+                         f"positional embeddings can be sliced, not grown")
+    return {k: (v[-new_context * (v.shape[0] // old_context):].contiguous()
+                if k.endswith("kv_pos_emb") else v) for k, v in sd.items()}
+
+
+def load_tokenizer_for_context(tok_dir: str, target_context: int
+                               ) -> Tuple[StateDict, Optional[
+                                   CompressiveVQConfig]]:
+    """A tokenizer dir re-sliced to ``target_context``: (state dict, config
+    with ``context_length == target_context``), or (state dict, None) where
+    the dir has no ``config.json``. Raises when the checkpoint's context is
+    smaller than the target."""
+    sd = load_tokenizer_safetensors(tok_dir)
+    cfg_path = os.path.join(tok_dir, "config.json")
+    if not os.path.exists(cfg_path):
+        return sd, None
+    cfg = tokenizer_config_from_hub(read_json(cfg_path))
+    if target_context == cfg.context_length:
+        return sd, cfg
+    if target_context > cfg.context_length:
+        raise ValueError(
+            f"checkpoint tokenizer context {cfg.context_length} < requested "
+            f"{target_context}: kv positional embeddings can be sliced, not "
+            f"grown; finetune at context <= {cfg.context_length}")
+    print(f"[warn] pretrained tokenizer context {cfg.context_length} != "
+          f"requested {target_context}; re-slicing kv pos-embs")
+    return (set_context_length(sd, cfg.context_length, target_context),
+            cfg.replace(context_length=target_context))
+
+
+def tokenizer_hub_config(cfg: CompressiveVQConfig) -> dict:
+    """The diffusers ``config.json`` of a tokenizer: the schema of
+    ``tools/make_fake_hub.py``'s ``diffusers_tokenizer_config``, plus
+    ``cross_attn_heads``."""
+    n = len(cfg.block_out_channels)
+    return {
+        "_class_name": "CompressiveVQModel", "_diffusers_version": "0.30.1",
+        "in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
+        "down_block_types": ["DownEncoderBlock2D"] * n,
+        "up_block_types": ["UpDecoderBlock2D"] * n,
+        "block_out_channels": list(cfg.block_out_channels),
+        "layers_per_block": cfg.layers_per_block, "act_fn": cfg.act_fn,
+        "latent_channels": cfg.latent_channels, "sample_size": 32,
+        "num_vq_embeddings": cfg.num_vq_embeddings,
+        "norm_num_groups": cfg.norm_num_groups,
+        "vq_embed_dim": cfg.vq_embed_dim, "scaling_factor": 0.18215,
+        "norm_type": "group",
+        "mid_block_add_attention": cfg.mid_block_add_attention,
+        "lookup_from_codebook": False, "force_upcast": False,
+        "num_dyn_embeddings": cfg.num_dyn_embeddings,
+        "context_length": cfg.context_length,
+        "max_att_resolution": cfg.max_att_resolution,
+        "resolution": cfg.resolution, "patch_size": cfg.patch_size,
+        "cross_attn_heads": cfg.cross_attn_heads}
+
+
+def llama_hub_config(cfg: TransformerConfig) -> dict:
+    """The HF ``LlamaConfig`` json of a LLaMA config."""
+    return {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_hidden_layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads,
+        "head_dim": cfg.head_dim, "hidden_act": "silu",
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+        "rope_scaling": None, "attention_bias": False, "mlp_bias": False,
+        "tie_word_embeddings": cfg.tie_word_embeddings}
+
+
+def export_tokenizer_safetensors(tokenizer: nn.Module, path: str):
+    safetensors.save_file(tokenizer.state_dict(), path)
+
+
+def export_llama_safetensors(llm: nn.Module, path: str):
+    """A LlamaForCausalLM as a bare-LLaMA file (the act-free layout)."""
+    safetensors.save_file(llm.state_dict(), path)
+
+
+def export_hub(root: str, tokenizer: nn.Module, model: nn.Module) -> str:
+    """Write ``root/tokenizer`` and ``root/transformer`` in the published
+    action-conditioned layout: the tokenizer's diffusers config and
+    weights; the LLaMA's config and the whole HeadModelWithAction state
+    dict (the act-free layout's bare LLaMA: ``export_llama_safetensors``)."""
+    tok_dir = os.path.join(root, "tokenizer")
+    tf_dir = os.path.join(root, "transformer")
+    for d, cfg in ((tok_dir, tokenizer_hub_config(tokenizer.config)),
+                   (tf_dir, llama_hub_config(model.llm_config))):
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=2)
+    export_tokenizer_safetensors(tokenizer,
+                                 os.path.join(tok_dir, TOKENIZER_FILE))
+    safetensors.save_file(model.state_dict(),
+                          os.path.join(tf_dir, TRANSFORMER_FILE))
+    return root

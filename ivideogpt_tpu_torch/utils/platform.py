@@ -1,10 +1,12 @@
-"""Device selection and float32 precision for the port's entry points."""
+"""Device selection, float32 precision and host-to-card staging for the
+port's entry points."""
 
 from __future__ import annotations
 
 import contextlib
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -35,3 +37,15 @@ def full_fp32():
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def to_device(x, dev: torch.device) -> torch.Tensor:
+    """An array or tensor on ``dev`` without waiting for the card: a host
+    array is staged through pinned memory, whose copy is queued on the
+    stream (a copy from pageable memory would first wait for everything
+    queued before it)."""
+    t = x.detach() if torch.is_tensor(x) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    if dev.type != "cuda" or t.is_cuda:
+        return t.to(dev)
+    return t.contiguous().pin_memory().to(dev, non_blocking=True)

@@ -1,6 +1,9 @@
 """Rules of the PyTorch port that hold whatever the numbers:
 - the package and ``chip_smoke.py`` import no ``jax``, ``flax`` or
-  ``ivideogpt_tpu`` (AST scan);
+  ``ivideogpt_tpu`` (AST scan), and nothing the card's machine lacks
+  (``cv2``, ``yaml``, ``safetensors``, ``transformers``, ``imageio``) at
+  module level; ``imageio`` only inside the predict CLI's GIF writer, the
+  others nowhere;
 - entry points run on CUDA unless asked for the CPU, and raise when CUDA is
   absent;
 - nothing builds or imports a GPU toolchain at import time.
@@ -15,6 +18,10 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ivideogpt_tpu_torch")
 FORBIDDEN = ("jax", "flax", "ivideogpt_tpu")
+# not on the card's machine: cv2, yaml and safetensors nowhere; transformers
+# nowhere; imageio only where the predict CLI writes its GIFs
+ABSENT = ("cv2", "yaml", "safetensors", "transformers", "imageio")
+LAZY_ONLY = {("inference/predict.py", "write_gifs"): ("imageio",)}
 
 
 def _port_files():
@@ -47,6 +54,41 @@ def test_port_imports_no_jax_package(path):
         assert top not in FORBIDDEN, f"{path} imports {mod}"
 
 
+def _imports_by_function(path):
+    """(enclosing top-level function name or None, imported module) for
+    every import of the file."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in tree.body:
+        where = (node.name if isinstance(node, (ast.FunctionDef,
+                                                ast.AsyncFunctionDef))
+                 else None)
+        for sub in ast.walk(node):
+            if isinstance(sub, ast.Import):
+                yield from ((where, a.name) for a in sub.names)
+            elif isinstance(sub, ast.ImportFrom) and sub.module:
+                yield where, sub.module
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_imports_nothing_the_card_lacks(path):
+    rel = os.path.relpath(path, PKG)
+    for where, mod in _imports_by_function(path):
+        top = mod.split(".")[0]
+        if top not in ABSENT:
+            continue
+        allowed = LAZY_ONLY.get((rel, where), ())
+        assert top in allowed, (f"{path} imports {mod}"
+                                + (f" in {where}" if where else
+                                   " at module level"))
+
+
+def test_gif_writer_imports_imageio_lazily():
+    path = os.path.join(PKG, "inference", "predict.py")
+    assert ("write_gifs", "imageio") in set(_imports_by_function(path))
+
+
 def test_scan_sees_the_whole_package():
     rels = {os.path.relpath(p, PKG) for p in _port_files()}
     for must in ("rollout.py", "generation.py", "ops/vq.py",
@@ -55,7 +97,11 @@ def test_scan_sees_the_whole_package():
                  "models/lpips.py", "train/gpt_trainer.py",
                  "train/tokenizer_trainer.py", "train/optim.py",
                  "mbrl/video_predictor.py", "mbrl/drqv2.py",
-                 "mbrl/utils.py"):
+                 "mbrl/utils.py", "utils/safetensors.py",
+                 "utils/checkpoint.py", "train/lora.py",
+                 "data/npz_dataset.py", "data/augment.py",
+                 "inference/utils.py", "inference/predict.py",
+                 "vp/interface.py"):
         assert must in rels
     for src in ("vq_argmin", "vq_argmin_tiled", "decode_attention",
                 "flash_attention", "flash_attention_sm90"):
@@ -68,9 +114,12 @@ def test_entry_point_wants_cuda():
     from ivideogpt_tpu_torch.mbrl.video_predictor import VideoPredictor
     from ivideogpt_tpu_torch.rollout import build_models
     from ivideogpt_tpu_torch.train.gpt_trainer import build_train_models
+    from ivideogpt_tpu_torch.inference.predict import load_models, parse_args
+    from ivideogpt_tpu_torch.rollout import load_hub_models
     from ivideogpt_tpu_torch.train.tokenizer_trainer import (
         build_tokenizer_train_models)
     from ivideogpt_tpu_torch.utils.platform import resolve_device
+    from ivideogpt_tpu_torch.vp.interface import IVideoGPTPredictor
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         return
@@ -85,6 +134,16 @@ def test_entry_point_wants_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         VideoPredictor(TOKENIZER_64, LLAMA_BASE,
                        ActionModelConfig(reward_prediction=True))
+    # the checkpoint entry points refuse before they read a file
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_models(parse_args(["--pretrained_model_name_or_path", "hub",
+                                "--input_path", "x.npz",
+                                "--dataset_name", "bair"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IVideoGPTPredictor(pretrained_vqgan_name_or_path="hub/tokenizer",
+                           pretrained_transformer_path="hub/transformer")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_hub_models("hub", context_length=1, segment_length=16)
     assert resolve_device("cpu").type == "cpu"
 
 
