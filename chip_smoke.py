@@ -42,6 +42,13 @@ the final result line:
                S=514) and VP2's (B=100, S=514) against the plain version in
                fp32; SDPA timed beside them, each kernel's ratio to it
                printed
+     flash_dropout  K4, K5 and K6 with attention dropout 0.1: each kernel's
+               mask read back equal to the plain Philox mask at B=16,
+               S=751, H=12; bf16 at that shape and at H=16 against the
+               plain versions with the same (seed, offset), p=0 bit-equal to
+               no dropout, the fp32 kernels with dropout at B=2 and without
+               at the training shape; timed with and without dropout beside
+               SDPA with dropout_p=0.1 (bf16) and SDPA fp32
   6. main      the rollout (TOKENIZER_64 + LLAMA_BASE + action head, bf16
                under the cast rules, int8 KV cache, ctx=2, T=16, B=256) with
                random weights from a seed: shapes, token ranges, launch
@@ -103,6 +110,23 @@ the final result line:
                context, actions [200, 10, 5]: launches a query (K1 and 12 K4
                a chunk, K3 0), rgb [200, 11, 64, 64, 3] finite in [0, 1],
                seconds a query, peak memory
+ 21. train_gpt the trainer CLI (ivideogpt_tpu_torch/train_gpt.py) in-process
+               with the BAIR finetune recipe's LM flags (bf16, attention
+               dropout 0.1, action-conditioned, --load_internal_llm from
+               the hub's bare LLaMA, B=16, ctx 2, seg 16) on 64 synthetic
+               episodes: 15 steps with a checkpoint and a validation with
+               generation, a resume from the latest checkpoint to step 30
+               with another of each; launches (K1 2, K4/K5/K6 12 a step,
+               dropout keyed by (seed, global step, layer)), the export
+               read back, a restored state and its next step bit-equal to
+               the live ones; ms/step, samples/s, the loader's wait, the
+               validations' seconds, peak memory, the stage split, and 10
+               steps without dropout
+ 22. train_medium  LLAMA_MEDIUM (24 layers, H=16), act-free, bf16, dropout
+               0.1, B=16, L=751: 2 warm-up and 5 timed steps, launches a
+               step (K1 2, K4/K5/K6 24), ms/step, tokens/s, peak memory
+ 23. train_gpt check  the train check's fp32 step at B=2, 2 layers, with
+               attention dropout keyed alike on the card and the CPU
 Then the launches by path, the kernels' JSON line, the card line again, and
 the result line.
 Imports nothing of JAX or of the JAX package.
@@ -124,6 +148,12 @@ BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s
 SPIN_CYCLES = 200_000_000  # queued_ms's head start: ~0.11 s at 1.755 GHz
 TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 16, 3, 10
+# attention dropout of every published GPT recipe; the trainer CLI's run:
+# 30 steps (a checkpoint and a validation every 15, a resume at 15) on 64
+# synthetic episodes of 24 frames; the medium recipe's steps
+DROP_P, DROP_SEED = 0.1, 2024
+GPT_STEPS, GPT_CKPT, GPT_EPISODES, GPT_FRAMES = 30, 15, 64, 24
+MEDIUM_WARMUP, MEDIUM_TIMED = 2, 5
 TOK_T, TOK_CTX = 8, 2          # the tokenizer trainer's clips (B=TRAIN_B)
 TOK_WARMUP, TOK_TIMED = 3, 10
 TOK_WIDE_WARMUP, TOK_WIDE_TIMED = 1, 3
@@ -910,6 +940,304 @@ def phase_flash(torch):
     return rows
 
 
+def phase_flash_dropout(torch):
+    """Attention dropout inside K4, K5 and K6 (p = DROP_P) against the plain
+    versions with the same (seed, offset):
+
+    - each kernel's mask read back exactly at the training shape (q = 0
+      makes P uniform over a row; one-hot V, dO or K blocks expose
+      P Z / keep key by key) and equal to ``ops/philox.keep_mask``, whose
+      kept share is within 5 sigma of 1 - p;
+    - bf16 K4 (O, lse), K5 and K6 (fed the plain lse and di) at the
+      training shape (B=16, S=751, H=12) and at LLAMA_MEDIUM's H=16,
+      against flash_*_plain in fp32 on the upcast inputs, at phase_flash's
+      tolerances; through causal_attention and autograd at H=12;
+    - p = 0 bit-equal to the launch without dropout, in bf16 and fp32;
+    - the fp32 kernels with dropout at B=2, S=751 against the plain
+      versions (fp32 tolerance), and without dropout at the training shape.
+    Times by cuda_ms and queued_ms, with and without dropout, beside SDPA
+    with dropout_p = DROP_P (forward; forward+backward minus forward) and,
+    for the fp32 kernels at the training shape, SDPA's fp32 forward and
+    backward. Returns the kernels line's rows."""
+    import torch.nn.functional as F
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.ops import philox
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    hd, s = 64, 751
+    sm90 = "ivideogpt_tpu_torch/csrc/flash_attention_sm90.cu"
+    fp32_src = "ivideogpt_tpu_torch/csrc/flash_attention.cu"
+    stock = "jax/experimental/pallas/ops/tpu/flash_attention.py:"
+    lines = {"K4": "331", "K5": "796", "K6": "1146"}
+    names = {"K4": "flash_attention_fwd", "K5": "flash_attention_bwd_dkv",
+             "K6": "flash_attention_bwd_dq"}
+    bf16_tol, bf16_rel = dict(rtol=2e-2, atol=2e-2), 3.8e-3
+    fp32_tol = dict(rtol=1e-4, atol=1e-5)
+    drop = (DROP_P, DROP_SEED, philox.offset_of(7, 3))
+    rows = {}
+
+    def gate(got, want, what, tol, rel_tol=None):
+        got, want = got.detach(), want.detach()
+        diff = got.float() - want.float()
+        e = float(diff.abs().max())
+        rel = float(diff.norm() / want.float().norm())
+        check(torch.allclose(got.float(), want.float(), **tol),
+              f"{what} disagrees with the plain version elementwise "
+              f"({e:.3e})")
+        if rel_tol is not None:
+            check(rel < rel_tol, f"{what}: relative L2 error {rel:.3e} is "
+                  f"over {rel_tol}")
+        return e
+
+    # the masks, read back from each kernel at the training shape
+    b, H = TRAIN_B, 12
+    want = philox.keep_mask(drop, b, H, s, 0, s, 0, s, device="cuda")
+    kept = float(want.float().mean())
+    sigma = (DROP_P * (1 - DROP_P) / want.numel()) ** 0.5
+    check(abs(kept - (1 - DROP_P)) < 5 * sigma, f"flash_dropout: the plain "
+          f"mask keeps {kept:.6f}, more than 5 sigma from {1 - DROP_P}")
+    want &= torch.ones(s, s, device="cuda", dtype=torch.bool).tril()
+    zero = torch.zeros(b, s, H, hd, device="cuda", dtype=torch.bfloat16)
+    e0 = zero.clone()
+    e0[..., 0] = 1
+    lse_u = torch.log(torch.arange(1, s + 1, device="cuda").float()) \
+        .expand(b, H, s).contiguous()
+    di0 = torch.zeros(b, H, s, device="cuda")
+    got = torch.zeros(3, b, H, s, s, device="cuda", dtype=torch.bool)
+    for c0 in range(0, s, 64):
+        n = min(64, s - c0)
+        hot = torch.zeros(b, s, H, hd, device="cuda")
+        hot[:, c0:c0 + n] = torch.eye(hd, device="cuda")[:n, None, :]
+        hot = hot.bfloat16()
+        o, _ = fa.flash_fwd(zero, zero, hot, drop)
+        got[0, ..., c0:c0 + n] = o[..., :n].permute(0, 2, 1, 3) != 0
+        _, dv = fa.flash_bwd_dkv(zero, zero, zero, hot, lse_u, di0, drop)
+        got[1, :, :, c0:c0 + n, :] = dv[..., :n].permute(0, 2, 3, 1) != 0
+        dq = fa.flash_bwd_dq(zero, hot, e0, e0, lse_u, di0, drop)
+        got[2, ..., c0:c0 + n] = dq[..., :n].permute(0, 2, 1, 3) != 0
+    for i, k in enumerate(("K4", "K5", "K6")):
+        check(torch.equal(got[i], want), f"flash_dropout: {k}'s mask at "
+              f"B={b} S={s} H={H} differs from the plain mask")
+    print(f"flash_dropout: the masks of K4, K5 and K6 at B={b} S={s} H={H} "
+          f"equal the plain mask bit for bit; it keeps {kept:.6f} of "
+          f"{want.numel()} (1 - p = {1 - DROP_P}, 5 sigma = {5 * sigma:.2e})")
+    del want, got, zero, e0, lse_u, di0, hot, o, dv, dq
+
+    def inputs(b, H, seed, dtype):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return [torch.randn(b, s, H, hd, device="cuda", generator=g)
+                .to(dtype) for _ in range(4)]
+
+    def kernels(q, k, v, do, d, lse=None, di=None):
+        """{"K4": fn, "K5": fn, "K6": fn} at their own interface."""
+        if lse is None:
+            o, lse = fa.flash_fwd(q, k, v, d)
+            di = (o.float() * do.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+        return {"K4": lambda: fa.flash_fwd(q, k, v, d),
+                "K5": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di, d),
+                "K6": lambda: fa.flash_bwd_dq(q, k, v, do, lse, di, d)}
+
+    def p0_bit_equal(q, k, v, do, what):
+        o, lse = fa.flash_fwd(q, k, v)
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        zero = (0.0, DROP_SEED, 99)
+        none, p0 = kernels(q, k, v, do, None, lse, di), \
+            kernels(q, k, v, do, zero, lse, di)
+        for key in ("K4", "K5", "K6"):
+            a, c = none[key](), p0[key]()
+            a, c = (a if isinstance(a, tuple) else (a,),
+                    c if isinstance(c, tuple) else (c,))
+            check(all(torch.equal(x, y) for x, y in zip(a, c)),
+                  f"flash_dropout: {key} at p=0 is not bit-equal to the "
+                  f"launch without dropout ({what})")
+
+    def timed(fns):
+        return {key: (cuda_ms(fn, 10), *queued_ms(fn, 10))
+                for key, fn in fns.items()}
+
+    def sdpa_ms(q, k, v, do, p):
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def fwd_bwd(bwd):
+            o = F.scaled_dot_product_attention(qt, kt, vt, dropout_p=p,
+                                               is_causal=True)
+            if bwd:
+                torch.autograd.grad(o, (qt, kt, vt), dot)
+        f = cuda_ms(lambda: fwd_bwd(False), 10)
+        fq = queued_ms(lambda: fwd_bwd(False), 10)[0]
+        fb = cuda_ms(lambda: fwd_bwd(True), 10)
+        fbq = queued_ms(lambda: fwd_bwd(True), 10)[0]
+        return f, fq, fb - f, fbq - fq
+
+    def plain_ms(q, k, v, do, d, dtype):
+        def fwd_bwd(bwd):
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = fa.causal_attention_plain(*ins, dtype, dropout=d)
+            if bwd:
+                torch.autograd.grad(o, ins, do.flatten(2))
+        f = cuda_ms(lambda: fwd_bwd(False), 2, warmup=1)
+        return f, cuda_ms(lambda: fwd_bwd(True), 2, warmup=1) - f
+
+    def add_rows(tag, b, H, dtype, src, errs, t_drop, t_none, lib, plain,
+                 paths, lib_what, peak, dropout_first=True):
+        """A row a kernel: ms and queued_ms with dropout and, under
+        *_no_dropout, without (dropout_first); or the other way round,
+        under *_dropout."""
+        elems, pairs = b * s * H * hd, b * H * s * (s + 1) // 2
+        isz = 2 if dtype == torch.bfloat16 else 4
+        for key, n_io, per_pair in (("K4", 4, 4), ("K5", 6, 8),
+                                    ("K6", 5, 6)):
+            n_rows = 1 if key == "K4" else 2
+            b_ms, b_by = bound(n_io * elems * isz + n_rows * b * H * s * 4,
+                               per_pair * hd * pairs, peak)
+            first, other = ((t_drop, t_none) if dropout_first
+                            else (t_none, t_drop))
+            ms, q_ms, host = first[key]
+            ms0, q_ms0, _ = other[key]
+            suffix = "_no_dropout" if dropout_first else "_dropout"
+            lib_ms = lib[0] if key == "K4" else lib[2]
+            lib_q = lib[1] if key == "K4" else lib[3]
+            row = dict(
+                name=names[key], route="cuda", source=src,
+                replaces=stock + lines[key],
+                shape=f"{tag} B={b} S={s} H={H}", paths=paths,
+                max_abs_err=errs[key], ms=ms, queued_ms=q_ms, host_ms=host,
+                plain_ms=plain[0] if key == "K4" else plain[1],
+                bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / q_ms,
+                library_ms=lib_ms, library_queued_ms=lib_q,
+                library=lib_what if key == "K4" else
+                lib_what + " backward (forward+backward minus forward; dQ, "
+                "dK and dV together)")
+            row["ms" + suffix] = ms0
+            row["queued_ms" + suffix] = q_ms0
+            row["share_of_bound" + suffix] = b_ms / q_ms0
+            rows[f"{key}_{tag}"] = row
+            print(f"{key} {tag} B={b} S={s} H={H}: max_abs_err="
+                  f"{errs[key]:.3e} kernel_ms={ms:.4f} queued_ms={q_ms:.4f} "
+                  f"({suffix[1:]}: {ms0:.4f} / {q_ms0:.4f}) plain_ms="
+                  f"{row['plain_ms']:.4f} library_ms={lib_ms:.4f} queued "
+                  f"{lib_q:.4f} ({row['library']}) bound_ms={b_ms:.4f} "
+                  f"({b_by}) share_of_bound={b_ms / q_ms:.3f} "
+                  f"({suffix[1:]} {b_ms / q_ms0:.3f}); host_ms per call "
+                  f"{host:.4f}")
+
+    # bf16 at the training shape (LLAMA_BASE, H=12) and LLAMA_MEDIUM's H=16
+    for tag, H, paths in (("train_dropout", 12, ("train_gpt",)),
+                          ("medium_dropout", 16, ("train_medium",))):
+        b = TRAIN_B
+        q, k, v, do = inputs(b, H, H, torch.bfloat16)
+        f = [t.float() for t in (q, k, v, do)]
+        with full_fp32():
+            o, lse = fa.flash_fwd(q, k, v, drop)
+            ref_o, ref_lse = fa.flash_fwd_plain(*f[:3], drop)
+            di = (ref_o * f[3]).sum(-1).transpose(1, 2).contiguous()
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, di, drop)
+            dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, di, drop)
+            ref_dk, ref_dv = fa.flash_bwd_dkv_plain(*f, ref_lse, di, drop)
+            ref_dq = fa.flash_bwd_dq_plain(*f, ref_lse, di, drop)
+        e_lse = float((lse - ref_lse).abs().max())
+        check(e_lse < 1e-3, f"flash_dropout: K4 lse ({tag}) {e_lse:.3e} "
+              f"from the plain, undropped lse")
+        errs = {"K4": gate(o, ref_o, f"K4 O ({tag})", bf16_tol, bf16_rel),
+                "K5": max(gate(dk, ref_dk, f"K5 dK ({tag})", bf16_tol,
+                               bf16_rel),
+                          gate(dv, ref_dv, f"K5 dV ({tag})", bf16_tol,
+                               bf16_rel)),
+                "K6": gate(dq, ref_dq, f"K6 dQ ({tag})", bf16_tol, bf16_rel)}
+        del ref_o, ref_dk, ref_dv, ref_dq, dk, dv, dq
+        if H == 12:
+            # end to end: causal_attention and autograd against autograd
+            # through the plain version in fp32
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = fa.causal_attention(*ins, torch.bfloat16, drop)
+            grads = torch.autograd.grad(out, ins, do.flatten(2))
+            ref_in = [t.detach().requires_grad_() for t in f[:3]]
+            with full_fp32():
+                ref = fa.causal_attention_plain(*ref_in, torch.float32,
+                                                dropout=drop)
+                ref_grads = torch.autograd.grad(ref, ref_in,
+                                                f[3].flatten(2))
+            gate(out, ref, "causal_attention with dropout", bf16_tol,
+                 bf16_rel)
+            for g, r, w in zip(grads, ref_grads, "qkv"):
+                gate(g, r, f"d{w} through causal_attention with dropout",
+                     bf16_tol, bf16_rel)
+            del ins, out, grads, ref_in, ref, ref_grads
+        p0_bit_equal(q, k, v, do, f"bf16 {tag}")
+        t_drop = timed(kernels(q, k, v, do, drop))
+        t_none = timed(kernels(q, k, v, do, None))
+        lib = sdpa_ms(q, k, v, do, DROP_P)
+        plain = plain_ms(q, k, v, do, drop, torch.bfloat16)
+        add_rows(tag, b, H, torch.bfloat16, sm90, errs, t_drop, t_none, lib,
+                 plain, paths, f"SDPA forward, dropout_p={DROP_P}",
+                 BF16_PEAK)
+        del q, k, v, do, f, o, lse, di
+        torch.cuda.empty_cache()
+
+    # fp32: with dropout at B=2 against the plain version, p = 0 bit-equal
+    q, k, v, do = inputs(2, 12, 5, torch.float32)
+    with full_fp32():
+        fns = kernels(q, k, v, do, drop)
+        o, lse = fns["K4"]()
+        ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, drop)
+        di = (o * do).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = fns["K5"]()
+        dq = fns["K6"]()
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, di, drop)
+        ref_dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, di, drop)
+    e_fp32 = {"K4": gate(o, ref_o, "fp32 K4 O with dropout", fp32_tol),
+              "K5": max(gate(dk, ref_dk, "fp32 K5 dK with dropout", fp32_tol),
+                        gate(dv, ref_dv, "fp32 K5 dV with dropout",
+                             fp32_tol)),
+              "K6": gate(dq, ref_dq, "fp32 K6 dQ with dropout", fp32_tol)}
+    check(float((lse - ref_lse).abs().max()) < 1e-4, "fp32 K4 lse with "
+          "dropout differs from the plain lse")
+    p0_bit_equal(q, k, v, do, "fp32 B=2")
+    print(f"flash_dropout: fp32 K4/K5/K6 with dropout at B=2 S={s} H=12: "
+          f"max_abs_err {json.dumps({k_: round(e_, 9) for k_, e_ in e_fp32.items()})} "
+          f"(rtol 1e-4, atol 1e-5); p=0 bit-equal to no dropout")
+    del q, k, v, do, o, lse, ref_o, ref_lse, di, dk, dv, dq
+    del ref_dk, ref_dv, ref_dq
+
+    # fp32 at the training shape: against the plain version without
+    # dropout, timed with and without it, beside SDPA's fp32 forward and
+    # backward (TF32 off)
+    b = TRAIN_B
+    q, k, v, do = inputs(b, 12, 6, torch.float32)
+    with full_fp32():
+        o, lse = fa.flash_fwd(q, k, v)
+        ref_o, ref_lse = fa.flash_fwd_plain(q, k, v)
+        di = (ref_o * do).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, di)
+        dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, di)
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, ref_lse, di)
+        ref_dq = fa.flash_bwd_dq_plain(q, k, v, do, ref_lse, di)
+        errs = {"K4": gate(o, ref_o, "fp32 K4 O (train shape)", fp32_tol),
+                "K5": max(gate(dk, ref_dk, "fp32 K5 dK (train shape)",
+                               fp32_tol),
+                          gate(dv, ref_dv, "fp32 K5 dV (train shape)",
+                               fp32_tol)),
+                "K6": gate(dq, ref_dq, "fp32 K6 dQ (train shape)", fp32_tol)}
+        del ref_o, ref_dk, ref_dv, ref_dq, dk, dv, dq
+        t_drop = timed(kernels(q, k, v, do, drop))
+        t_none = timed(kernels(q, k, v, do, None))
+        lib = sdpa_ms(q, k, v, do, 0.0)
+        plain = plain_ms(q, k, v, do, None, torch.float32)
+    add_rows("train_fp32", b, 12, torch.float32, fp32_src, errs, t_drop,
+             t_none, lib, plain, ("train_gpt_check",),
+             "SDPA forward, fp32, TF32 off", FP32_PEAK, dropout_first=False)
+    del q, k, v, do, o, lse, di
+    torch.cuda.empty_cache()
+    card = card_line()
+    for key, r in rows.items():
+        print(f"ratio to SDPA ({r['library']}; this run, {card}): {key} "
+              f"{r['ms'] / r['library_ms']:.3f} (queued, no host time: "
+              f"{r['queued_ms'] / r['library_queued_ms']:.3f})")
+    return rows
+
+
 def check_stream(torch, tokens_mod, cfg, toks, batch, ctx=CTX):
     L = tokens_mod.seq_len(ctx, T)
     check(tuple(toks.shape) == (batch, L), f"tokens {tuple(toks.shape)}")
@@ -1242,22 +1570,25 @@ def phase_train(torch):
     return launches
 
 
-def profile_train_step(torch, step, step_s):
+def profile_train_step(torch, step, step_s, tag="train"):
     """Device time of one training step by kernel, from a kernel trace."""
     res = {}
     with kernel_trace(torch, res):
         step()
     total, kernels = res["seconds"], res["kernels"]
     if not total:
-        print("train: the profiler recorded no device time: device seconds "
+        print(f"{tag}: the profiler recorded no device time: device seconds "
               "not measured")
         return
     flash = sum(e.self_device_time_total for e in kernels
                 if "flash_" in e.key) / 1e6
-    print(f"train: one profiled step: device {total:.4f} s, busy share "
+    vq = sum(e.self_device_time_total for e in kernels
+             if "vq_argmin" in e.key) / 1e6
+    print(f"{tag}: one profiled step: device {total:.4f} s, busy share "
           f"{total / step_s:.4f} of the unprofiled step, flash-attention "
-          f"kernels {flash:.4f} s ({flash / total:.4f} of device time)")
-    print("train: top kernels (name, launches, device s): "
+          f"kernels {flash:.4f} s ({flash / total:.4f} of device time), VQ "
+          f"argmin {vq:.4f} s")
+    print(f"{tag}: top kernels (name, launches, device s): "
           + json.dumps(top_kernels(kernels, 12, width=70)))
 
 
@@ -1944,19 +2275,26 @@ def phase_tok_train_check(torch):
     torch.cuda.empty_cache()
 
 
-def phase_train_check(torch):
+def phase_train_check(torch, dropout=False):
     """One fp32 training forward/backward at B=2 on the card (K1, K4, K5,
     K6) held against the same step on the CPU's plain path, with the same
     weights and batch: LLAMA_BASE widths at a depth cut to 2 layers to stay
-    within the time limit, the full TOKENIZER_64."""
+    within the time limit, the full TOKENIZER_64. With ``dropout`` (the
+    ``train_gpt check`` phase), attention dropout DROP_P keyed by the same
+    (seed, step) on both sides: the kernels' Philox mask on the card, the
+    plain version's in torch on the CPU. Returns the card's launches."""
     import copy
     from ivideogpt_tpu_torch.configs import LLAMA_BASE
     from ivideogpt_tpu_torch.train import gpt_trainer as gt
     from ivideogpt_tpu_torch.train.optim import global_norm
     from ivideogpt_tpu_torch.utils.platform import full_fp32
     b, depth = 2, 2
+    tag = "train_gpt check" if dropout else "train check"
+    key = (DROP_SEED, 17) if dropout else None
+    lm_cfg = LLAMA_BASE.replace(num_hidden_layers=depth,
+                                attention_dropout=DROP_P if dropout else 0.0)
     tokenizer, model = gt.build_train_models(
-        lm_cfg=LLAMA_BASE.replace(num_hidden_layers=depth), context_length=CTX,
+        lm_cfg=lm_cfg, context_length=CTX,
         segment_length=T, compute_dtype=torch.float32, seed=12)
     tok_cpu, model_cpu = (copy.deepcopy(m).cpu() for m in (tokenizer, model))
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -1964,13 +2302,13 @@ def phase_train_check(torch):
     reset_counts()
     ids, labels = gt.make_tokenize_fn(tokenizer, CTX)(px)
     with full_fp32():
-        loss = model(ids, labels)["loss"]
+        loss = model(ids, labels, dropout_key=key)["loss"]
         loss.backward()
     loss = loss.detach()
     counts = read_counts()
     for name in ("vq_argmin", "flash_attention_fwd", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq"):
-        check(counts[name] == 2, f"train check: {name} ran {counts[name]} "
+        check(counts[name] == 2, f"{tag}: {name} ran {counts[name]} "
               f"times, not 2")
     gnorm = float(global_norm(p.grad for p in model.parameters()
                               if p.grad is not None))
@@ -1978,7 +2316,7 @@ def phase_train_check(torch):
     torch.set_num_threads(os.cpu_count() or 1)
     ids_cpu, _ = gt.make_tokenize_fn(tok_cpu, CTX)(px.cpu())
     same = float((ids.cpu() == ids_cpu).float().mean())
-    loss_cpu = model_cpu(ids.cpu(), labels.cpu())["loss"]
+    loss_cpu = model_cpu(ids.cpu(), labels.cpu(), dropout_key=key)["loss"]
     loss_cpu.backward()
     loss_cpu = loss_cpu.detach()
     gnorm_cpu = float(global_norm(p.grad for p in model_cpu.parameters()
@@ -1989,14 +2327,14 @@ def phase_train_check(torch):
     for (name, p), p_cpu in zip(model.named_parameters(),
                                 model_cpu.parameters()):
         if p_cpu.grad is None:
-            check(p.grad is None, f"train check: {name} has a gradient on "
+            check(p.grad is None, f"{tag}: {name} has a gradient on "
                   f"the card only")
             continue
         rel = float((p.grad.cpu() - p_cpu.grad).abs().max()
                     / p_cpu.grad.abs().max().clamp_min(1e-30))
         if rel > worst:
             worst, worst_name = rel, name
-    print(f"train check: ids equal to the CPU tokenizer's {same:.4f}; loss "
+    print(f"{tag}: ids equal to the CPU tokenizer's {same:.4f}; loss "
           f"{float(loss):.6f} vs {float(loss_cpu):.6f} (relative diff "
           f"{dl:.3e}, tolerance 1e-4); grad norm {gnorm:.6f} vs "
           f"{gnorm_cpu:.6f} (relative diff {dn:.3e}, tolerance 1e-4); worst "
@@ -2004,11 +2342,325 @@ def phase_train_check(torch):
           f"1e-3)")
     # fp32 on both sides, TF32 off; the kernels, cuBLAS and the CPU sum in
     # other orders, and the differences compound through the backward
-    check(same >= 0.99, "train check: ids differ from the CPU tokenizer")
-    check(dl < 1e-4, "train check: the loss differs from the CPU path")
-    check(dn < 1e-4, "train check: the grad norm differs from the CPU path")
-    check(worst < 1e-3, f"train check: {worst_name}'s gradient differs from "
+    check(same >= 0.99, f"{tag}: ids differ from the CPU tokenizer")
+    check(dl < 1e-4, f"{tag}: the loss differs from the CPU path")
+    check(dn < 1e-4, f"{tag}: the grad norm differs from the CPU path")
+    check(worst < 1e-3, f"{tag}: {worst_name}'s gradient differs from "
           f"the CPU path")
+    return counts
+
+
+def write_episodes(root, n, frames, seed):
+    """``{root}/cmu_stretch/episode_*.npz`` for the ``debug`` mix: uint8
+    frames [frames, 64, 64, 3] under ``image`` and actions [frames, 4]
+    under ``action``, from a seed."""
+    import numpy as np
+    d = os.path.join(root, "cmu_stretch")
+    os.makedirs(d)
+    rng = np.random.default_rng(seed)
+    for e in range(n):
+        np.savez(os.path.join(d, f"episode_{e:03d}.npz"),
+                 image=rng.integers(0, 256, (frames, 64, 64, 3),
+                                    dtype=np.uint8),
+                 action=rng.normal(size=(frames, 4)).astype(np.float32))
+    return root
+
+
+def same_train_state(torch, a, b, what):
+    """Gate two TrainStates bit-equal: parameters and buffers, AdamW's
+    moments and counts, the counters."""
+    sa, sb = a.state_dict(), b.state_dict()
+    check((sa["step"], sa["updates"]) == (sb["step"], sb["updates"]),
+          f"{what}: counters {sa['step'], sa['updates']} vs "
+          f"{sb['step'], sb['updates']}")
+    for k, v in sa["model"].items():
+        check(torch.equal(v, sb["model"][k]), f"{what}: {k} differs")
+    for i, entry in sa["optimizer"]["state"].items():
+        for k, v in entry.items():
+            check(torch.equal(torch.as_tensor(v),
+                              torch.as_tensor(sb["optimizer"]["state"][i][k])),
+                  f"{what}: AdamW's {k} of parameter {i} differs")
+
+
+def phase_train_gpt(torch, root, hub, free):
+    """``python -m ivideogpt_tpu_torch.train_gpt``'s ``main`` in-process
+    with the BAIR finetune recipe's LM flags
+    (``scripts/finetune/bair-64-act-cond.sh:17-31``) at ctx 2, seg 16,
+    without FVD and frame metrics (not ported) and without GIF dumps (the
+    card's machine has no ``imageio``): bf16 over fp32 masters, attention
+    dropout 0.1, action-conditioned, the LLaMA warm-started from the hub's
+    bare LLaMA through ``--load_internal_llm``, B=16, on GPT_EPISODES
+    synthetic episodes of GPT_FRAMES frames. Steps 1-15 checkpoint at 15,
+    then a second run resumes from the latest checkpoint and trains to 30,
+    checkpointing there; validation with generation at 15 and 30.
+
+    Gates: finite losses; the launches (K4, K5 and K6 12 a training step,
+    all with dropout keyed by (seed, global step, layer) across the resume;
+    K1 2 a step; the validations' K1 and K4 without dropout; K3 0);
+    checkpoint-15 and checkpoint-30 written; the transformer export read
+    back by the port's loader bit-equal to the live model; a fresh state
+    restored from checkpoint-30 bit-equal to the live one, and one more step
+    from each on the same batch bit-equal. Prints ms/step, samples/s and
+    the loader's wait a step over the steady log windows, the validations'
+    seconds, the peak memory, the step's stage split and device time, and
+    ms/step of 10 steps without dropout. Returns the launches of the two
+    runs."""
+    import numpy as np
+    from ivideogpt_tpu_torch import train_gpt
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.ops import philox
+    from ivideogpt_tpu_torch.utils import checkpoint as ckpt
+    data = write_episodes(os.path.join(root, "data"), GPT_EPISODES,
+                          GPT_FRAMES, seed=93)
+    out = os.path.join(root, "run")
+    recipe = ["--pretrained_model_name_or_path", hub,
+              "--pretrained_transformer_path", free, "--load_internal_llm",
+              "--llm_config", "base", "--action_conditioned",
+              "--action_dim", "4", "--mixed_precision", "bf16",
+              "--attention_dropout", str(DROP_P), "--embed_no_wd",
+              "--weight_decay", "0.01", "--batch_size", str(TRAIN_B),
+              "--gradient_accumulation_steps", "1", "--learning_rate", "1e-4",
+              "--lr_scheduler_type", "cosine", "--dataset_name", "debug",
+              "--dataset_path", data, "--resolution", "64",
+              "--dataloader_num_workers", "16", "--video_stepsize", "1",
+              "--segment_length", str(T), "--context_length", str(CTX),
+              "--num_warmup_steps", "0", "--validation_eval_batches", "1",
+              "--log_steps", "5", "--no_validation_gifs", "--seed", "0"]
+
+    def argv(*extra, out=out):
+        return recipe + ["--output_dir", out, *extra]
+
+    keys, drops, per_step = [], [], []
+    real_step, real_drop = train_gpt.train_step, fa._drop_args
+
+    def step_recording(state, batch, rng=None):
+        keys.append(rng)
+        before = read_counts()
+        m = real_step(state, batch, rng)
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return m
+
+    def drop_recording(dropout):
+        drops.append(dropout)
+        return real_drop(dropout)
+
+    train_gpt.train_step, fa._drop_args = step_recording, drop_recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        train_gpt.main(argv("--max_train_steps", str(GPT_CKPT),
+                            "--checkpointing_steps", str(GPT_CKPT),
+                            "--validation_steps", str(GPT_CKPT)))
+        t1 = time.time()
+        live = train_gpt.main(argv("--max_train_steps", str(GPT_STEPS),
+                                   "--checkpointing_steps", str(GPT_STEPS),
+                                   "--validation_steps", str(GPT_CKPT),
+                                   "--resume_from_checkpoint", "latest"))
+        torch.cuda.synchronize()
+        t2 = time.time()
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        train_gpt.train_step, fa._drop_args = real_step, real_drop
+    print(f"train_gpt: two runs (1-{GPT_CKPT}, then resumed {GPT_CKPT + 1}-"
+          f"{GPT_STEPS}) in {t1 - t0:.1f} s and {t2 - t1:.1f} s, models, "
+          f"loaders, validations and checkpoints included; launches "
+          f"{json.dumps(launches)}; peak memory {peak:.2f} GiB")
+    check(keys == [(0, i) for i in range(GPT_STEPS)],
+          f"train_gpt: the dropout keys of the steps are {keys[:3]}..., not "
+          f"(seed, global step) across the resume")
+    want = {"vq_argmin": 2, "flash_attention_fwd": 12,
+            "flash_attention_bwd_dkv": 12, "flash_attention_bwd_dq": 12,
+            "decode_attention": 0, "vq_argmin_tiled": 0}
+    for i, got in enumerate(per_step):
+        # the step's own tokenize ran before it: K1 counts 0 inside
+        check(all(got[k] == (0 if k == "vq_argmin" else n)
+                  for k, n in want.items()),
+              f"train_gpt: step {i} launched {got}")
+    n_val = GPT_STEPS // GPT_CKPT
+    # a validation: 4 held-out batches (K1 2, K4 12 each), one generation
+    # batch (its loss: K1 2, K4 12; generate's prefill: K4 12)
+    expect = {"vq_argmin": 2 * GPT_STEPS + n_val * 10,
+              "flash_attention_fwd": 12 * GPT_STEPS + n_val * 72,
+              "flash_attention_bwd_dkv": 12 * GPT_STEPS,
+              "flash_attention_bwd_dq": 12 * GPT_STEPS,
+              "decode_attention": 0, "vq_argmin_tiled": 0}
+    check(launches == expect, f"train_gpt: launches {launches}, not "
+          f"{expect}")
+    dropped = [d for d in drops if d is not None and d[0] > 0]
+    want_drops = sorted((DROP_P, 0, philox.offset_of(i, layer))
+                        for i in range(GPT_STEPS) for layer in range(12)
+                        for _ in range(3))
+    check(sorted(dropped) == want_drops, "train_gpt: the kernels' dropout "
+          "arguments are not (0.1, seed, offset_of(step, layer)) for K4, K5 "
+          "and K6 of every training step")
+    check(len(drops) - len(dropped) == n_val * 72, "train_gpt: the "
+          "validations launched K4 with dropout")
+
+    metrics = [json.loads(line) for line in
+               open(os.path.join(out, "metrics.jsonl")).read().splitlines()]
+    for m in metrics:
+        for k, v in m.items():
+            check(not isinstance(v, float) or v == v and abs(v) != float(
+                "inf"), f"train_gpt: {k} = {v} at step {m['step']}")
+    train = {m["step"]: m for m in metrics if "loss" in m}
+    val = [m for m in metrics if "eval_loss" in m]
+    check(sorted(train) == list(range(5, GPT_STEPS + 1, 5)),
+          f"train_gpt: logged steps {sorted(train)}")
+    check([m["step"] for m in val] == [GPT_CKPT, GPT_STEPS]
+          and all(m["gen_generated"] == TRAIN_B for m in val),
+          f"train_gpt: validations {val}")
+    for step in (GPT_CKPT, GPT_STEPS):
+        check(os.path.exists(os.path.join(out, f"checkpoint-{step}",
+                                          ckpt.STATE_TENSORS)),
+              f"train_gpt: checkpoint-{step} was not written")
+    exported = ckpt.load_action_model_safetensors(
+        os.path.join(out, "transformer"))
+    live_sd = live.model.state_dict()
+    check(sorted(exported) == sorted(live_sd)
+          and all(torch.equal(exported[k], v.cpu())
+                  for k, v in live_sd.items()),
+          "train_gpt: the transformer export differs from the live model")
+    # windows of log_steps steps that hold no validation or checkpoint
+    steady = [train[s_] for s_ in (10, GPT_CKPT, 25, GPT_STEPS)]
+    step_ms = float(np.mean([m["step_ms"] for m in steady]))
+    sps = float(np.mean([m["samples_per_sec"] for m in steady]))
+    wait_ms = float(np.mean([m["loader_wait_ms"] for m in steady]))
+    print(f"train_gpt: losses {[train[s_]['loss'] for s_ in sorted(train)]}; "
+          f"steady windows (steps 6-10, 11-15, 21-25, 26-30): "
+          f"{step_ms:.2f} ms/step, {sps:.2f} samples/s, the loop waited "
+          f"{wait_ms:.3f} ms a step on the loader; validation seconds "
+          f"{[round(m['validation_seconds'], 3) for m in val]} (4 held-out "
+          f"batches and one generation of B={TRAIN_B}); eval loss "
+          f"{[m['eval_loss'] for m in val]}")
+
+    # resume: a fresh state from checkpoint-30 equals the live one, and so
+    # does one more step from each on the same batch
+    args = train_gpt.parse_args(argv("--max_train_steps", str(GPT_STEPS)))
+    tokenizer, model = train_gpt.build_models(args, torch.device("cuda"))
+    fresh = train_gpt.make_train_state(args, model)
+    ckpt.restore_train_state(os.path.join(out, f"checkpoint-{GPT_STEPS}"),
+                             fresh)
+    same_train_state(torch, live, fresh, "train_gpt resume")
+    g = torch.Generator(device="cuda").manual_seed(94)
+    px = torch.rand(TRAIN_B, T, 64, 64, 3, device="cuda", generator=g)
+    action = torch.randn(TRAIN_B, T, 4, device="cuda", generator=g)
+    tokenize = train_gpt.make_tokenize_fn(tokenizer, CTX)
+    ids, labels = tokenize(px)
+    batch = {"input_ids": ids, "labels": labels, "action": action}
+    for state in (live, fresh):
+        train_gpt.train_step(state, batch, rng=(0, GPT_STEPS))
+    same_train_state(torch, live, fresh, "train_gpt: the step after resume")
+    print(f"train_gpt: checkpoint-{GPT_CKPT} and checkpoint-{GPT_STEPS} "
+          f"written; the export reads back bit-equal; a state restored from "
+          f"checkpoint-{GPT_STEPS} equals the live one (parameters, AdamW "
+          f"moments and counts, counters), and so does the next step from "
+          f"each")
+
+    # where a step's time goes: stage wall seconds and one profiled step
+    del fresh, model
+    torch.cuda.empty_cache()
+    stages = {}
+
+    def timed_stage(name, fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        r = fn()
+        torch.cuda.synchronize()
+        stages[name] = round(time.time() - t, 4)
+        return r
+
+    live.model.train()
+    for _ in range(2):
+        ids, labels = timed_stage("tokenize", lambda: tokenize(px))
+        timed_stage("forward_backward", lambda: live.model(
+            ids, labels, action, dropout_key=(0, 99))["loss"].backward())
+        timed_stage("clip_adamw", live.apply_gradients)
+    print("train_gpt: stage wall seconds (the second of two) "
+          + json.dumps(stages))
+    def profiled_step():
+        ids, labels = tokenize(px)
+        train_gpt.train_step(live, {"input_ids": ids, "labels": labels,
+                                    "action": action}, rng=(0, 100))
+    profile_train_step(torch, profiled_step, step_ms / 1e3, tag="train_gpt")
+    del live, tokenizer, batch
+    torch.cuda.empty_cache()
+
+    # what dropout costs end to end: 10 steps at attention_dropout 0
+    off = os.path.join(root, "run_no_dropout")
+    argv_off = argv("--max_train_steps", "10", "--checkpointing_steps",
+                    "100000", "--validation_steps", "100000", out=off)
+    argv_off[argv_off.index("--attention_dropout") + 1] = "0"
+    train_gpt.main(argv_off)
+    off_m = {m["step"]: m for m in
+             (json.loads(line) for line in open(os.path.join(
+                 off, "metrics.jsonl")).read().splitlines())}
+    print(f"train_gpt: without dropout, steps 6-10: {off_m[10]['step_ms']:.2f}"
+          f" ms/step, {off_m[10]['samples_per_sec']:.2f} samples/s (with "
+          f"dropout {step_ms:.2f} ms/step)")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_medium(torch):
+    """The medium recipe's LM (``scripts/pretrain/oxe-64-act-free-medium.
+    sh``): LLAMA_MEDIUM (24 layers, H=16), act-free, bf16 over fp32
+    masters, attention dropout 0.1, B=16, L=751, no remat, the frozen fp32
+    TOKENIZER_64 in front; one fixed batch of pixels made on the card.
+    MEDIUM_WARMUP then MEDIUM_TIMED steps: finite losses, launches a step
+    (K1 2, K4/K5/K6 24), ms/step, tokens/s, peak memory. Returns the timed
+    steps' launches."""
+    from ivideogpt_tpu_torch import tokens as tok
+    from ivideogpt_tpu_torch.configs import LLAMA_MEDIUM, GPTTrainConfig
+    from ivideogpt_tpu_torch.train import gpt_trainer as gt
+    t0 = time.time()
+    tokenizer, model = gt.build_train_models(
+        lm_cfg=LLAMA_MEDIUM.replace(attention_dropout=DROP_P),
+        context_length=CTX, segment_length=T, seed=15)
+    n_lm = sum(p.numel() for p in model.parameters())
+    state = gt.create_train_state(model, GPTTrainConfig(
+        learning_rate=1e-4, lr_scheduler="cosine", lr_warmup_steps=0,
+        max_train_steps=1000))
+    tokenize = gt.make_tokenize_fn(tokenizer, CTX)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    px = torch.rand(TRAIN_B, T, 64, 64, 3, device="cuda", generator=g)
+    L = tok.seq_len(CTX, T)
+    print(f"train_medium: models built in {time.time() - t0:.1f}s (LM "
+          f"{n_lm / 1e6:.1f}M fp32 masters, bf16 compute, dropout {DROP_P})")
+
+    def step(i):
+        ids, labels = tokenize(px)
+        return gt.train_step(state, {"input_ids": ids, "labels": labels},
+                             rng=(0, i))
+
+    warm = [step(i) for i in range(MEDIUM_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    metrics = [step(MEDIUM_WARMUP + i) for i in range(MEDIUM_TIMED)]
+    torch.cuda.synchronize()
+    dt = (time.time() - t0) / MEDIUM_TIMED
+    launches = read_counts()
+    losses = [float(m["loss"]) for m in warm + metrics]
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          "train_medium: a loss is not finite")
+    want = {"vq_argmin": 2, "decode_attention": 0, "flash_attention_fwd": 24,
+            "flash_attention_bwd_dkv": 24, "flash_attention_bwd_dq": 24}
+    for name, n in want.items():
+        check(launches[name] == n * MEDIUM_TIMED,
+              f"train_medium: {name} ran {launches[name]} times in "
+              f"{MEDIUM_TIMED} steps, not {n} a step")
+    print(f"train_medium: losses {[round(x, 4) for x in losses]}; "
+          f"{MEDIUM_TIMED} timed steps, {dt * 1e3:.2f} ms/step, "
+          f"{TRAIN_B * L / dt:.1f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del tokenizer, model, state, metrics, warm
+    torch.cuda.empty_cache()
+    return launches
 
 
 def hub_models(torch):
@@ -2396,6 +3048,7 @@ def main():
         k2 = phase_k2(torch, k1)
         k3 = phase_k3(torch)
         flash = phase_flash(torch)
+        flash.update(phase_flash_dropout(torch))
         by_path = {"rollout": phase_main(torch)}
         phase_check(torch)
         by_path["train"] = phase_train(torch)
@@ -2418,6 +3071,10 @@ def main():
             del tok_cpu, lm_cpu
             by_path["rollout_ctx1"] = phase_rollout_ctx1(torch, hub)
             by_path["vp2"] = phase_vp2(torch, hub, root)
+            by_path["train_gpt"] = phase_train_gpt(
+                torch, root, hub, os.path.join(root, "free", "transformer"))
+        by_path["train_medium"] = phase_train_medium(torch)
+        by_path["train_gpt_check"] = phase_train_check(torch, dropout=True)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2427,7 +3084,10 @@ def main():
           f"pairs; mbrl_rollout: the first B={MB_B} imagination rollout; "
           f"mbrl_train: the {MB_TIMED} timed train() calls; predict: the "
           f"first call; rollout_ctx1: the first B={B} ctx=1 rollout; vp2: "
-          f"the first B={VP2_B} query): " + json.dumps(by_path))
+          f"the first B={VP2_B} query; train_gpt: the CLI's two runs, "
+          f"{GPT_STEPS} steps and 2 validations; train_medium: the "
+          f"{MEDIUM_TIMED} timed steps; train_gpt_check: one step): "
+          + json.dumps(by_path))
     per_run = {"rollout": ("rollout", 1), "train_step": ("train", TRAIN_TIMED),
                "tokenizer_train": ("tokenizer_train", TOK_TIMED),
                "tokenizer_train_wide": ("tokenizer_train_wide",
@@ -2435,12 +3095,17 @@ def main():
                "mbrl_rollout": ("mbrl_rollout", 1),
                "mbrl_train": ("mbrl_train", MB_TIMED),
                "predict": ("predict", 1), "rollout_ctx1": ("rollout_ctx1", 1),
-               "vp2": ("vp2", 1)}
+               "vp2": ("vp2", 1), "train_gpt_run": ("train_gpt", 1),
+               "train_medium_step": ("train_medium", MEDIUM_TIMED),
+               "train_gpt_check": ("train_gpt_check", 1)}
     rows = (k1, k2, k3, flash["K4_train"], flash["K4_prefill"],
             flash["K4_mbrl_prefill"], flash["K4_mbrl_train"],
             flash["K4_ctx1_prefill"], flash["K4_predict_prefill"],
             flash["K4_vp2_prefill"], flash["K5"], flash["K5_mbrl_train"],
-            flash["K6"], flash["K6_mbrl_train"])
+            flash["K6"], flash["K6_mbrl_train"],
+            *(flash[f"{k}_{tag}"] for tag in ("train_dropout",
+                                               "medium_dropout", "train_fp32")
+              for k in ("K4", "K5", "K6")))
     for r in rows:
         # launches: all the path runs read (the first rollouts + the timed
         # steps, pairs and calls), or those of the row's own paths (the
@@ -2453,7 +3118,10 @@ def main():
                                  for key, (path, n) in per_run.items()}
     keys = ("name", "shape", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "queued_ms", "host_ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+            "library_ms", "library_queued_ms", "library", "ms_no_dropout",
+            "queued_ms_no_dropout", "share_of_bound_no_dropout",
+            "ms_dropout", "queued_ms_dropout", "share_of_bound_dropout",
             "at_n", "at_shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``. Libraries go to ``csrc/build/`` (listed in ``.gitignore``) under
-a name that carries a hash of the source and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. :func:`build_all` starts
+a name that carries a hash of the source, the shared headers (``*.cuh``) and
+the flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. :func:`build_all` starts
 one ``nvcc`` per source, all at once.
 """
 
@@ -39,8 +40,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

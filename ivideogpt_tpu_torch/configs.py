@@ -191,8 +191,8 @@ class GPTTrainConfig(_JsonMixin):
     """Token-LM trainer knobs: the optimiser and scheduler fields of the JAX
     package's GPTTrainConfig, with its defaults (the reference LM pretrain
     recipe). A JAX config's JSON loads here; its other fields (batch
-    geometry, checkpointing, validation, eval generation) belong to the
-    trainer CLI, not ported yet, and ``from_json`` drops them."""
+    geometry, checkpointing, validation, eval generation) are the trainer
+    CLI's flags (``train_gpt.py``), and ``from_json`` drops them."""
 
     learning_rate: float = 1e-4
     lr_scheduler: str = "cosine"

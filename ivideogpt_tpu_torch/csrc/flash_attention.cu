@@ -45,10 +45,21 @@
 // bank conflicts); each thread owns a 4 x 4 piece of every result (rows
 // ty + 16 i, columns tx + 16 j), and a row's 16 owners are one half warp,
 // so row max and row sum are shuffles.
+//
+// Attention dropout (p_drop > 0): each kernel is a template on kDrop, and
+// p_drop == 0 launches the kDrop = false instance, the code above
+// unchanged. With dropout, every probability P_ij is multiplied by Z_ij /
+// keep, Z the mask of philox.cuh for (b, h, query i, key j): K4 sums the
+// undropped P into l (lse) and stores P Z / keep for the P V product; K5
+// and K6 regenerate Z and take dV from (P Z / keep)^T and dS = P (dP Z /
+// keep - di). One Philox call per element: a thread's columns tx + 16 j are
+// in different groups of four keys.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -155,11 +166,13 @@ __device__ __forceinline__ void store_tile(float* out, const float x[4][4],
 }
 
 // K4, fp32 ----------------------------------------------------------------
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       float* __restrict__ lse, Strides qs, Strides ks,
-                      Strides vs, int S, int H, float scale) {
+                      Strides vs, int S, int H, float scale,
+                      ivg::Dropout drop) {
   extern __shared__ float smem[];
   float* q_s = smem;                // [query][d]
   float* k_s = q_s + kTileFloats;   // [key][d]
@@ -215,6 +228,12 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       l[i] = l[i] * alpha + half_warp_sum(sum);
       m[i] = m_new;
+      if constexpr (kDrop) {
+        const uint64_t rctr = ivg::row_counter(drop, bh * S + row);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[i][j] *= ivg::keep_scale(drop, rctr, k0 + tx + 16 * j);
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         acc[i][j] *= alpha;
@@ -238,6 +257,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // K5, fp32 ----------------------------------------------------------------
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_fp32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -247,7 +267,7 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q,
                           const float* __restrict__ di,
                           float* __restrict__ dk, float* __restrict__ dv,
                           Strides qs, Strides ks, Strides vs, Strides dos,
-                          int S, int H, float scale) {
+                          int S, int H, float scale, ivg::Dropout drop) {
   extern __shared__ float smem[];
   float* k_s = smem;                 // [key][d]
   float* v_s = k_s + kTileFloats;    // [key][e]
@@ -296,8 +316,15 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q,
         const int row = q0 + r;  // query
         const float pv =
             (row >= col && row < S) ? expf(p[i][j] * scale - lse_s[r]) : 0.f;
-        p_s[(ty + 16 * i) * kLd + r] = pv;
-        ds_s[(ty + 16 * i) * kLd + r] = pv * (dp[i][j] - di_s[r]);
+        if constexpr (kDrop) {
+          const float z = ivg::keep_scale(
+              drop, ivg::row_counter(drop, bh * S + row), col);
+          p_s[(ty + 16 * i) * kLd + r] = pv * z;
+          ds_s[(ty + 16 * i) * kLd + r] = pv * (dp[i][j] * z - di_s[r]);
+        } else {
+          p_s[(ty + 16 * i) * kLd + r] = pv;
+          ds_s[(ty + 16 * i) * kLd + r] = pv * (dp[i][j] - di_s[r]);
+        }
       }
     }
     __syncthreads();
@@ -311,6 +338,7 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q,
 }
 
 // K6, fp32 ----------------------------------------------------------------
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_fp32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -319,7 +347,7 @@ flash_bwd_dq_fp32_kernel(const float* __restrict__ q,
                          const float* __restrict__ lse,
                          const float* __restrict__ di, float* __restrict__ dq,
                          Strides qs, Strides ks, Strides vs, Strides dos,
-                         int S, int H, float scale) {
+                         int S, int H, float scale, ivg::Dropout drop) {
   extern __shared__ float smem[];
   float* q_s = smem;                 // [query][d]
   float* do_s = q_s + kTileFloats;   // [query][e]
@@ -366,7 +394,13 @@ flash_bwd_dq_fp32_kernel(const float* __restrict__ q,
         const int col = k0 + tx + 16 * j;
         const float pv =
             (col <= row && row < S) ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        ds_s[r * kLd + tx + 16 * j] = pv * (dp[i][j] - di_s[r]);
+        if constexpr (kDrop) {
+          const float z = ivg::keep_scale(
+              drop, ivg::row_counter(drop, bh * S + row), col);
+          ds_s[r * kLd + tx + 16 * j] = pv * (dp[i][j] * z - di_s[r]);
+        } else {
+          ds_s[r * kLd + tx + 16 * j] = pv * (dp[i][j] - di_s[r]);
+        }
       }
     }
     __syncthreads();
@@ -385,6 +419,8 @@ constexpr int kDqSmem = (5 * kTileFloats + 2 * kTile) * 4;
 bool bad_shape(int B, int S, int H, int hd) {
   return hd != kHd || B < 1 || H < 1 || S < 1 || S > kMaxS;
 }
+
+bool bad_dropout(double p_drop) { return !(p_drop >= 0.0 && p_drop < 1.0); }
 
 float softmax_scale() { return 1.0f / sqrtf(static_cast<float>(kHd)); }
 
@@ -405,7 +441,9 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 // same arguments), read through the given batch/sequence/head strides
 // (elements), head dim contiguous. Outputs are contiguous: o, dq, dk, dv
 // [B, S, H, 64] fp32, lse [B, H, S] fp32. dout is contiguous fp32
-// [B, S, H, 64]; di is fp32 [B, H, S].
+// [B, S, H, 64]; di is fp32 [B, H, S]. p_drop in [0, 1) is the attention
+// dropout, its mask drawn from (seed, offset) as philox.cuh says; 0
+// launches the kernels without dropout.
 // Each function launches one kernel on `stream` and returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int ivg_flash_fwd_fp32(const void* q, const void* k, const void* v,
@@ -413,17 +451,21 @@ extern "C" int ivg_flash_fwd_fp32(const void* q, const void* k, const void* v,
                                   int hd, int64_t q_sb, int64_t q_ss,
                                   int64_t q_sh, int64_t k_sb, int64_t k_ss,
                                   int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                                  int64_t v_sh, void* stream) {
-  if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
+                                  int64_t v_sh, double p_drop, uint64_t seed,
+                                  uint64_t offset, void* stream) {
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh};
-  const cudaError_t err = allow_smem(flash_fwd_fp32_kernel, kFwdSmem);
+  const auto kernel = p_drop > 0.0 ? flash_fwd_fp32_kernel<true>
+                                   : flash_fwd_fp32_kernel<false>;
+  const cudaError_t err = allow_smem(kernel, kFwdSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_fp32_kernel<<<grid(B, S, H), kThreads, kFwdSmem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid(B, S, H), kThreads, kFwdSmem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, qs, ks, vs, S,
-      H, softmax_scale());
+      H, softmax_scale(), ivg::make_dropout(p_drop, seed, offset, S));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -434,18 +476,23 @@ extern "C" int ivg_flash_bwd_dkv_fp32(const void* q, const void* k,
                                       int hd, int64_t q_sb, int64_t q_ss,
                                       int64_t q_sh, int64_t k_sb, int64_t k_ss,
                                       int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                                      int64_t v_sh, void* stream) {
-  if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
+                                      int64_t v_sh, double p_drop,
+                                      uint64_t seed, uint64_t offset,
+                                      void* stream) {
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, dos = contiguous_strides(S, H);
-  const cudaError_t err = allow_smem(flash_bwd_dkv_fp32_kernel, kDkvSmem);
+  const auto kernel = p_drop > 0.0 ? flash_bwd_dkv_fp32_kernel<true>
+                                   : flash_bwd_dkv_fp32_kernel<false>;
+  const cudaError_t err = allow_smem(kernel, kDkvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_fp32_kernel<<<grid(B, S, H), kThreads, kDkvSmem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid(B, S, H), kThreads, kDkvSmem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
       static_cast<float*>(dk), static_cast<float*>(dv), qs, ks, vs, dos, S, H,
-      softmax_scale());
+      softmax_scale(), ivg::make_dropout(p_drop, seed, offset, S));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -456,16 +503,21 @@ extern "C" int ivg_flash_bwd_dq_fp32(const void* q, const void* k,
                                      int64_t q_sb, int64_t q_ss, int64_t q_sh,
                                      int64_t k_sb, int64_t k_ss, int64_t k_sh,
                                      int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                                     void* stream) {
-  if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
+                                     double p_drop, uint64_t seed,
+                                     uint64_t offset, void* stream) {
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, dos = contiguous_strides(S, H);
-  const cudaError_t err = allow_smem(flash_bwd_dq_fp32_kernel, kDqSmem);
+  const auto kernel = p_drop > 0.0 ? flash_bwd_dq_fp32_kernel<true>
+                                   : flash_bwd_dq_fp32_kernel<false>;
+  const cudaError_t err = allow_smem(kernel, kDqSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_fp32_kernel<<<grid(B, S, H), kThreads, kDqSmem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid(B, S, H), kThreads, kDqSmem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
-      static_cast<float*>(dq), qs, ks, vs, dos, S, H, softmax_scale());
+      static_cast<float*>(dq), qs, ks, vs, dos, S, H, softmax_scale(),
+      ivg::make_dropout(p_drop, seed, offset, S));
   return static_cast<int>(cudaGetLastError());
 }

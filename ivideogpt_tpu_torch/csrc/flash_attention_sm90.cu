@@ -68,12 +68,27 @@
 // by head first, the ~660 resident CTAs of the prefill belong to as many
 // heads, whose K and V (86 MB) overflow the 50 MB L2.
 // No atomics and no sums across CTAs: the gradients are deterministic.
+//
+// Attention dropout (p_drop > 0, the published recipes' training): each
+// kernel is a template on kDrop, and p_drop == 0 launches the kDrop = false
+// instance, the code above unchanged. With dropout, the mask Z of
+// philox.cuh (a pure function of seed, offset, b, h, query i, key j and S)
+// multiplies the probabilities by Z / keep: K4 takes the row max and lse
+// of the undropped P, then masks and scales its fp32 P fragment before it
+// is rounded to bf16 for the P V product; K5 and K6 regenerate Z for the
+// same (i, j) and form dV from (P Z / keep)^T and dS = P (dP Z / keep - di).
+// K4 and K6 hold keys 2t, 2t + 1 of a row in one Philox group and draw
+// them with one call (16 calls a thread a tile); K5 holds P^T, so a
+// thread's pair is two queries of one key, each a call of its own (32).
+// Simple first: the calls are not shared across the four lanes of a group.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -294,12 +309,13 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw, uint32_t* addr) {
 }
 
 // K4 ----------------------------------------------------------------------
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
                       bf16* __restrict__ o, float* __restrict__ lse, int S,
-                      int H, float scale_log2) {
+                      int H, float scale_log2, ivg::Dropout drop) {
   extern __shared__ uint8_t smem_raw[];
   uint32_t base;
   uint8_t* smem = aligned_smem(smem_raw, &base);
@@ -316,6 +332,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int q0 = qt * kTile;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row = q0 + 16 * (threadIdx.x >> 5) + g;  // and row + 8
+  uint64_t rctr[2];  // the dropout counters of the thread's two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    rctr[r] = ivg::row_counter(drop, static_cast<int64_t>(bh) * S + row + 8 * r);
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -392,6 +412,16 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       l[r] += s[i];
       acc[i] *= alpha[r];
     }
+    if constexpr (kDrop) {
+      // P Z / keep, after the row sums (lse is of the undropped P)
+      const int k0 = kt * kTile;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          ivg::drop_pair(drop, rctr[r], k0 + 8 * jj + 2 * t,
+                         s[4 * jj + 2 * r], s[4 * jj + 2 * r + 1]);
+    }
     uint32_t pa[4][4];  // P rounded to bf16, as the TPU kernel rounds it
     to_a(s, pa);
 
@@ -419,6 +449,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // K5 ----------------------------------------------------------------------
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
@@ -427,7 +458,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                           const float* __restrict__ lse,
                           const float* __restrict__ di, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, int S, int H, float scale,
-                          float scale_log2) {
+                          float scale_log2, ivg::Dropout drop) {
   extern __shared__ uint8_t smem_raw[];
   uint32_t base;
   uint8_t* smem = aligned_smem(smem_raw, &base);
@@ -515,7 +546,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     reg_fence(sT);
     reg_fence(dpT);
 
-    // P^T = exp(s - lse), dS^T = P^T (dP^T - di); columns are queries
+    // P^T = exp(s - lse), dS^T = P^T (dP^T - di); columns are queries.
+    // With dropout, P^T Z / keep and dS^T = P^T (dP^T Z / keep - di), Z of
+    // (query q0 + c, key key or key + 8)
     const float* lse_t = lse_s(st);
     const float* di_t = di_s(st);
     const bool edge = qt == kt || qt == nt - 1;
@@ -524,8 +557,17 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       const int c = 8 * (i >> 2) + 2 * t + (i & 1);
       float p = ex2(fmaf(sT[i], scale_log2, -lse_t[c]));
       if (edge && (q0 + c < key + 8 * ((i >> 1) & 1) || q0 + c >= S)) p = 0.f;
-      sT[i] = p;
-      dpT[i] = p * (dpT[i] - di_t[c]);
+      if constexpr (kDrop) {
+        const float z = ivg::keep_scale(
+            drop,
+            ivg::row_counter(drop, static_cast<int64_t>(bh) * S + q0 + c),
+            key + 8 * ((i >> 1) & 1));
+        sT[i] = p * z;
+        dpT[i] = p * (dpT[i] * z - di_t[c]);
+      } else {
+        sT[i] = p;
+        dpT[i] = p * (dpT[i] - di_t[c]);
+      }
     }
     uint32_t pa[4][4], dsa[4][4];  // rounded to bf16, as on the TPU
     to_a(sT, pa);
@@ -554,6 +596,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // K6 ----------------------------------------------------------------------
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
@@ -561,7 +604,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap do_map,
                          const float* __restrict__ lse,
                          const float* __restrict__ di, bf16* __restrict__ dq,
-                         int S, int H, float scale, float scale_log2) {
+                         int S, int H, float scale, float scale_log2,
+                         ivg::Dropout drop) {
   extern __shared__ uint8_t smem_raw[];
   uint32_t base;
   uint8_t* smem = aligned_smem(smem_raw, &base);
@@ -601,6 +645,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     lse_r[r] = live ? lse[at] * kLog2e : 0.f;
     di_r[r] = live ? di[at] : 0.f;
   }
+  uint64_t rctr[2];  // the dropout counters of the thread's two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    rctr[r] = ivg::row_counter(drop, static_cast<int64_t>(bh) * S + row + 8 * r);
   __syncthreads();
 
   float dq_acc[32];
@@ -638,9 +686,18 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     reg_fence(dp);
 
     // P = exp(s - lse), dS = P (dP - di); the diagonal tile holds the
-    // causal edge and, on the last query tile, the ragged one (col >= S)
+    // causal edge and, on the last query tile, the ragged one (col >= S).
+    // With dropout, dS = P (dP Z / keep - di)
     const bool diag = kt == qt;
     const int k0 = kt * kTile;
+    if constexpr (kDrop) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          ivg::drop_pair(drop, rctr[r], k0 + 8 * jj + 2 * t,
+                         dp[4 * jj + 2 * r], dp[4 * jj + 2 * r + 1]);
+    }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i >> 1) & 1;
@@ -724,13 +781,17 @@ bool bad_shape(int B, int S, int H, int hd) {
   return hd != kHd || B < 1 || H < 1 || S < 1 || S > kMaxS;
 }
 
+bool bad_dropout(double p_drop) { return !(p_drop >= 0.0 && p_drop < 1.0); }
+
 }  // namespace
 
 // q/k/v: bf16 [B, S, H, 64] read through the given batch/sequence/head
 // strides (elements), head dim contiguous, base pointers 16-byte aligned and
 // strides multiples of 8 (TMA's rule). Outputs are contiguous: o, dk, dv,
 // dq [B, S, H, 64] bf16, lse [B, H, S] fp32 (natural log). dout is contiguous
-// [B, S, H, 64] bf16; di is fp32 [B, H, S]. The same arguments as
+// [B, S, H, 64] bf16; di is fp32 [B, H, S]. p_drop in [0, 1) is the
+// attention dropout, its mask drawn from (seed, offset) as philox.cuh says;
+// 0 launches the kernels without dropout. The same arguments as
 // flash_attention.cu's fp32 entry points. Each function encodes its tensor
 // maps, launches one kernel on `stream` and returns the first cudaError_t
 // (0 on success).
@@ -739,8 +800,10 @@ extern "C" int ivg_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                   int hd, int64_t q_sb, int64_t q_ss,
                                   int64_t q_sh, int64_t k_sb, int64_t k_ss,
                                   int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                                  int64_t v_sh, void* stream) {
-  if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
+                                  int64_t v_sh, double p_drop, uint64_t seed,
+                                  uint64_t offset, void* stream) {
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t sts[3][3] = {
       {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}};
   const void* ptrs[3] = {q, k, v};
@@ -750,10 +813,12 @@ extern "C" int ivg_flash_fwd_bf16(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(B * H * ((S + kTile - 1) / kTile));
-  flash_fwd_sm90_kernel<<<grid, kThreads, kFwdSmem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  const ivg::Dropout drop = ivg::make_dropout(p_drop, seed, offset, S);
+  const auto kernel = p_drop > 0.0 ? flash_fwd_sm90_kernel<true>
+                                   : flash_fwd_sm90_kernel<false>;
+  kernel<<<grid, kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, S, H,
-      kScale * kLog2e);
+      kScale * kLog2e, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -764,8 +829,11 @@ extern "C" int ivg_flash_bwd_dkv_bf16(const void* q, const void* k,
                                       int hd, int64_t q_sb, int64_t q_ss,
                                       int64_t q_sh, int64_t k_sb, int64_t k_ss,
                                       int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                                      int64_t v_sh, void* stream) {
-  if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
+                                      int64_t v_sh, double p_drop,
+                                      uint64_t seed, uint64_t offset,
+                                      void* stream) {
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t sts[4][3] = {{q_sb, q_ss, q_sh},
                              {k_sb, k_ss, k_sh},
                              {v_sb, v_ss, v_sh},
@@ -777,15 +845,16 @@ extern "C" int ivg_flash_bwd_dkv_bf16(const void* q, const void* k,
     const cudaError_t err = make_map(&maps[i], ptrs[i], B, S, H, sts[i]);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const auto kernel = p_drop > 0.0 ? flash_bwd_dkv_sm90_kernel<true>
+                                   : flash_bwd_dkv_sm90_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kDkvSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H * ((S + kTile - 1) / kTile));
-  flash_bwd_dkv_sm90_kernel<<<grid, kThreads, kDkvSmem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, kDkvSmem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, H, kScale, kScale * kLog2e);
+      static_cast<bf16*>(dv), S, H, kScale, kScale * kLog2e,
+      ivg::make_dropout(p_drop, seed, offset, S));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -796,8 +865,10 @@ extern "C" int ivg_flash_bwd_dq_bf16(const void* q, const void* k,
                                      int64_t q_sb, int64_t q_ss, int64_t q_sh,
                                      int64_t k_sb, int64_t k_ss, int64_t k_sh,
                                      int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                                     void* stream) {
-  if (bad_shape(B, S, H, hd)) return static_cast<int>(cudaErrorInvalidValue);
+                                     double p_drop, uint64_t seed,
+                                     uint64_t offset, void* stream) {
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t sts[4][3] = {{q_sb, q_ss, q_sh},
                              {k_sb, k_ss, k_sh},
                              {v_sb, v_ss, v_sh},
@@ -809,14 +880,14 @@ extern "C" int ivg_flash_bwd_dq_bf16(const void* q, const void* k,
     const cudaError_t err = make_map(&maps[i], ptrs[i], B, S, H, sts[i]);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const auto kernel = p_drop > 0.0 ? flash_bwd_dq_sm90_kernel<true>
+                                   : flash_bwd_dq_sm90_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kDqSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H * ((S + kTile - 1) / kTile));
-  flash_bwd_dq_sm90_kernel<<<grid, kThreads, kDqSmem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<bf16*>(dq), S,
-      H, kScale, kScale * kLog2e);
+      H, kScale, kScale * kLog2e, ivg::make_dropout(p_drop, seed, offset, S));
   return static_cast<int>(cudaGetLastError());
 }

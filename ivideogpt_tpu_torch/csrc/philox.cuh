@@ -1,0 +1,115 @@
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+// 3", SC 2011; the Random123 constants) and the attention-dropout mask that
+// K4, K5 and K6 draw from it. ops/philox.py computes the same bits in
+// torch; the two must agree bit for bit.
+//
+// The generator: a 4 x 32-bit counter c and a 2 x 32-bit key k, ten rounds
+//   (hi0, lo0) = 0xD2511F53 * c0,  (hi1, lo1) = 0xCD9E8D57 * c2  (64-bit)
+//   c = (hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0)
+// with the key bumped by the Weyl constants (0x9E3779B9, 0xBB67AE85)
+// before every round but the first. Known answers (Random123's kat_vectors):
+//   c = 0, k = 0                   -> 6627e8d5 e169c58d bc57ac4c 9b00dbd8
+//   c = ffffffff x 4, k = ffffffff x 2
+//                                  -> 408f276d 41c83b0e a20bc7c6 6d5451fd
+//   c = 243f6a88 85a308d3 13198a2e 03707344, k = a4093822 299f31d0
+//                                  -> d16cfe09 94fdcceb 5001e420 24126ea1
+//
+// The dropout mask. Element (b, h, i, j) of the [B, H, S, S] attention
+// probabilities (query i, key j) is kept with probability keep = 1 - p:
+//   row  = (b * H + h) * S + i
+//   ctr  = row * ceil(S / 4) + (j >> 2)              (64-bit)
+//   c    = (lo32(ctr), hi32(ctr), lo32(offset), hi32(offset))
+//   k    = (lo32(seed), hi32(seed))
+//   keep iff philox(c, k)[j & 3] < threshold,  threshold = floor(keep * 2^32)
+// That is the linear index ((b H + h) S + i) * 4 ceil(S/4) + j of the
+// probabilities with each row padded to a multiple of 4 keys, divided by 4,
+// the remainder choosing the word: one Philox call serves 4 consecutive
+// keys of a row. The bit is a pure function of (seed, offset, b, h, i, j,
+// S) and of nothing a kernel chooses (tile sizes, the grid, the warp
+// layout, padding of the ragged tile). A kept element is scaled by
+// scale = 1 / keep.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ivg {
+
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u, kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u, kPhiloxW1 = 0xBB67AE85u;
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k.x += kPhiloxW0;
+      k.y += kPhiloxW1;
+    }
+    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x), lo0 = kPhiloxM0 * c.x;
+    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z), lo1 = kPhiloxM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// The dropout arguments of one attention call, passed to a kernel by value.
+struct Dropout {
+  uint64_t seed, offset;
+  uint32_t threshold;  // keep iff the word < threshold
+  float scale;         // 1 / keep
+  int n4;              // ceil(S / 4): Philox groups in a row
+};
+
+// The dropout of probability p (0 < p < 1) over rows of S keys; all zero
+// for p <= 0, which the kernels never read (they launch without dropout).
+inline Dropout make_dropout(double p, uint64_t seed, uint64_t offset, int S) {
+  Dropout d{};
+  if (!(p > 0.0)) return d;
+  d.seed = seed;
+  d.offset = offset;
+  d.threshold = static_cast<uint32_t>((1.0 - p) * 4294967296.0);
+  d.scale = static_cast<float>(1.0 / (1.0 - p));
+  d.n4 = (S + 3) / 4;
+  return d;
+}
+
+// The Philox counter of row `row` = (b * H + h) * S + i at its key 0.
+__device__ __forceinline__ uint64_t row_counter(const Dropout& d,
+                                                int64_t row) {
+  return static_cast<uint64_t>(row) * static_cast<uint64_t>(d.n4);
+}
+
+// The four words of the group holding key j of the row at `rctr`.
+__device__ __forceinline__ uint4 group_words(const Dropout& d, uint64_t rctr,
+                                             int j) {
+  const uint64_t ctr = rctr + static_cast<uint64_t>(j >> 2);
+  return philox4x32_10(
+      make_uint4(static_cast<uint32_t>(ctr), static_cast<uint32_t>(ctr >> 32),
+                 static_cast<uint32_t>(d.offset),
+                 static_cast<uint32_t>(d.offset >> 32)),
+      make_uint2(static_cast<uint32_t>(d.seed),
+                 static_cast<uint32_t>(d.seed >> 32)));
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
+// scale where (row, j) is kept, else 0.
+__device__ __forceinline__ float keep_scale(const Dropout& d, uint64_t rctr,
+                                            int j) {
+  return word(group_words(d, rctr, j), j & 3) < d.threshold ? d.scale : 0.f;
+}
+
+// x0 and x1, at keys j and j + 1 of one row (j even, so both in one
+// group), times their keep_scale: one Philox call for the pair.
+__device__ __forceinline__ void drop_pair(const Dropout& d, uint64_t rctr,
+                                          int j, float& x0, float& x1) {
+  const uint4 w = group_words(d, rctr, j);
+  const bool upper = (j & 2) != 0;
+  x0 = (upper ? w.z : w.x) < d.threshold ? x0 * d.scale : 0.f;
+  x1 = (upper ? w.w : w.y) < d.threshold ? x1 * d.scale : 0.f;
+}
+
+}  // namespace ivg

@@ -134,14 +134,15 @@ def gif_strips(pixels: np.ndarray, frames: np.ndarray
             for pred in frames]
 
 
-def write_gifs(strips: List[List[np.ndarray]], output_path: str):
-    """``pred-samples-{j}.gif`` a strip, 4 frames/s (250 ms a frame:
-    imageio's pillow writer takes ``duration`` in ms and ignores ``fps``),
-    looping."""
+def write_gifs(strips: List[List[np.ndarray]], output_path: str,
+               name: str = "pred-samples-{j}.gif"):
+    """One GIF a strip, named ``name`` with the strip's index for ``j``, 4
+    frames/s (250 ms a frame: imageio's pillow writer takes ``duration`` in
+    ms and ignores ``fps``), looping."""
     import imageio
     os.makedirs(output_path, exist_ok=True)
     for j, strip in enumerate(strips):
-        imageio.mimsave(os.path.join(output_path, f"pred-samples-{j}.gif"),
+        imageio.mimsave(os.path.join(output_path, name.format(j=j)),
                         strip, duration=250, loop=0)
 
 

@@ -16,7 +16,8 @@ from torch import nn
 
 from ivideogpt_tpu_torch.configs import ActionModelConfig, TransformerConfig
 from ivideogpt_tpu_torch.models.layers import Dense
-from ivideogpt_tpu_torch.models.llama import Cache, LlamaForCausalLM
+from ivideogpt_tpu_torch.models.llama import (Cache, DropoutKey,
+                                              LlamaForCausalLM)
 from ivideogpt_tpu_torch.tokens import sdf_positions
 
 
@@ -63,11 +64,13 @@ class HeadModelWithAction(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 labels: Optional[torch.Tensor] = None,
-                action: Optional[torch.Tensor] = None
+                action: Optional[torch.Tensor] = None,
+                dropout_key: Optional[DropoutKey] = None
                 ) -> Dict[str, torch.Tensor]:
         """Training forward: input_ids [B, L], action [B, T, A] (the whole
-        segment's actions). Returns dict(logits[, loss][,
-        action_recon_loss][, reward_pred])."""
+        segment's actions); ``dropout_key`` (seed, step) keys the attention
+        dropout in ``train()`` (``LlamaForCausalLM.forward``). Returns
+        dict(logits[, loss][, action_recon_loss][, reward_pred])."""
         h = self.head_config
         embeds = self.llm.embed(input_ids)
         positions = sdf_positions(h.context_length, h.segment_length,
@@ -79,7 +82,8 @@ class HeadModelWithAction(nn.Module):
             embeds = embeds.index_add(1, positions, a.to(embeds.dtype))
         need_hidden = h.reward_prediction or h.action_recon is not None
         out = self.llm(inputs_embeds=embeds, labels=labels,
-                       output_hidden_states=need_hidden)
+                       output_hidden_states=need_hidden,
+                       dropout_key=dropout_key)
         result = {"logits": out["logits"]}
         if labels is not None:
             result["loss"] = out["loss"]

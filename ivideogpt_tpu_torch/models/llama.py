@@ -15,9 +15,14 @@ Attention:
   K5/K6 backward); the prefill also writes the cache for later steps;
 - one-token decode over the int8 cache: ``ops.decode_attention`` (K3);
 - one-token decode over a float cache: plain torch.
-Multi-token steps at a nonzero index, grouped KV heads, attention dropout,
-the "dots" remat policy and the TPU-only ``ghdm``/``"mixed"`` caches are not
-in this port.
+Attention dropout (``config.attention_dropout``, 0.1 in every published
+recipe) acts in the training forward only, inside the attention kernels:
+``forward(..., dropout_key=(seed, step))`` gives layer ``i`` the Philox
+stream ``(seed, offset_of(step, i))`` (``ops/philox.py``), a pure function
+of (seed, step, layer), so a remat recompute and a resumed run draw the
+same masks. ``eval()`` never drops.
+Multi-token steps at a nonzero index, grouped KV heads, the "dots" remat
+policy and the TPU-only ``ghdm``/``"mixed"`` caches are not in this port.
 """
 
 from __future__ import annotations
@@ -33,9 +38,12 @@ from ivideogpt_tpu_torch.configs import TransformerConfig
 from ivideogpt_tpu_torch.models.layers import Dense
 from ivideogpt_tpu_torch.ops.decode_attention import decode_attention
 from ivideogpt_tpu_torch.ops.flash_attention import causal_attention
+from ivideogpt_tpu_torch.ops.philox import Dropout, offset_of
 from ivideogpt_tpu_torch.tokens import IGNORE_INDEX
 
 Cache = List[Dict[str, torch.Tensor]]
+# (seed, step) of one training step's attention dropout
+DropoutKey = Tuple[int, int]
 
 
 def _rotate_half(x):
@@ -100,10 +108,11 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cos, sin,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
-                cache_index: int = 0):
+                cache_index: int = 0, dropout: Optional[Dropout] = None):
         """Without a cache: causal attention over the whole sequence (the
-        training forward). With one: S positions written at
-        ``cache_index`` and attended as below."""
+        training forward), with ``dropout`` = (p, seed, offset) on its
+        probabilities. With one: S positions written at ``cache_index``
+        and attended as below."""
         c = self.config
         B, S, _ = x.shape
         H, hd = c.num_attention_heads, c.head_dim
@@ -111,7 +120,11 @@ class LlamaAttention(nn.Module):
         k = apply_rope(self.k_proj(x).view(B, S, H, hd), cos, sin)
         v = self.v_proj(x).view(B, S, H, hd)
         if cache is None:
-            return self.o_proj(causal_attention(q, k, v, self.dtype))
+            return self.o_proj(causal_attention(q, k, v, self.dtype,
+                                                dropout))
+        if dropout is not None:
+            raise ValueError("attention dropout acts in the training "
+                             "forward only, never with a cache")
 
         end = cache_index + S
         int8 = "ks" in cache
@@ -171,9 +184,10 @@ class LlamaLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps, dtype)
         self.mlp = LlamaMLP(config, dtype)
 
-    def forward(self, x, cos, sin, cache=None, cache_index: int = 0):
+    def forward(self, x, cos, sin, cache=None, cache_index: int = 0,
+                dropout: Optional[Dropout] = None):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, cache,
-                               cache_index)
+                               cache_index, dropout)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -215,19 +229,25 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head(hidden).float()
 
     def forward(self, input_ids=None, inputs_embeds=None, labels=None,
-                output_hidden_states: bool = False) -> Dict[str, torch.Tensor]:
+                output_hidden_states: bool = False,
+                dropout_key: Optional[DropoutKey] = None
+                ) -> Dict[str, torch.Tensor]:
         """Full training/eval forward over positions 0..S-1, no cache.
         Returns dict(logits fp32[, loss][, hidden_states]); with
-        ``config.remat`` each layer is recomputed in the backward."""
+        ``config.remat`` each layer is recomputed in the backward. In
+        ``train()`` with ``config.attention_dropout > 0`` the step's
+        ``dropout_key`` (seed, step) is required: layer i drops with the
+        Philox stream (seed, offset_of(step, i))."""
         c = self.config
         if c.remat and c.remat_policy != "none":
             raise NotImplementedError(
                 f"remat_policy {c.remat_policy!r}: only 'none' (recompute "
                 f"the whole layer) is ported")
-        if self.training and c.attention_dropout > 0:
-            raise NotImplementedError(
-                "attention dropout in the training forward is not ported: "
-                "it belongs inside the flash-attention kernels")
+        drop = self.training and c.attention_dropout > 0
+        if drop and dropout_key is None:
+            raise ValueError(
+                f"attention_dropout {c.attention_dropout} in train(): pass "
+                f"the step's dropout_key=(seed, step)")
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
         B, S, _ = inputs_embeds.shape
@@ -235,11 +255,15 @@ class LlamaForCausalLM(nn.Module):
         cos, sin = rope_cos_sin(pos[None].expand(B, S), c.head_dim,
                                 c.rope_theta, dtype=self.dtype)
         x = inputs_embeds
-        for layer in self.model.layers:
+        for i, layer in enumerate(self.model.layers):
+            dropout = ((c.attention_dropout, dropout_key[0],
+                        offset_of(dropout_key[1], i)) if drop else None)
             if c.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, cos, sin, use_reentrant=False)
+                # the recompute draws the same mask: it is (seed, step, i)'s
+                x = checkpoint(layer, x, cos, sin, None, 0, dropout,
+                               use_reentrant=False)
             else:
-                x = layer(x, cos, sin)
+                x = layer(x, cos, sin, dropout=dropout)
         hidden = self.model.norm(x)
         out = {"logits": self.unembed(hidden)}
         if output_hidden_states:

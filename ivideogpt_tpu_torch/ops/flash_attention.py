@@ -28,25 +28,55 @@ bf16 the two agree to bf16 rounding, and in fp32 to fp32 rounding.
 compute what each kernel computes, at its own interface (lse and di in,
 lse out, natural log), in fp32 whatever the input type; the tests and
 ``chip_smoke.py`` hold the kernels against them.
+
+Attention dropout (``dropout=(p, seed, offset)``, the training forward of
+the published recipes): the probabilities P are multiplied by Z / keep,
+keep = 1 - p, with Z the Philox mask of ``ops/philox.py`` (the kernels draw
+the same bits from ``csrc/philox.cuh``). As in the JAX package's
+``nn.Dropout`` after the fp32 softmax, the row max and lse come from the
+undropped P, O = (P Z / keep) V, and the backward takes
+dV = (P Z / keep)^T dO and dS = P (dP Z / keep - di), di = rowsum(dO O) on
+the dropped O. K4 applies the mask to its fp32 P before rounding it for the
+P V product; K5 and K6 regenerate the same mask. Every plain version draws
+its chunk's part of the mask by index, so its chunk size does not change
+the mask. p = 0 (or None) launches the kernels without dropout, bit-equal to
+a launch that never heard of it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from ivideogpt_tpu_torch import _build
+from ivideogpt_tpu_torch.ops import philox
+from ivideogpt_tpu_torch.ops.philox import Dropout
 
 HEAD_DIM = 64
 MAX_SEQ = 1024
 
 
-def causal_attention_plain(q, k, v, dtype, chunk: int = 128):
+def _keep(dropout, q, q0, cs, nk):
+    """Z / keep [B, H, cs, nk] fp32 of queries q0 .. q0+cs-1 and keys
+    0 .. nk-1, or None without dropout."""
+    if dropout is None or dropout[0] == 0:
+        return None
+    B, S, H, _ = q.shape
+    z = philox.keep_mask(dropout, B, H, S, q0, cs, 0, nk, device=q.device)
+    return z.float() / (1.0 - dropout[0])
+
+
+def causal_attention_plain(q, k, v, dtype, chunk: int = 128,
+                           dropout: Optional[Dropout] = None):
     """Causal attention over fresh q/k/v [B, S, H, hd], in query chunks: the
     chunk at q0 attends keys [0, q0 + cs) only, and the fp32 score temp is
-    [B, H, chunk, S] rather than [B, H, S, S]."""
+    [B, H, chunk, S] rather than [B, H, S, S]. With ``dropout``, the fp32
+    probabilities are masked and scaled before the cast to ``dtype``, as the
+    JAX package's ``nn.Dropout`` does (``llama.py:339``)."""
+    dropout = philox.check_dropout(dropout)
     B, S, H, hd = q.shape
     outs = []
     for q0 in range(0, S, chunk):
@@ -58,6 +88,9 @@ def causal_attention_plain(q, k, v, dtype, chunk: int = 128):
         qpos = (q0 + torch.arange(cs, device=q.device))[:, None]
         attn = attn.masked_fill(kpos > qpos, torch.finfo(torch.float32).min)
         attn = torch.softmax(attn, dim=-1)
+        z = _keep(dropout, q, q0, cs, q0 + cs)
+        if z is not None:
+            attn = attn * z
         outs.append(torch.einsum("bhqk,bkhd->bqhd", attn.to(dtype), vb))
     return torch.cat(outs, dim=1).reshape(B, S, H * hd)
 
@@ -76,35 +109,47 @@ def _chunks(q, k, chunk=128):
         yield q0, cs, s, live
 
 
-def flash_fwd_plain(q, k, v):
+def flash_fwd_plain(q, k, v, dropout: Optional[Dropout] = None,
+                    chunk: int = 128):
     """K4's function: (O [B, S, H, hd] in q's dtype, lse [B, H, S] fp32,
-    the natural log of each row's sum of exp(scores)), in fp32."""
+    the natural log of each row's sum of exp(scores), of the undropped
+    probabilities), in fp32."""
+    dropout = philox.check_dropout(dropout)
     o, lse = torch.empty(q.shape, dtype=q.dtype, device=q.device), []
     vf = v.float()
-    for q0, cs, s, live in _chunks(q, k):
+    for q0, cs, s, live in _chunks(q, k, chunk):
         s = s.masked_fill(~live, float("-inf"))
         lse.append(torch.logsumexp(s, dim=-1))
         p = torch.exp(s - lse[-1][..., None])
+        z = _keep(dropout, q, q0, cs, q0 + cs)
+        if z is not None:
+            p = p * z
         o[:, q0:q0 + cs] = torch.einsum("bhqk,bkhd->bqhd", p,
                                         vf[:, :q0 + cs]).to(q.dtype)
     return o, torch.cat(lse, dim=-1)
 
 
-def _plain_p_ds(s, live, q0, cs, v, do, lse, di):
-    """P = exp(s - lse) and dS = P (dO V^T - di) of one query chunk."""
+def _plain_p_ds(s, live, q0, cs, q, v, do, lse, di, dropout):
+    """(P Z / keep, dS = P (dO V^T Z / keep - di)) of one query chunk,
+    P = exp(s - lse); Z / keep = 1 without dropout."""
     p = torch.exp(s - lse[:, :, q0:q0 + cs, None]) * live
     dp = torch.einsum("bqhd,bkhd->bhqk", do[:, q0:q0 + cs].float(),
                       v[:, :q0 + cs].float())
-    return p, p * (dp - di[:, :, q0:q0 + cs, None])
+    z = _keep(dropout, q, q0, cs, q0 + cs)
+    if z is None:
+        return p, p * (dp - di[:, :, q0:q0 + cs, None])
+    return p * z, p * (dp * z - di[:, :, q0:q0 + cs, None])
 
 
-def flash_bwd_dkv_plain(q, k, v, do, lse, di):
+def flash_bwd_dkv_plain(q, k, v, do, lse, di,
+                        dropout: Optional[Dropout] = None, chunk: int = 128):
     """K5's function: (dK, dV) [B, S, H, hd] in q's dtype from lse and di
     [B, H, S] fp32, in fp32."""
+    dropout = philox.check_dropout(dropout)
     dk = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
-    for q0, cs, s, live in _chunks(q, k):
-        p, ds = _plain_p_ds(s, live, q0, cs, v, do, lse, di)
+    for q0, cs, s, live in _chunks(q, k, chunk):
+        p, ds = _plain_p_ds(s, live, q0, cs, q, v, do, lse, di, dropout)
         dv[:, :q0 + cs] += torch.einsum("bhqk,bqhd->bkhd", p,
                                         do[:, q0:q0 + cs].float())
         dk[:, :q0 + cs] += torch.einsum("bhqk,bqhd->bkhd", ds,
@@ -112,42 +157,49 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, di):
     return (dk * q.shape[-1] ** -0.5).to(q.dtype), dv.to(q.dtype)
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, di):
+def flash_bwd_dq_plain(q, k, v, do, lse, di,
+                       dropout: Optional[Dropout] = None, chunk: int = 128):
     """K6's function: dQ [B, S, H, hd] in q's dtype, in fp32."""
+    dropout = philox.check_dropout(dropout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    for q0, cs, s, live in _chunks(q, k):
-        _, ds = _plain_p_ds(s, live, q0, cs, v, do, lse, di)
+    for q0, cs, s, live in _chunks(q, k, chunk):
+        _, ds = _plain_p_ds(s, live, q0, cs, q, v, do, lse, di, dropout)
         dq[:, q0:q0 + cs] = (torch.einsum("bhqk,bkhd->bqhd", ds,
                                           k[:, :q0 + cs].float())
                              * q.shape[-1] ** -0.5).to(q.dtype)
     return dq
 
 
-def causal_attention(q, k, v, dtype):
-    """q/k/v [B, S, H, hd] -> [B, S, H*hd] in ``dtype``.
+def causal_attention(q, k, v, dtype, dropout: Optional[Dropout] = None):
+    """q/k/v [B, S, H, hd] -> [B, S, H*hd] in ``dtype``; ``dropout`` is
+    (p, seed, offset) or None.
 
-    On CPU tensors this is :func:`causal_attention_plain`; otherwise it
-    runs K4 forward and K5/K6 backward, or raises (``_check``)."""
+    On CPU tensors this is :func:`causal_attention_plain` with the Philox
+    mask; otherwise it runs K4 forward and K5/K6 backward with the same
+    mask, or raises (``_check``)."""
+    dropout = philox.check_dropout(dropout)
     if all(t.device.type == "cpu" for t in (q, k, v)):
-        return causal_attention_plain(q, k, v, dtype)
+        return causal_attention_plain(q, k, v, dtype, dropout=dropout)
     B, S, H, hd = q.shape
-    return _CausalFlash.apply(q, k, v).view(B, S, H * hd).to(dtype)
+    return _CausalFlash.apply(q, k, v, dropout).view(B, S, H * hd).to(dtype)
 
 
 class _CausalFlash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v):
-        o, lse = flash_fwd(q, k, v)
+    def forward(ctx, q, k, v, dropout):
+        o, lse = flash_fwd(q, k, v, dropout)
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.dropout = dropout
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
+        # di on the dropped O: rowsum(dO O) = rowsum(P (dP Z / keep))
         di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, di)
-        return flash_bwd_dq(q, k, v, do, lse, di), dk, dv
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, ctx.dropout)
+        return flash_bwd_dq(q, k, v, do, lse, di, ctx.dropout), dk, dv, None
 
 
 def _check(q, k, v):
@@ -189,20 +241,27 @@ def _strides(*ts):
     return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
 
 
+def _drop_args(dropout):
+    """The kernels' (p_drop, seed, offset) arguments; p_drop 0 launches
+    the kernels without dropout."""
+    dropout = philox.check_dropout(dropout)
+    return (0.0, 0, 0) if dropout is None else dropout
+
+
 def _launch(fn, name, *args):
     err = fn(*args)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def flash_fwd(q, k, v):
+def flash_fwd(q, k, v, dropout: Optional[Dropout] = None):
     """K4: (O [B, S, H, hd] in q's dtype, lse [B, H, S] fp32)."""
     B, S, H = _check(q, k, v)
     o = torch.empty((B, S, H, HEAD_DIM), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _launch(_entry("fwd", q.dtype), "flash_fwd", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, H, HEAD_DIM,
-            *_strides(q, k, v),
+            *_strides(q, k, v), *_drop_args(dropout),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_fwd.launches += 1
     return o, lse
@@ -222,7 +281,7 @@ def _check_bwd(q, k, v, do, lse, di):
     return B, S, H
 
 
-def flash_bwd_dkv(q, k, v, do, lse, di):
+def flash_bwd_dkv(q, k, v, do, lse, di, dropout: Optional[Dropout] = None):
     """K5: (dK, dV), contiguous [B, S, H, hd] in q's dtype."""
     B, S, H = _check_bwd(q, k, v, do, lse, di)
     dk = torch.empty((B, S, H, HEAD_DIM), dtype=q.dtype, device=q.device)
@@ -230,20 +289,20 @@ def flash_bwd_dkv(q, k, v, do, lse, di):
     _launch(_entry("bwd_dkv", q.dtype), "flash_bwd_dkv", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, HEAD_DIM,
-            *_strides(q, k, v),
+            *_strides(q, k, v), *_drop_args(dropout),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, do, lse, di):
+def flash_bwd_dq(q, k, v, do, lse, di, dropout: Optional[Dropout] = None):
     """K6: dQ, contiguous [B, S, H, hd] in q's dtype."""
     B, S, H = _check_bwd(q, k, v, do, lse, di)
     dq = torch.empty((B, S, H, HEAD_DIM), dtype=q.dtype, device=q.device)
     _launch(_entry("bwd_dq", q.dtype), "flash_bwd_dq", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), dq.data_ptr(), B, S, H, HEAD_DIM,
-            *_strides(q, k, v),
+            *_strides(q, k, v), *_drop_args(dropout),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_bwd_dq.launches += 1
     return dq
@@ -266,11 +325,12 @@ def _library(kernel, dtype):
 @functools.lru_cache(maxsize=None)
 def _entry(kernel, dtype):
     """The C entry point of :func:`_library`, its argument types set:
-    pointers, B, S, H, hd, 9 strides, stream."""
+    pointers, B, S, H, hd, 9 strides, p_drop, seed, offset, stream."""
     lib, sym = _library(kernel, dtype)
     fn = getattr(_build.load(lib), sym)
     p, i = ctypes.c_void_p, ctypes.c_int
     n_ptrs = {"fwd": 5, "bwd_dkv": 8, "bwd_dq": 7}[kernel]
-    fn.argtypes = [p] * n_ptrs + [i] * 4 + [ctypes.c_int64] * 9 + [p]
+    fn.argtypes = ([p] * n_ptrs + [i] * 4 + [ctypes.c_int64] * 9
+                   + [ctypes.c_double, ctypes.c_uint64, ctypes.c_uint64, p])
     fn.restype = ctypes.c_int
     return fn

@@ -7,7 +7,8 @@ attention), clip and take an AdamW step.
     state = create_train_state(model, GPTTrainConfig())
     tokenize = make_tokenize_fn(tokenizer, context_length=2)
     ids, labels = tokenize(pixels)                         # [B, T, H, W, C]
-    metrics = train_step(state, {"input_ids": ids, "labels": labels})
+    metrics = train_step(state, {"input_ids": ids, "labels": labels},
+                         rng=(seed, step))             # dropout's (seed, step)
 
 Compute is bf16 over fp32 master parameters by default, as ``train_gpt.py``
 builds it: the LM's parameters stay fp32 and each layer casts them to bf16
@@ -25,6 +26,7 @@ from ivideogpt_tpu_torch.configs import (LLAMA_BASE, TOKENIZER_64,
                                          CompressiveVQConfig, GPTTrainConfig,
                                          TransformerConfig)
 from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
+from ivideogpt_tpu_torch.models.llama import DropoutKey
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
 from ivideogpt_tpu_torch.train.optim import TrainState, global_norm
 from ivideogpt_tpu_torch.utils.platform import full_fp32, resolve_device
@@ -86,14 +88,18 @@ def make_tokenize_fn(tokenizer: CompressiveVQModel, context_length: int
     return tokenize
 
 
-def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+def train_step(state: TrainState, batch: Batch,
+               rng: Optional[DropoutKey] = None) -> Dict[str, torch.Tensor]:
     """One micro-batch: forward, backward, then ``state.apply_gradients``.
-    batch: {"input_ids", "labels" [B, L][, "action" [B, T, A]]}. Returns
-    0-dim tensors (no host sync): loss, the unclipped gradient norm and
-    perplexity."""
+    batch: {"input_ids", "labels" [B, L][, "action" [B, T, A]]}; ``rng`` is
+    the step's attention-dropout key (seed, step), which a model with
+    ``attention_dropout > 0`` needs (the JAX step's ``rng``,
+    ``deterministic=False``). Returns 0-dim tensors (no host sync): loss,
+    the unclipped gradient norm and perplexity."""
     model = state.model
     model.train()
-    out = model(batch["input_ids"], batch["labels"], batch.get("action"))
+    out = model(batch["input_ids"], batch["labels"], batch.get("action"),
+                dropout_key=rng)
     loss = out["loss"]
     loss.backward()
     gnorm = global_norm(p.grad for p in state.params if p.grad is not None)

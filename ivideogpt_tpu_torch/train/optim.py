@@ -14,6 +14,12 @@
 - gradient accumulation as ``optax.MultiSteps``: the running mean of k
   micro-batch gradients, applied on every k-th call; the schedule counts
   applied updates only.
+
+``TrainState.state_dict`` / ``load_state_dict`` carry everything a resumed
+run needs to continue bit for bit: the model's parameters and buffers,
+AdamW's moments and step counts, ``step``, ``updates``, the accumulation
+buffer inside a window (optax's ``MultiSteps`` state) and the schedule's
+settings; ``utils/checkpoint.save_train_state`` writes them to disk.
 """
 
 from __future__ import annotations
@@ -120,6 +126,10 @@ class TrainState:
                  gradient_accumulation_steps: int = 1,
                  frozen: Iterable[str] = ()):
         self.model = model
+        self.schedule_config = {"kind": lr_scheduler,
+                                "learning_rate": learning_rate,
+                                "warmup_steps": warmup_steps,
+                                "total_steps": total_steps}
         self.schedule = make_lr_schedule(lr_scheduler, learning_rate,
                                          warmup_steps, total_steps)
         named = [(n, p) for n, p in model.named_parameters()
@@ -173,6 +183,34 @@ class TrainState:
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.updates += 1
+
+    def state_dict(self) -> Dict:
+        """{"model": the model's state dict, "optimizer": AdamW's (moments
+        and step counts), "step", "updates", "acc": the accumulation
+        buffer or None, "schedule": its settings}. Tensors are the live
+        ones, not copies."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "updates": self.updates,
+                "acc": None if self._acc is None else list(self._acc),
+                "schedule": dict(self.schedule_config)}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict):
+        """Restore what :meth:`state_dict` returned (tensors are copied
+        onto the model's devices). The schedule is this state's own: a
+        resumed run takes its settings from its flags, as the JAX package's
+        does."""
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.step, self.updates = int(sd["step"]), int(sd["updates"])
+        acc = sd["acc"]
+        if acc is not None and len(acc) != len(self.params):
+            raise ValueError(f"{len(acc)} accumulation buffers for "
+                             f"{len(self.params)} parameters")
+        self._acc = None if acc is None else [
+            a.to(device=p.device, dtype=p.dtype).clone()
+            for a, p in zip(acc, self.params)]
 
 
 @torch.no_grad()

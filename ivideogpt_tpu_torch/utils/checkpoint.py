@@ -25,6 +25,17 @@ modules take with ``strict=True``, after folding peft adapters, stripping
 readers turn the hub's ``config.json`` files into the port's dataclasses,
 and ``load_tokenizer_for_context`` re-slices a tokenizer to a shorter
 context.
+
+The last part keeps a training run's state on disk, the counterparts of
+the JAX package's ``save_train_state``, ``latest_checkpoint`` and
+``restore_train_state`` (``ivideogpt_tpu/utils/checkpoint.py:33-75``) in a
+format of the port's own, not Orbax's: ``{dir}/checkpoint-{step}/`` holds
+``train_state.safetensors`` (the model's state dict under ``model/``,
+AdamW's moments and step counts under ``optimizer/{index}/``, the
+accumulation buffer under ``acc/``) and ``train_state.json`` (the counters,
+AdamW's parameter groups and the schedule's settings). The exchange format
+with the JAX package stays the hub's ``transformer/model.safetensors`` and
+``config.json``.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -587,3 +599,95 @@ def export_hub(root: str, tokenizer: nn.Module, model: nn.Module) -> str:
     safetensors.save_file(model.state_dict(),
                           os.path.join(tf_dir, TRANSFORMER_FILE))
     return root
+
+
+# ---------------------------------------------------------------------------
+# Training state on disk
+# ---------------------------------------------------------------------------
+
+STATE_TENSORS = "train_state.safetensors"
+STATE_META = "train_state.json"
+STATE_FORMAT = "ivideogpt_tpu_torch train state 1"
+
+
+def _checkpoints(ckpt_dir: str):
+    """checkpoint-{step} directory names under ckpt_dir, oldest first."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    names = [d for d in os.listdir(ckpt_dir)
+             if re.fullmatch(r"checkpoint-\d+", d)]
+    return sorted(names, key=lambda d: int(d.split("-")[1]))
+
+
+def save_train_state(ckpt_dir: str, step: int, state,
+                     keep: Optional[int] = None) -> str:
+    """Write ``state`` (a ``train.optim.TrainState``) under
+    ``{ckpt_dir}/checkpoint-{step}``, replacing one of that name, then
+    prune all but the newest ``keep`` checkpoints. Returns the path."""
+    path = os.path.abspath(os.path.join(ckpt_dir, f"checkpoint-{step}"))
+    sd = state.state_dict()
+    tensors = {f"model/{k}": v for k, v in sd["model"].items()}
+    opt = sd["optimizer"]
+    scalars = {}
+    for idx, entry in opt["state"].items():
+        for key, val in entry.items():
+            if torch.is_tensor(val):
+                tensors[f"optimizer/{idx}/{key}"] = val
+            else:
+                scalars[f"{idx}/{key}"] = val
+    for i, a in enumerate(sd["acc"] or ()):
+        tensors[f"acc/{i}"] = a
+    meta = {"format": STATE_FORMAT, "step": int(step),
+            "state_step": sd["step"], "updates": sd["updates"],
+            "acc": None if sd["acc"] is None else len(sd["acc"]),
+            "param_groups": opt["param_groups"], "optimizer_scalars": scalars,
+            "schedule": sd["schedule"]}
+    tmp = f"{path}.tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    safetensors.save_file(tensors, os.path.join(tmp, STATE_TENSORS))
+    with open(os.path.join(tmp, STATE_META), "w") as f:
+        json.dump(meta, f, indent=1)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+    if keep is not None:
+        for d in _checkpoints(ckpt_dir)[:-keep]:
+            shutil.rmtree(os.path.join(ckpt_dir, d))
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The newest ``checkpoint-{step}`` under ckpt_dir, or None."""
+    names = _checkpoints(ckpt_dir)
+    return os.path.join(ckpt_dir, names[-1]) if names else None
+
+
+def restore_train_state(path: str, state):
+    """Load a :func:`save_train_state` checkpoint into ``state`` (a
+    ``TrainState`` built as the saved one was) and return it."""
+    with open(os.path.join(path, STATE_META)) as f:
+        meta = json.load(f)
+    if meta.get("format") != STATE_FORMAT:
+        raise ValueError(f"{path}: not a train state of this port "
+                         f"({meta.get('format')!r})")
+    tensors = safetensors.load_file(os.path.join(path, STATE_TENSORS))
+    model = {k[len("model/"):]: v for k, v in tensors.items()
+             if k.startswith("model/")}
+    entries: Dict[int, dict] = {}
+    for k, v in tensors.items():
+        if k.startswith("optimizer/"):
+            _, idx, key = k.split("/", 2)
+            entries.setdefault(int(idx), {})[key] = v
+    for k, v in meta["optimizer_scalars"].items():
+        idx, key = k.split("/", 1)
+        entries.setdefault(int(idx), {})[key] = v
+    groups = [{k: (tuple(v) if k == "betas" else v) for k, v in g.items()}
+              for g in meta["param_groups"]]
+    acc = (None if meta["acc"] is None
+           else [tensors[f"acc/{i}"] for i in range(meta["acc"])])
+    state.load_state_dict({
+        "model": model,
+        "optimizer": {"state": entries, "param_groups": groups},
+        "step": meta["state_step"], "updates": meta["updates"], "acc": acc,
+        "schedule": meta["schedule"]})
+    return state

@@ -101,11 +101,29 @@ def test_scan_sees_the_whole_package():
                  "utils/checkpoint.py", "train/lora.py",
                  "data/npz_dataset.py", "data/augment.py",
                  "inference/utils.py", "inference/predict.py",
-                 "vp/interface.py"):
+                 "vp/interface.py", "train_gpt.py", "ops/philox.py",
+                 "data/dataset_mixes.py", "utils/loggers.py",
+                 "utils/provenance.py"):
         assert must in rels
     for src in ("vq_argmin", "vq_argmin_tiled", "decode_attention",
                 "flash_attention", "flash_attention_sm90"):
         assert os.path.exists(os.path.join(PKG, "csrc", f"{src}.cu"))
+    assert os.path.exists(os.path.join(PKG, "csrc", "philox.cuh"))
+
+
+def test_trainer_cli_wants_cuda(tmp_path):
+    """``python -m ivideogpt_tpu_torch.train_gpt`` runs on CUDA unless
+    ``--device`` says otherwise, and refuses before it writes a file."""
+    from ivideogpt_tpu_torch import train_gpt
+    args = train_gpt.parse_args(["--pretrained_model_name_or_path", "hub"])
+    assert args.device == "cuda"
+    if torch.cuda.is_available():
+        return
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_gpt.main(["--pretrained_model_name_or_path", "hub",
+                        "--output_dir", str(out)])
+    assert not out.exists()
 
 
 def test_entry_point_wants_cuda():
@@ -165,3 +183,5 @@ def test_wrappers_raise_on_non_cuda_accelerator_tensors():
     qkv = torch.zeros((1, 4, 2, 64), device="meta")
     with pytest.raises(ValueError):
         tfa.causal_attention(qkv, qkv, qkv, torch.float32)
+    with pytest.raises(ValueError):
+        tfa.causal_attention(qkv, qkv, qkv, torch.float32, (0.1, 0, 0))

@@ -123,13 +123,19 @@ def test_remat_gives_the_same_gradients(heads_lm):
 
 
 def test_unported_training_options_raise(heads_lm):
+    """The "dots" remat policy is not ported; attention dropout in
+    train() needs the step's dropout key, and runs with one."""
     _, _, port = heads_lm
     ids, labels, act = _batch(3)
-    for cfg in (port.llm_config.replace(remat=True, remat_policy="dots"),
-                port.llm_config.replace(attention_dropout=0.1)):
-        m = TorchHead(cfg, port.head_config).train()
-        with pytest.raises(NotImplementedError):
-            m(ids, labels, torch.from_numpy(act))
+    m = TorchHead(port.llm_config.replace(remat=True, remat_policy="dots"),
+                  port.head_config).train()
+    with pytest.raises(NotImplementedError):
+        m(ids, labels, torch.from_numpy(act))
+    m = TorchHead(port.llm_config.replace(attention_dropout=0.1),
+                  port.head_config).train()
+    with pytest.raises(ValueError, match="dropout_key"):
+        m(ids, labels, torch.from_numpy(act))
+    m(ids, labels, torch.from_numpy(act), dropout_key=(0, 1))
     # dropout is inert in eval, as in the JAX package's deterministic forward
     m.eval()
     m(ids, labels, torch.from_numpy(act))
@@ -351,8 +357,8 @@ def test_build_train_models_on_cpu_at_the_trainers_shapes():
 
 def test_build_train_models_keeps_the_callers_lm_config():
     """remat and dropout are the caller's: a config with dropout (the
-    medium recipe's 0.1) raises in training rather than training without
-    it, and remat stays on."""
+    medium recipe's 0.1) raises in training without the step's dropout key
+    rather than training without dropout, and remat stays on."""
     ids = torch.zeros(1, 180, dtype=torch.long)
     for cfg, remat in ((port_config(LM_TINY).replace(remat=True), True),
                        (port_config(LM_TINY).replace(attention_dropout=0.1),
@@ -363,7 +369,7 @@ def test_build_train_models_keeps_the_callers_lm_config():
         assert model.llm_config.remat is remat
         assert model.llm_config.attention_dropout == cfg.attention_dropout
         if cfg.attention_dropout:
-            with pytest.raises(NotImplementedError):
+            with pytest.raises(ValueError, match="dropout_key"):
                 model(ids, ids)
 
 
