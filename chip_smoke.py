@@ -12,8 +12,9 @@ the final result line:
   1. card      the nvidia-smi name and power limit
   2. build     nvcc for sm_90a of every csrc/*.cu, all at once (-Xptxas -v)
   3. K1        VQ argmin at every shape of the main paths (N=131072, 8192,
-               3584, 1536, 16384, 1280, 2560, and the inference entry
-               points' 512, 224 and 65536; K=8192, D=64 fp32) against the
+               3584, 1536, 16384, 1280, 2560, the inference entry
+               points' 512, 224 and 65536, the tokenizer CLI's 4096, 1792,
+               1024 and 192; K=8192, D=64 fp32) against the
                plain version
                (TF32 off) and K2 (bit for bit), ties across a codebook
                split; timed beside K2, the plain version, cdist+argmin
@@ -119,13 +120,33 @@ the final result line:
                with another of each; launches (K1 2, K4/K5/K6 12 a step,
                dropout keyed by (seed, global step, layer)), the export
                read back, a restored state and its next step bit-equal to
-               the live ones; ms/step, samples/s, the loader's wait, the
-               validations' seconds, peak memory, the stage split, and 10
-               steps without dropout
- 22. train_medium  LLAMA_MEDIUM (24 layers, H=16), act-free, bf16, dropout
+               the live ones; the validations' GIF strips decoded; ms/step,
+               samples/s, the loader's wait, the validations' seconds, peak
+               memory, the stage split, and 10 steps without dropout
+ 22. train_tokenizer  the tokenizer trainer CLI
+               (ivideogpt_tpu_torch/train_tokenizer.py) in-process with the
+               BAIR finetune recipe's tokenizer flags (bf16, B=16, ctx 1, seg
+               8, --disc_start 1000005, --random_selection, 16 loader
+               workers) plus --use_ema, from the hub's tokenizer re-sliced
+               to ctx 1, on synthetic episodes: 20 micro-steps with a
+               validation and a checkpoint, a resume to 40 with another of
+               each; K1 2 a G, D and eval step; the PNG grids decoded; the
+               export equal to the EMA copy; a restored state and its next
+               G step, EMA update and D step bit-equal to the live ones;
+               then 10 steps with the depth-4 discriminator on; ms/step,
+               samples/s, the loader's wait, the validations' seconds, peak
+               memory
+ 23. train_tokenizer_256  the oxe-256 recipe's TOKENIZER_256 (310M, remat)
+               through the CLI: bf16, B=2, accumulation 4, ctx 2, 24
+               micro-steps with the GAN from step 8 on 256 px episodes;
+               ms per G and D update, peak memory; one fp32 G step at B=1
+               with remat against none (ids bit-equal, gradients within
+               1e-5 of their max) and the bf16 B=2 step's peak memory with
+               and without remat
+ 24. train_medium  LLAMA_MEDIUM (24 layers, H=16), act-free, bf16, dropout
                0.1, B=16, L=751: 2 warm-up and 5 timed steps, launches a
                step (K1 2, K4/K5/K6 24), ms/step, tokens/s, peak memory
- 23. train_gpt check  the train check's fp32 step at B=2, 2 layers, with
+ 25. train_gpt check  the train check's fp32 step at B=2, 2 layers, with
                attention dropout keyed alike on the card and the CPU
 Then the launches by path, the kernels' JSON line, the card line again, and
 the result line.
@@ -155,6 +176,13 @@ DROP_P, DROP_SEED = 0.1, 2024
 GPT_STEPS, GPT_CKPT, GPT_EPISODES, GPT_FRAMES = 30, 15, 64, 24
 MEDIUM_WARMUP, MEDIUM_TIMED = 2, 5
 TOK_T, TOK_CTX = 8, 2          # the tokenizer trainer's clips (B=TRAIN_B)
+# the tokenizer trainer CLI: the BAIR finetune recipe's tokenizer (ctx 1,
+# seg 8, B=16) for 40 micro-steps with a checkpoint and a resume at 20,
+# then 10 with the discriminator on; the oxe-256 recipe's TOKENIZER_256
+# (ctx 2, seg 8, B=2, accumulation 4) for 24 micro-steps, the GAN from
+# step 8; 256 px episodes of 16 frames
+TT_STEPS, TT_CKPT, TT_GAN_STEPS, TT_EPISODES = 40, 20, 10, 32
+TT256_B, TT256_ACC, TT256_STEPS, TT256_DISC_START = 2, 4, 24, 8
 TOK_WARMUP, TOK_TIMED = 3, 10
 TOK_WIDE_WARMUP, TOK_WIDE_TIMED = 1, 3
 # the MBRL world model (MBPO's defaults, bench.py's run_mbrl): imagination
@@ -189,7 +217,9 @@ L2_ROTATION_BYTES = 200_000_000  # >= 4 x the H100's 50 MB L2
 # dynamics frames of the GPT step (16 x 14 x 16) and of the pair (16 x 6 x
 # 16); the MBRL rollout's context frames (32 x 2 x 256); train()'s target
 # frames (16 x 5 x 16) and its LM step's dynamics frames (16 x 10 x 16), its
-# context lookups being the "context" shape
+# context lookups being the "context" shape; the tokenizer CLI's BAIR
+# recipe (B=16, ctx 1: 16 x 256 context and 16 x 7 x 16 dynamics tokens)
+# and TOKENIZER_256 at the oxe-256 recipe's B=2 (2 x 2 x 256, 2 x 6 x 16)
 K1_SHAPES = (("rollout", B * CTX * 256), ("context", TRAIN_B * CTX * 256),
              ("GPT-step dynamics", TRAIN_B * (T - CTX) * 16),
              ("tokenizer dynamics", TRAIN_B * (TOK_T - TOK_CTX) * 16),
@@ -198,7 +228,11 @@ K1_SHAPES = (("rollout", B * CTX * 256), ("context", TRAIN_B * CTX * 256),
              ("mbrl train dynamics", MB_TRAIN_B * (MB_SEG - CTX) * 16),
              ("predict and VP2 context", CTX * 256),
              ("predict dynamics", (T - CTX) * 16),
-             ("ctx1 rollout", B * 256))
+             ("ctx1 rollout", B * 256),
+             ("BAIR tokenizer context", TRAIN_B * 1 * 256),
+             ("BAIR tokenizer dynamics", TRAIN_B * (TOK_T - 1) * 16),
+             ("tokenizer-256 context", TT256_B * 2 * 256),
+             ("tokenizer-256 dynamics", TT256_B * (TOK_T - 2) * 16))
 # K2's: the wide tokenizer pair's context and dynamics lookups against
 # 16384 x 256 codebooks, and the rollout's lookup, which the routing sends
 # to K1 (one timed shape on each side of it)
@@ -2350,9 +2384,9 @@ def phase_train_check(torch, dropout=False):
     return counts
 
 
-def write_episodes(root, n, frames, seed):
+def write_episodes(root, n, frames, seed, size=64):
     """``{root}/cmu_stretch/episode_*.npz`` for the ``debug`` mix: uint8
-    frames [frames, 64, 64, 3] under ``image`` and actions [frames, 4]
+    frames [frames, size, size, 3] under ``image`` and actions [frames, 4]
     under ``action``, from a seed."""
     import numpy as np
     d = os.path.join(root, "cmu_stretch")
@@ -2360,10 +2394,98 @@ def write_episodes(root, n, frames, seed):
     rng = np.random.default_rng(seed)
     for e in range(n):
         np.savez(os.path.join(d, f"episode_{e:03d}.npz"),
-                 image=rng.integers(0, 256, (frames, 64, 64, 3),
+                 image=rng.integers(0, 256, (frames, size, size, 3),
                                     dtype=np.uint8),
                  action=rng.normal(size=(frames, 4)).astype(np.float32))
     return root
+
+
+def lzw_decode(raw, min_code, n):
+    """n palette indices from GIF LZW data (a decoder of its own, to read
+    back what ``utils/image_io.write_gif`` wrote)."""
+    import numpy as np
+    clear, end = 1 << min_code, (1 << min_code) + 1
+    bits, pos = int.from_bytes(raw, "little"), 0
+    width, table, prev, out = min_code + 1, None, None, []
+    while True:
+        code = (bits >> pos) & ((1 << width) - 1)
+        pos += width
+        if code == clear:
+            table = [bytes([i]) for i in range(clear)] + [b"", b""]
+            width, prev = min_code + 1, None
+            continue
+        if code == end:
+            break
+        if prev is None:
+            entry = table[code]
+        else:
+            entry = table[code] if code < len(table) else prev + prev[:1]
+            table.append(prev + entry[:1])
+        out.append(entry)
+        prev = entry
+        if len(table) == 1 << width and width < 12:
+            width += 1
+    return np.frombuffer(b"".join(out), np.uint8)[:n]
+
+
+def read_gif(path):
+    """(frames uint8 [H, W, 3], delays in 1/100 s, loop count) of a GIF
+    with one global palette."""
+    import struct
+    import numpy as np
+    data = open(path, "rb").read()
+    check(data[:6] == b"GIF89a", f"{path}: not a GIF89a file")
+    pal = np.frombuffer(data[13:13 + 768], np.uint8).reshape(256, 3)
+    pos, frames, delays, loop = 13 + 768, [], [], None
+
+    def blocks(pos):
+        out = []
+        while data[pos]:
+            out.append(data[pos + 1:pos + 1 + data[pos]])
+            pos += data[pos] + 1
+        return out, pos + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            label = data[pos + 1]
+            sub, pos = blocks(pos + 2)
+            if label == 0xF9:
+                delays.append(struct.unpack("<H", sub[0][1:3])[0])
+            elif label == 0xFF and sub[0] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", sub[1][1:3])[0]
+        else:
+            check(data[pos] == 0x2C, f"{path}: unknown block at {pos}")
+            w, h = struct.unpack("<HH", data[pos + 5:pos + 9])
+            min_code = data[pos + 10]
+            sub, pos = blocks(pos + 11)
+            idx = lzw_decode(b"".join(sub), min_code, w * h)
+            check(idx.size == w * h, f"{path}: a frame decodes short")
+            frames.append(pal[idx].reshape(h, w, 3))
+    return frames, delays, loop
+
+
+def read_png(path):
+    """uint8 [H, W, 3] of an 8-bit RGB PNG whose rows all use filter 0."""
+    import struct
+    import zlib
+    import numpy as np
+    data = open(path, "rb").read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG file")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        check(zlib.crc32(kind + body) == struct.unpack(
+            ">I", data[pos + 8 + n:pos + 12 + n])[0], f"{path}: bad CRC")
+        if kind == b"IHDR":
+            size = struct.unpack(">II", body[:8])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), f"{path}: a row uses a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
 
 
 def same_train_state(torch, a, b, what):
@@ -2386,8 +2508,7 @@ def phase_train_gpt(torch, root, hub, free):
     """``python -m ivideogpt_tpu_torch.train_gpt``'s ``main`` in-process
     with the BAIR finetune recipe's LM flags
     (``scripts/finetune/bair-64-act-cond.sh:17-31``) at ctx 2, seg 16,
-    without FVD and frame metrics (not ported) and without GIF dumps (the
-    card's machine has no ``imageio``): bf16 over fp32 masters, attention
+    without FVD and frame metrics (not ported): bf16 over fp32 masters, attention
     dropout 0.1, action-conditioned, the LLaMA warm-started from the hub's
     bare LLaMA through ``--load_internal_llm``, B=16, on GPT_EPISODES
     synthetic episodes of GPT_FRAMES frames. Steps 1-15 checkpoint at 15,
@@ -2397,7 +2518,9 @@ def phase_train_gpt(torch, root, hub, free):
     Gates: finite losses; the launches (K4, K5 and K6 12 a training step,
     all with dropout keyed by (seed, global step, layer) across the resume;
     K1 2 a step; the validations' K1 and K4 without dropout; K3 0);
-    checkpoint-15 and checkpoint-30 written; the transformer export read
+    checkpoint-15 and checkpoint-30 written; each validation's four GIF
+    strips decoded (16 frames of 64 x 128, 250 ms, looping); the
+    transformer export read
     back by the port's loader bit-equal to the live model; a fresh state
     restored from checkpoint-30 bit-equal to the live one, and one more step
     from each on the same batch bit-equal. Prints ms/step, samples/s and
@@ -2425,7 +2548,7 @@ def phase_train_gpt(torch, root, hub, free):
               "--dataloader_num_workers", "16", "--video_stepsize", "1",
               "--segment_length", str(T), "--context_length", str(CTX),
               "--num_warmup_steps", "0", "--validation_eval_batches", "1",
-              "--log_steps", "5", "--no_validation_gifs", "--seed", "0"]
+              "--log_steps", "5", "--seed", "0"]
 
     def argv(*extra, out=out):
         return recipe + ["--output_dir", out, *extra]
@@ -2517,6 +2640,16 @@ def phase_train_gpt(torch, root, hub, free):
         check(os.path.exists(os.path.join(out, f"checkpoint-{step}",
                                           ckpt.STATE_TENSORS)),
               f"train_gpt: checkpoint-{step} was not written")
+        for j in range(4):
+            frames, delays, loop = read_gif(os.path.join(
+                out, "samples", f"pred-{step}-{j}.gif"))
+            check(len(frames) == T and delays == [25] * T and loop == 0
+                  and all(f.shape == (64, 128, 3) for f in frames),
+                  f"train_gpt: pred-{step}-{j}.gif holds {len(frames)} "
+                  f"frames, delays {delays[:2]}, loop {loop}")
+    print(f"train_gpt: the validations' GIF strips pred-{{{GPT_CKPT},"
+          f"{GPT_STEPS}}}-{{0..3}}.gif decode: {T} frames of 64 x 128 each, "
+          f"250 ms a frame, looping")
     exported = ckpt.load_action_model_safetensors(
         os.path.join(out, "transformer"))
     live_sd = live.model.state_dict()
@@ -2659,6 +2792,479 @@ def phase_train_medium(torch):
           f"{TRAIN_B * L / dt:.1f} tokens/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del tokenizer, model, state, metrics, warm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def counted_steps(cli, record, sync=False):
+    """Wrap the tokenizer CLI's step factories: every step call appends
+    (kind, the kernels' launches in it, its seconds) to ``record``; kind is
+    "G", "G_gan", "D" or "eval". With ``sync`` the seconds are the card's
+    too (a synchronize at both ends). Returns a function that restores the
+    factories."""
+    import torch
+    names = {"make_generator_step": "G", "make_discriminator_step": "D",
+             "make_eval_step": "eval"}
+    real = {n: getattr(cli, n) for n in names}
+
+    def wrap(name):
+        def factory(*args, **kw):
+            step = real[name](*args, **kw)
+            kind = names[name] + ("_gan" if kw.get("use_gan") else "")
+
+            def step_counted(*a, **k):
+                if sync:
+                    torch.cuda.synchronize()
+                before, t = read_counts(), time.perf_counter()
+                out = step(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+                after = read_counts()
+                record.append((kind, {n: after[n] - before[n] for n in after},
+                               time.perf_counter() - t))
+                return out
+            return step_counted
+        return factory
+
+    for n in names:
+        setattr(cli, n, wrap(n))
+    return lambda: [setattr(cli, n, f) for n, f in real.items()]
+
+
+def k1_per_step(record, what):
+    """Gate: every step call launched K1 twice (context and dynamics) and
+    no other kernel."""
+    for kind, got, _ in record:
+        want = {n: (2 if n == "vq_argmin" else 0) for n in got}
+        check(got == want, f"{what}: a {kind} step launched {got}")
+
+
+def cli_metrics(out):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def finite_metrics(metrics, what):
+    for m in metrics:
+        for k, v in m.items():
+            check(not isinstance(v, float) or (v == v and abs(v) != float(
+                "inf")), f"{what}: {k} = {v} at step {m['step']}")
+
+
+def phase_train_tokenizer(torch, root, hub):
+    """``python -m ivideogpt_tpu_torch.train_tokenizer``'s ``main``
+    in-process with the BAIR finetune recipe's tokenizer flags
+    (``scripts/finetune/bair-64-act-cond.sh:9-17``: bf16, B=16,
+    ``--disc_start 1000005``, ``--random_selection``, ``--segment_horizon
+    16``, seg 8, ctx 1, 16 loader workers) plus ``--use_ema``, warm-started
+    from the hub's ctx=2 TOKENIZER_64 (re-sliced to ctx 1), on TT_EPISODES
+    synthetic 64 px episodes: steps 1-20 with a validation and a checkpoint
+    at 20, then a second run resumed from the latest checkpoint to 40 with
+    another of each; then 10 steps from the hub with ``--disc_start 0`` and
+    no warmup, the depth-4 discriminator training.
+
+    Gates: finite metrics; K1 launched twice by every generator,
+    discriminator and eval step and no other kernel; 20 generator steps,
+    no discriminator step before ``--disc_start``; the validation and
+    training grids decode as PNGs of the GT-over-recon shape;
+    checkpoint-20 and checkpoint-40 written; the exported tokenizer read
+    back by the port's loader equal to the live EMA copy; a fresh state
+    restored from checkpoint-40 bit-equal to the live one (both
+    TrainStates, the EMA copy, the counters), and so is one more
+    generator step, EMA update and discriminator step from each; with the
+    discriminator on, its loss moves off its first reading. Prints ms/step,
+    samples/s and the loader's wait over the steady windows, the
+    validations' seconds, the peak memory, and a G step's wall time with
+    no loader running beside its device time in one profiled step.
+    Returns the launches of the recipe's two runs."""
+    from ivideogpt_tpu_torch import train_tokenizer as cli
+    from ivideogpt_tpu_torch.train.optim import ema_update
+    from ivideogpt_tpu_torch.utils import checkpoint as ckpt
+    data = write_episodes(os.path.join(root, "tok_data"), TT_EPISODES,
+                          GPT_FRAMES, seed=95)
+    out = os.path.join(root, "tok_run")
+    recipe = ["--seed", "0", "--mixed_precision", "bf16", "--batch_size",
+              str(TRAIN_B), "--gradient_accumulation_steps", "1",
+              "--disc_start", "1000005", "--dataset_name", "debug",
+              "--resolution", "64", "--dataloader_num_workers", "16",
+              "--random_selection", "--video_stepsize", "1",
+              "--segment_horizon", "16", "--segment_length", str(TOK_T),
+              "--context_length", "1", "--pretrained_model_name_or_path",
+              os.path.join(hub, "tokenizer"), "--dataset_path", data,
+              "--use_ema", "--log_steps", "10"]
+
+    def argv(*extra, out=out):
+        return recipe + ["--output_dir", out, *extra]
+
+    record = []
+    restore = counted_steps(cli, record)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        cli.main(argv("--max_train_steps", str(TT_CKPT),
+                      "--checkpointing_steps", str(TT_CKPT),
+                      "--validation_steps", str(TT_CKPT)))
+        t1 = time.time()
+        live, live_disc, progress = cli.main(argv(
+            "--max_train_steps", str(TT_STEPS), "--checkpointing_steps",
+            str(TT_CKPT), "--validation_steps", str(TT_CKPT),
+            "--resume_from_checkpoint", "latest"))
+        torch.cuda.synchronize()
+        t2 = time.time()
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        restore()
+    print(f"train_tokenizer: two runs (1-{TT_CKPT}, then resumed "
+          f"{TT_CKPT + 1}-{TT_STEPS}) in {t1 - t0:.1f} s and {t2 - t1:.1f} "
+          f"s, models, loaders, validations and checkpoints included; "
+          f"launches {json.dumps(launches)}; peak memory {peak:.2f} GiB")
+    kinds = [k for k, _, _ in record]
+    n_val = TT_STEPS // TT_CKPT
+    check(kinds.count("G") == TT_STEPS // 2 and "D" not in kinds
+          and "G_gan" not in kinds and kinds.count("eval") == 4 * n_val + 1,
+          f"train_tokenizer: step calls {sorted(set(kinds))}: "
+          f"{[kinds.count(k) for k in ('G', 'G_gan', 'D', 'eval')]}")
+    k1_per_step(record, "train_tokenizer")
+    check(launches["vq_argmin"] == 2 * len(record), f"train_tokenizer: K1 "
+          f"launched {launches['vq_argmin']} times outside the steps' "
+          f"{2 * len(record)}")
+
+    metrics = cli_metrics(out)
+    finite_metrics(metrics, "train_tokenizer")
+    train = {m["step"]: m for m in metrics if "samples/sec" in m}
+    val = [m for m in metrics if "validation_seconds" in m]
+    check(sorted(train) == list(range(10, TT_STEPS + 1, 10)),
+          f"train_tokenizer: logged steps {sorted(train)}")
+    check([m["step"] for m in val] == [TT_CKPT, TT_STEPS],
+          f"train_tokenizer: validations {[m['step'] for m in val]}")
+    for name in (f"recon/step{TT_CKPT}.png", f"recon/step{TT_STEPS}.png",
+                 "train_recon/step1.png"):
+        img = read_png(os.path.join(out, name))
+        check(img.shape == (128, (TOK_T - 1) * 64, 3),
+              f"train_tokenizer: {name} is {img.shape}")
+    for step in (TT_CKPT, TT_STEPS):
+        check(os.path.exists(os.path.join(out, f"checkpoint-{step}",
+                                          ckpt.STATE_TENSORS)),
+              f"train_tokenizer: checkpoint-{step} was not written")
+    exported = ckpt.load_tokenizer_safetensors(os.path.join(out,
+                                                            "tokenizer"))
+    check(sorted(exported) == sorted(progress.ema)
+          and all(torch.equal(exported[k], v.cpu())
+                  for k, v in progress.ema.items()),
+          "train_tokenizer: the export differs from the live EMA copy")
+    steady = [train[TT_CKPT], train[TT_STEPS]]
+    step_ms = sum(m["step_ms"] for m in steady) / 2
+    sps = sum(m["samples/sec"] for m in steady) / 2
+    wait_ms = sum(m["loader_wait_ms"] for m in steady) / 2
+    g_ms = [round(t * 1e3, 2) for k, _, t in record if k == "G"]
+    gen_loss = [train[s_]["gen_loss"] for s_ in sorted(train)]
+    val_s = [round(m["validation_seconds"], 3) for m in val]
+    print(f"train_tokenizer: gen_loss {gen_loss}; steady windows (steps {TT_CKPT - 9}-{TT_CKPT}, "
+          f"{TT_STEPS - 9}-{TT_STEPS}; a window is 5 generator steps and 5 "
+          f"discriminator micro-batches consumed without an update): "
+          f"{step_ms:.2f} ms/step, {sps:.2f} samples/s (the JAX driver's "
+          f"log_steps x B x 2 / seconds), the loop waited {wait_ms:.3f} ms a "
+          f"step on the loader; a G step's host seconds (ms) {g_ms}; "
+          f"validation seconds {val_s} (4 held-out batches and a grid); "
+          f"eval recon loss "
+          f"{[m['eval_recon_loss'] for m in val]}")
+
+    # a fresh state restored from checkpoint-40 is the live one, and so is
+    # one more G step, EMA update and D step from each
+    args = cli.parse_args(argv("--max_train_steps", str(TT_STEPS)))
+    cfg = cli.train_config(args)
+    tokenizer, disc, lpips = cli.build_models(
+        args, cli.tokenizer_config(args), torch.device("cuda"))
+    fresh, fresh_disc = cli.create_train_states(
+        tokenizer, disc, cfg, disc_lr_scheduler=args.discr_lr_scheduler)
+    got = cli.restore_checkpoint(args, os.path.join(
+        out, f"checkpoint-{TT_STEPS}"), fresh, fresh_disc)
+    check((got.step, got.data_iter) == (progress.step, progress.data_iter),
+          f"train_tokenizer: restored counters {got.step, got.data_iter}, "
+          f"live {progress.step, progress.data_iter}")
+
+    def same(what, ema_a, ema_b):
+        same_train_state(torch, live, fresh, f"{what} (generator)")
+        same_train_state(torch, live_disc, fresh_disc,
+                         f"{what} (discriminator)")
+        check(all(torch.equal(v, ema_b[k]) for k, v in ema_a.items()),
+              f"{what}: the EMA copies differ")
+    same("train_tokenizer resume", progress.ema, got.ema)
+    g = torch.Generator(device="cuda").manual_seed(96)
+    px = torch.rand(TRAIN_B, TOK_T, 64, 64, 3, device="cuda", generator=g)
+    emas = []
+    for st, dst, ema in ((live, live_disc, progress.ema),
+                         (fresh, fresh_disc, got.ema)):
+        cli.make_generator_step(st.model, dst.model, lpips, cfg,
+                                use_gan=False)(
+            st, px, cli.step_generator(0, progress.data_iter, g.device))
+        emas.append(ema_update(ema, st.model.state_dict(), args.ema_decay))
+        cli.make_discriminator_step(st.model, dst.model, cfg)(
+            dst, px, cli.step_generator(0, progress.data_iter + 1, g.device))
+    same("train_tokenizer: the steps after resume", *emas)
+    print(f"train_tokenizer: checkpoint-{TT_CKPT} and checkpoint-{TT_STEPS} "
+          f"written; the grids decode; the export (the EMA weights) reads "
+          f"back bit-equal; a state restored from checkpoint-{TT_STEPS} "
+          f"equals the live one (both TrainStates with the spectral-norm "
+          f"buffers, AdamW moments and counts, the EMA copy, step "
+          f"{got.step}, data_iter {got.data_iter}), and so do the next G "
+          f"step, EMA update and D step from each")
+
+    # where a G step's time goes, with no loader running: host wall a step
+    # (each ending in a synchronize) against the card's time in one
+    # profiled step
+    g_step = cli.make_generator_step(live.model, live_disc.model, lpips, cfg,
+                                     use_gan=False)
+
+    def one_g():
+        g_step(live, px, cli.step_generator(0, 999, g.device))
+    one_g()
+    torch.cuda.synchronize()
+    t = time.time()
+    for _ in range(3):
+        one_g()
+    torch.cuda.synchronize()
+    alone_s = (time.time() - t) / 3
+    res = {}
+    with kernel_trace(torch, res):
+        one_g()
+    if res["seconds"]:
+        print(f"train_tokenizer: a G step with no loader running "
+              f"{alone_s * 1e3:.2f} ms (in the CLI's run, median "
+              f"{sorted(g_ms)[len(g_ms) // 2]:.2f} ms of host time); one "
+              f"profiled: device {res['seconds']:.4f} s, busy share "
+              f"{res['seconds'] / alone_s:.4f}; top kernels (name, launches, "
+              f"device s): {json.dumps(top_kernels(res['kernels'], 8))}")
+    else:
+        print("train_tokenizer: the profiler recorded no device time: "
+              "device seconds not measured")
+    del live, live_disc, fresh, fresh_disc, tokenizer, disc, lpips, emas
+    del progress, got
+    torch.cuda.empty_cache()
+
+    # the discriminator on: --disc_start 0 reached, as oxe-256's 250000 is
+    record = []
+    restore = counted_steps(cli, record)
+    gan_out = os.path.join(root, "tok_gan")
+    try:
+        cli.main(argv("--max_train_steps", str(TT_GAN_STEPS), "--disc_start",
+                      "0", "--lr_warmup_steps", "0", "--log_steps", "2",
+                      "--log_image_steps", "0", "--validation_steps",
+                      "100000", "--checkpointing_steps", "100000",
+                      out=gan_out))
+    finally:
+        restore()
+    kinds = [k for k, _, _ in record]
+    check(kinds == ["G_gan", "D"] * (TT_GAN_STEPS // 2),
+          f"train_tokenizer GAN: step calls {kinds}")
+    k1_per_step(record, "train_tokenizer GAN")
+    metrics = cli_metrics(gan_out)
+    finite_metrics(metrics, "train_tokenizer GAN")
+    d_loss = [m["discr_loss"] for m in metrics]
+    check(len(d_loss) == TT_GAN_STEPS // 2 and abs(d_loss[-1] - d_loss[0])
+          > 1e-3, f"train_tokenizer GAN: discriminator losses {d_loss}")
+    ms = {k: [round(t * 1e3, 2) for kk, _, t in record if kk == k]
+          for k in ("G_gan", "D")}
+    print(f"train_tokenizer GAN: discr_loss {d_loss}; gan_loss "
+          f"{[m['gan_loss'] for m in metrics]}; adaptive_weight "
+          f"{[m['adaptive_weight'] for m in metrics]}; host ms a step "
+          f"{json.dumps(ms)}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def remat_pair(torch, dtype, b, seed):
+    """One generator step (no GAN, LPIPS in the loss) of TOKENIZER_256 at
+    batch b with remat and without, from the same weights, pixels and
+    dropout generator, the gradients kept instead of applied: the
+    parameters' names, then for each (the gradients of the first step and
+    of a second one on the same inputs, the VQ ids of its forward, peak
+    memory GiB, seconds of the second step, device seconds of a third one,
+    profiled; 0 where the profiler recorded none)."""
+    import copy
+    from ivideogpt_tpu_torch.configs import (TOKENIZER_256,
+                                             DiscriminatorConfig,
+                                             TokenizerTrainConfig)
+    from ivideogpt_tpu_torch.ops import vq
+    from ivideogpt_tpu_torch.train import tokenizer_trainer as tt
+    cfg = TokenizerTrainConfig(batch_size=b, segment_length=TOK_T,
+                               context_length=2, lr_warmup_steps=0)
+    tok, disc, lpips = tt.build_tokenizer_train_models(
+        TOKENIZER_256, DiscriminatorConfig(depth=4), compute_dtype=dtype,
+        seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    px = torch.rand(b, TOK_T, 256, 256, 3, device="cuda", generator=g)
+    lookup, res = vq.vq_lookup, []
+    names = [n for n, p in tok.named_parameters() if p.requires_grad]
+    for remat in (True, False):
+        model = tok
+        if not remat:
+            model = copy.deepcopy(tok)
+            for m in (model.encoder, model.decoder, model.cond_encoder,
+                      model.cond_decoder):
+                m.remat = False
+        state, _ = tt.create_train_states(model, disc, cfg)
+        kept, ids = [], []
+        state.apply_gradients = lambda: kept.append(
+            [p.grad.detach().clone() for p in state.params])
+        step = tt.make_generator_step(model, disc, lpips, cfg, use_gan=False)
+
+        def lookup_kept(z, e):
+            out = lookup(z, e)
+            ids.append(out)
+            return out
+        vq.vq_lookup = lookup_kept
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step(state, px, torch.Generator(device="cuda").manual_seed(7))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            t = time.time()
+            step(state, px, torch.Generator(device="cuda").manual_seed(7))
+            torch.cuda.synchronize()
+            secs = time.time() - t
+            trace = {}
+            with kernel_trace(torch, trace):
+                step(state, px, torch.Generator(device="cuda").manual_seed(7))
+        finally:
+            vq.vq_lookup = lookup
+        res.append((kept, ids[:2], peak, secs, trace["seconds"]))
+        del state, kept, step
+        if not remat:
+            del model
+        torch.cuda.empty_cache()
+    del tok, disc, lpips
+    torch.cuda.empty_cache()
+    return names, res
+
+
+def phase_train_tokenizer_256(torch, root):
+    """The oxe-256 recipe's tokenizer stage through the CLI
+    (``scripts/pretrain/oxe-256-act-free.sh:3-10``: TOKENIZER_256, 310M,
+    remat on, bf16, B=2, accumulation 4, seg 8, ctx 2, lr 5e-4 for G and D,
+    ``--random_selection``, ``--segment_horizon 16``, 16 loader workers)
+    on synthetic 256 px episodes, TT256_STEPS micro-steps with the GAN from
+    step TT256_DISC_START (the recipe's 250000, reached in training); then
+    remat held against no remat: one fp32 generator step at B=1 (fp32
+    without remat at the recipe's B=2 would not leave room on the card)
+    with ids bit-equal and every gradient within 1e-5 of its tensor's
+    largest element (plus 1e-6 of the largest gradient overall, for the
+    gradients that are rounding alone) or 4 times the card's own spread
+    between two steps without remat, and the recipe's bf16 step at B=2
+    (its seconds, peak memory and device seconds) with and without
+    remat for peak memory and seconds. Gates: finite metrics; K1 twice a
+    step call; the discriminator updates after the GAN starts. Prints ms
+    per optimizer update (G and D, from the step calls' card-synchronised
+    seconds), samples/s and peak memory. Returns the run's launches."""
+    from ivideogpt_tpu_torch import train_tokenizer as cli
+    data = write_episodes(os.path.join(root, "tok256_data"), 8, 16, seed=97,
+                          size=256)
+    out = os.path.join(root, "tok256_run")
+    argv = ["--output_dir", out, "--seed", "0", "--mixed_precision", "bf16",
+            "--learning_rate", "5e-4", "--disc_learning_rate", "5e-4",
+            "--batch_size", str(TT256_B), "--gradient_accumulation_steps",
+            str(TT256_ACC), "--disc_start", str(TT256_DISC_START),
+            "--dataset_name", "debug", "--resolution", "256",
+            "--dataloader_num_workers", "16", "--random_selection",
+            "--video_stepsize", "1", "--segment_horizon", "16",
+            "--segment_length", str(TOK_T), "--context_length", "2",
+            "--dataset_path", data, "--max_train_steps", str(TT256_STEPS),
+            "--log_steps", str(2 * TT256_ACC), "--log_image_steps", "0",
+            "--validation_steps", "100000", "--checkpointing_steps",
+            "100000"]
+    record = []
+    restore = counted_steps(cli, record, sync=True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        state, disc_state, _ = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        restore()
+    n_params = sum(p.numel() for p in state.model.parameters())
+    check(state.model.config.remat and n_params > 300e6,
+          f"train_tokenizer_256: a {n_params / 1e6:.1f}M tokenizer, remat "
+          f"{state.model.config.remat}")
+    kinds = [k for k, _, _ in record]
+    g_windows = TT256_STEPS // (2 * TT256_ACC)
+    # the first discriminator window falls before --disc_start: consumed
+    # without a step call
+    want = ["G"] * TT256_ACC + (["G_gan"] * TT256_ACC
+                                + ["D"] * TT256_ACC) * (g_windows - 1)
+    check(kinds == want, f"train_tokenizer_256: step calls {kinds}")
+    check((state.updates, disc_state.updates) == (g_windows, g_windows - 1),
+          f"train_tokenizer_256: {state.updates} G and {disc_state.updates} "
+          f"D updates")
+    k1_per_step(record, "train_tokenizer_256")
+    metrics = cli_metrics(out)
+    finite_metrics(metrics, "train_tokenizer_256")
+    check(all("discr_loss" in m for m in metrics[1:]),
+          f"train_tokenizer_256: no discriminator loss after the GAN starts")
+    # the last window of each: card-synchronised seconds of its 4 calls
+    g_ms = sum(t for k, _, t in record[-2 * TT256_ACC:-TT256_ACC]) * 1e3
+    d_ms = sum(t for k, _, t in record[-TT256_ACC:]) * 1e3
+    print(f"train_tokenizer_256: {n_params / 1e6:.1f}M tokenizer, remat on; "
+          f"{TT256_STEPS} micro-steps in {wall:.1f} s (models and loaders "
+          f"included); launches {json.dumps(launches)}; the last windows: "
+          f"{g_ms:.2f} ms a generator update ({TT256_ACC} micro-batches of "
+          f"B={TT256_B} with the GAN), {d_ms:.2f} ms a discriminator update, "
+          f"{TT256_ACC * TT256_B * 2 / ((g_ms + d_ms) / 1e3):.2f} samples/s "
+          f"over the pair; peak memory {peak:.2f} GiB; gen_loss "
+          f"{[m.get('gen_loss') for m in metrics]}; discr_loss "
+          f"{[m.get('discr_loss') for m in metrics]}; host ms a call "
+          f"{[round(t * 1e3, 1) for _, _, t in record]}")
+    del state, disc_state
+    torch.cuda.empty_cache()
+
+    names, ((g_r, ids_r, peak_r, s_r, _), (g_n, ids_n, peak_n, s_n, _)) = \
+        remat_pair(torch, torch.float32, 1, seed=98)
+    check(all(torch.equal(a, b) for a, b in zip(ids_r, ids_n)),
+          "train_tokenizer_256: fp32 ids with remat differ from without")
+    # each gradient within 1e-5 of its largest element, plus a floor of
+    # 1e-6 of the largest gradient overall (a bias in front of a GroupNorm
+    # has a gradient that is zero but for rounding), or within 4 times the
+    # card's own spread where that is larger: the weight gradients of the
+    # 256 px convs sum over 65536 positions a frame in an order cuDNN
+    # does not fix, and two steps without remat on the same inputs differ
+    gmax = max(float(b.abs().max()) for b in g_n[0])
+    errs = []
+    for n, a, b, b2 in zip(names, g_r[0], g_n[0], g_n[1]):
+        spread = float((b2 - b).abs().max())
+        errs.append((float((a - b).abs().max()), spread,
+                     float(b.abs().max()), n))
+    errs.sort(key=lambda e: e[0] / max(e[2], 1e-30), reverse=True)
+    bad = [e for e in errs
+           if e[0] > max(1e-5 * e[2] + 1e-6 * gmax, 4 * e[1])]
+    print(f"train_tokenizer_256: fp32 G step at B=1, remat against none: "
+          f"ids bit-equal; worst gradients by their max (max |diff|, the "
+          f"card's own spread without remat, max |g|, name) {errs[:4]}; "
+          f"largest ratio of diff to spread "
+          f"{max((e[0] / e[1] for e in errs if e[1] > 0), default=0):.3f}; "
+          f"the largest "
+          f"gradient {gmax:.4e}; peak memory {peak_r:.2f} GiB with remat, "
+          f"{peak_n:.2f} without; {s_r * 1e3:.1f} ms and {s_n * 1e3:.1f} ms "
+          f"a step")
+    check(not bad, f"train_tokenizer_256: fp32 gradients with remat off "
+          f"the ones without beyond 1e-5 of their max and 4 times the "
+          f"card's spread: {bad[:3]}")
+    del g_r, g_n
+    _, ((_, _, peak_r, s_r, dev_r), (_, _, peak_n, s_n, dev_n)) = \
+        remat_pair(torch, torch.bfloat16, TT256_B, seed=99)
+    print(f"train_tokenizer_256: the recipe's bf16 G step at B={TT256_B} "
+          f"(no GAN): peak memory {peak_r:.2f} GiB with remat, {peak_n:.2f} "
+          f"without; {s_r * 1e3:.1f} ms and {s_n * 1e3:.1f} ms a step; device "
+          f"{dev_r:.4f} s and {dev_n:.4f} s a step (one profiled each; 0: "
+          f"not measured), busy share {dev_r / s_r:.4f} and "
+          f"{dev_n / s_n:.4f}")
     torch.cuda.empty_cache()
     return launches
 
@@ -3073,6 +3679,10 @@ def main():
             by_path["vp2"] = phase_vp2(torch, hub, root)
             by_path["train_gpt"] = phase_train_gpt(
                 torch, root, hub, os.path.join(root, "free", "transformer"))
+            by_path["train_tokenizer"] = phase_train_tokenizer(torch, root,
+                                                               hub)
+            by_path["train_tokenizer_256"] = phase_train_tokenizer_256(
+                torch, root)
         by_path["train_medium"] = phase_train_medium(torch)
         by_path["train_gpt_check"] = phase_train_check(torch, dropout=True)
     except PhaseError as e:
@@ -3085,8 +3695,11 @@ def main():
           f"mbrl_train: the {MB_TIMED} timed train() calls; predict: the "
           f"first call; rollout_ctx1: the first B={B} ctx=1 rollout; vp2: "
           f"the first B={VP2_B} query; train_gpt: the CLI's two runs, "
-          f"{GPT_STEPS} steps and 2 validations; train_medium: the "
-          f"{MEDIUM_TIMED} timed steps; train_gpt_check: one step): "
+          f"{GPT_STEPS} steps and 2 validations; train_tokenizer: the "
+          f"CLI's two runs, {TT_STEPS} micro-steps and 2 validations; "
+          f"train_tokenizer_256: the CLI's {TT256_STEPS} micro-steps; "
+          f"train_medium: the {MEDIUM_TIMED} timed steps; train_gpt_check: "
+          f"one step): "
           + json.dumps(by_path))
     per_run = {"rollout": ("rollout", 1), "train_step": ("train", TRAIN_TIMED),
                "tokenizer_train": ("tokenizer_train", TOK_TIMED),
@@ -3096,6 +3709,8 @@ def main():
                "mbrl_train": ("mbrl_train", MB_TIMED),
                "predict": ("predict", 1), "rollout_ctx1": ("rollout_ctx1", 1),
                "vp2": ("vp2", 1), "train_gpt_run": ("train_gpt", 1),
+               "train_tokenizer_run": ("train_tokenizer", 1),
+               "train_tokenizer_256_run": ("train_tokenizer_256", 1),
                "train_medium_step": ("train_medium", MEDIUM_TIMED),
                "train_gpt_check": ("train_gpt_check", 1)}
     rows = (k1, k2, k3, flash["K4_train"], flash["K4_prefill"],

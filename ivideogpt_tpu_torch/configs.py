@@ -3,7 +3,7 @@
 The port's own copy of the fields, derived quantities and JSON form of
 ``ivideogpt_tpu/configs.py`` (CompressiveVQConfig, TransformerConfig,
 ActionModelConfig, DiscriminatorConfig, TokenizerTrainConfig,
-GPTTrainConfig and the published TOKENIZER_64 /
+GPTTrainConfig and the published TOKENIZER_64 / TOKENIZER_256 /
 LLAMA_BASE / LLAMA_MEDIUM presets), so a config serialised by either package
 loads in the other.
 """
@@ -217,6 +217,20 @@ TOKENIZER_64 = CompressiveVQConfig(
     context_length=2,
     resolution=64,
     max_att_resolution=16,
+)
+
+# 256x256 tokenizer, 310M params, its conv blocks rematerialised in the
+# backward
+TOKENIZER_256 = CompressiveVQConfig(
+    block_out_channels=(128, 256, 256, 512, 768),
+    latent_channels=64,
+    num_vq_embeddings=8192,
+    num_dyn_embeddings=8192,
+    mid_block_add_attention=False,
+    context_length=2,
+    resolution=256,
+    max_att_resolution=32,
+    remat=True,
 )
 
 # 138M LLaMA

@@ -12,8 +12,8 @@ ground-truth-beside-prediction GIFs.
 It runs on CUDA unless ``--device`` names another device, and raises when
 CUDA is absent. The weights stay fp32 as in the JAX package, and every
 fp32 step runs with TF32 off (``utils.platform.full_fp32``): the token ids
-are those of an IEEE fp32 tokenizer. Writing GIFs needs ``imageio``,
-imported only by :func:`write_gifs`.
+are those of an IEEE fp32 tokenizer. The GIFs are written by
+``utils.image_io`` (standard library and numpy only).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from ivideogpt_tpu_torch.inference.utils import NPZParser
 from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
 from ivideogpt_tpu_torch.utils import checkpoint as ckpt
+from ivideogpt_tpu_torch.utils.image_io import write_gif
 from ivideogpt_tpu_torch.utils.platform import full_fp32, resolve_device
 
 
@@ -137,13 +138,12 @@ def gif_strips(pixels: np.ndarray, frames: np.ndarray
 def write_gifs(strips: List[List[np.ndarray]], output_path: str,
                name: str = "pred-samples-{j}.gif"):
     """One GIF a strip, named ``name`` with the strip's index for ``j``, 4
-    frames/s (250 ms a frame: imageio's pillow writer takes ``duration`` in
-    ms and ignores ``fps``), looping."""
-    import imageio
+    frames/s (250 ms a frame), looping, over ``utils.image_io``'s fixed
+    palette."""
     os.makedirs(output_path, exist_ok=True)
     for j, strip in enumerate(strips):
-        imageio.mimsave(os.path.join(output_path, name.format(j=j)),
-                        strip, duration=250, loop=0)
+        write_gif(os.path.join(output_path, name.format(j=j)), strip,
+                  duration_ms=250, loop=0)
 
 
 def main(argv: Optional[List[str]] = None):

@@ -8,7 +8,10 @@ embeddings. The cross-attention keeps the packed ``att.in_proj_*`` /
 attention from them. Dropout (the ResnetBlocks' ``dropout`` and the
 cross-attention's ``cross_attn_dropout`` on the attention weights and on the
 output) applies when a forward is called with ``deterministic=False``, drawn
-from its ``generator``.
+from its ``generator``. With ``remat`` the down blocks of the encoder and
+the up blocks of the decoder recompute their activations in the backward
+(``vae.call_block``), as ``nn.remat`` wraps them in the JAX package; the
+cross-attention and mid blocks keep theirs.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ivideogpt_tpu_torch.models.layers import Conv, Dense, dropout
-from ivideogpt_tpu_torch.models.vae import DownBlock, MidBlock, UpBlock
+from ivideogpt_tpu_torch.models.vae import (DownBlock, MidBlock, UpBlock,
+                                             call_block)
 from ivideogpt_tpu_torch.ops.norms import GroupNorm
 
 
@@ -96,8 +100,9 @@ class ConditionalEncoder(nn.Module):
                  max_att_resolution: int = 16, init_resolution: int = 64,
                  context_length: int = 1, cross_attn_heads: int = 4,
                  dropout: float = 0.0, cross_attn_dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.remat = remat
         ch = list(block_out_channels)
         n = len(ch)
         blk = dict(groups=norm_num_groups, dropout=dropout, dtype=dtype)
@@ -127,7 +132,7 @@ class ConditionalEncoder(nn.Module):
         sample = self.conv_in(sample)
         att = iter(self.cross_att_blocks)
         for i, block in enumerate(self.down_blocks):
-            sample = block(sample, *drop)
+            sample = call_block(block, self.remat, sample, *drop)
             if self._att_after[i]:
                 sample = next(att)(sample, cond_features[i + 1], *drop)
         sample = self.mid_block(sample, *drop)
@@ -143,8 +148,9 @@ class ConditionalDecoder(nn.Module):
                  max_att_resolution: int = 16, init_resolution: int = 16,
                  context_length: int = 1, cross_attn_heads: int = 4,
                  dropout: float = 0.0, cross_attn_dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.remat = remat
         rev = list(reversed(block_out_channels))
         n = len(rev)
         blk = dict(groups=norm_num_groups, dropout=dropout, dtype=dtype)
@@ -183,7 +189,7 @@ class ConditionalDecoder(nn.Module):
         sample = self.cross_att_blocks[0](sample, cond_features[1], *drop)
         att = iter(self.cross_att_blocks[1:])
         for i, block in enumerate(self.up_blocks):
-            sample = block(sample, *drop)
+            sample = call_block(block, self.remat, sample, *drop)
             if self._att_after[i]:
                 sample = next(att)(sample, cond_features[i + 2], *drop)
         pre_out = F.silu(self.conv_norm_out(sample))

@@ -5,15 +5,16 @@ channel unit-normalisation (eps 1e-10) -> squared difference weighted by
 ``|lin{s}|`` -> spatial mean -> sum over the taps.
 
 Inputs are NHWC images in [-1, 1], as in the JAX package; the convs run
-NCHW inside. Weights are random (``lin{s}`` initialised to ones): no VGG16
-or LPIPS weight file is in the repository, so the loader of ``.pth`` files
-is not ported yet. Parameter names follow the Flax tree (``vgg.conv0_0``,
-``lin0``), see ``utils.checkpoint.lpips_state_dict``.
+NCHW inside. Weights are random (``lin{s}`` initialised to ones) until
+:func:`load_torch_lpips` reads torchvision's VGG16 (and optionally the
+LPIPS heads) from ``.pth`` files. Parameter names follow the Flax tree
+(``vgg.conv0_0``, ``lin0``), see ``utils.checkpoint.lpips_state_dict``.
 """
 
 from __future__ import annotations
 
-from typing import List
+import os
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -76,3 +77,40 @@ class LPIPS(nn.Module):
             d = (d * w[None, :, None, None]).sum(1)
             total = total + d.mean(dim=(1, 2))
         return total
+
+
+# torchvision's vgg16().features indices of the 13 convs, in order
+VGG_FEATURE_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def _load_pth(path: str) -> dict:
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"LPIPS weights: {path} does not exist")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+@torch.no_grad()
+def load_torch_lpips(model: LPIPS, vgg_path: Optional[str],
+                     lin_path: Optional[str] = None) -> bool:
+    """Copy torchvision's VGG16 ``features.{0,2,5,...,28}`` from the state
+    dict at ``vgg_path`` onto the five taps' convs, and the LPIPS heads'
+    ``lin{s}.model.1.weight`` from ``lin_path`` where one is given, in
+    place (``ivideogpt_tpu/models/lpips.py:75``). Returns False, changing
+    nothing, when ``vgg_path`` is None; raises when a named file does not
+    exist, where the JAX loader silently keeps the random weights."""
+    if vgg_path is None:
+        return False
+    sd = _load_pth(vgg_path)
+    names = [f"conv{s}_{i}" for s, (_, n) in enumerate(VGG_SLICES)
+             for i in range(n)]
+    for name, idx in zip(names, VGG_FEATURE_CONVS):
+        conv = getattr(model.vgg, name)
+        conv.weight.copy_(sd[f"features.{idx}.weight"])
+        conv.bias.copy_(sd[f"features.{idx}.bias"])
+    if lin_path is not None:
+        lin = _load_pth(lin_path)
+        for s in range(len(VGG_SLICES)):
+            key = f"lin{s}.model.1.weight"
+            if key in lin:
+                getattr(model, f"lin{s}").copy_(lin[key][0, :, 0, 0])
+    return True

@@ -107,7 +107,7 @@ class CompressiveVQModel(nn.Module):
         blocks = dict(block_out_channels=c.block_out_channels,
                       layers_per_block=c.layers_per_block,
                       norm_num_groups=c.norm_num_groups, dropout=c.dropout,
-                      dtype=dtype)
+                      remat=c.remat, dtype=dtype)
         cond = dict(max_att_resolution=c.max_att_resolution,
                     context_length=c.context_length,
                     cross_attn_heads=c.cross_attn_heads,
@@ -252,12 +252,9 @@ class CompressiveVQModel(nn.Module):
         (dec [B*F, H, W, C], ref_dec [B*ctx, H, W, C], commit_loss,
         dyn_commit_loss[, pre_out [B*F, H, W, C0]]), pre_out being the input
         of ``cond_decoder.conv_out``. The forward runs with TF32 off; run the
-        backward under ``utils.platform.full_fp32`` too for IEEE fp32."""
+        backward under ``utils.platform.full_fp32`` too for IEEE fp32 (with
+        ``config.remat`` the conv blocks' recomputation runs there)."""
         c = self.config
-        if c.remat:
-            raise NotImplementedError(
-                "remat (the 256px tokenizer's activation checkpointing) is "
-                "not ported")
         B = dyn_sample.shape[0] // segment_len
         drop = dict(deterministic=deterministic, generator=generator)
         r = c.latent_resolution

@@ -10,20 +10,55 @@
 
 Every forward takes ``deterministic`` (dropout off, the default) and the
 ``generator`` its dropout draws from; the ResnetBlock dropout sits before
-conv2, as in the JAX package. Module and parameter names follow the torch
-names of ``ivideogpt_tpu.utils.checkpoint.flax_to_torch_tokenizer``.
+conv2, as in the JAX package. With ``remat`` the Encoder's down and mid
+blocks and the Decoder's mid and up blocks recompute their activations in
+the backward (:func:`call_block`), the blocks ``nn.remat`` wraps in the
+JAX package. Module and parameter names follow the torch names of
+``ivideogpt_tpu.utils.checkpoint.flax_to_torch_tokenizer``.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ivideogpt_tpu_torch.models.layers import Conv, Dense, dropout
 from ivideogpt_tpu_torch.ops.norms import GroupNorm
+
+
+def call_block(block: nn.Module, remat: bool, x: torch.Tensor,
+               deterministic: bool,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(x, deterministic, generator)``; with ``remat`` (and autograd
+    on) its activations are recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of kept. The
+    recomputation draws the forward's dropout masks: checkpoint restores
+    the global RNG itself, and an explicit ``generator`` is rewound to its
+    state before the forward for the recomputation, then set back where the
+    rest of the model's draws have left it."""
+    if not (remat and torch.is_grad_enabled()):
+        return block(x, deterministic, generator)
+    if deterministic or generator is None:
+        return checkpoint(block, x, deterministic, generator,
+                          use_reentrant=False)
+    start = []
+
+    def run(x):
+        if not start:  # the forward
+            start.append(generator.get_state())
+            return block(x, deterministic, generator)
+        now = generator.get_state()
+        generator.set_state(start[0])
+        try:
+            return block(x, deterministic, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 class ResnetBlock(nn.Module):
@@ -157,8 +192,9 @@ class Encoder(nn.Module):
                  block_out_channels: Sequence[int] = (128, 256, 512),
                  layers_per_block: int = 2, norm_num_groups: int = 32,
                  mid_block_add_attention: bool = True, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.remat = remat
         ch = list(block_out_channels)
         n = len(ch)
         blk = dict(groups=norm_num_groups, dropout=dropout, dtype=dtype)
@@ -175,10 +211,11 @@ class Encoder(nn.Module):
         features: List[torch.Tensor] = []
         sample = self.conv_in(sample)
         features.append(sample)
+        drop = (deterministic, generator)
         for block in self.down_blocks:
-            sample = block(sample, deterministic, generator)
+            sample = call_block(block, self.remat, sample, *drop)
             features.append(sample)
-        sample = self.mid_block(sample, deterministic, generator)
+        sample = call_block(self.mid_block, self.remat, sample, *drop)
         features.append(sample)
         sample = self.conv_out(F.silu(self.conv_norm_out(sample)))
         return (sample, features) if return_features else sample
@@ -191,8 +228,9 @@ class Decoder(nn.Module):
                  block_out_channels: Sequence[int] = (128, 256, 512),
                  layers_per_block: int = 2, norm_num_groups: int = 32,
                  mid_block_add_attention: bool = True, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.remat = remat
         rev = list(reversed(block_out_channels))
         n = len(rev)
         blk = dict(groups=norm_num_groups, dropout=dropout, dtype=dtype)
@@ -209,10 +247,11 @@ class Decoder(nn.Module):
         features: List[torch.Tensor] = []
         sample = self.conv_in(sample)
         features.append(sample)
-        sample = self.mid_block(sample, deterministic, generator)
+        drop = (deterministic, generator)
+        sample = call_block(self.mid_block, self.remat, sample, *drop)
         features.append(sample)
         for block in self.up_blocks:
-            sample = block(sample, deterministic, generator)
+            sample = call_block(block, self.remat, sample, *drop)
             features.append(sample)
         sample = self.conv_out(F.silu(self.conv_norm_out(sample)))
         return (sample, features) if return_features else sample

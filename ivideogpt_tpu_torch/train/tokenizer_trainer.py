@@ -30,7 +30,7 @@ model's forward and backward are IEEE fp32 on the card. Each step takes a
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -86,19 +86,24 @@ def build_tokenizer_train_models(
 
 
 def create_train_states(tokenizer: CompressiveVQModel, disc: Discriminator,
-                        cfg: TokenizerTrainConfig
+                        cfg: TokenizerTrainConfig, *,
+                        disc_lr_scheduler: Optional[str] = None
                         ) -> Tuple[TrainState, TrainState]:
     """The generator's and the discriminator's AdamW states, as
-    ``train_tokenizer.py`` passes the config to ``make_optimizer``."""
-    common = dict(lr_scheduler=cfg.lr_scheduler,
-                  warmup_steps=cfg.lr_warmup_steps,
+    ``train_tokenizer.py`` passes the config to ``make_optimizer``; the
+    discriminator's schedule is ``disc_lr_scheduler`` where given, else
+    the config's."""
+    common = dict(warmup_steps=cfg.lr_warmup_steps,
                   total_steps=cfg.max_train_steps,
                   weight_decay=cfg.weight_decay, b1=cfg.adam_beta1,
                   b2=cfg.adam_beta2, eps=cfg.adam_epsilon,
                   max_grad_norm=cfg.max_grad_norm,
                   gradient_accumulation_steps=cfg.gradient_accumulation_steps)
-    return (TrainState(tokenizer, learning_rate=cfg.learning_rate, **common),
-            TrainState(disc, learning_rate=cfg.disc_learning_rate, **common))
+    return (TrainState(tokenizer, learning_rate=cfg.learning_rate,
+                       lr_scheduler=cfg.lr_scheduler, **common),
+            TrainState(disc, learning_rate=cfg.disc_learning_rate,
+                       lr_scheduler=disc_lr_scheduler or cfg.lr_scheduler,
+                       **common))
 
 
 def _perceptual(lpips_model: LPIPS

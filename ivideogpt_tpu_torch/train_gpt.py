@@ -11,8 +11,7 @@ with resume, and the transformer exported in the hub layout.
 
 The flags are ``train_gpt.py``'s, with its spellings and compatibility
 shims, plus ``--device`` (CUDA unless it names another device; raises when
-CUDA is absent) and ``--no_validation_gifs`` (validation still generates,
-but writes no GIF strips; writing them needs ``imageio``).
+CUDA is absent).
 
 Differences from the JAX driver, each on purpose:
 
@@ -28,8 +27,7 @@ Differences from the JAX driver, each on purpose:
   training (``--lora``, Queue 1 item 5), ``--use_fvd`` and
   ``--use_frame_metrics`` (Queue 1 item 9), more than one process or
   ``--n_model > 1`` (Queue 1 item 10), the Something-Something mixes
-  (raised by the loader), and ``--resolution`` other than 64 without a hub
-  tokenizer.
+  (raised by the loader).
 - Metrics go to ``{output_dir}/metrics.jsonl`` (no TensorBoard), with
   ``step_ms`` and ``loader_wait_ms`` (the loop's wait on the loader a step)
   beside ``samples_per_sec`` at each log, and ``validation_seconds``.
@@ -50,8 +48,8 @@ import torch
 from ivideogpt_tpu_torch import generation
 from ivideogpt_tpu_torch import tokens as token_lib
 from ivideogpt_tpu_torch.configs import (LLAMA_BASE, LLAMA_MEDIUM,
-                                         TOKENIZER_64, ActionModelConfig,
-                                         TransformerConfig)
+                                         TOKENIZER_64, TOKENIZER_256,
+                                         ActionModelConfig, TransformerConfig)
 from ivideogpt_tpu_torch.data.dataset_mixes import (resolve_eval_dataset_name,
                                                     resolve_mix)
 from ivideogpt_tpu_torch.data.npz_dataset import (EvalDataLoader,
@@ -157,9 +155,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    default=True)
     p.add_argument("--no_validation_generation", action="store_false",
                    dest="validation_generation")
-    p.add_argument("--no_validation_gifs", action="store_false",
-                   dest="validation_gifs",
-                   help="generate in validation but write no GIF strips")
     p.add_argument("--validation_eval_batches", type=int, default=2)
     p.add_argument("--log_steps", type=int, default=50)
     p.add_argument("--resume_from_checkpoint", type=str, default=None)
@@ -212,11 +207,9 @@ def build_models(args, dev: torch.device):
         tok_sd, tok_cfg = ckpt.load_tokenizer_for_context(
             tok_dir, args.context_length)
     else:
-        if args.resolution != 64:
-            raise NotImplementedError(
-                f"--resolution {args.resolution} without a hub tokenizer: "
-                f"only TOKENIZER_64 is in the port")
-        tok_sd, tok_cfg = None, TOKENIZER_64.replace(
+        tok_sd = None
+        tok_cfg = (TOKENIZER_256 if args.resolution == 256
+                   else TOKENIZER_64).replace(
             context_length=args.context_length)
     if args.llm_config_json:
         with open(args.llm_config_json) as f:
@@ -443,8 +436,7 @@ def main(argv: Optional[List[str]] = None):
             gen = evaluate(
                 args, tokenizer, model, val_loader,
                 max_batches=args.validation_eval_batches, generate=True,
-                gif_dir=(os.path.join(args.output_dir, "samples")
-                         if args.validation_gifs else None), step=step)
+                gif_dir=os.path.join(args.output_dir, "samples"), step=step)
             agg.update({f"gen_{k}": v for k, v in gen.items()})
         agg["validation_seconds"] = time.perf_counter() - t0
         logger.log(agg, step)

@@ -33,9 +33,12 @@ format of the port's own, not Orbax's: ``{dir}/checkpoint-{step}/`` holds
 ``train_state.safetensors`` (the model's state dict under ``model/``,
 AdamW's moments and step counts under ``optimizer/{index}/``, the
 accumulation buffer under ``acc/``) and ``train_state.json`` (the counters,
-AdamW's parameter groups and the schedule's settings). The exchange format
-with the JAX package stays the hub's ``transformer/model.safetensors`` and
-``config.json``.
+AdamW's parameter groups and the schedule's settings). A train state of
+several parts (``save_train_states``: the tokenizer trainer's generator,
+discriminator, EMA copy and loop counters, the JAX CLI's
+``full_state_tree``) keeps each part under its name in the same two files.
+The exchange format with the JAX package stays the hub's
+``model.safetensors`` and ``config.json``.
 """
 
 from __future__ import annotations
@@ -608,6 +611,7 @@ def export_hub(root: str, tokenizer: nn.Module, model: nn.Module) -> str:
 STATE_TENSORS = "train_state.safetensors"
 STATE_META = "train_state.json"
 STATE_FORMAT = "ivideogpt_tpu_torch train state 1"
+STATES_FORMAT = "ivideogpt_tpu_torch train states 1"
 
 
 def _checkpoints(ckpt_dir: str):
@@ -619,29 +623,54 @@ def _checkpoints(ckpt_dir: str):
     return sorted(names, key=lambda d: int(d.split("-")[1]))
 
 
-def save_train_state(ckpt_dir: str, step: int, state,
-                     keep: Optional[int] = None) -> str:
-    """Write ``state`` (a ``train.optim.TrainState``) under
-    ``{ckpt_dir}/checkpoint-{step}``, replacing one of that name, then
-    prune all but the newest ``keep`` checkpoints. Returns the path."""
-    path = os.path.abspath(os.path.join(ckpt_dir, f"checkpoint-{step}"))
+def _state_entries(state, prefix: str = ""):
+    """(tensors under ``prefix``, JSON metadata) of a TrainState."""
     sd = state.state_dict()
-    tensors = {f"model/{k}": v for k, v in sd["model"].items()}
+    tensors = {f"{prefix}model/{k}": v for k, v in sd["model"].items()}
     opt = sd["optimizer"]
     scalars = {}
     for idx, entry in opt["state"].items():
         for key, val in entry.items():
             if torch.is_tensor(val):
-                tensors[f"optimizer/{idx}/{key}"] = val
+                tensors[f"{prefix}optimizer/{idx}/{key}"] = val
             else:
                 scalars[f"{idx}/{key}"] = val
     for i, a in enumerate(sd["acc"] or ()):
-        tensors[f"acc/{i}"] = a
-    meta = {"format": STATE_FORMAT, "step": int(step),
-            "state_step": sd["step"], "updates": sd["updates"],
+        tensors[f"{prefix}acc/{i}"] = a
+    meta = {"state_step": sd["step"], "updates": sd["updates"],
             "acc": None if sd["acc"] is None else len(sd["acc"]),
             "param_groups": opt["param_groups"], "optimizer_scalars": scalars,
             "schedule": sd["schedule"]}
+    return tensors, meta
+
+
+def _load_state(state, tensors, meta: dict, prefix: str = ""):
+    """Load what :func:`_state_entries` wrote under ``prefix``."""
+    def under(group):
+        head = f"{prefix}{group}/"
+        return {k[len(head):]: v for k, v in tensors.items()
+                if k.startswith(head)}
+    entries: Dict[int, dict] = {}
+    for k, v in under("optimizer").items():
+        idx, key = k.split("/", 1)
+        entries.setdefault(int(idx), {})[key] = v
+    for k, v in meta["optimizer_scalars"].items():
+        idx, key = k.split("/", 1)
+        entries.setdefault(int(idx), {})[key] = v
+    groups = [{k: (tuple(v) if k == "betas" else v) for k, v in g.items()}
+              for g in meta["param_groups"]]
+    acc = (None if meta["acc"] is None
+           else [tensors[f"{prefix}acc/{i}"] for i in range(meta["acc"])])
+    state.load_state_dict({
+        "model": under("model"),
+        "optimizer": {"state": entries, "param_groups": groups},
+        "step": meta["state_step"], "updates": meta["updates"], "acc": acc,
+        "schedule": meta["schedule"]})
+
+
+def _write_checkpoint(ckpt_dir: str, step: int, tensors, meta: dict,
+                      keep: Optional[int]) -> str:
+    path = os.path.abspath(os.path.join(ckpt_dir, f"checkpoint-{step}"))
     tmp = f"{path}.tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -656,6 +685,26 @@ def save_train_state(ckpt_dir: str, step: int, state,
     return path
 
 
+def _read_checkpoint(path: str, fmt: str):
+    with open(os.path.join(path, STATE_META)) as f:
+        meta = json.load(f)
+    if meta.get("format") != fmt:
+        raise ValueError(f"{path}: not a {fmt!r} checkpoint "
+                         f"({meta.get('format')!r})")
+    return safetensors.load_file(os.path.join(path, STATE_TENSORS)), meta
+
+
+def save_train_state(ckpt_dir: str, step: int, state,
+                     keep: Optional[int] = None) -> str:
+    """Write ``state`` (a ``train.optim.TrainState``) under
+    ``{ckpt_dir}/checkpoint-{step}``, replacing one of that name, then
+    prune all but the newest ``keep`` checkpoints. Returns the path."""
+    tensors, meta = _state_entries(state)
+    return _write_checkpoint(ckpt_dir, step, tensors,
+                             {"format": STATE_FORMAT, "step": int(step),
+                              **meta}, keep)
+
+
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     """The newest ``checkpoint-{step}`` under ckpt_dir, or None."""
     names = _checkpoints(ckpt_dir)
@@ -665,29 +714,46 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 def restore_train_state(path: str, state):
     """Load a :func:`save_train_state` checkpoint into ``state`` (a
     ``TrainState`` built as the saved one was) and return it."""
-    with open(os.path.join(path, STATE_META)) as f:
-        meta = json.load(f)
-    if meta.get("format") != STATE_FORMAT:
-        raise ValueError(f"{path}: not a train state of this port "
-                         f"({meta.get('format')!r})")
-    tensors = safetensors.load_file(os.path.join(path, STATE_TENSORS))
-    model = {k[len("model/"):]: v for k, v in tensors.items()
-             if k.startswith("model/")}
-    entries: Dict[int, dict] = {}
-    for k, v in tensors.items():
-        if k.startswith("optimizer/"):
-            _, idx, key = k.split("/", 2)
-            entries.setdefault(int(idx), {})[key] = v
-    for k, v in meta["optimizer_scalars"].items():
-        idx, key = k.split("/", 1)
-        entries.setdefault(int(idx), {})[key] = v
-    groups = [{k: (tuple(v) if k == "betas" else v) for k, v in g.items()}
-              for g in meta["param_groups"]]
-    acc = (None if meta["acc"] is None
-           else [tensors[f"acc/{i}"] for i in range(meta["acc"])])
-    state.load_state_dict({
-        "model": model,
-        "optimizer": {"state": entries, "param_groups": groups},
-        "step": meta["state_step"], "updates": meta["updates"], "acc": acc,
-        "schedule": meta["schedule"]})
+    tensors, meta = _read_checkpoint(path, STATE_FORMAT)
+    _load_state(state, tensors, meta)
     return state
+
+
+def save_train_states(ckpt_dir: str, step: int, states: Dict[str, object],
+                      tensors: Optional[Dict[str, StateDict]] = None,
+                      counters: Optional[Dict[str, int]] = None,
+                      keep: Optional[int] = None) -> str:
+    """A train state of several parts in one ``checkpoint-{step}``: each
+    TrainState of ``states`` by its name (its model's state dict, buffers
+    included), each dict of tensors of ``tensors`` by its name (an EMA
+    copy), and integer ``counters``. Replaces a checkpoint of that name and
+    prunes all but the newest ``keep``, as :func:`save_train_state`."""
+    flat, parts = {}, {}
+    for name, state in states.items():
+        t, parts[name] = _state_entries(state, f"{name}/")
+        flat.update(t)
+    groups = {}
+    for name, sd in (tensors or {}).items():
+        groups[name] = sorted(sd)
+        flat.update({f"{name}/{k}": v for k, v in sd.items()})
+    meta = {"format": STATES_FORMAT, "step": int(step), "states": parts,
+            "tensors": groups,
+            "counters": {k: int(v) for k, v in (counters or {}).items()}}
+    return _write_checkpoint(ckpt_dir, step, flat, meta, keep)
+
+
+def restore_train_states(path: str, states: Dict[str, object]
+                         ) -> Tuple[Dict[str, StateDict], Dict[str, int]]:
+    """Load a :func:`save_train_states` checkpoint into ``states`` (the
+    TrainStates built as the saved ones were, by the same names). Returns
+    (the tensor dicts by name, on the CPU; the counters). Raises when the
+    checkpoint holds other states than ``states``."""
+    flat, meta = _read_checkpoint(path, STATES_FORMAT)
+    if sorted(meta["states"]) != sorted(states):
+        raise ValueError(f"{path}: holds states {sorted(meta['states'])}, "
+                         f"not {sorted(states)}")
+    for name, state in states.items():
+        _load_state(state, flat, meta["states"][name], f"{name}/")
+    tensors = {name: {k: flat[f"{name}/{k}"] for k in keys}
+               for name, keys in meta["tensors"].items()}
+    return tensors, meta["counters"]

@@ -1,9 +1,8 @@
 """Rules of the PyTorch port that hold whatever the numbers:
 - the package and ``chip_smoke.py`` import no ``jax``, ``flax`` or
   ``ivideogpt_tpu`` (AST scan), and nothing the card's machine lacks
-  (``cv2``, ``yaml``, ``safetensors``, ``transformers``, ``imageio``) at
-  module level; ``imageio`` only inside the predict CLI's GIF writer, the
-  others nowhere;
+  (``cv2``, ``yaml``, ``safetensors``, ``transformers``, ``imageio``)
+  anywhere: image files are written by ``utils/image_io.py``;
 - entry points run on CUDA unless asked for the CPU, and raise when CUDA is
   absent;
 - nothing builds or imports a GPU toolchain at import time.
@@ -18,10 +17,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ivideogpt_tpu_torch")
 FORBIDDEN = ("jax", "flax", "ivideogpt_tpu")
-# not on the card's machine: cv2, yaml and safetensors nowhere; transformers
-# nowhere; imageio only where the predict CLI writes its GIFs
+# not on the card's machine, so imported nowhere
 ABSENT = ("cv2", "yaml", "safetensors", "transformers", "imageio")
-LAZY_ONLY = {("inference/predict.py", "write_gifs"): ("imageio",)}
 
 
 def _port_files():
@@ -73,20 +70,23 @@ def _imports_by_function(path):
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_port_imports_nothing_the_card_lacks(path):
-    rel = os.path.relpath(path, PKG)
     for where, mod in _imports_by_function(path):
-        top = mod.split(".")[0]
-        if top not in ABSENT:
-            continue
-        allowed = LAZY_ONLY.get((rel, where), ())
-        assert top in allowed, (f"{path} imports {mod}"
-                                + (f" in {where}" if where else
-                                   " at module level"))
+        assert mod.split(".")[0] not in ABSENT, (
+            f"{path} imports {mod}"
+            + (f" in {where}" if where else " at module level"))
 
 
 def test_gif_writer_imports_imageio_lazily():
-    path = os.path.join(PKG, "inference", "predict.py")
-    assert ("write_gifs", "imageio") in set(_imports_by_function(path))
+    """The image writers of the predict CLI, the GPT trainer and the
+    tokenizer trainer are ``utils/image_io.py``'s: no port file imports
+    ``imageio``, in a function or at module level."""
+    for path in _port_files():
+        mods = {m.split(".")[0] for _, m in _imports_by_function(path)}
+        assert "imageio" not in mods, path
+    for rel, name in (("inference/predict.py", "write_gif"),
+                      ("train_tokenizer.py", "write_png")):
+        with open(os.path.join(PKG, rel)) as f:
+            assert f"image_io import {name}" in f.read(), rel
 
 
 def test_scan_sees_the_whole_package():
@@ -103,7 +103,8 @@ def test_scan_sees_the_whole_package():
                  "inference/utils.py", "inference/predict.py",
                  "vp/interface.py", "train_gpt.py", "ops/philox.py",
                  "data/dataset_mixes.py", "utils/loggers.py",
-                 "utils/provenance.py"):
+                 "utils/provenance.py", "utils/image_io.py",
+                 "train_tokenizer.py"):
         assert must in rels
     for src in ("vq_argmin", "vq_argmin_tiled", "decode_attention",
                 "flash_attention", "flash_attention_sm90"):

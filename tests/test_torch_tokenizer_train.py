@@ -117,11 +117,31 @@ def test_training_forward_matches_jax(models):
 
 
 def test_training_forward_refuses_remat(models):
+    """The training forward with remat (once refused) gives the gradients
+    of the forward without it bit for bit, with dropout on in the
+    ResnetBlocks and the cross-attention: the recomputation redraws the
+    forward's masks from the rewound generator, which ends where the
+    forward without remat leaves it."""
     from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
-    port = CompressiveVQModel(port_config(CFG.replace(remat=True)))
-    x = torch.zeros(CTX, RES, RES, 3)
-    with pytest.raises(NotImplementedError):
-        port(x, torch.zeros(T - CTX, RES, RES, 3), T - CTX)
+    px = torch.from_numpy(_pixels(15))
+    ctx, fut = ttrain.split_frames(px, CTX)
+
+    def grads(remat):
+        port = CompressiveVQModel(port_config(TINY.replace(
+            remat=remat, dropout=0.1)))     # cross_attn_dropout 0.1
+        port.load_state_dict(models["port"].state_dict())
+        gen = torch.Generator().manual_seed(3)
+        dec, ref_dec, commit, dyn_commit = port(ctx, fut, T - CTX,
+                                                deterministic=False,
+                                                generator=gen)
+        loss = dec.square().mean() + ref_dec.abs().mean() + commit \
+            + dyn_commit
+        return (torch.autograd.grad(loss, list(port.parameters())),
+                gen.get_state())
+    (ours, state), (ref, ref_state) = grads(True), grads(False)
+    assert torch.equal(state, ref_state)
+    for g, r in zip(ours, ref):
+        assert torch.equal(g, r)
 
 
 # ----------------------------------------------------------------------

@@ -272,7 +272,7 @@ def test_bair_eval_split_validates_and_evaluates(root, tmp_path, monkeypatch):
     out = tmp_path / "run"
     argv = _argv(root, out, "--max_train_steps", "2",
                  "--validation_steps", "2", "--validation_eval_batches", "1",
-                 "--no_validation_gifs", "--use_eval_dataset")
+                 "--use_eval_dataset")
     argv[argv.index("debug")] = "bair"
     train_gpt.main(argv)
     val = [m for m in _metrics(out) if "eval_loss" in m]
