@@ -14,7 +14,8 @@ the final result line:
   3. K1        VQ argmin at every shape of the main paths (N=131072, 8192,
                3584, 1536, 16384, 1280, 2560, the inference entry
                points' 512, 224 and 65536, the tokenizer CLI's 4096, 1792,
-               1024 and 192; K=8192, D=64 fp32) against the
+               1024 and 192, the BAIR evaluation's 20480 and 19200;
+               K=8192, D=64 fp32) against the
                plain version
                (TF32 off) and K2 (bit for bit), ties across a codebook
                split; timed beside K2, the plain version, cdist+argmin
@@ -34,7 +35,9 @@ the final result line:
   5. flash     K4 (causal flash-attention forward) at the training shape
                (B=16, H=12, S=751), the prefill shape (B=256, S=514), the
                MBRL train() shape (B=16, S=683), the MBRL prefill (B=32,
-               S=513) and the ctx=1 prefill (B=256, S=257), K5 (dK, dV) and
+               S=513), the ctx=1 prefill (B=256, S=257) and the BAIR
+               evaluation's loss (B=80, S=511) and prefill (B=80, S=257),
+               K5 (dK, dV) and
                K6 (dQ) at both training shapes, bf16, against the
                plain version and autograd through it; K4's lse against
                flash_fwd_plain's, K5 and K6 fed the plain lse against
@@ -114,8 +117,9 @@ the final result line:
  21. train_gpt the trainer CLI (ivideogpt_tpu_torch/train_gpt.py) in-process
                with the BAIR finetune recipe's LM flags (bf16, attention
                dropout 0.1, action-conditioned, --load_internal_llm from
-               the hub's bare LLaMA, B=16, ctx 2, seg 16) on 64 synthetic
-               episodes: 15 steps with a checkpoint and a validation with
+               the hub's bare LLaMA, B=16, ctx 2, seg 16, --use_eval_dataset
+               --use_fvd --use_frame_metrics) on 64 synthetic BAIR
+               episodes registered in the hub dir's DATASET.yaml: 15 steps with a checkpoint and a validation with
                generation, a resume from the latest checkpoint to step 30
                with another of each; launches (K1 2, K4/K5/K6 12 a step,
                dropout keyed by (seed, global step, layer)), the export
@@ -123,7 +127,18 @@ the final result line:
                the live ones; the validations' GIF strips decoded; ms/step,
                samples/s, the loader's wait, the validations' seconds, peak
                memory, the stage split, and 10 steps without dropout
- 22. train_tokenizer  the tokenizer trainer CLI
+ 22. eval_gpt  the trainer CLI's --eval_only in-process with the BAIR
+               evaluation recipe's flags (bf16, LLAMA_BASE, ctx 1, seg 16,
+               action-conditioned, --use_fvd --use_frame_metrics,
+               --eval_max_batchsize 80) from the hub, cut to 4 samples a
+               clip and 2 batches of the synthetic BAIR test split, I3D
+               and LPIPS at random weights: every metric finite, FVD
+               recomputed and real-vs-real 0 within the eigenvalue floor,
+               launches (K1 2 and K4 12 a batch, K4 12 a sample set), I3D
+               logits and best-of-t metrics on the card against the CPU;
+               wall s split among generate, detokenize, I3D and LPIPS,
+               I3D's TFLOP/s, peak memory
+ 23. train_tokenizer  the tokenizer trainer CLI
                (ivideogpt_tpu_torch/train_tokenizer.py) in-process with the
                BAIR finetune recipe's tokenizer flags (bf16, B=16, ctx 1, seg
                8, --disc_start 1000005, --random_selection, 16 loader
@@ -136,17 +151,17 @@ the final result line:
                then 10 steps with the depth-4 discriminator on; ms/step,
                samples/s, the loader's wait, the validations' seconds, peak
                memory
- 23. train_tokenizer_256  the oxe-256 recipe's TOKENIZER_256 (310M, remat)
+ 24. train_tokenizer_256  the oxe-256 recipe's TOKENIZER_256 (310M, remat)
                through the CLI: bf16, B=2, accumulation 4, ctx 2, 24
                micro-steps with the GAN from step 8 on 256 px episodes;
                ms per G and D update, peak memory; one fp32 G step at B=1
                with remat against none (ids bit-equal, gradients within
                1e-5 of their max) and the bf16 B=2 step's peak memory with
                and without remat
- 24. train_medium  LLAMA_MEDIUM (24 layers, H=16), act-free, bf16, dropout
+ 25. train_medium  LLAMA_MEDIUM (24 layers, H=16), act-free, bf16, dropout
                0.1, B=16, L=751: 2 warm-up and 5 timed steps, launches a
                step (K1 2, K4/K5/K6 24), ms/step, tokens/s, peak memory
- 25. train_gpt check  the train check's fp32 step at B=2, 2 layers, with
+ 26. train_gpt check  the train check's fp32 step at B=2, 2 layers, with
                attention dropout keyed alike on the card and the CPU
 Then the launches by path, the kernels' JSON line, the card line again, and
 the result line.
@@ -174,6 +189,11 @@ TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 16, 3, 10
 # synthetic episodes of 24 frames; the medium recipe's steps
 DROP_P, DROP_SEED = 0.1, 2024
 GPT_STEPS, GPT_CKPT, GPT_EPISODES, GPT_FRAMES = 30, 15, 64, 24
+# the BAIR evaluation recipe (scripts/evaluation/bair-64-act-cond.sh: ctx 1,
+# seg 16, B=80, bf16) cut to 4 samples a clip (100 in the recipe) and 2
+# batches: 160 test episodes; the card-vs-CPU checks of its metrics take
+# 2 clips
+EVAL_B, EVAL_REPS, EVAL_BATCHES, EVAL_CHECK = 80, 4, 2, 2
 MEDIUM_WARMUP, MEDIUM_TIMED = 2, 5
 TOK_T, TOK_CTX = 8, 2          # the tokenizer trainer's clips (B=TRAIN_B)
 # the tokenizer trainer CLI: the BAIR finetune recipe's tokenizer (ctx 1,
@@ -219,7 +239,8 @@ L2_ROTATION_BYTES = 200_000_000  # >= 4 x the H100's 50 MB L2
 # frames (16 x 5 x 16) and its LM step's dynamics frames (16 x 10 x 16), its
 # context lookups being the "context" shape; the tokenizer CLI's BAIR
 # recipe (B=16, ctx 1: 16 x 256 context and 16 x 7 x 16 dynamics tokens)
-# and TOKENIZER_256 at the oxe-256 recipe's B=2 (2 x 2 x 256, 2 x 6 x 16)
+# and TOKENIZER_256 at the oxe-256 recipe's B=2 (2 x 2 x 256, 2 x 6 x 16);
+# the BAIR evaluation's batch (80 x 256, 80 x 15 x 16)
 K1_SHAPES = (("rollout", B * CTX * 256), ("context", TRAIN_B * CTX * 256),
              ("GPT-step dynamics", TRAIN_B * (T - CTX) * 16),
              ("tokenizer dynamics", TRAIN_B * (TOK_T - TOK_CTX) * 16),
@@ -232,7 +253,9 @@ K1_SHAPES = (("rollout", B * CTX * 256), ("context", TRAIN_B * CTX * 256),
              ("BAIR tokenizer context", TRAIN_B * 1 * 256),
              ("BAIR tokenizer dynamics", TRAIN_B * (TOK_T - 1) * 16),
              ("tokenizer-256 context", TT256_B * 2 * 256),
-             ("tokenizer-256 dynamics", TT256_B * (TOK_T - 2) * 16))
+             ("tokenizer-256 dynamics", TT256_B * (TOK_T - 2) * 16),
+             ("BAIR eval context", EVAL_B * 256),
+             ("BAIR eval dynamics", EVAL_B * (T - 1) * 16))
 # K2's: the wide tokenizer pair's context and dynamics lookups against
 # 16384 x 256 codebooks, and the rollout's lookup, which the routing sends
 # to K1 (one timed shape on each side of it)
@@ -717,8 +740,10 @@ def k3_splits(torch):
 
 def phase_flash(torch):
     """K4 at the training and prefill shapes of the main paths (B=16,
-    S=751; B=256, S=514) and of the MBRL world model (train(): B=16,
-    S=683; the rollout's prefill: B=32, S=513), K5/K6 at both training
+    S=751; B=256, S=514), of the MBRL world model (train(): B=16,
+    S=683; the rollout's prefill: B=32, S=513), of the ctx=1 rollout's
+    prefill (B=256, S=257) and of the BAIR evaluation (its loss: B=80,
+    S=511; its prefill: B=80, S=257), K5/K6 at both training
     shapes, bf16, against the plain version in fp32 on the same (upcast) inputs
     with TF32 off: the kernels keep fp32 scores and sums and round P and dS
     to bf16 where the TPU kernel does, the plain bf16 version rounds the
@@ -766,11 +791,14 @@ def phase_flash(torch):
     paths = {"train": "train", "prefill": "rollout",
              "mbrl_train": "mbrl_train", "mbrl_prefill": "mbrl_rollout",
              "ctx1_prefill": "rollout_ctx1", "predict_prefill": "predict",
-             "vp2_prefill": "vp2"}
+             "vp2_prefill": "vp2", "eval_loss": "eval_gpt",
+             "eval_prefill": "eval_gpt"}
     for name, b, s in (("train", TRAIN_B, 751), ("prefill", B, 514),
                        ("mbrl_train", MB_TRAIN_B, MB_L),
                        ("mbrl_prefill", MB_B, MB_P1 - 1),
-                       ("ctx1_prefill", B, CTX1_P1)):
+                       ("ctx1_prefill", B, CTX1_P1),
+                       ("eval_loss", EVAL_B, CTX1_M - 1),
+                       ("eval_prefill", EVAL_B, CTX1_P1)):
         training = name.endswith("train")
         suffix = "" if name == "train" else f"_{name}"
         q, k, v, do = inputs(b, s, seed=s)
@@ -2400,6 +2428,29 @@ def write_episodes(root, n, frames, seed, size=64):
     return root
 
 
+def write_bair(root, n_train, n_test, frames, seed):
+    """``{root}/bair_{train,test}/traj_*.npz`` (uint8 ``aux1_image`` [frames,
+    64, 64, 3] and ``action`` [frames, 4], from a seed) and
+    ``{root}/DATASET.yaml`` registering them as ``bair_train_dataset`` and
+    ``bair_test_dataset``: the registry the loaders read from the working
+    directory."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lines = []
+    for split, n in (("train", n_train), ("test", n_test)):
+        d = os.path.join(root, f"bair_{split}")
+        os.makedirs(d)
+        for e in range(n):
+            np.savez(os.path.join(d, f"traj_{e:04d}.npz"),
+                     aux1_image=rng.integers(0, 256, (frames, 64, 64, 3),
+                                             dtype=np.uint8),
+                     action=rng.normal(size=(frames, 4)).astype(np.float32))
+        lines.append(f"bair_{split}_dataset: {d}\n")
+    with open(os.path.join(root, "DATASET.yaml"), "w") as f:
+        f.writelines(lines)
+    return root
+
+
 def lzw_decode(raw, min_code, n):
     """n palette indices from GIF LZW data (a decoder of its own, to read
     back what ``utils/image_io.write_gif`` wrote)."""
@@ -2507,15 +2558,20 @@ def same_train_state(torch, a, b, what):
 def phase_train_gpt(torch, root, hub, free):
     """``python -m ivideogpt_tpu_torch.train_gpt``'s ``main`` in-process
     with the BAIR finetune recipe's LM flags
-    (``scripts/finetune/bair-64-act-cond.sh:17-31``) at ctx 2, seg 16,
-    without FVD and frame metrics (not ported): bf16 over fp32 masters, attention
-    dropout 0.1, action-conditioned, the LLaMA warm-started from the hub's
-    bare LLaMA through ``--load_internal_llm``, B=16, on GPT_EPISODES
-    synthetic episodes of GPT_FRAMES frames. Steps 1-15 checkpoint at 15,
-    then a second run resumes from the latest checkpoint and trains to 30,
-    checkpointing there; validation with generation at 15 and 30.
+    (``scripts/finetune/bair-64-act-cond.sh:17-31``) at ctx 2, seg 16: bf16
+    over fp32 masters, attention dropout 0.1, action-conditioned, the LLaMA
+    warm-started from the hub's bare LLaMA through ``--load_internal_llm``,
+    B=16, ``--dataset_name bair --use_eval_dataset --use_fvd
+    --use_frame_metrics`` on the synthetic BAIR splits that ``root``'s
+    ``DATASET.yaml`` registers (the working directory; GPT_EPISODES
+    training episodes of GPT_FRAMES frames), I3D and LPIPS at random
+    weights. Steps 1-15 checkpoint at 15, then a second run resumes from
+    the latest checkpoint and trains to 30, checkpointing there; validation
+    with generation, FVD and the frame metrics at 15 and 30.
 
-    Gates: finite losses; the launches (K4, K5 and K6 12 a training step,
+    Gates: finite losses and validation metrics (``gen_fvd``, ``gen_mse``,
+    ``gen_psnr``, ``gen_ssim``, ``gen_lpips`` among them); the launches
+    (K4, K5 and K6 12 a training step,
     all with dropout keyed by (seed, global step, layer) across the resume;
     K1 2 a step; the validations' K1 and K4 without dropout; K3 0);
     checkpoint-15 and checkpoint-30 written; each validation's four GIF
@@ -2533,8 +2589,6 @@ def phase_train_gpt(torch, root, hub, free):
     from ivideogpt_tpu_torch.ops import flash_attention as fa
     from ivideogpt_tpu_torch.ops import philox
     from ivideogpt_tpu_torch.utils import checkpoint as ckpt
-    data = write_episodes(os.path.join(root, "data"), GPT_EPISODES,
-                          GPT_FRAMES, seed=93)
     out = os.path.join(root, "run")
     recipe = ["--pretrained_model_name_or_path", hub,
               "--pretrained_transformer_path", free, "--load_internal_llm",
@@ -2543,8 +2597,9 @@ def phase_train_gpt(torch, root, hub, free):
               "--attention_dropout", str(DROP_P), "--embed_no_wd",
               "--weight_decay", "0.01", "--batch_size", str(TRAIN_B),
               "--gradient_accumulation_steps", "1", "--learning_rate", "1e-4",
-              "--lr_scheduler_type", "cosine", "--dataset_name", "debug",
-              "--dataset_path", data, "--resolution", "64",
+              "--lr_scheduler_type", "cosine", "--dataset_name", "bair",
+              "--dataset_path", root, "--use_eval_dataset", "--use_fvd",
+              "--use_frame_metrics", "--resolution", "64",
               "--dataloader_num_workers", "16", "--video_stepsize", "1",
               "--segment_length", str(T), "--context_length", str(CTX),
               "--num_warmup_steps", "0", "--validation_eval_batches", "1",
@@ -2636,6 +2691,12 @@ def phase_train_gpt(torch, root, hub, free):
     check([m["step"] for m in val] == [GPT_CKPT, GPT_STEPS]
           and all(m["gen_generated"] == TRAIN_B for m in val),
           f"train_gpt: validations {val}")
+    gen_keys = ("gen_eval_loss", "gen_perplexity", "gen_mse", "gen_psnr",
+                "gen_ssim", "gen_lpips", "gen_fvd")
+    check(all(k in m for m in val for k in gen_keys),
+          f"train_gpt: a validation lacks one of {gen_keys}: {val}")
+    print("train_gpt: the validations' generation metrics "
+          + json.dumps([{k: m[k] for k in gen_keys} for m in val]))
     for step in (GPT_CKPT, GPT_STEPS):
         check(os.path.exists(os.path.join(out, f"checkpoint-{step}",
                                           ckpt.STATE_TENSORS)),
@@ -2667,7 +2728,8 @@ def phase_train_gpt(torch, root, hub, free):
           f"{step_ms:.2f} ms/step, {sps:.2f} samples/s, the loop waited "
           f"{wait_ms:.3f} ms a step on the loader; validation seconds "
           f"{[round(m['validation_seconds'], 3) for m in val]} (4 held-out "
-          f"batches and one generation of B={TRAIN_B}); eval loss "
+          f"batches and one generation of B={TRAIN_B} with FVD and the frame "
+          f"metrics); eval loss "
           f"{[m['eval_loss'] for m in val]}")
 
     # resume: a fresh state from checkpoint-30 equals the live one, and so
@@ -2735,6 +2797,230 @@ def phase_train_gpt(torch, root, hub, free):
           f" ms/step, {off_m[10]['samples_per_sec']:.2f} samples/s (with "
           f"dropout {step_ms:.2f} ms/step)")
     torch.cuda.empty_cache()
+    return launches
+
+
+def with_conv_flops(torch, model, x):
+    """(model(x), the FLOP of its Conv3d layers in that forward, 2 a
+    multiply-add), counted from the shapes its forward hooks see."""
+    total = [0]
+
+    def hook(mod, inp, out):
+        total[0] += 2 * out.numel() * mod.weight[0].numel()
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv3d)]
+    try:
+        out = model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, total[0]
+
+
+def phase_eval_gpt(torch, root, hub):
+    """``python -m ivideogpt_tpu_torch.train_gpt --eval_only`` in-process
+    with ``scripts/evaluation/bair-64-act-cond.sh``'s flags: bf16,
+    ``--llm_config base``, ctx 1, seg 16, action-conditioned (dim 4),
+    ``--use_fvd --use_frame_metrics --eval_max_batchsize 80``, from the hub
+    (its tokenizer re-sliced to ctx 1, the action-conditioned transformer)
+    on the synthetic BAIR test split that ``root``'s ``DATASET.yaml``
+    registers (the working directory). Cut to ``--eval_generate_times``
+    EVAL_REPS (100 in the recipe) and ``--max_eval_batches`` EVAL_BATCHES;
+    no ``--i3d_weights`` or ``--lpips_weights`` (the files are not in the
+    repository): I3D and LPIPS at random weights from seed 0.
+
+    Gates: every result key finite, perplexity = exp(eval_loss), the clips
+    generated; FVD recomputed from the I3D features the run fed equal to
+    its result, and the real features against themselves 0 within the
+    eigenvalue floor; the launches (K1 2 and K4 12 a batch, K4 12 a
+    sample set, K3 0: the decode runs a plain bf16 cache); I3D's logits on
+    the card against the CPU port's on EVAL_CHECK of the batch's clips at
+    224 px (fp32, TF32 off, 1e-4 of their largest), and against the
+    features the run fed them in its chunk of 80; ``best_of_t_metrics`` on
+    the card against the CPU on the first batch without LPIPS and on
+    EVAL_CHECK clips with it. Prints the wall seconds and their split among
+    generate, detokenize, I3D and LPIPS (each call synchronised), I3D's
+    FLOP a clip and rate, and the peak memory. Returns the launches."""
+    import math
+    import numpy as np
+    from ivideogpt_tpu_torch import generation, train_gpt
+    from ivideogpt_tpu_torch.models.i3d import I3D
+    from ivideogpt_tpu_torch.models.lpips import LPIPS
+    from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+    from ivideogpt_tpu_torch.utils import video_metric as vm
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    argv = ["--output_dir", os.path.join(root, "eval"), "--seed", "0",
+            "--mixed_precision", "bf16", "--pretrained_model_name_or_path",
+            hub, "--llm_config", "base", "--dataset_name", "bair",
+            "--resolution", "64", "--video_stepsize", "1",
+            "--segment_length", str(T), "--context_length", "1",
+            "--use_fvd", "--use_frame_metrics", "--eval_only",
+            "--eval_generate_times", str(EVAL_REPS),
+            "--eval_max_batchsize", str(EVAL_B), "--action_conditioned",
+            "--action_dim", "4", "--max_eval_batches", str(EVAL_BATCHES)]
+    print(f"eval_gpt: the BAIR evaluation recipe cut to "
+          f"--eval_generate_times {EVAL_REPS} (100) and --max_eval_batches "
+          f"{EVAL_BATCHES} ({EVAL_BATCHES * EVAL_B} test clips); no "
+          f"--i3d_weights or --lpips_weights: random weights from seed 0")
+    parts = dict.fromkeys(("generate", "detokenize", "i3d", "lpips"), 0.0)
+    peaks = dict.fromkeys(("rest",) + tuple(parts), 0)
+    feats, first = [], []
+
+    def timed(part, fn):
+        """fn, its calls synchronised and timed into parts[part], the peak
+        memory inside them into peaks[part] and outside into peaks["rest"]
+        """
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            peaks["rest"] = max(peaks["rest"],
+                                torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[part] += time.perf_counter() - t
+            peaks[part] = max(peaks[part], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            return r
+        return call
+
+    real = (generation.generate, CompressiveVQModel.detokenize,
+            train_gpt.build_evaluator, vm.Evaluator.i3d_features,
+            vm.Evaluator.frame_metrics)
+
+    def build(args, dev):
+        ev = real[2](args, dev)
+        ev.i3d_fn, ev.lpips_fn = (timed("i3d", ev.i3d_fn),
+                                  timed("lpips", ev.lpips_fn))
+        return ev
+
+    def features(self, videos):
+        feats.append(real[3](self, videos))
+        return feats[-1]
+
+    def frames(self, gt, gen):
+        if not first:
+            first.append((gt, gen))
+        return real[4](self, gt, gen)
+
+    generation.generate = timed("generate", real[0])
+    CompressiveVQModel.detokenize = timed("detokenize", real[1])
+    train_gpt.build_evaluator = build
+    vm.Evaluator.i3d_features, vm.Evaluator.frame_metrics = features, frames
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        result = train_gpt.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peaks["rest"] = max(peaks["rest"], torch.cuda.max_memory_allocated())
+    finally:
+        (generation.generate, CompressiveVQModel.detokenize,
+         train_gpt.build_evaluator, vm.Evaluator.i3d_features,
+         vm.Evaluator.frame_metrics) = real
+    keys = ("eval_loss", "perplexity", "mse", "psnr", "ssim", "lpips", "fvd")
+    print("eval_gpt: result " + json.dumps(result))
+    check(sorted(result) == sorted(keys + ("generated",)),
+          f"eval_gpt: result keys {sorted(result)}")
+    check(all(math.isfinite(result[k]) for k in keys),
+          f"eval_gpt: a metric is not finite: {result}")
+    check(math.isclose(result["perplexity"], math.exp(result["eval_loss"]),
+                       rel_tol=1e-12), "eval_gpt: perplexity is not "
+          "exp(eval_loss)")
+    n_gen = EVAL_BATCHES * EVAL_REPS * EVAL_B
+    check(result["generated"] == n_gen,
+          f"eval_gpt: {result['generated']} clips generated, not {n_gen}")
+    want = {"vq_argmin": 2 * EVAL_BATCHES,
+            "flash_attention_fwd": 12 * EVAL_BATCHES * (1 + EVAL_REPS),
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+            "decode_attention": 0, "vq_argmin_tiled": 0}
+    check(launches == want, f"eval_gpt: launches {launches}, not {want}")
+
+    # FVD from the features the run fed, and real against real
+    check(len(feats) == 2 * EVAL_BATCHES
+          and all(f.shape == ((EVAL_REPS if i % 2 else 1) * EVAL_B, 400)
+                  for i, f in enumerate(feats)),
+          f"eval_gpt: I3D features {[f.shape for f in feats]}")
+    stats = {"real": vm.FeatureStats(), "gen": vm.FeatureStats()}
+    for i, f in enumerate(feats):
+        stats["gen" if i % 2 else "real"].append(f)
+    fvd = vm.frechet_distance(stats["real"], stats["gen"])
+    check(fvd == result["fvd"], f"eval_gpt: FVD from the fed features "
+          f"{fvd} != the result's {result['fvd']}")
+    d = 400
+    floor = 2 * d * math.sqrt(d * np.finfo(np.float64).eps) * float(
+        np.linalg.eigvalsh(stats["real"].get_mean_cov()[1]).max())
+    self_fvd = vm.frechet_distance(stats["real"], stats["real"])
+    check(abs(self_fvd) <= floor, f"eval_gpt: FVD of the real features "
+          f"against themselves {self_fvd:.3e}, over the floor {floor:.3e}")
+    print(f"eval_gpt: FVD {result['fvd']:.6f} recomputed from the fed "
+          f"features; real against real {self_fvd:.3e} (floor {floor:.3e}, "
+          f"{stats['real'].num_items} clips, 400 features: rank-deficient)")
+
+    # I3D on the card against the CPU port, the evaluator's weights
+    gt, gen = first[0]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        i3d = I3D().eval()
+    clips = gt[:EVAL_CHECK]
+    with torch.no_grad(), full_fp32():
+        want_l, flop = with_conv_flops(torch, i3d, clips.cpu())
+        got_l = i3d.to("cuda")(clips).cpu()
+    flop //= EVAL_CHECK
+    scale = float(want_l.abs().max())
+    e_card = float((got_l - want_l).abs().max())
+    e_fed = float((torch.from_numpy(feats[0][:EVAL_CHECK]) - want_l)
+                  .abs().max())
+    check(e_card <= 1e-4 * scale and e_fed <= 1e-4 * scale,
+          f"eval_gpt: I3D logits on the card {e_card:.3e} and in the run's "
+          f"chunk {e_fed:.3e} from the CPU's (largest {scale:.3e})")
+    n_i3d = EVAL_BATCHES * (1 + EVAL_REPS) * EVAL_B
+    print(f"eval_gpt: I3D logits of {EVAL_CHECK} clips at 224 px: card "
+          f"{e_card:.3e}, the run's chunk of {EVAL_B} {e_fed:.3e} from the "
+          f"CPU port's (largest {scale:.3e}, gate 1e-4 of it); "
+          f"{flop / 1e9:.2f} GFLOP a clip in its convs, {n_i3d} clips in "
+          f"{parts['i3d']:.3f} s: {n_i3d * flop / parts['i3d'] / 1e12:.2f} "
+          f"TFLOP/s fp32 (TF32 off)")
+    del i3d
+
+    # best_of_t_metrics on the card against the CPU
+    with torch.no_grad():
+        got = vm.best_of_t_metrics(gt, gen)
+        want_m = vm.best_of_t_metrics(gt.cpu(), gen.cpu())
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            lpips = LPIPS().eval()
+        idx = torch.cat([torch.arange(EVAL_CHECK) + r * EVAL_B
+                         for r in range(EVAL_REPS)]).to(gen.device)
+        gt_s, gen_s = gt[:EVAL_CHECK], gen[idx]
+        want_s = vm.best_of_t_metrics(gt_s.cpu(), gen_s.cpu(), lpips)
+        lpips = lpips.to("cuda")
+        with full_fp32():
+            got_s = vm.best_of_t_metrics(gt_s, gen_s, lpips)
+    tol = {"mse": 1e-7, "psnr": 1e-4, "ssim": 1e-5, "lpips": 1e-5}
+    errs = {}
+    for tag, a, b in (("batch", got, want_m), ("lpips", got_s, want_s)):
+        for k, v in a.items():
+            errs[f"{tag} {k}"] = e = abs(float(v) - float(b[k]))
+            check(e <= tol[k], f"eval_gpt: best_of_t {k} ({tag}) on the "
+                  f"card {float(v)} vs the CPU {float(b[k])}")
+    print(f"eval_gpt: best_of_t_metrics on the card against the CPU (the "
+          f"first batch, {EVAL_REPS} samples a clip; with LPIPS on "
+          f"{EVAL_CHECK} clips), |diff| "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+          + f" (gates {json.dumps(tol)})")
+    del lpips, first[:], gt, gen
+    torch.cuda.empty_cache()
+    rest = wall - sum(parts.values())
+    print(f"eval_gpt: {wall:.2f} s wall, models and loader included: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+          + f", the rest (loading, tokenize, loss, MSE/PSNR/SSIM, host) "
+          f"{rest:.3f} s; launches {json.dumps(launches)}; peak memory "
+          f"{max(peaks.values()) / 2**30:.2f} GiB, by part (GiB) "
+          + json.dumps({k: round(v / 2**30, 2) for k, v in peaks.items()}))
     return launches
 
 
@@ -3677,8 +3963,13 @@ def main():
             del tok_cpu, lm_cpu
             by_path["rollout_ctx1"] = phase_rollout_ctx1(torch, hub)
             by_path["vp2"] = phase_vp2(torch, hub, root)
-            by_path["train_gpt"] = phase_train_gpt(
-                torch, root, hub, os.path.join(root, "free", "transformer"))
+            write_bair(root, GPT_EPISODES, EVAL_BATCHES * EVAL_B, GPT_FRAMES,
+                       seed=93)
+            with contextlib.chdir(root):
+                by_path["train_gpt"] = phase_train_gpt(
+                    torch, root, hub, os.path.join(root, "free",
+                                                   "transformer"))
+                by_path["eval_gpt"] = phase_eval_gpt(torch, root, hub)
             by_path["train_tokenizer"] = phase_train_tokenizer(torch, root,
                                                                hub)
             by_path["train_tokenizer_256"] = phase_train_tokenizer_256(
@@ -3697,6 +3988,8 @@ def main():
           f"the first B={VP2_B} query; train_gpt: the CLI's two runs, "
           f"{GPT_STEPS} steps and 2 validations; train_tokenizer: the "
           f"CLI's two runs, {TT_STEPS} micro-steps and 2 validations; "
+          f"eval_gpt: the --eval_only run, {EVAL_BATCHES} batches of "
+          f"{EVAL_B} x {EVAL_REPS} samples; "
           f"train_tokenizer_256: the CLI's {TT256_STEPS} micro-steps; "
           f"train_medium: the {MEDIUM_TIMED} timed steps; train_gpt_check: "
           f"one step): "
@@ -3709,13 +4002,15 @@ def main():
                "mbrl_train": ("mbrl_train", MB_TIMED),
                "predict": ("predict", 1), "rollout_ctx1": ("rollout_ctx1", 1),
                "vp2": ("vp2", 1), "train_gpt_run": ("train_gpt", 1),
+               "eval_gpt": ("eval_gpt", 1),
                "train_tokenizer_run": ("train_tokenizer", 1),
                "train_tokenizer_256_run": ("train_tokenizer_256", 1),
                "train_medium_step": ("train_medium", MEDIUM_TIMED),
                "train_gpt_check": ("train_gpt_check", 1)}
     rows = (k1, k2, k3, flash["K4_train"], flash["K4_prefill"],
             flash["K4_mbrl_prefill"], flash["K4_mbrl_train"],
-            flash["K4_ctx1_prefill"], flash["K4_predict_prefill"],
+            flash["K4_ctx1_prefill"], flash["K4_eval_loss"],
+            flash["K4_eval_prefill"], flash["K4_predict_prefill"],
             flash["K4_vp2_prefill"], flash["K5"], flash["K5_mbrl_train"],
             flash["K6"], flash["K6_mbrl_train"],
             *(flash[f"{k}_{tag}"] for tag in ("train_dropout",

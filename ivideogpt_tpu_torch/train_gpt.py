@@ -1,13 +1,19 @@
 """Token-transformer training driver, the port of ``train_gpt.py``: frozen-
 tokenizer pixel tokenization, LLaMA next-token training with optional
 action conditioning and attention dropout, cosine/warmup schedules,
-grouped weight decay, validation with generation, train-state checkpoints
-with resume, and the transformer exported in the hub layout.
+grouped weight decay, validation with generation, FVD and best-of-t frame
+metrics (also alone, ``--eval_only``), train-state checkpoints with resume,
+and the transformer exported in the hub layout.
 
     python -m ivideogpt_tpu_torch.train_gpt \\
         --pretrained_model_name_or_path <dir with tokenizer/> \\
         --dataset_name debug --dataset_path <npz root> \\
         --mixed_precision bf16 --attention_dropout 0.1 [--device cpu]
+    python -m ivideogpt_tpu_torch.train_gpt --eval_only \\
+        --pretrained_model_name_or_path <hub dir> --dataset_name bair \\
+        --use_fvd --use_frame_metrics --eval_generate_times 100 \\
+        --eval_max_batchsize 80 [--i3d_weights <i3d_torch.pt>] \\
+        [--lpips_weights <vgg16.pth>]    # DATASET.yaml in the working dir
 
 The flags are ``train_gpt.py``'s, with its spellings and compatibility
 shims, plus ``--device`` (CUDA unless it names another device; raises when
@@ -23,9 +29,16 @@ Differences from the JAX driver, each on purpose:
   so a resumed run draws the masks an uninterrupted run would; the JAX
   driver keys it by the loader index, which restarts at 0 on resume. The
   loader itself is re-seeded on resume, as in the JAX driver.
+- The generation evaluation (``--use_fvd``, ``--use_frame_metrics``; in
+  ``--eval_only`` and in the validations) feeds the I3D
+  ``--eval_max_batchsize`` clips at a time, where the JAX driver passes
+  all ``--eval_generate_times`` x B clips at once (77 GB of input at the
+  evaluation recipes' 100 x 80), and ``--i3d_weights`` naming a missing
+  file raises, where the JAX loader keeps the random weights. Without a
+  weights file I3D and LPIPS run at random weights from seed 0, with the
+  JAX driver's warnings.
 - Not ported, and refused with the ROADMAP item that holds them: LoRA
-  training (``--lora``, Queue 1 item 5), ``--use_fvd`` and
-  ``--use_frame_metrics`` (Queue 1 item 9), more than one process or
+  training (``--lora``, Queue 1 item 5), more than one process or
   ``--n_model > 1`` (Queue 1 item 10), the Something-Something mixes
   (raised by the loader).
 - Metrics go to ``{output_dir}/metrics.jsonl`` (no TensorBoard), with
@@ -56,6 +69,8 @@ from ivideogpt_tpu_torch.data.npz_dataset import (EvalDataLoader,
                                                   InfiniteDataLoader)
 from ivideogpt_tpu_torch.inference.predict import gif_strips, write_gifs
 from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
+from ivideogpt_tpu_torch.models.i3d import I3D, load_torch_i3d
+from ivideogpt_tpu_torch.models.lpips import LPIPS, load_torch_lpips
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
 from ivideogpt_tpu_torch.train.gpt_trainer import (eval_step,
                                                    make_tokenize_fn,
@@ -67,6 +82,8 @@ from ivideogpt_tpu_torch.utils.loggers import TrainLogger
 from ivideogpt_tpu_torch.utils.platform import (full_fp32, resolve_device,
                                                 to_device)
 from ivideogpt_tpu_torch.utils.provenance import write_provenance
+from ivideogpt_tpu_torch.utils.video_metric import (Evaluator, FeatureStats,
+                                                    frechet_distance)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -136,9 +153,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--eval_only", action="store_true")
     p.add_argument("--use_eval_dataset", action="store_true")
     p.add_argument("--use_fvd", action="store_true",
-                   help="not ported (ROADMAP Queue 1 item 9): raises")
+                   help="FVD of the generated clips (I3D features, "
+                   "--eval_max_batchsize clips a call)")
     p.add_argument("--use_frame_metrics", action="store_true",
-                   help="not ported (ROADMAP Queue 1 item 9): raises")
+                   help="best-of-t MSE, PSNR, SSIM and LPIPS")
     p.add_argument("--eval_generate_times", type=int, default=1)
     p.add_argument("--eval_max_batchsize", type=int, default=64)
     p.add_argument("--top_k", type=int, default=100)
@@ -182,11 +200,6 @@ def refuse_unported(args):
     if args.lora:
         raise NotImplementedError(
             "--lora: LoRA training is not ported (ROADMAP Queue 1 item 5)")
-    for flag in ("use_fvd", "use_frame_metrics"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag}: FVD and the frame metrics (utils/video_metric.py, "
-                f"models/i3d.py) are not ported (ROADMAP Queue 1 item 9)")
     if (args.n_model != 1 or (args.num_processes or 1) > 1
             or args.coordinator_address or args.process_id):
         raise NotImplementedError(
@@ -263,24 +276,60 @@ def dump_prediction_gifs(gif_dir: str, step: int, gt: np.ndarray,
     write_gifs(strips, gif_dir, name=f"pred-{step}-{{j}}.gif")
 
 
+def _seeded(cls):
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        return cls()
+
+
+def build_evaluator(args, dev: torch.device) -> Optional[Evaluator]:
+    """The generation evaluation's metric models, or None without
+    --use_fvd and --use_frame_metrics: LPIPS (VGG16 from --lpips_weights)
+    with --use_frame_metrics and I3D (from --i3d_weights) with --use_fvd,
+    fp32 on ``dev``, random from seed 0 where no file is named
+    (``train_gpt.py:293-320``)."""
+    if not (args.use_fvd or args.use_frame_metrics):
+        return None
+    lpips = i3d = None
+    if args.use_frame_metrics:
+        lpips = _seeded(LPIPS)
+        if not load_torch_lpips(lpips, args.lpips_weights):
+            print("[warn] LPIPS running with random init (no weights file); "
+                  "the lpips metric is relative, not comparable to "
+                  "published numbers")
+        lpips = lpips.to(dev).eval()
+    if args.use_fvd:
+        i3d = _seeded(I3D)
+        if not load_torch_i3d(i3d, args.i3d_weights):
+            print("[warn] I3D running with random init (no weights file); "
+                  "FVD is relative, not absolute")
+        i3d = i3d.to(dev).eval()
+    return Evaluator(lpips, i3d, max_batchsize=args.eval_max_batchsize)
+
+
 @torch.no_grad()
 def evaluate(args, tokenizer: CompressiveVQModel, model: HeadModelWithAction,
-             loader, max_batches: Optional[int] = None,
-             generate: bool = False, gif_dir: Optional[str] = None,
+             loader, evaluator: Optional[Evaluator] = None,
+             max_batches: Optional[int] = None, gif_dir: Optional[str] = None,
              step: int = 0) -> dict:
-    """Mean loss and perplexity over the loader's batches; with
-    ``generate`` each batch's futures are also sampled
-    ``--eval_generate_times`` times from its context over a bf16 KV cache
-    and detokenized, the first batch's written as GIF strips into
-    ``gif_dir`` where one is given (``train_gpt.py:274-381``). Returns
-    {"eval_loss", "perplexity", "generated": clips generated}."""
+    """Mean loss and perplexity over the loader's batches. With
+    --use_fvd, --use_frame_metrics or a ``gif_dir``, each batch's futures
+    are also sampled ``--eval_generate_times`` times from its context over
+    a bf16 KV cache and detokenized in fp32; the first batch's are written
+    as GIF strips into ``gif_dir`` where one is given, the frame metrics
+    are best-of-t, and FVD compares the I3D features of the ground truth
+    with those of every sample (``train_gpt.py:274-381``). Returns
+    {"eval_loss", "perplexity"[, "mse", "psnr", "ssim"[, "lpips"]][,
+    "fvd"], "generated": clips generated}."""
     dev = next(model.parameters()).device
     ctx, T = args.context_length, args.segment_length
     cfg = tokenizer.config
     P1 = token_lib.prelude_len(ctx, cfg.ctx_tokens_per_frame) + 1
     tokenize = make_tokenize_fn(tokenizer, ctx)
     limit = args.max_eval_batches if max_batches is None else max_batches
-    losses, generated = [], 0
+    generate = args.use_fvd or args.use_frame_metrics or gif_dir is not None
+    real_stats, gen_stats = FeatureStats(), FeatureStats()
+    losses, frame_metrics, generated = [], [], 0
     for n, batch in enumerate(loader):
         if n >= limit:
             break
@@ -307,16 +356,27 @@ def evaluate(args, tokenizer: CompressiveVQModel, model: HeadModelWithAction,
             with full_fp32():
                 gens.append(tokenizer.detokenize(res.tokens, ctx)
                             .clamp(0.0, 1.0))
-        gen_videos = torch.cat(gens)
+        gen_videos = torch.cat(gens)  # [reps * B, T, H, W, C]
+        del gens
         if not bool(torch.isfinite(gen_videos).all()):
             raise FloatingPointError("validation generated non-finite frames")
         generated += gen_videos.shape[0]
         if gif_dir is not None and n == 0:
             dump_prediction_gifs(gif_dir, step, np.asarray(pixels),
                                  gen_videos[:px.shape[0]].cpu().numpy())
+        if args.use_frame_metrics:
+            frame_metrics.append(evaluator.frame_metrics(px, gen_videos))
+        if args.use_fvd:
+            real_stats.append(evaluator.i3d_features(px))
+            gen_stats.append(evaluator.i3d_features(gen_videos))
     mean_loss = float(np.mean(losses))
-    return {"eval_loss": mean_loss, "perplexity": math.exp(mean_loss),
-            "generated": generated}
+    result = {"eval_loss": mean_loss, "perplexity": math.exp(mean_loss)}
+    for k in (frame_metrics[0] if frame_metrics else ()):
+        result[k] = float(np.mean([m[k] for m in frame_metrics]))
+    if args.use_fvd and real_stats.num_items:
+        result["fvd"] = frechet_distance(real_stats, gen_stats)
+    result["generated"] = generated
+    return result
 
 
 def export_transformer(output_dir: str, model: HeadModelWithAction,
@@ -362,7 +422,8 @@ def main(argv: Optional[List[str]] = None):
                                 batch_size=(args.per_device_eval_batch_size
                                             or args.eval_max_batchsize),
                                 load_action=args.action_conditioned)
-        result = evaluate(args, tokenizer, model, loader)
+        result = evaluate(args, tokenizer, model, loader,
+                          build_evaluator(args, dev))
         print(json.dumps(result))
         return result
 
@@ -414,6 +475,8 @@ def main(argv: Optional[List[str]] = None):
 
     logger = TrainLogger(args.output_dir)
     tokenize = make_tokenize_fn(tokenizer, args.context_length)
+    evaluator = (build_evaluator(args, dev) if args.validation_generation
+                 else None)
 
     def device_batch(batch):
         pixels, actions = _split(batch, args.action_conditioned)
@@ -424,8 +487,9 @@ def main(argv: Optional[List[str]] = None):
         return out
 
     def run_validation(step):
-        """Held-out loss and perplexity on 4 batches, then generation
-        (``train_gpt.py:546-576``)."""
+        """Held-out loss and perplexity on 4 batches, then generation with
+        the metrics asked for, logged as ``gen_*`` (``train_gpt.py:546-576``).
+        """
         t0 = time.perf_counter()
         agg = {}
         for _ in range(4):
@@ -434,8 +498,8 @@ def main(argv: Optional[List[str]] = None):
                 agg[f"eval_{k}"] = agg.get(f"eval_{k}", 0.0) + float(v) / 4
         if args.validation_generation:
             gen = evaluate(
-                args, tokenizer, model, val_loader,
-                max_batches=args.validation_eval_batches, generate=True,
+                args, tokenizer, model, val_loader, evaluator,
+                max_batches=args.validation_eval_batches,
                 gif_dir=os.path.join(args.output_dir, "samples"), step=step)
             agg.update({f"gen_{k}": v for k, v in gen.items()})
         agg["validation_seconds"] = time.perf_counter() - t0

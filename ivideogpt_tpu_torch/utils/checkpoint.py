@@ -199,6 +199,27 @@ def lpips_state_dict(params: dict) -> Dict[str, torch.Tensor]:
     return _to_torch(sd)
 
 
+_I3D_LEAVES = {"conv3d/kernel": "conv3d.weight", "conv3d/bias": "conv3d.bias",
+               "bn_scale": "bn.weight", "bn_bias": "bn.bias",
+               "bn_mean": "bn.running_mean", "bn_var": "bn.running_var"}
+
+
+def i3d_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """The JAX I3D's parameters -> the port's (piergiaj) names: conv
+    kernels DHWIO -> OIDHW, ``bn_scale`` / ``bn_bias`` / ``bn_mean`` /
+    ``bn_var`` -> ``bn.weight`` / ``bias`` / ``running_mean`` /
+    ``running_var``; ``Mixed_3b/b1b`` -> ``Mixed_3b.b1b``."""
+    sd = {}
+    for path, v in _flatten(params["params"]).items():
+        parts = path.split("/")
+        n = 2 if parts[-2] == "conv3d" else 1
+        leaf = _I3D_LEAVES["/".join(parts[-n:])]
+        sd[".".join(parts[:-n] + [leaf])] = (
+            np.transpose(v, (4, 3, 0, 1, 2)) if leaf == "conv3d.weight"
+            else v)
+    return _to_torch(sd)
+
+
 _DRQV2_ACTOR = {"Dense_0": "trunk.0", "LayerNorm_0": "trunk.1",
                 "Dense_1": "policy.0", "Dense_2": "policy.2",
                 "Dense_3": "policy.4"}

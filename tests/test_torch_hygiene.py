@@ -1,8 +1,9 @@
 """Rules of the PyTorch port that hold whatever the numbers:
 - the package and ``chip_smoke.py`` import no ``jax``, ``flax`` or
   ``ivideogpt_tpu`` (AST scan), and nothing the card's machine lacks
-  (``cv2``, ``yaml``, ``safetensors``, ``transformers``, ``imageio``)
-  anywhere: image files are written by ``utils/image_io.py``;
+  (``cv2``, ``yaml``, ``safetensors``, ``transformers``, ``imageio``,
+  ``scipy``) anywhere: image files are written by ``utils/image_io.py``,
+  FVD's matrix root is taken with numpy;
 - entry points run on CUDA unless asked for the CPU, and raise when CUDA is
   absent;
 - nothing builds or imports a GPU toolchain at import time.
@@ -18,7 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ivideogpt_tpu_torch")
 FORBIDDEN = ("jax", "flax", "ivideogpt_tpu")
 # not on the card's machine, so imported nowhere
-ABSENT = ("cv2", "yaml", "safetensors", "transformers", "imageio")
+ABSENT = ("cv2", "yaml", "safetensors", "transformers", "imageio", "scipy")
 
 
 def _port_files():
@@ -104,7 +105,8 @@ def test_scan_sees_the_whole_package():
                  "vp/interface.py", "train_gpt.py", "ops/philox.py",
                  "data/dataset_mixes.py", "utils/loggers.py",
                  "utils/provenance.py", "utils/image_io.py",
-                 "train_tokenizer.py"):
+                 "train_tokenizer.py", "models/i3d.py",
+                 "utils/video_metric.py"):
         assert must in rels
     for src in ("vq_argmin", "vq_argmin_tiled", "decode_attention",
                 "flash_attention", "flash_attention_sm90"):

@@ -11,19 +11,37 @@ made here:
 - a resumed run draws the dropout keys of an uninterrupted run;
 - the exported transformer reads back through the JAX package's
   ``load_action_model_safetensors`` and the port's loaders, equal;
-- the flags of paths the port does not have raise.
+- ``--eval_only --use_fvd --use_frame_metrics`` against the JAX
+  ``evaluate`` on the same hub, eval split and weight files, with
+  ``generation.generate`` patched in both packages to return the same token
+  streams: the loss, the best-of-t frame metrics and FVD agree; the
+  validations of a training run carry them as ``gen_*``;
+- the flags of paths the port does not have raise, and so does an
+  ``--i3d_weights`` file that does not exist.
 """
 
+import importlib.util
 import json
+import os
+from types import SimpleNamespace
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from ivideogpt_tpu import generation as jax_generation
+from ivideogpt_tpu.data import EvalDataLoader as JaxEvalDataLoader
+from ivideogpt_tpu.models.i3d import I3D as JaxI3D
+from ivideogpt_tpu.models.lpips import LPIPS as JaxLPIPS
 from ivideogpt_tpu.utils import checkpoint as jax_ckpt
-from ivideogpt_tpu_torch import train_gpt
+from ivideogpt_tpu_torch import generation, train_gpt
+from ivideogpt_tpu_torch import rollout as ro
 from ivideogpt_tpu_torch.configs import CompressiveVQConfig, TransformerConfig
 from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
+from ivideogpt_tpu_torch.models.i3d import I3D
+from ivideogpt_tpu_torch.models.lpips import VGG_FEATURE_CONVS, LPIPS
 from ivideogpt_tpu_torch.models.llama import LlamaForCausalLM
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
 from ivideogpt_tpu_torch.train.optim import TrainState
@@ -284,8 +302,7 @@ def test_bair_eval_split_validates_and_evaluates(root, tmp_path, monkeypatch):
     assert result["perplexity"] == pytest.approx(np.exp(result["eval_loss"]))
 
 
-@pytest.mark.parametrize("extra", [["--lora"], ["--use_fvd"],
-                                   ["--use_frame_metrics"],
+@pytest.mark.parametrize("extra", [["--lora"],
                                    ["--n_model", "2"],
                                    ["--num_processes", "2"]])
 def test_unported_flags_raise(root, tmp_path, extra):
@@ -311,3 +328,187 @@ def test_reference_flag_spellings_parse(root, tmp_path):
             args.llm_config_json, args.batch_size) == ("bair", True, 0.2,
                                                        "c.json", 4)
     assert args.device == "cuda" and args.mixed_precision == "no"
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_cli():
+    """The JAX driver, ``train_gpt.py`` at the repository's root."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_train_gpt", os.path.join(REPO, "train_gpt.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def eval_root(tmp_path_factory):
+    """{hub/ (the tiny tokenizer and a whole action-conditioned
+    transformer), lm.json, i3d.pt (piergiaj names, He-normal kernels and
+    BN statistics away from their init), vgg16.pth (torchvision's VGG16
+    feature names), bair_{train,test}/traj_*.npz, DATASET.yaml}"""
+    root = tmp_path_factory.mktemp("eval")
+    tok, lm = ro.build_models(TOK, LM, context_length=2, segment_length=4,
+                              action_dim=4, dtype=torch.float32, seed=0,
+                              device="cpu")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        lm.action_linear.weight.normal_(0, 0.02, generator=g)
+    ckpt.export_hub(str(root / "hub"), tok, lm)
+    (root / "lm.json").write_text(LM.to_json())
+    i3d = {}
+    for k, v in I3D().state_dict().items():
+        if k.endswith("conv3d.weight"):
+            v = torch.randn(v.shape, generator=g) * (2 / v[0].numel()) ** 0.5
+        elif k.endswith(("running_var", "bn.weight")):
+            v = torch.rand(v.shape, generator=g) + 0.5
+        elif v.is_floating_point():
+            v = torch.randn(v.shape, generator=g) * 0.1
+        i3d[k] = v
+    torch.save(i3d, str(root / "i3d.pt"))
+    torch.manual_seed(3)
+    vgg = LPIPS().vgg
+    convs = [m for m in vgg.children()]
+    torch.save({f"features.{i}.{leaf}": getattr(c, leaf).detach()
+                for i, c in zip(VGG_FEATURE_CONVS, convs)
+                for leaf in ("weight", "bias")}, str(root / "vgg16.pth"))
+    rng = np.random.default_rng(2)
+    for split, n in (("train", 2), ("test", 4)):
+        d = root / f"bair_{split}"
+        d.mkdir()
+        for e in range(n):
+            np.savez(d / f"traj_{e}.npz",
+                     aux1_image=rng.integers(0, 256, (6, 64, 64, 3),
+                                             dtype=np.uint8),
+                     action=rng.normal(size=(6, 4)).astype(np.float32))
+    (root / "DATASET.yaml").write_text(
+        f"bair_train_dataset: {root / 'bair_train'}\n"
+        f"bair_test_dataset: {root / 'bair_test'}\n")
+    return root
+
+
+def _eval_argv(root, out, *extra):
+    """The BAIR evaluation recipe's flags (``scripts/evaluation/
+    bair-64-act-cond.sh``) at toy size, fp32, 2 samples a clip."""
+    return ["--pretrained_model_name_or_path", str(root / "hub"),
+            "--llm_config_json", str(root / "lm.json"),
+            "--action_conditioned", "--action_dim", "4",
+            "--mixed_precision", "no", "--dataset_name", "bair",
+            "--resolution", "64", "--video_stepsize", "1",
+            "--segment_length", "4", "--context_length", "2",
+            "--use_fvd", "--use_frame_metrics", "--eval_only",
+            "--eval_generate_times", "2", "--eval_max_batchsize", "2",
+            "--i3d_weights", str(root / "i3d.pt"),
+            "--lpips_weights", str(root / "vgg16.pth"),
+            "--output_dir", str(out), "--seed", "0", *extra]
+
+
+def _jitted(init):
+    def call(self, rng, *xs):
+        return jax.jit(lambda r, *x: init(self, r, *x))(rng, *xs)
+    return call
+
+
+def _patch_generate(monkeypatch, module, prelude_at, to_array):
+    """Replace ``module.generate`` with one that returns, for its k-th
+    call, the prelude (positional argument ``prelude_at``) followed by the
+    frames of dynamics ids drawn from seed 100 + k, each closed by its sdf,
+    as a sampled stream is laid out."""
+    calls = []
+
+    def fake(*args, **kw):
+        prelude = np.asarray(args[prelude_at])
+        B = prelude.shape[0]
+        frames = kw["segment_length"] - kw["context_length"]
+        rng = np.random.default_rng(100 + len(calls))
+        dyn = rng.integers(0, TOK.num_dyn_embeddings, (B, frames, 16))
+        sdf = np.full((B, frames, 1), TOK.vocab_size - 1)
+        tail = np.concatenate([dyn + TOK.num_vq_embeddings, sdf],
+                              2).reshape(B, -1)[:, :-1]
+        calls.append(B)
+        return SimpleNamespace(tokens=to_array(
+            np.concatenate([prelude, tail], 1).astype(np.int32)))
+    monkeypatch.setattr(module, "generate", fake)
+    return calls
+
+
+def test_eval_only_metrics_match_jax_evaluate(eval_root, tmp_path,
+                                              monkeypatch):
+    monkeypatch.chdir(eval_root)
+    argv = _eval_argv(eval_root, tmp_path / "run", "--device", "cpu")
+    # generate(model, prelude, ...) in the port, (model, params, prelude,
+    # key, ...) in the JAX package
+    port_calls = _patch_generate(monkeypatch, generation, 1,
+                                 lambda a: torch.from_numpy(a).long())
+    got = train_gpt.main(argv)
+
+    jax_calls = _patch_generate(monkeypatch, jax_generation, 2, jnp.asarray)
+    # the JAX evaluate initialises I3D and LPIPS outside jit, one compile
+    # an operation (~40 s on the CPU); jitted, the same values at once
+    for cls in (JaxI3D, JaxLPIPS):
+        monkeypatch.setattr(cls, "init", _jitted(cls.init))
+    cli = _jax_cli()
+    monkeypatch.setattr("sys.argv", ["train_gpt.py"] + argv[:-2])
+    args = cli.parse_args()
+    (tokenizer, tok_cfg, tok_params, model, _, _,
+     lm_params) = cli.build_models(args)
+    loader = JaxEvalDataLoader("bair_robot_pushing", 4, 64, batch_size=2,
+                               load_action=True)
+    want = cli.evaluate(args, tokenizer, tok_cfg, tok_params, model,
+                        lm_params, loader)
+    assert port_calls == jax_calls == [2, 2, 2, 2]
+    assert got["generated"] == 8
+    assert sorted(want) == ["eval_loss", "fvd", "lpips", "mse", "perplexity",
+                            "psnr", "ssim"]
+    assert sorted(got) == sorted([*want, "generated"])
+    for k, v in got.items():
+        assert np.isfinite(v), (k, v)
+    assert got["perplexity"] == pytest.approx(np.exp(got["eval_loss"]))
+    # the fp32 LM and tokenizer of both packages on the same stream: the
+    # loss to 1e-5 of itself; the decoded frames agree to ~1e-6, which
+    # bounds MSE and SSIM (absolute, both near 0 on random clips), PSNR
+    # (1e-4 dB), LPIPS and I3D's features (relative); FVD compares 4 real
+    # clips with 8 generated ones, singular covariances (scipy's sqrtm in
+    # the JAX function, test_torch_video_metric.py): 1e-4 of its value
+    rtol = {"eval_loss": 1e-5, "perplexity": 1e-5, "lpips": 1e-5,
+            "fvd": 1e-4}
+    atol = {"mse": 1e-6, "ssim": 1e-6, "psnr": 1e-4}
+    for k, v in got.items():
+        if k != "generated":
+            np.testing.assert_allclose(v, float(want[k]), rtol=rtol.get(k, 0),
+                                       atol=atol.get(k, 0), err_msg=k)
+
+
+def test_validation_carries_the_generation_metrics(eval_root, tmp_path,
+                                                   monkeypatch):
+    """The BAIR finetune recipe's ``--use_eval_dataset --use_fvd
+    --use_frame_metrics``: the validation logs ``gen_*`` beside the loss,
+    I3D and LPIPS at random weights from seed 0 (no files named)."""
+    monkeypatch.chdir(eval_root)
+    out = tmp_path / "run"
+    argv = _eval_argv(eval_root, out, "--device", "cpu")
+    for flag in ("--eval_only", "--i3d_weights", "--lpips_weights"):
+        i = argv.index(flag)
+        del argv[i:i + (1 if flag == "--eval_only" else 2)]
+    argv += ["--use_eval_dataset", "--batch_size", "2",
+             "--dataloader_num_workers", "1", "--max_train_steps", "1",
+             "--validation_steps", "1", "--validation_eval_batches", "1",
+             "--checkpointing_steps", "100", "--learning_rate", "0.0",
+             "--lr_scheduler_type", "constant", "--num_warmup_steps", "0"]
+    train_gpt.main(argv)
+    val = [m for m in _metrics(out) if "eval_loss" in m]
+    assert len(val) == 1
+    for k in ("gen_eval_loss", "gen_perplexity", "gen_mse", "gen_psnr",
+              "gen_ssim", "gen_lpips", "gen_fvd"):
+        assert np.isfinite(val[0][k]), k
+    assert val[0]["gen_generated"] == 4
+    assert (out / "samples" / "pred-1-0.gif").exists()
+
+
+def test_missing_i3d_weights_raise(eval_root, tmp_path, monkeypatch):
+    monkeypatch.chdir(eval_root)
+    argv = _eval_argv(eval_root, tmp_path / "run", "--device", "cpu")
+    argv[argv.index("--i3d_weights") + 1] = str(eval_root / "nope.pt")
+    with pytest.raises(FileNotFoundError, match="nope.pt"):
+        train_gpt.main(argv)
