@@ -49,10 +49,14 @@ the final result line:
      flash_dropout  K4, K5 and K6 with attention dropout 0.1: each kernel's
                mask read back equal to the plain Philox mask at B=16,
                S=751, H=12; bf16 at that shape and at H=16 against the
-               plain versions with the same (seed, offset), p=0 bit-equal to
+               plain versions with the same (seed, offset), K5 and K6 with
+               dropout bit-identical across two launches, p=0 bit-equal to
                no dropout, the fp32 kernels with dropout at B=2 and without
                at the training shape; timed with and without dropout beside
-               SDPA with dropout_p=0.1 (bf16) and SDPA fp32
+               SDPA with dropout_p=0.1 (bf16) and SDPA fp32; a time with
+               dropout bounded by bytes, FLOP or Philox's integer work (one
+               call a causal group, its SASS instructions counted in a probe
+               built here, over INT32_RATE), the SASS of K5 and K6 by opcode
   6. main      the rollout (TOKENIZER_64 + LLAMA_BASE + action head, bf16
                under the cast rules, int8 KV cache, ctx=2, T=16, B=256) with
                random weights from a seed: shapes, token ranges, launch
@@ -171,6 +175,7 @@ Imports nothing of JAX or of the JAX package.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -182,6 +187,12 @@ N_TIMED = 3
 FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s
+# 32-bit integer instructions/s (one lane each): 64 results a clock an SM
+# for integer add, multiply(-add), logic and compare at compute capability
+# 9.0 (CUDA C++ Programming Guide, throughput of native arithmetic
+# instructions), half the 128 fp32 lanes behind FP32_PEAK (2 FLOP an FMA),
+# at the same clock
+INT32_RATE = FP32_PEAK / 4
 SPIN_CYCLES = 200_000_000  # queued_ms's head start: ~0.11 s at 1.755 GHz
 TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 16, 3, 10
 # attention dropout of every published GPT recipe; the trainer CLI's run:
@@ -322,10 +333,99 @@ def queued_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters, host_ms / iters
 
 
-def bound(bytes_moved, flops, peak_flops):
-    t_bytes = bytes_moved / HBM_RATE * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+def bound(bytes_moved, flops, peak_flops, int_ops=0):
+    """(ms, by): the largest of the bytes over HBM_RATE, the FLOP over
+    peak_flops and the integer instructions over INT32_RATE (Philox's, for
+    attention dropout), and which of them it is: "bytes", "operations" or
+    "philox" (integer operations, so "operations" in the kernels line)."""
+    terms = {"bytes": bytes_moved / HBM_RATE * 1e3,
+             "operations": flops / peak_flops * 1e3,
+             "philox": int_ops / INT32_RATE * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by
+
+
+# Two kernels around csrc/philox.cuh's philox4x32_10: one call, and two
+# chained calls with one key (whose round keys the second call reuses, as
+# the 8 calls of a thread's keep word in ivg::keep_word share theirs)
+PHILOX_PROBE = r"""
+#include "philox.cuh"
+extern "C" __global__ void one(const uint4* c, uint2 k, uint4* out) {
+  out[threadIdx.x] = ivg::philox4x32_10(c[threadIdx.x], k);
+}
+extern "C" __global__ void two(const uint4* c, uint2 k, uint4* out) {
+  out[threadIdx.x] =
+      ivg::philox4x32_10(ivg::philox4x32_10(c[threadIdx.x], k), k);
+}
+"""
+
+
+def sass_opcodes(binary):
+    """{kernel: {opcode: static count}} in ``cuobjdump -sass`` of a cubin or
+    a library holding sm_90a code, NOPs left out."""
+    from ivideogpt_tpu_torch import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", binary], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {binary}: {out.stderr}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if name is not None and m and not m.group(1).startswith("NOP"):
+            op = m.group(1)
+            counts[name][op] = counts[name].get(op, 0) + 1
+    return counts
+
+
+def philox_sass():
+    """The SASS instructions of one philox4x32_10 call on this card's
+    compiler: PHILOX_PROBE built by nvcc for sm_90a, the two-call kernel's
+    count less the one-call kernel's (loads, stores and the key schedule
+    cancel). Returns (count, the marginal call's opcodes)."""
+    from ivideogpt_tpu_torch import _build
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        src = os.path.join(tmp, "philox_probe.cu")
+        with open(src, "w") as f:
+            f.write(PHILOX_PROBE)
+        cubin = os.path.join(tmp, "philox_probe.cubin")
+        out = subprocess.run(
+            [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-cubin", "-I", _build.CSRC, "-o", cubin,
+             src], capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, f"nvcc of the Philox probe: {out.stdout}"
+              f"{out.stderr}")
+        counts = sass_opcodes(cubin)
+    check({"one", "two"} <= set(counts), f"the Philox probe's SASS holds "
+          f"{sorted(counts)}, not one and two")
+    ops = {op: counts["two"].get(op, 0) - counts["one"].get(op, 0)
+           for op in set(counts["one"]) | set(counts["two"])}
+    ops = {op: n for op, n in sorted(ops.items()) if n}
+    return sum(ops.values()), ops
+
+
+def flash_sass():
+    """Static SASS counts of K5 and K6 with and without dropout in the built
+    flash_attention_sm90 library, by opcode: what the dropout instances add
+    (the keep tile's draw twice, before the loop and inside it, and the
+    bit reads)."""
+    from ivideogpt_tpu_torch import _build
+    counts = sass_opcodes(_build._lib_path("flash_attention_sm90"))
+    out = {}
+    for name, ops in counts.items():
+        for kernel, tag in (("flash_bwd_dkv_sm90_kernel", "K5"),
+                            ("flash_bwd_dq_sm90_kernel", "K6")):
+            if kernel in name:
+                drop = "ILb1E" in name
+                out[f"{tag} {'dropout' if drop else 'no dropout'}"] = ops
+    check(len(out) == 4, f"flash_attention_sm90's SASS: {sorted(out)}")
+    return out
 
 
 def near_tie_gate(torch, what, z, e, ids, ref):
@@ -1036,6 +1136,16 @@ def phase_flash_dropout(torch):
     fp32_tol = dict(rtol=1e-4, atol=1e-5)
     drop = (DROP_P, DROP_SEED, philox.offset_of(7, 3))
     rows = {}
+    n_sass, probe_ops = philox_sass()
+    print(f"flash_dropout: one philox4x32_10 call is {n_sass} SASS "
+          f"instructions (sm_90a, the probe's two-call kernel less its "
+          f"one-call kernel): {json.dumps(probe_ops)}; integer rate "
+          f"{INT32_RATE:.4g}/s")
+    for what, ops in flash_sass().items():
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
+        print(f"flash_dropout: SASS of {what}: {sum(ops.values())} "
+              f"instructions (static), the most frequent "
+              f"{json.dumps(dict(top))}")
 
     def gate(got, want, what, tol, rel_tol=None):
         got, want = got.detach(), want.detach()
@@ -1146,14 +1256,20 @@ def phase_flash_dropout(torch):
                  paths, lib_what, peak, dropout_first=True):
         """A row a kernel: ms and queued_ms with dropout and, under
         *_no_dropout, without (dropout_first); or the other way round,
-        under *_dropout."""
+        under *_dropout. The bound of a time with dropout counts Philox's
+        integer work too: one call of n_sass instructions a causal group
+        (``philox.causal_groups``), each kernel drawing the mask anew."""
         elems, pairs = b * s * H * hd, b * H * s * (s + 1) // 2
         isz = 2 if dtype == torch.bfloat16 else 4
+        int_ops = philox.causal_groups(b, H, s) * n_sass
         for key, n_io, per_pair in (("K4", 4, 4), ("K5", 6, 8),
                                     ("K6", 5, 6)):
             n_rows = 1 if key == "K4" else 2
-            b_ms, b_by = bound(n_io * elems * isz + n_rows * b * H * s * 4,
-                               per_pair * hd * pairs, peak)
+            io = (n_io * elems * isz + n_rows * b * H * s * 4,
+                  per_pair * hd * pairs, peak)
+            b_drop, b_none = bound(*io, int_ops=int_ops), bound(*io)
+            (b_ms, b_by), (b_ms0, b_by0) = ((b_drop, b_none) if dropout_first
+                                            else (b_none, b_drop))
             first, other = ((t_drop, t_none) if dropout_first
                             else (t_none, t_drop))
             ms, q_ms, host = first[key]
@@ -1161,20 +1277,26 @@ def phase_flash_dropout(torch):
             suffix = "_no_dropout" if dropout_first else "_dropout"
             lib_ms = lib[0] if key == "K4" else lib[2]
             lib_q = lib[1] if key == "K4" else lib[3]
+            # the kernels line's bound_by is bytes or operations; Philox's
+            # integer instructions are operations, named in bound_term
             row = dict(
                 name=names[key], route="cuda", source=src,
                 replaces=stock + lines[key],
                 shape=f"{tag} B={b} S={s} H={H}", paths=paths,
                 max_abs_err=errs[key], ms=ms, queued_ms=q_ms, host_ms=host,
                 plain_ms=plain[0] if key == "K4" else plain[1],
-                bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / q_ms,
+                bound_ms=b_ms, bound_by=b_by.replace("philox", "operations"),
+                bound_term=b_by, share_of_bound=b_ms / q_ms,
                 library_ms=lib_ms, library_queued_ms=lib_q,
                 library=lib_what if key == "K4" else
                 lib_what + " backward (forward+backward minus forward; dQ, "
                 "dK and dV together)")
             row["ms" + suffix] = ms0
             row["queued_ms" + suffix] = q_ms0
-            row["share_of_bound" + suffix] = b_ms / q_ms0
+            row["bound_ms" + suffix] = b_ms0
+            row["bound_by" + suffix] = b_by0.replace("philox", "operations")
+            row["bound_term" + suffix] = b_by0
+            row["share_of_bound" + suffix] = b_ms0 / q_ms0
             rows[f"{key}_{tag}"] = row
             print(f"{key} {tag} B={b} S={s} H={H}: max_abs_err="
                   f"{errs[key]:.3e} kernel_ms={ms:.4f} queued_ms={q_ms:.4f} "
@@ -1182,8 +1304,8 @@ def phase_flash_dropout(torch):
                   f"{row['plain_ms']:.4f} library_ms={lib_ms:.4f} queued "
                   f"{lib_q:.4f} ({row['library']}) bound_ms={b_ms:.4f} "
                   f"({b_by}) share_of_bound={b_ms / q_ms:.3f} "
-                  f"({suffix[1:]} {b_ms / q_ms0:.3f}); host_ms per call "
-                  f"{host:.4f}")
+                  f"({suffix[1:]}: bound_ms={b_ms0:.4f} ({b_by0}) share "
+                  f"{b_ms0 / q_ms0:.3f}); host_ms per call {host:.4f}")
 
     # bf16 at the training shape (LLAMA_BASE, H=12) and LLAMA_MEDIUM's H=16
     for tag, H, paths in (("train_dropout", 12, ("train_gpt",)),
@@ -1208,7 +1330,18 @@ def phase_flash_dropout(torch):
                           gate(dv, ref_dv, f"K5 dV ({tag})", bf16_tol,
                                bf16_rel)),
                 "K6": gate(dq, ref_dq, f"K6 dQ ({tag})", bf16_tol, bf16_rel)}
-        del ref_o, ref_dk, ref_dv, ref_dq, dk, dv, dq
+        # no atomics, and the keep tiles a pure function of the arguments
+        dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, ref_lse, di, drop)
+        check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+              f"flash_dropout: K5 with dropout ({tag}) is not bit-identical "
+              f"across two launches")
+        check(torch.equal(dq, fa.flash_bwd_dq(q, k, v, do, ref_lse, di,
+                                              drop)),
+              f"flash_dropout: K6 with dropout ({tag}) is not bit-identical "
+              f"across two launches")
+        print(f"flash_dropout: K5 and K6 with dropout ({tag}) bit-identical "
+              f"across two launches")
+        del ref_o, ref_dk, ref_dv, ref_dq, dk, dv, dq, dk2, dv2
         if H == 12:
             # end to end: causal_attention and autograd against autograd
             # through the plain version in fp32
@@ -3819,11 +3952,14 @@ def ab_kernel_times(torch):
     """K1 at K1_SHAPES, K2 at the wide shapes of K2_SHAPES, K3 at the six
     shapes of K3_SHAPES (the host-int valid, over phase_k3's cold-L2
     rotation of caches), and K5, K6 and SDPA's backward at the training
-    shape, by cuda_ms and queued_ms, through the interfaces every tree of
-    the port has: the kernel half of an A/B turn (``--ab-turn``)."""
+    shape, without and with attention dropout (DROP_P, the flash_dropout
+    phase's seed and offset; SDPA at dropout_p=DROP_P), by cuda_ms and
+    queued_ms, through the interfaces every tree of the port has since
+    dropout came in: the kernel half of an A/B turn (``--ab-turn``)."""
     import torch.nn.functional as F
     from ivideogpt_tpu_torch.ops import decode_attention as da
     from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.ops import philox
     from ivideogpt_tpu_torch.ops import vq
     from ivideogpt_tpu_torch.utils.platform import full_fp32
     out = {}
@@ -3853,19 +3989,25 @@ def ab_kernel_times(torch):
                                generator=g).bfloat16() for _ in range(4))
     o, lse = fa.flash_fwd(q, k, v)
     di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-    for key, fn in (("K5", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di)),
-                    ("K6", lambda: fa.flash_bwd_dq(q, k, v, do, lse, di))):
-        out[key] = (cuda_ms(fn, 50), queued_ms(fn, 50)[0])
+    drop = (DROP_P, DROP_SEED, philox.offset_of(7, 3))
+    for key, d in (("", None), (" dropout", drop)):
+        for name, fn in (
+                ("K5", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di, d)),
+                ("K6", lambda: fa.flash_bwd_dq(q, k, v, do, lse, di, d))):
+            out[name + key] = (cuda_ms(fn, 50), queued_ms(fn, 50)[0])
     qt, kt, vt = (t.transpose(1, 2).requires_grad_() for t in (q, k, v))
 
-    def sdpa(bwd):
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    def sdpa(bwd, p):
+        o = F.scaled_dot_product_attention(qt, kt, vt, dropout_p=p,
+                                           is_causal=True)
         if bwd:
             torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2))
-    out["SDPA backward"] = (
-        cuda_ms(lambda: sdpa(True), 50) - cuda_ms(lambda: sdpa(False), 50),
-        queued_ms(lambda: sdpa(True), 50)[0]
-        - queued_ms(lambda: sdpa(False), 50)[0])
+    for key, p in (("", 0.0), (" dropout", DROP_P)):
+        out["SDPA backward" + key] = (
+            cuda_ms(lambda: sdpa(True, p), 50)
+            - cuda_ms(lambda: sdpa(False, p), 50),
+            queued_ms(lambda: sdpa(True, p), 50)[0]
+            - queued_ms(lambda: sdpa(False, p), 50)[0])
     print("ab: kernel ms (cuda_ms, queued_ms) "
           + json.dumps({k: [round(x, 4) for x in v]
                         for k, v in out.items()}))
@@ -4028,10 +4170,13 @@ def main():
                                  for key, (path, n) in per_run.items()}
     keys = ("name", "shape", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "queued_ms", "host_ms",
-            "plain_ms", "bound_ms", "bound_by", "share_of_bound",
-            "library_ms", "library_queued_ms", "library", "ms_no_dropout",
-            "queued_ms_no_dropout", "share_of_bound_no_dropout",
-            "ms_dropout", "queued_ms_dropout", "share_of_bound_dropout",
+            "plain_ms", "bound_ms", "bound_by", "bound_term",
+            "share_of_bound", "library_ms", "library_queued_ms", "library",
+            "ms_no_dropout", "queued_ms_no_dropout", "bound_ms_no_dropout",
+            "bound_by_no_dropout", "bound_term_no_dropout",
+            "share_of_bound_no_dropout", "ms_dropout", "queued_ms_dropout",
+            "bound_ms_dropout", "bound_by_dropout", "bound_term_dropout",
+            "share_of_bound_dropout",
             "at_n", "at_shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

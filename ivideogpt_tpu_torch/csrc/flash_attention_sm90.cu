@@ -77,10 +77,30 @@
 // of the undropped P, then masks and scales its fp32 P fragment before it
 // is rounded to bf16 for the P V product; K5 and K6 regenerate Z for the
 // same (i, j) and form dV from (P Z / keep)^T and dS = P (dP Z / keep - di).
-// K4 and K6 hold keys 2t, 2t + 1 of a row in one Philox group and draw
-// them with one call (16 calls a thread a tile); K5 holds P^T, so a
-// thread's pair is two queries of one key, each a call of its own (32).
-// Simple first: the calls are not shared across the four lanes of a group.
+// The cost is Philox's integer work: one call (ten rounds of two 32 x 32 ->
+// 64-bit products, 40 SASS instructions: 20 IMAD.WIDE.U32, 20 LOP3) serves
+// a group of 4 keys of a row. At the train shape the causal groups are
+// 13.6 M a kernel: 0.033 ms at 64 integer instructions a clock an SM, as
+// long as K5's bytes take. So a call must serve its whole group and stay
+// off the critical path:
+//   - K5 and K6 draw each tile's bits once, into a 2-stage keep ring in
+//     shared memory (ivg::draw_keep_tile: 64 queries x 64 keys, 2 words a
+//     query, 512 B). Each thread makes the 8 calls of one query's 32 keys,
+//     independent and unrolled, and shifts each word's compare in as a
+//     borrow; on the diagonal tile a warp whose keys all lie past its
+//     queries makes none. One call per group, where a thread of K5 (which
+//     holds P^T, two keys of 16 queries) would otherwise call once an
+//     element, 4 times the groups.
+//   - Tile t + 1's bits are drawn between the commit and the wait of tile
+//     t's score products, so the integer work runs while the tensor cores
+//     do (a tile's products last about a third of its draw, so they hide
+//     no more); the barrier that opens tile t + 1 publishes them.
+//   - A thread reads its elements' bits with 32-bit shared loads: in K5 one
+//     word holds both of its keys of a query (16 loads a tile; the 8 lanes
+//     of a column read one word, a broadcast), in K6 a row's 16 keys lie in
+//     its two words (4 loads).
+// K4 holds keys 2t, 2t + 1 of a row in one group and draws them with one
+// call (ivg::drop_pair, 16 calls a thread a tile): twice the groups.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -105,13 +125,19 @@ constexpr float kLn2 = 0.6931471805599453f;
 // Dynamic shared memory, from a base rounded up to kAlign:
 //   K4: Q | K0 | V0 | K1 | V1 | 3 mbarriers
 //   K5: K | V | Q0 | dO0 | Q1 | dO1 | lse[2][64] | di[2][64] | 3 mbarriers
-//   K6: Q | dO | K0 | V0 | K1 | V1 | 3 mbarriers
+//       | with dropout, keep[2][128]
+//   K6: Q | dO | K0 | V0 | K1 | V1 | 3 mbarriers | with dropout, keep[2][128]
+// The keep ring (two stages of ivg::draw_keep_tile's words) comes last and
+// is allocated only for the kDrop instances, so the others are unchanged.
 constexpr int kFwdSmem = 5 * kTileBytes + 64 + kAlign;
-constexpr int kDqSmem = 6 * kTileBytes + 64 + kAlign;
+constexpr int kDqKeep = 6 * kTileBytes + 64;
+constexpr int kDqSmem = kDqKeep + kAlign;
 constexpr int kDkvLse = 6 * kTileBytes;
 constexpr int kDkvDi = kDkvLse + 2 * kTile * 4;
 constexpr int kDkvBars = kDkvDi + 2 * kTile * 4;
-constexpr int kDkvSmem = kDkvBars + 64 + kAlign;
+constexpr int kDkvKeep = kDkvBars + 64;
+constexpr int kDkvSmem = kDkvKeep + kAlign;
+constexpr int kKeepRing = 2 * ivg::kKeepWords * 4;
 
 // ------------------------- mbarriers and TMA -------------------------------
 
@@ -474,6 +500,10 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   };
   const uint32_t bar_kv = base + kDkvBars;
   auto bar_full = [&](int st) { return bar_kv + 8 * (1 + st); };
+  // the keep bits of a stage's (64 queries, 64 keys) tile
+  auto keep_s = [&](int st) {
+    return reinterpret_cast<uint32_t*>(smem + kDkvKeep) + ivg::kKeepWords * st;
+  };
 
   const int nt = (S + kTile - 1) / kTile;
   const int bh = blockIdx.x / nt;
@@ -504,6 +534,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     return q0 + qi < S ? src[q0 + qi] * mul : 0.f;
   };
   (is_lse ? lse_s(0) : di_s(0))[qi] = fetch(k0);
+  if constexpr (kDrop) ivg::draw_keep_tile(drop, bh, S, k0, k0, keep_s(0));
   __syncthreads();
 
   float dk_acc[32], dv_acc[32];
@@ -542,15 +573,23 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int kk = 0; kk < 4; ++kk)
       wgmma_ss(dpT, v_desc + kStepK * kk, do_desc + kStepK * kk, kk > 0);
     wg_commit();
+    // while the products run, the next tile's keep bits into the other
+    // stage (read by every thread in tile qt - 1, before the barrier above)
+    if constexpr (kDrop)
+      if (more)
+        ivg::draw_keep_tile(drop, bh, S, q0 + kTile, k0, keep_s(st ^ 1));
     wg_wait_all();
     reg_fence(sT);
     reg_fence(dpT);
 
     // P^T = exp(s - lse), dS^T = P^T (dP^T - di); columns are queries.
     // With dropout, P^T Z / keep and dS^T = P^T (dP^T Z / keep - di), Z of
-    // (query q0 + c, key key or key + 8)
+    // (query q0 + c, key key or key + 8): bits key - k0 and key - k0 + 8 of
+    // word 2 c + warp / 2 of the stage's keep tile, one 32-bit load for both
     const float* lse_t = lse_s(st);
     const float* di_t = di_s(st);
+    const uint32_t* keep_t = keep_s(st) + (threadIdx.x >> 6);
+    const int key_bit = 16 * ((threadIdx.x >> 5) & 1) + g;
     const bool edge = qt == kt || qt == nt - 1;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -558,10 +597,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       float p = ex2(fmaf(sT[i], scale_log2, -lse_t[c]));
       if (edge && (q0 + c < key + 8 * ((i >> 1) & 1) || q0 + c >= S)) p = 0.f;
       if constexpr (kDrop) {
-        const float z = ivg::keep_scale(
-            drop,
-            ivg::row_counter(drop, static_cast<int64_t>(bh) * S + q0 + c),
-            key + 8 * ((i >> 1) & 1));
+        const uint32_t kept = keep_t[2 * c] >> (key_bit + 8 * ((i >> 1) & 1));
+        const float z = (kept & 1u) ? drop.scale : 0.f;
         sT[i] = p * z;
         dpT[i] = p * (dpT[i] * z - di_t[c]);
       } else {
@@ -614,6 +651,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   auto v_s = [&](int st) { return base + (3 + 2 * st) * kTileBytes; };
   const uint32_t bar_q = base + 6 * kTileBytes;
   auto bar_kv = [&](int st) { return bar_q + 8 * (1 + st); };
+  // the keep bits of a stage's (64 queries, 64 keys) tile
+  auto keep_s = [&](int st) {
+    return reinterpret_cast<uint32_t*>(smem + kDqKeep) + ivg::kKeepWords * st;
+  };
 
   const int nt = (S + kTile - 1) / kTile;
   const int bh = blockIdx.x / nt;
@@ -645,10 +686,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     lse_r[r] = live ? lse[at] * kLog2e : 0.f;
     di_r[r] = live ? di[at] : 0.f;
   }
-  uint64_t rctr[2];  // the dropout counters of the thread's two rows
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    rctr[r] = ivg::row_counter(drop, static_cast<int64_t>(bh) * S + row + 8 * r);
+  if constexpr (kDrop) ivg::draw_keep_tile(drop, bh, S, q0, 0, keep_s(0));
   __syncthreads();
 
   float dq_acc[32];
@@ -681,22 +719,36 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int kk = 0; kk < 4; ++kk)
       wgmma_ss(dp, do_desc + kStepK * kk, v_desc + kStepK * kk, kk > 0);
     wg_commit();
+    // while the products run, the next tile's keep bits into the other
+    // stage (read by every thread in tile kt - 1, before the barrier above)
+    if constexpr (kDrop)
+      if (kt < qt)
+        ivg::draw_keep_tile(drop, bh, S, q0, (kt + 1) * kTile, keep_s(st ^ 1));
     wg_wait_all();
     reg_fence(s);
     reg_fence(dp);
 
     // P = exp(s - lse), dS = P (dP - di); the diagonal tile holds the
     // causal edge and, on the last query tile, the ragged one (col >= S).
-    // With dropout, dS = P (dP Z / keep - di)
+    // With dropout, dS = P (dP Z / keep - di): a row's 16 keys are bits
+    // 8 jj + 2 t + e of its two words in the stage's keep tile
     const bool diag = kt == qt;
     const int k0 = kt * kTile;
     if constexpr (kDrop) {
+      const uint32_t* keep_t = keep_s(st) + 2 * (row - q0);
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          ivg::drop_pair(drop, rctr[r], k0 + 8 * jj + 2 * t,
-                         dp[4 * jj + 2 * r], dp[4 * jj + 2 * r + 1]);
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t kept = keep_t[16 * r + half] >> (2 * t);
+#pragma unroll
+          for (int jj = 4 * half; jj < 4 * half + 4; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = dp[4 * jj + 2 * r + e];
+              x = (kept >> (8 * (jj & 3) + e)) & 1u ? x * drop.scale : 0.f;
+            }
+        }
     }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -847,11 +899,12 @@ extern "C" int ivg_flash_bwd_dkv_bf16(const void* q, const void* k,
   }
   const auto kernel = p_drop > 0.0 ? flash_bwd_dkv_sm90_kernel<true>
                                    : flash_bwd_dkv_sm90_kernel<false>;
+  const int smem = kDkvSmem + (p_drop > 0.0 ? kKeepRing : 0);
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H * ((S + kTile - 1) / kTile));
-  kernel<<<grid, kThreads, kDkvSmem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), S, H, kScale, kScale * kLog2e,
       ivg::make_dropout(p_drop, seed, offset, S));
@@ -882,11 +935,12 @@ extern "C" int ivg_flash_bwd_dq_bf16(const void* q, const void* k,
   }
   const auto kernel = p_drop > 0.0 ? flash_bwd_dq_sm90_kernel<true>
                                    : flash_bwd_dq_sm90_kernel<false>;
+  const int smem = kDqSmem + (p_drop > 0.0 ? kKeepRing : 0);
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H * ((S + kTile - 1) / kTile));
-  kernel<<<grid, kThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<bf16*>(dq), S,
       H, kScale, kScale * kLog2e, ivg::make_dropout(p_drop, seed, offset, S));
   return static_cast<int>(cudaGetLastError());

@@ -28,6 +28,11 @@
 // S) and of nothing a kernel chooses (tile sizes, the grid, the warp
 // layout, padding of the ragged tile). A kept element is scaled by
 // scale = 1 / keep.
+//
+// How a kernel draws it: K5 and K6 (flash_attention_sm90.cu) draw a whole
+// 64 x 64 tile's bits into shared memory once, one call per group
+// (draw_keep_tile); K4 and the fp32 kernels call once for the two keys of a
+// group that a thread holds (drop_pair) or for one element (keep_scale).
 
 #pragma once
 
@@ -90,6 +95,70 @@ __device__ __forceinline__ uint4 group_words(const Dropout& d, uint64_t rctr,
                  static_cast<uint32_t>(d.offset >> 32)),
       make_uint2(static_cast<uint32_t>(d.seed),
                  static_cast<uint32_t>(d.seed >> 32)));
+}
+
+// The keep bits of a tile of 64 queries x 64 keys, drawn once by a
+// warpgroup into shared memory for the tile's elements to read: word
+// 2 r + w of `bits` holds keys j0 + 32 w .. j0 + 32 w + 31 of query i0 + r,
+// key j0 + 32 w + n at bit n (1: kept); 128 words, 512 B.
+constexpr int kKeepRows = 64;
+constexpr int kKeepWords = 2 * kKeepRows;
+
+// acc shifted left by one, bit 0 set where w >= thr (w's element dropped):
+// the borrow of w - thr, shifted in by an add with carry, two integer
+// instructions, where a compare, a select and an or take three.
+__device__ __forceinline__ uint32_t shift_in_dropped(uint32_t acc, uint32_t w,
+                                                     uint32_t thr) {
+  uint32_t out;
+  asm("{\n.reg .u32 t;\nsub.cc.u32 t, %1, %2;\naddc.u32 %0, %3, %3;\n}\n"
+      : "=r"(out)
+      : "r"(w), "r"(thr), "r"(acc));
+  return out;
+}
+
+// The 32 keep bits of the 8 groups from group counter `ctr` on (32
+// consecutive keys of one row, the first a multiple of 4), key n at bit n:
+// one Philox call a group. The calls are independent and unrolled, so that
+// their ten-round chains interleave; they share the key schedule.
+__device__ __forceinline__ uint32_t keep_word(const Dropout& d, uint64_t ctr) {
+  const uint2 key = make_uint2(static_cast<uint32_t>(d.seed),
+                               static_cast<uint32_t>(d.seed >> 32));
+  uint32_t dropped = 0;  // key 31 shifted in first, so key n ends at bit n
+#pragma unroll
+  for (int u = 7; u >= 0; --u) {
+    const uint64_t c = ctr + static_cast<uint64_t>(u);
+    const uint4 w = philox4x32_10(
+        make_uint4(static_cast<uint32_t>(c), static_cast<uint32_t>(c >> 32),
+                   static_cast<uint32_t>(d.offset),
+                   static_cast<uint32_t>(d.offset >> 32)),
+        key);
+    dropped = shift_in_dropped(dropped, w.w, d.threshold);
+    dropped = shift_in_dropped(dropped, w.z, d.threshold);
+    dropped = shift_in_dropped(dropped, w.y, d.threshold);
+    dropped = shift_in_dropped(dropped, w.x, d.threshold);
+  }
+  return ~dropped;
+}
+
+// Draws the keep tile of queries i0 .. i0 + 63 and keys j0 .. j0 + 63 (j0 a
+// multiple of 4, so the tile holds whole groups) of head bh = b * H + h
+// into `bits` (shared memory), with the 128 threads of a warpgroup: thread
+// x draws word 2 (x & 63) + (x >> 6), its row's 8 groups, one call each;
+// warps 0-1 take keys j0 .. j0 + 31, warps 2-3 the rest. So a tile costs
+// one call per group, at most 1024. A word that changes no output is not
+// drawn and keeps what it held: a query at or past S (K5 zeroes its P, K6
+// its dS and never stores its dQ), and 32 keys that all lie past their
+// query (on the diagonal tile; there warp 2 skips as a whole), whose P is
+// 0. The caller publishes the words with a barrier.
+__device__ __forceinline__ void draw_keep_tile(const Dropout& d, int64_t bh,
+                                               int S, int i0, int j0,
+                                               uint32_t* bits) {
+  const int r = threadIdx.x & (kKeepRows - 1), half = threadIdx.x >> 6;
+  const int i = i0 + r, j = j0 + 32 * half;
+  if (i < S && j <= i)
+    bits[2 * r + half] = keep_word(
+        d, row_counter(d, bh * S + i) + static_cast<uint64_t>(j >> 2));
+  __syncwarp();  // converged again for the warpgroup's aligned instructions
 }
 
 __device__ __forceinline__ uint32_t word(const uint4& w, int i) {

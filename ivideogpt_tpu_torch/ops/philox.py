@@ -110,6 +110,15 @@ def keep_mask(dropout: Dropout, B: int, H: int, S: int, i0: int, ni: int,
     return w[..., lo:lo + nj] < threshold(p)
 
 
+def causal_groups(B: int, H: int, S: int) -> int:
+    """The Philox calls a kernel needs at least to draw the causal part of
+    the mask of a [B, H, S, S] attention: one per group of 4 keys that
+    holds a key j <= i of its query i. Query i has i // 4 + 1 such groups;
+    summed over S = 4 q + r queries, (q + 1) (2 q + r) a head."""
+    q, r = divmod(S, 4)
+    return B * H * (q + 1) * (2 * q + r)
+
+
 def offset_of(step: int, layer: int) -> int:
     """The Philox offset of layer ``layer``'s attention at training step
     ``step``: a stream of its own for every (step, layer)."""

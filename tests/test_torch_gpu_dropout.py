@@ -8,7 +8,10 @@ and skips when there is none. Imports no JAX:
 
 - each kernel's mask read back exactly (q = 0 makes P uniform over a row,
   and one-hot V, dO or K blocks expose P Z / keep key by key) and equal to
-  ``ops/philox.keep_mask``, in bf16 and fp32, at ragged S;
+  ``ops/philox.keep_mask``, in bf16 and fp32, at ragged S, and in bf16 at
+  LLAMA_MEDIUM's 16 heads and at B * H = 256 heads (3072 CTAs a kernel,
+  many resident on each SM);
+- K5 and K6 with dropout bit-identical across two launches;
 - the kernels with dropout against the plain versions with the same
   (seed, offset), at their own interface and through ``causal_attention``
   and autograd;
@@ -46,6 +49,15 @@ def _onehot_block(B, S, H, c0, dtype, device):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("S", [1, 5, 64, 130, 751])
 def test_each_kernels_mask_equals_the_plain_mask(cuda, S, dtype):
+    _assert_masks_read_back(cuda, 2, 3, S, dtype)
+
+
+@pytest.mark.parametrize("B,H,S", [(2, 16, 751), (16, 16, 751), (16, 16, 130)])
+def test_each_kernels_mask_equals_the_plain_mask_at_many_heads(cuda, B, H, S):
+    _assert_masks_read_back(cuda, B, H, S, torch.bfloat16)
+
+
+def _assert_masks_read_back(cuda, B, H, S, dtype):
     """q = 0: P_ij = 1 / (i + 1) for j <= i. K4 with V one-hot on keys
     c0 .. c0+63 gives O[i, m] = P Z / keep at key c0 + m; K5 with dO
     one-hot on queries gives dV[j, m] the same at query c0 + m; K6 with
@@ -53,7 +65,6 @@ def test_each_kernels_mask_equals_the_plain_mask(cuda, S, dtype):
     dQ[i, m] = hd^-0.5 P Z / keep at key c0 + m. Nonzero where kept."""
     from ivideogpt_tpu_torch.ops import flash_attention as fa
     from ivideogpt_tpu_torch.ops import philox
-    B, H = 2, 3
     drop = (0.25, 77, philox.offset_of(5, 3))
     want = philox.keep_mask(drop, B, H, S, 0, S, 0, S, device=cuda)
     causal = torch.ones(S, S, device=cuda, dtype=torch.bool).tril()
@@ -119,6 +130,30 @@ def test_kernels_with_dropout_match_plain_at_their_interface(cuda, S, dtype):
         torch.testing.assert_close(got.float(), want, **tol, msg=what)
     # no atomics: bit-identical launch to launch, dropout included
     assert torch.equal(dq, fa.flash_bwd_dq(q, k, v, do, ref_lse, di, drop))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S", [65, 130, 751])
+def test_k5_and_k6_with_dropout_are_bit_identical_across_launches(cuda, S,
+                                                                  dtype):
+    """The keep tiles are drawn anew in every launch, from the arguments
+    alone; no atomics. Queued between the two, a launch with another
+    offset leaves its own bits in the CTAs' shared memory."""
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    B, H = 4, 12
+    q, k, v, do = _inputs(cuda, B, S, H, dtype, S + 1)
+    o, lse = fa.flash_fwd(q, k, v)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    drop, other = (0.1, 2024, 7 << 16), (0.1, 2024, 8 << 16)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, drop)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, di, drop)
+    dk_o, _ = fa.flash_bwd_dkv(q, k, v, do, lse, di, other)
+    dq_o = fa.flash_bwd_dq(q, k, v, do, lse, di, other)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, di, drop)
+    dq2 = fa.flash_bwd_dq(q, k, v, do, lse, di, drop)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, dq2)
+    assert not torch.equal(dk, dk_o) and not torch.equal(dq, dq_o)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -102,3 +102,19 @@ def test_offset_of_and_checks():
             philox.check_dropout(bad)
     assert philox.check_dropout(None) is None
     assert philox.threshold(0.1) == int(0.9 * 2 ** 32)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 6, 7, 8, 63, 64, 65, 130, 751])
+@pytest.mark.parametrize("B,H", [(1, 1), (2, 3), (16, 12)])
+def test_causal_groups_counts_the_groups_holding_a_causal_key(B, H, S):
+    """Brute force over rows: the groups (i, j >> 2) of keys j < S with some
+    key j <= i, as the mask's layout groups them."""
+    per_head = sum(len({j >> 2 for j in range(min(i + 1, S))})
+                   for i in range(S))
+    assert philox.causal_groups(B, H, S) == B * H * per_head
+
+
+def test_causal_groups_at_the_training_shapes():
+    """LLAMA_BASE's 12 heads and LLAMA_MEDIUM's 16 at B=16, S=751."""
+    assert philox.causal_groups(16, 12, 751) == 13_608_192
+    assert philox.causal_groups(16, 16, 751) == 18_144_256
