@@ -4,6 +4,7 @@ against their plain PyTorch versions.
 
     python3 chip_smoke.py
     python3 <path to>/chip_smoke.py --ab-turn   # one A/B turn, see ab_turn
+    python3 <path to>/chip_smoke.py --ab-kernels   # its kernel half alone
     python3 chip_smoke.py --vq-routing   # K1 against K2, see vq_routing
     python3 chip_smoke.py --k3-splits    # K3's split counts, see k3_splits
 
@@ -51,12 +52,16 @@ the final result line:
                S=751, H=12; bf16 at that shape and at H=16 against the
                plain versions with the same (seed, offset), K5 and K6 with
                dropout bit-identical across two launches, p=0 bit-equal to
-               no dropout, the fp32 kernels with dropout at B=2 and without
-               at the training shape; timed with and without dropout beside
-               SDPA with dropout_p=0.1 (bf16) and SDPA fp32; a time with
+               no dropout, the fp32 kernels with and without dropout at
+               the training shape (fp32 SDPA's own error printed beside
+               them); timed with and without dropout beside SDPA with
+               dropout_p=0.1 (bf16) and fp32 SDPA at the same dropout_p,
+               the fp32 rows bounded by three-term TF32 (TF32X3_PEAK, the FMA
+               bound beside it); a time with
                dropout bounded by bytes, FLOP or Philox's integer work (one
                call a causal group, its SASS instructions counted in a probe
-               built here, over INT32_RATE), the SASS of K5 and K6 by opcode
+               built here, over INT32_RATE), the SASS of K5 and K6 (bf16
+               and fp32) by opcode
   6. main      the rollout (TOKENIZER_64 + LLAMA_BASE + action head, bf16
                under the cast rules, int8 KV cache, ctx=2, T=16, B=256) with
                random weights from a seed: shapes, token ranges, launch
@@ -68,6 +73,11 @@ the final result line:
                L=751: 3 warm-up and 10 timed steps on one batch, a falling
                finite loss, launches a step (K1 2, K4/K5/K6 12), ms/step,
                tokens/s, peak memory, one profiled step
+     train_fp32  the same step at the trainer CLI's default precision
+               (--mixed_precision no, --attention_dropout 0.1): fp32
+               compute, TF32 off, dropout keyed by (seed, step), so every
+               layer runs the fp32 K4, K5 and K6 with dropout; the same
+               checks and measures, the device time by kernel
   9. train check  one fp32 forward/backward at B=2 (LLAMA_BASE widths, 2
                layers) on the GPU held against the CPU's plain path: loss,
                grad norm, every gradient
@@ -186,6 +196,10 @@ CTX, T, B = 2, 16, 256
 N_TIMED = 3
 FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
+# fp32-accurate products on the tensor cores: three TF32 products each
+# (hi*hi + hi*lo + lo*hi) at the dense TF32 rate, 495 TFLOP/s. The fp32
+# attention rows are bounded by it, their FMA bound (FP32_PEAK) beside it
+TF32X3_PEAK = 495e12 / 3
 HBM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s
 # 32-bit integer instructions/s (one lane each): 64 results a clock an SM
 # for integer add, multiply(-add), logic and compare at compute capability
@@ -411,20 +425,28 @@ def philox_sass():
 
 
 def flash_sass():
-    """Static SASS counts of K5 and K6 with and without dropout in the built
-    flash_attention_sm90 library, by opcode: what the dropout instances add
-    (the keep tile's draw twice, before the loop and inside it, and the
-    bit reads)."""
+    """Static SASS counts of K5 and K6 with and without dropout, bf16 in the
+    built flash_attention_sm90 library and fp32 in flash_attention_tf32, by
+    opcode: what the dropout instances add (the keep tile's draw twice,
+    before the loop and inside it, and the bit reads), and the fp32
+    kernels' conversion passes and three-term products (HGMMA)."""
     from ivideogpt_tpu_torch import _build
-    counts = sass_opcodes(_build._lib_path("flash_attention_sm90"))
     out = {}
-    for name, ops in counts.items():
-        for kernel, tag in (("flash_bwd_dkv_sm90_kernel", "K5"),
-                            ("flash_bwd_dq_sm90_kernel", "K6")):
-            if kernel in name:
-                drop = "ILb1E" in name
-                out[f"{tag} {'dropout' if drop else 'no dropout'}"] = ops
-    check(len(out) == 4, f"flash_attention_sm90's SASS: {sorted(out)}")
+    for lib, dtype, kernels in (
+            ("flash_attention_sm90", "bf16",
+             (("flash_bwd_dkv_sm90_kernel", "K5"),
+              ("flash_bwd_dq_sm90_kernel", "K6"))),
+            ("flash_attention_tf32", "fp32",
+             (("flash_bwd_dkv_tf32_kernel", "K5"),
+              ("flash_bwd_dq_tf32_kernel", "K6")))):
+        for name, ops in sass_opcodes(_build._lib_path(lib)).items():
+            for kernel, tag in kernels:
+                if kernel in name:
+                    drop = "ILb1E" in name
+                    out[f"{tag} {dtype} "
+                        f"{'dropout' if drop else 'no dropout'}"] = ops
+    check(len(out) == 8, f"flash_attention_sm90's and flash_attention_tf32's "
+          f"SASS: {sorted(out)}")
     return out
 
 
@@ -1076,13 +1098,17 @@ def phase_flash(torch):
                 q, k, v, torch.float32), 3)
             lib_ms = cuda_ms(sdpa_fp32, 20)
             lib_q = queued_ms(sdpa_fp32, 20)[0]
-        b_ms, b_by = bound(4 * elems * 4 + b * H * s * 4, 4 * hd * pairs,
-                           FP32_PEAK)
+        # bounded by fp32-accurate tensor-core products (TF32X3_PEAK), its
+        # FMA bound beside it
+        io = (4 * elems * 4 + b * H * s * 4, 4 * hd * pairs)
+        b_ms, b_by = bound(*io, TF32X3_PEAK)
+        fma_ms = bound(*io, FP32_PEAK)[0]
         print(f"K4 fp32 {name} B={b} S={s}: max_abs_err={e4:.3e} (rtol "
               f"1e-4, atol 1e-5) lse_max_abs_err={e_lse:.3e} (< 1e-4) "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} (SDPA forward, fp32, TF32 off) "
-              f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f}"
+              f"bound_ms={b_ms:.4f} ({b_by}, three-term TF32) "
+              f"share_of_bound={b_ms / ms:.3f} bound_ms_fma={fma_ms:.4f}"
               f"; queued: kernel_ms={q_ms:.4f} library_ms={lib_q:.4f}, "
               f"host_ms per call {host_ms:.4f}")
         rows[f"K4_{name}"] = dict(
@@ -1090,7 +1116,8 @@ def phase_flash(torch):
             replaces=stock + "331", shape=f"{name} fp32 B={b} S={s}",
             paths=(paths[name],), max_abs_err=e4, ms=ms, queued_ms=q_ms,
             host_ms=host_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, library="SDPA forward, fp32, TF32 off")
+            bound_ms_fma=fma_ms, library_ms=lib_ms,
+            library="SDPA forward, fp32, TF32 off")
         sdpa[f"K4 fp32 {name}"] = (ms, lib_ms, q_ms, lib_q,
                                    "SDPA forward, fp32")
         del q, k, v, qt, kt, vt, out, lse, ref, ref_lse
@@ -1115,8 +1142,9 @@ def phase_flash_dropout(torch):
       against flash_*_plain in fp32 on the upcast inputs, at phase_flash's
       tolerances; through causal_attention and autograd at H=12;
     - p = 0 bit-equal to the launch without dropout, in bf16 and fp32;
-    - the fp32 kernels with dropout at B=2, S=751 against the plain
-      versions (fp32 tolerance), and without dropout at the training shape.
+    - the fp32 kernels with and without dropout at the training shape
+      against the plain versions (fp32 tolerance; max_abs_err and
+      max_abs_err_dropout).
     Times by cuda_ms and queued_ms, with and without dropout, beside SDPA
     with dropout_p = DROP_P (forward; forward+backward minus forward) and,
     for the fp32 kernels at the training shape, SDPA's fp32 forward and
@@ -1128,6 +1156,7 @@ def phase_flash_dropout(torch):
     hd, s = 64, 751
     sm90 = "ivideogpt_tpu_torch/csrc/flash_attention_sm90.cu"
     fp32_src = "ivideogpt_tpu_torch/csrc/flash_attention.cu"
+    tf32_src = "ivideogpt_tpu_torch/csrc/flash_attention_tf32.cu"
     stock = "jax/experimental/pallas/ops/tpu/flash_attention.py:"
     lines = {"K4": "331", "K5": "796", "K6": "1146"}
     names = {"K4": "flash_attention_fwd", "K5": "flash_attention_bwd_dkv",
@@ -1252,13 +1281,16 @@ def phase_flash_dropout(torch):
         f = cuda_ms(lambda: fwd_bwd(False), 2, warmup=1)
         return f, cuda_ms(lambda: fwd_bwd(True), 2, warmup=1) - f
 
-    def add_rows(tag, b, H, dtype, src, errs, t_drop, t_none, lib, plain,
-                 paths, lib_what, peak, dropout_first=True):
+    def add_rows(tag, b, H, dtype, srcs, errs, t_drop, t_none, lib, plain,
+                 paths, lib_what, peak, dropout_first=True, lib_other=None):
         """A row a kernel: ms and queued_ms with dropout and, under
         *_no_dropout, without (dropout_first); or the other way round,
         under *_dropout. The bound of a time with dropout counts Philox's
         integer work too: one call of n_sass instructions a causal group
-        (``philox.causal_groups``), each kernel drawing the mask anew."""
+        (``philox.causal_groups``), each kernel drawing the mask anew.
+        srcs: each kernel's source. lib_other: SDPA's times for the other
+        variant, under library_ms* + the suffix. The fp32 rows (peak
+        TF32X3_PEAK) also carry their FMA bound, bound_ms_fma."""
         elems, pairs = b * s * H * hd, b * H * s * (s + 1) // 2
         isz = 2 if dtype == torch.bfloat16 else 4
         int_ops = philox.causal_groups(b, H, s) * n_sass
@@ -1280,7 +1312,7 @@ def phase_flash_dropout(torch):
             # the kernels line's bound_by is bytes or operations; Philox's
             # integer instructions are operations, named in bound_term
             row = dict(
-                name=names[key], route="cuda", source=src,
+                name=names[key], route="cuda", source=srcs[key],
                 replaces=stock + lines[key],
                 shape=f"{tag} B={b} S={s} H={H}", paths=paths,
                 max_abs_err=errs[key], ms=ms, queued_ms=q_ms, host_ms=host,
@@ -1297,6 +1329,13 @@ def phase_flash_dropout(torch):
             row["bound_by" + suffix] = b_by0.replace("philox", "operations")
             row["bound_term" + suffix] = b_by0
             row["share_of_bound" + suffix] = b_ms0 / q_ms0
+            if lib_other is not None:
+                row["library_ms" + suffix] = (lib_other[0] if key == "K4"
+                                              else lib_other[2])
+                row["library_queued_ms" + suffix] = (
+                    lib_other[1] if key == "K4" else lib_other[3])
+            if peak == TF32X3_PEAK:
+                row["bound_ms_fma"] = bound(io[0], io[1], FP32_PEAK)[0]
             rows[f"{key}_{tag}"] = row
             print(f"{key} {tag} B={b} S={s} H={H}: max_abs_err="
                   f"{errs[key]:.3e} kernel_ms={ms:.4f} queued_ms={q_ms:.4f} "
@@ -1365,14 +1404,16 @@ def phase_flash_dropout(torch):
         t_none = timed(kernels(q, k, v, do, None))
         lib = sdpa_ms(q, k, v, do, DROP_P)
         plain = plain_ms(q, k, v, do, drop, torch.bfloat16)
-        add_rows(tag, b, H, torch.bfloat16, sm90, errs, t_drop, t_none, lib,
-                 plain, paths, f"SDPA forward, dropout_p={DROP_P}",
-                 BF16_PEAK)
+        add_rows(tag, b, H, torch.bfloat16, dict.fromkeys(lines, sm90), errs,
+                 t_drop, t_none, lib, plain, paths,
+                 f"SDPA forward, dropout_p={DROP_P}", BF16_PEAK)
         del q, k, v, do, f, o, lse, di
         torch.cuda.empty_cache()
 
-    # fp32: with dropout at B=2 against the plain version, p = 0 bit-equal
-    q, k, v, do = inputs(2, 12, 5, torch.float32)
+    # fp32: with dropout at the training shape against the plain version,
+    # p = 0 bit-equal
+    b = TRAIN_B
+    q, k, v, do = inputs(b, 12, 5, torch.float32)
     with full_fp32():
         fns = kernels(q, k, v, do, drop)
         o, lse = fns["K4"]()
@@ -1389,8 +1430,8 @@ def phase_flash_dropout(torch):
               "K6": gate(dq, ref_dq, "fp32 K6 dQ with dropout", fp32_tol)}
     check(float((lse - ref_lse).abs().max()) < 1e-4, "fp32 K4 lse with "
           "dropout differs from the plain lse")
-    p0_bit_equal(q, k, v, do, "fp32 B=2")
-    print(f"flash_dropout: fp32 K4/K5/K6 with dropout at B=2 S={s} H=12: "
+    p0_bit_equal(q, k, v, do, f"fp32 B={b}")
+    print(f"flash_dropout: fp32 K4/K5/K6 with dropout at B={b} S={s} H=12: "
           f"max_abs_err {json.dumps({k_: round(e_, 9) for k_, e_ in e_fp32.items()})} "
           f"(rtol 1e-4, atol 1e-5); p=0 bit-equal to no dropout")
     del q, k, v, do, o, lse, ref_o, ref_lse, di, dk, dv, dq
@@ -1398,8 +1439,9 @@ def phase_flash_dropout(torch):
 
     # fp32 at the training shape: against the plain version without
     # dropout, timed with and without it, beside SDPA's fp32 forward and
-    # backward (TF32 off)
-    b = TRAIN_B
+    # backward (TF32 off), each at the same dropout_p. SDPA's own error
+    # against the plain version under the same gates, as evidence of what
+    # its three TF32 terms (OpMultiplyAddFastF32) hold: printed, not gated
     q, k, v, do = inputs(b, 12, 6, torch.float32)
     with full_fp32():
         o, lse = fa.flash_fwd(q, k, v)
@@ -1415,14 +1457,35 @@ def phase_flash_dropout(torch):
                           gate(dv, ref_dv, "fp32 K5 dV (train shape)",
                                fp32_tol)),
                 "K6": gate(dq, ref_dq, "fp32 K6 dQ (train shape)", fp32_tol)}
-        del ref_o, ref_dk, ref_dv, ref_dq, dk, dv, dq
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        sdpa_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        sdpa_g = torch.autograd.grad(sdpa_o, (qt, kt, vt),
+                                     do.transpose(1, 2))
+        sdpa_err = {}
+        for w, got, want in zip("QKV", sdpa_g, (ref_dq, ref_dk, ref_dv)):
+            got = got.transpose(1, 2)
+            sdpa_err[f"d{w}"] = (
+                float((got - want).abs().max()),
+                bool(torch.allclose(got, want, **fp32_tol)))
+        print(f"flash_dropout: fp32 SDPA backward at B={b} S={s} H=12 "
+              f"against the plain version (max_abs_err, within rtol 1e-4 "
+              f"atol 1e-5): {json.dumps(sdpa_err)}; the kernels' max_abs_err "
+              f"K5 {errs['K5']:.3e} K6 {errs['K6']:.3e}")
+        del ref_o, ref_dk, ref_dv, ref_dq, dk, dv, dq, qt, kt, vt, sdpa_o
+        del sdpa_g
         t_drop = timed(kernels(q, k, v, do, drop))
         t_none = timed(kernels(q, k, v, do, None))
         lib = sdpa_ms(q, k, v, do, 0.0)
+        lib_drop = sdpa_ms(q, k, v, do, DROP_P)
         plain = plain_ms(q, k, v, do, None, torch.float32)
-    add_rows("train_fp32", b, 12, torch.float32, fp32_src, errs, t_drop,
-             t_none, lib, plain, ("train_gpt_check",),
-             "SDPA forward, fp32, TF32 off", FP32_PEAK, dropout_first=False)
+    add_rows("train_fp32", b, 12, torch.float32,
+             {"K4": fp32_src, "K5": tf32_src, "K6": tf32_src}, errs, t_drop,
+             t_none, lib, plain, ("train_fp32", "train_gpt_check"),
+             "SDPA forward, fp32, TF32 off", TF32X3_PEAK,
+             dropout_first=False, lib_other=lib_drop)
+    for key, e in e_fp32.items():
+        rows[f"{key}_train_fp32"]["max_abs_err_dropout"] = e
     del q, k, v, do, o, lse, di
     torch.cuda.empty_cache()
     card = card_line()
@@ -1430,6 +1493,19 @@ def phase_flash_dropout(torch):
         print(f"ratio to SDPA ({r['library']}; this run, {card}): {key} "
               f"{r['ms'] / r['library_ms']:.3f} (queued, no host time: "
               f"{r['queued_ms'] / r['library_queued_ms']:.3f})")
+        if "library_ms_dropout" in r:
+            print(f"ratio to SDPA with dropout_p={DROP_P}, like for like "
+                  f"(this run, {card}): {key} with dropout "
+                  f"{r['ms_dropout'] / r['library_ms_dropout']:.3f} "
+                  f"(queued: {r['queued_ms_dropout'] / r['library_queued_ms_dropout']:.3f})")
+    k5, k6 = rows["K5_train_fp32"], rows["K6_train_fp32"]
+    for sfx, what in (("", "without dropout"),
+                      ("_dropout", f"dropout_p={DROP_P}")):
+        both = k5["queued_ms" + sfx] + k6["queued_ms" + sfx]
+        lib_q = k5["library_queued_ms" + sfx]
+        print(f"flash_dropout: fp32 K5+K6 {what}: queued {both:.4f} ms "
+              f"against fp32 SDPA's backward {lib_q:.4f} ({both / lib_q:.3f}x;"
+              f" this run, {card})")
     return rows
 
 
@@ -1684,19 +1760,27 @@ def phase_check(torch):
     check(df < 1e-3, "frames differ from the CPU path")
 
 
-def phase_train(torch):
+def phase_train(torch, fp32=False):
     """The GPT training step at full width and depth: TOKENIZER_64 (fp32,
     frozen) + LLAMA_BASE with the action head, bf16 over fp32 masters,
     B=16, ctx=2, T=16, L=751, action-free; AdamW lr 1e-4, constant schedule
     without warmup (so the first update has lr 0, as in optax), clip 1.0.
     One fixed batch of pixels made on the card; each step tokenizes it (K1)
-    and trains on it (K4/K5/K6 in every layer)."""
+    and trains on it (K4/K5/K6 in every layer). With ``fp32`` (the
+    ``train_fp32`` phase): the trainer CLI's default precision
+    (``--mixed_precision no``, ``--attention_dropout 0.1``), compute in fp32
+    (TF32 off) with attention dropout DROP_P keyed by (DROP_SEED, step), so
+    every layer runs the fp32 K4, K5 and K6 with dropout."""
     from ivideogpt_tpu_torch import tokens as tok
-    from ivideogpt_tpu_torch.configs import GPTTrainConfig
+    from ivideogpt_tpu_torch.configs import LLAMA_BASE, GPTTrainConfig
     from ivideogpt_tpu_torch.train import gpt_trainer as gt
+    tag = "train_fp32" if fp32 else "train"
     t0 = time.time()
+    extra = (dict(lm_cfg=LLAMA_BASE.replace(attention_dropout=DROP_P),
+                  compute_dtype=torch.float32) if fp32 else {})
     tokenizer, model = gt.build_train_models(context_length=CTX,
-                                             segment_length=T, seed=10)
+                                             segment_length=T, seed=10,
+                                             **extra)
     n_lm = sum(p.numel() for p in model.parameters())
     cfg = GPTTrainConfig(learning_rate=1e-4, lr_scheduler="constant",
                          lr_warmup_steps=0, max_grad_norm=1.0)
@@ -1705,12 +1789,16 @@ def phase_train(torch):
     g = torch.Generator(device="cuda").manual_seed(11)
     px = torch.rand(TRAIN_B, T, 64, 64, 3, device="cuda", generator=g)
     L = tok.seq_len(CTX, T)
-    print(f"train: models built in {time.time() - t0:.1f}s (LM "
-          f"{n_lm / 1e6:.1f}M fp32 masters, bf16 compute)")
+    print(f"{tag}: models built in {time.time() - t0:.1f}s (LM "
+          f"{n_lm / 1e6:.1f}M fp32 masters, "
+          f"{'fp32 compute, attention dropout ' + str(DROP_P) if fp32 else 'bf16 compute'})")
+    n_steps = [0]
 
     def step():
         ids, labels = tokenize(px)
-        return gt.train_step(state, {"input_ids": ids, "labels": labels})
+        n_steps[0] += 1
+        return gt.train_step(state, {"input_ids": ids, "labels": labels},
+                             (DROP_SEED, n_steps[0]) if fp32 else None)
 
     warm = [step() for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
@@ -1723,25 +1811,27 @@ def phase_train(torch):
     launches = read_counts()
     losses = [float(m["loss"]) for m in warm + metrics]
     timed = losses[TRAIN_WARMUP:]
-    print(f"train: losses {[round(x, 4) for x in losses]} (the first "
+    print(f"{tag}: losses {[round(x, 4) for x in losses]} (the first "
           f"{TRAIN_WARMUP} are warm-up steps); grad norms "
           f"{[round(float(m['grad_norm']), 4) for m in metrics]}")
     check(all(x == x and abs(x) != float("inf") for x in losses),
-          "train: a loss is not finite")
-    check(timed[-1] < timed[0], f"train: the loss did not fall over the "
+          f"{tag}: a loss is not finite")
+    check(timed[-1] < timed[0], f"{tag}: the loss did not fall over the "
           f"timed steps ({timed[0]:.4f} -> {timed[-1]:.4f})")
     want = {"vq_argmin": 2, "decode_attention": 0, "flash_attention_fwd": 12,
             "flash_attention_bwd_dkv": 12, "flash_attention_bwd_dq": 12}
     for name, n in want.items():
         check(launches[name] == n * TRAIN_TIMED,
-              f"train: {name} ran {launches[name]} times in "
+              f"{tag}: {name} ran {launches[name]} times in "
               f"{TRAIN_TIMED} steps, not {n} a step")
     flops = 6 * n_lm * TRAIN_B * L
-    print(f"train: {TRAIN_TIMED} timed steps, {dt * 1e3:.2f} ms/step, "
+    peak, peak_name = ((FP32_PEAK, "67 TFLOP/s fp32") if fp32
+                       else (BF16_PEAK, "989 TFLOP/s"))
+    print(f"{tag}: {TRAIN_TIMED} timed steps, {dt * 1e3:.2f} ms/step, "
           f"{TRAIN_B * L / dt:.1f} tokens/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"6*N*B*L = {flops:.4e} FLOP = {flops / dt / BF16_PEAK:.4f} of "
-          f"989 TFLOP/s; launches a step "
+          f"6*N*B*L = {flops:.4e} FLOP = {flops / dt / peak:.4f} of "
+          f"{peak_name}; launches a step "
           f"{json.dumps({k: v // TRAIN_TIMED for k, v in launches.items()})}")
 
     stages = {}
@@ -1755,11 +1845,13 @@ def phase_train(torch):
         return out
 
     ids, labels = timed_stage("tokenize", lambda: tokenize(px))
-    timed_stage("forward_backward", lambda: model(ids, labels)["loss"]
+    key = (DROP_SEED, 0) if fp32 else None
+    timed_stage("forward_backward", lambda: model(ids, labels,
+                                                  dropout_key=key)["loss"]
                 .backward())
     timed_stage("clip_adamw", state.apply_gradients)
-    print("train: stage wall seconds " + json.dumps(stages))
-    profile_train_step(torch, step, dt)
+    print(f"{tag}: stage wall seconds " + json.dumps(stages))
+    profile_train_step(torch, step, dt, tag)
     del tokenizer, model, state, metrics, warm
     torch.cuda.empty_cache()
     return launches
@@ -1779,10 +1871,13 @@ def profile_train_step(torch, step, step_s, tag="train"):
                 if "flash_" in e.key) / 1e6
     vq = sum(e.self_device_time_total for e in kernels
              if "vq_argmin" in e.key) / 1e6
+    by_kernel = {k: round(sum(e.self_device_time_total for e in kernels
+                              if f"flash_{k}_" in e.key) / 1e6, 6)
+                 for k in ("fwd", "bwd_dkv", "bwd_dq")}
     print(f"{tag}: one profiled step: device {total:.4f} s, busy share "
           f"{total / step_s:.4f} of the unprofiled step, flash-attention "
-          f"kernels {flash:.4f} s ({flash / total:.4f} of device time), VQ "
-          f"argmin {vq:.4f} s")
+          f"kernels {flash:.4f} s ({flash / total:.4f} of device time; K4 / "
+          f"K5 / K6 {json.dumps(by_kernel)}), VQ argmin {vq:.4f} s")
     print(f"{tag}: top kernels (name, launches, device s): "
           + json.dumps(top_kernels(kernels, 12, width=70)))
 
@@ -3952,10 +4047,11 @@ def ab_kernel_times(torch):
     """K1 at K1_SHAPES, K2 at the wide shapes of K2_SHAPES, K3 at the six
     shapes of K3_SHAPES (the host-int valid, over phase_k3's cold-L2
     rotation of caches), and K5, K6 and SDPA's backward at the training
-    shape, without and with attention dropout (DROP_P, the flash_dropout
-    phase's seed and offset; SDPA at dropout_p=DROP_P), by cuda_ms and
-    queued_ms, through the interfaces every tree of the port has since
-    dropout came in: the kernel half of an A/B turn (``--ab-turn``)."""
+    shape, bf16 and fp32 (TF32 off), without and with attention dropout
+    (DROP_P, the flash_dropout phase's seed and offset; SDPA at
+    dropout_p=DROP_P), by cuda_ms and queued_ms, through the interfaces
+    every tree of the port has since dropout came in: the kernel half of an
+    A/B turn (``--ab-turn``)."""
     import torch.nn.functional as F
     from ivideogpt_tpu_torch.ops import decode_attention as da
     from ivideogpt_tpu_torch.ops import flash_attention as fa
@@ -4008,6 +4104,27 @@ def ab_kernel_times(torch):
             - cuda_ms(lambda: sdpa(False, p), 50),
             queued_ms(lambda: sdpa(True, p), 50)[0]
             - queued_ms(lambda: sdpa(False, p), 50)[0])
+    # the fp32 K5 and K6 (the trainer CLI's default precision) beside fp32
+    # SDPA's backward, TF32 off, each without and with dropout
+    del q, k, v, do, o, lse, di, qt, kt, vt
+    q, k, v, do = (torch.randn(TRAIN_B, 751, 12, 64, device="cuda",
+                               generator=g) for _ in range(4))
+    with full_fp32():
+        o, lse = fa.flash_fwd(q, k, v)
+        di = (o * do).sum(-1).transpose(1, 2).contiguous()
+        qt, kt, vt = (t.transpose(1, 2).requires_grad_() for t in (q, k, v))
+        for key, d, p in (("", None, 0.0), (" dropout", drop, DROP_P)):
+            for name, fn in (
+                    ("fp32 K5", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di,
+                                                         d)),
+                    ("fp32 K6", lambda: fa.flash_bwd_dq(q, k, v, do, lse, di,
+                                                        d))):
+                out[name + key] = (cuda_ms(fn, 20), queued_ms(fn, 20)[0])
+            out["fp32 SDPA backward" + key] = (
+                cuda_ms(lambda: sdpa(True, p), 20)
+                - cuda_ms(lambda: sdpa(False, p), 20),
+                queued_ms(lambda: sdpa(True, p), 20)[0]
+                - queued_ms(lambda: sdpa(False, p), 20)[0])
     print("ab: kernel ms (cuda_ms, queued_ms) "
           + json.dumps({k: [round(x, 4) for x in v]
                         for k, v in out.items()}))
@@ -4019,12 +4136,14 @@ def ab_turn(torch):
     ``python3 <this file> --ab-turn`` from the root of the tree to measure
     (its package is the one imported): the kernels' times, then the
     rollout, the GPT step, the tokenizer pair and the wide pair, each with
-    its profiled device seconds, and the MBRL imagination rollout with its
-    device seconds by part (``generation.decode`` holds its K3 calls).
+    its profiled device seconds (the GPT step twice: bf16, and fp32 with
+    dropout at the trainer CLI's default precision), and the MBRL
+    imagination rollout with its device seconds by part (``generation.decode`` holds its K3 calls).
     Turns alternate between the trees, parent first."""
     ab_kernel_times(torch)
     phase_main(torch)
     phase_train(torch)
+    phase_train(torch, fp32=True)
     phase_tok_train(torch, wide=False)
     phase_tok_train(torch, wide=True)
     vp = mbrl_models(torch, torch.bfloat16, seed=59)
@@ -4042,10 +4161,11 @@ def main():
               file=sys.stderr)
         return 1
     mode = sys.argv[1:]
-    ab = mode == ["--ab-turn"]
-    if mode not in ([], ["--ab-turn"], ["--vq-routing"], ["--k3-splits"]):
-        print(f"FAIL: usage: {sys.argv[0]} [--ab-turn | --vq-routing | "
-              f"--k3-splits]", file=sys.stderr)
+    ab = mode in (["--ab-turn"], ["--ab-kernels"])
+    if mode not in ([], ["--ab-turn"], ["--ab-kernels"], ["--vq-routing"],
+                    ["--k3-splits"]):
+        print(f"FAIL: usage: {sys.argv[0]} [--ab-turn | --ab-kernels | "
+              f"--vq-routing | --k3-splits]", file=sys.stderr)
         return 1
     tree = os.getcwd() if ab else REPO
     if not os.path.isdir(os.path.join(tree, "ivideogpt_tpu_torch")):
@@ -4070,7 +4190,7 @@ def main():
                 if "ptxas info" in line or "spill" in line:
                     print(f"build[{name}]: {line.strip()}")
         if ab:
-            ab_turn(torch)
+            (ab_turn if mode == ["--ab-turn"] else ab_kernel_times)(torch)
             return 0
         if mode == ["--vq-routing"]:
             vq_routing(torch)
@@ -4086,6 +4206,7 @@ def main():
         by_path = {"rollout": phase_main(torch)}
         phase_check(torch)
         by_path["train"] = phase_train(torch)
+        by_path["train_fp32"] = phase_train(torch, fp32=True)
         phase_train_check(torch)
         by_path["tokenizer_train"] = phase_tok_train(torch, wide=False)
         by_path["tokenizer_train_wide"] = phase_tok_train(torch, wide=True)
@@ -4122,7 +4243,8 @@ def main():
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     print("launches by path (rollout: the first B=256 rollout; train: the "
-          f"{TRAIN_TIMED} timed steps; tokenizer_train: the {TOK_TIMED} timed "
+          f"{TRAIN_TIMED} timed steps; train_fp32: its {TRAIN_TIMED} timed "
+          f"fp32 steps with dropout; tokenizer_train: the {TOK_TIMED} timed "
           f"G+D pairs; tokenizer_train_wide: the {TOK_WIDE_TIMED} timed "
           f"pairs; mbrl_rollout: the first B={MB_B} imagination rollout; "
           f"mbrl_train: the {MB_TIMED} timed train() calls; predict: the "
@@ -4137,6 +4259,7 @@ def main():
           f"one step): "
           + json.dumps(by_path))
     per_run = {"rollout": ("rollout", 1), "train_step": ("train", TRAIN_TIMED),
+               "train_fp32_step": ("train_fp32", TRAIN_TIMED),
                "tokenizer_train": ("tokenizer_train", TOK_TIMED),
                "tokenizer_train_wide": ("tokenizer_train_wide",
                                         TOK_WIDE_TIMED),
@@ -4169,9 +4292,12 @@ def main():
         r["launches_by_path"] = {key: by_path[path][r["name"]] // n
                                  for key, (path, n) in per_run.items()}
     keys = ("name", "shape", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "queued_ms", "host_ms",
+            "launches_by_path", "max_abs_err", "max_abs_err_dropout", "ms",
+            "queued_ms", "host_ms",
             "plain_ms", "bound_ms", "bound_by", "bound_term",
-            "share_of_bound", "library_ms", "library_queued_ms", "library",
+            "share_of_bound", "bound_ms_fma", "library_ms",
+            "library_queued_ms", "library", "library_ms_dropout",
+            "library_queued_ms_dropout",
             "ms_no_dropout", "queued_ms_no_dropout", "bound_ms_no_dropout",
             "bound_by_no_dropout", "bound_term_no_dropout",
             "share_of_bound_no_dropout", "ms_dropout", "queued_ms_dropout",

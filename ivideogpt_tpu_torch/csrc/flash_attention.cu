@@ -1,59 +1,46 @@
-// K4, K5, K6: causal flash attention, forward and backward, on fp32
-// inputs, sm_90a: the C entry points and kernels of the fp32 check paths.
+// K4: causal flash attention forward on fp32 inputs, sm_90a, in fp32 FMA
+// tile products: the C entry point and kernel of the fp32 prefills (predict,
+// VP2) and of the fp32 training forward.
 //
 // Replaces, for fp32 q/k/v, the stock TPU kernel that the JAX package calls
 // at ivideogpt_tpu/models/llama.py:97 (jax/experimental/pallas/ops/tpu/
 // flash_attention.py, JAX 0.9.0):
 //   K4  _flash_attention_kernel      :331 (launched :758)
-//   K5  _flash_attention_dkv_kernel  :796 (launched :1121)
-//   K6  _flash_attention_dq_kernel   :1146 (launched :1456)
-// The bf16 kernels, which the training step and the rollout run, are
-// TMA-fed wgmma kernels in flash_attention_sm90.cu, a library of its own
-// (ivg_flash_fwd_bf16, ivg_flash_bwd_dkv_bf16, ivg_flash_bwd_dq_bf16).
+// The fp32 K5 and K6 (dK/dV, dQ) are the TF32 wgmma kernels of
+// flash_attention_tf32.cu; the bf16 K4, K5 and K6 are the TMA-fed wgmma
+// kernels of flash_attention_sm90.cu. Each file is a library of its own.
 //
 // For one (b, h), with s = q.k * hd^-0.5 and keys j <= query i only:
-//   K4  O = softmax(s) V, and lse_i = log sum_j exp(s_ij)  (fp32)
-//   K5  P = exp(s - lse),  dS = P * (dO V^T - di),  di = rowsum(O * dO)
-//       dV = P^T dO,  dK = dS^T Q * hd^-0.5
-//   K6  dQ = dS K * hd^-0.5
-// di is computed outside, in plain PyTorch (the TPU code computes it in XLA).
+//   O = softmax(s) V, and lse_i = log sum_j exp(s_ij)  (fp32)
 //
 // Layout: q/k/v are read in the port's bshd layout [B, S, H, 64] through
-// their batch, sequence and head strides (the head dim is contiguous); O,
-// dQ, dK, dV are written contiguous [B, S, H, 64]; lse and di are fp32
-// [B, H, S]. No transpose to [B, H, S, hd] and no padding of S to a tile
-// multiple as on the TPU (llama.py:88-99): rows at or past S read as 0 and
-// the ragged last tile is masked. hd = 64, 1 <= S <= 1024.
+// their batch, sequence and head strides (the head dim is contiguous); O is
+// written contiguous [B, S, H, 64] and lse fp32 [B, H, S]. No transpose to
+// [B, H, S, hd] and no padding of S to a tile multiple as on the TPU
+// (llama.py:88-99): rows at or past S read as 0 and the ragged last tile is
+// masked. hd = 64, 1 <= S <= 1024.
 //
-// Bound on the H100: fp32 inputs cannot use the bf16 tensor cores, and
-// these kernels serve the fp32 checks against the CPU, not a timed path:
-// the 67 TFLOP/s fp32 FMA rate bounds them.
+// Bound on the H100: its FLOP (4 hd per causal pair) over 67 TFLOP/s, the
+// fp32 FMA rate it runs at; fp32-accurate products on the tensor cores
+// (three TF32 products each, as flash_attention_tf32.cu runs them) would be
+// bounded at 165 TFLOP/s (ROADMAP Queue 2).
 //
-// Design. Every block works on 64-row tiles of one (b, h):
-//   K4: one block per 64-query tile; loops over key tiles up to the
-//       diagonal with an fp32 online softmax (running max m, sum l).
-//   K5: one block per 64-key tile; loops over query tiles from the diagonal
-//       on, recomputes P from q, k and lse, accumulates dV and dK.
-//   K6: one block per 64-query tile; loops over key tiles up to the
-//       diagonal, accumulates dQ.
-// dK/dV and dQ come from separate kernels, as on the TPU, so no block adds
-// into another's output: no atomics, and the gradients are deterministic.
-// Blocks are ordered heaviest tile first (blockIdx.y) to shorten the tail.
-// The tiles are 64 x 64 x 64 products in fp32 FMAs, so fp32 inputs are
-// never rounded to bf16 or TF32. 256 threads, fp32 tiles in shared memory
-// with a row stride of 65 floats (a row walk and a column walk both free of
-// bank conflicts); each thread owns a 4 x 4 piece of every result (rows
-// ty + 16 i, columns tx + 16 j), and a row's 16 owners are one half warp,
-// so row max and row sum are shuffles.
+// Design. One block per 64-query tile of one (b, h), heaviest first
+// (blockIdx.y); it loops over key tiles up to the diagonal with an fp32
+// online softmax (running max m, sum l). The tiles are 64 x 64 x 64
+// products in fp32 FMAs, so fp32 inputs are never rounded to bf16 or TF32.
+// 256 threads, fp32 tiles in shared memory with a row stride of 65 floats
+// (a row walk and a column walk both free of bank conflicts); each thread
+// owns a 4 x 4 piece of every result (rows ty + 16 i, columns tx + 16 j),
+// and a row's 16 owners are one half warp, so row max and row sum are
+// shuffles.
 //
-// Attention dropout (p_drop > 0): each kernel is a template on kDrop, and
+// Attention dropout (p_drop > 0): the kernel is a template on kDrop, and
 // p_drop == 0 launches the kDrop = false instance, the code above
-// unchanged. With dropout, every probability P_ij is multiplied by Z_ij /
-// keep, Z the mask of philox.cuh for (b, h, query i, key j): K4 sums the
-// undropped P into l (lse) and stores P Z / keep for the P V product; K5
-// and K6 regenerate Z and take dV from (P Z / keep)^T and dS = P (dP Z /
-// keep - di). One Philox call per element: a thread's columns tx + 16 j are
-// in different groups of four keys.
+// unchanged. With dropout it sums the undropped P into l (lse) and stores
+// P Z / keep for the P V product, Z the mask of philox.cuh for (b, h,
+// query i, key j): one Philox call per element, since a thread's columns
+// tx + 16 j are in different groups of four keys.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -70,11 +57,6 @@ constexpr int kMaxS = 1024;
 struct Strides {
   int64_t b, s, h;  // in elements; the head dim has stride 1
 };
-
-Strides contiguous_strides(int S, int H) {
-  return Strides{static_cast<int64_t>(S) * H * kHd,
-                 static_cast<int64_t>(H) * kHd, kHd};
-}
 
 // ======================= fp32: FMA tile products ==========================
 
@@ -109,15 +91,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
     const int row = row0 + r;
     dst[r * kLd + d] =
         row < S ? base[static_cast<int64_t>(row) * st.s + d] : 0.f;
-  }
-}
-
-// lse or di of rows [row0, row0 + 64) of one (b, h) into dst[64]; 0 past S.
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int64_t bh, int row0, int S) {
-  if (threadIdx.x < kTile) {
-    const int row = row0 + threadIdx.x;
-    dst[threadIdx.x] = row < S ? src[bh * S + row] : 0.f;
   }
 }
 
@@ -256,163 +229,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_tile(o, acc, 1.f, b, h, H, q0, S, ty, tx);
 }
 
-// K5, fp32 ----------------------------------------------------------------
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_fp32_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ di,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          Strides qs, Strides ks, Strides vs, Strides dos,
-                          int S, int H, float scale, ivg::Dropout drop) {
-  extern __shared__ float smem[];
-  float* k_s = smem;                 // [key][d]
-  float* v_s = k_s + kTileFloats;    // [key][e]
-  float* q_s = v_s + kTileFloats;    // [query][d]
-  float* do_s = q_s + kTileFloats;   // [query][e]
-  float* p_s = do_s + kTileFloats;   // P^T  [key][query]
-  float* ds_s = p_s + kTileFloats;   // dS^T [key][query]
-  float* lse_s = ds_s + kTileFloats;
-  float* di_s = lse_s + kTile;
-
-  const int nt = (S + kTile - 1) / kTile;
-  const int kt = blockIdx.y;  // key tile 0 meets the most query tiles
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / H;
-  const int64_t h = bh % H;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int k0 = kt * kTile;
-
-  load_tile(k_s, k, ks, b, h, k0, S);
-  load_tile(v_s, v, vs, b, h, k0, S);
-  float dk_acc[4][4], dv_acc[4][4];
-  zero(dk_acc);
-  zero(dv_acc);
-
-  for (int qt = kt; qt < nt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous tile's reads of q_s, do_s, p_s, ds_s
-    load_tile(q_s, q, qs, b, h, q0, S);
-    load_tile(do_s, dout, dos, b, h, q0, S);
-    load_rows(lse_s, lse, bh, q0, S);
-    load_rows(di_s, di, bh, q0, S);
-    __syncthreads();
-
-    float p[4][4], dp[4][4];
-    zero(p);
-    zero(dp);
-    tile_product<1, kLd, 1, kLd>(k_s, q_s, p, ty, tx);    // s^T [key][query]
-    tile_product<1, kLd, 1, kLd>(v_s, do_s, dp, ty, tx);  // dP^T
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = k0 + ty + 16 * i;  // key
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j;
-        const int row = q0 + r;  // query
-        const float pv =
-            (row >= col && row < S) ? expf(p[i][j] * scale - lse_s[r]) : 0.f;
-        if constexpr (kDrop) {
-          const float z = ivg::keep_scale(
-              drop, ivg::row_counter(drop, bh * S + row), col);
-          p_s[(ty + 16 * i) * kLd + r] = pv * z;
-          ds_s[(ty + 16 * i) * kLd + r] = pv * (dp[i][j] * z - di_s[r]);
-        } else {
-          p_s[(ty + 16 * i) * kLd + r] = pv;
-          ds_s[(ty + 16 * i) * kLd + r] = pv * (dp[i][j] - di_s[r]);
-        }
-      }
-    }
-    __syncthreads();
-    // dV[key][e] += sum_query P^T[key][query] dO[query][e]
-    tile_product<1, kLd, kLd, 1>(p_s, do_s, dv_acc, ty, tx);
-    // dK[key][d] += sum_query dS^T[key][query] Q[query][d]
-    tile_product<1, kLd, kLd, 1>(ds_s, q_s, dk_acc, ty, tx);
-  }
-  store_tile(dk, dk_acc, scale, b, h, H, k0, S, ty, tx);
-  store_tile(dv, dv_acc, 1.f, b, h, H, k0, S, ty, tx);
-}
-
-// K6, fp32 ----------------------------------------------------------------
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_fp32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ di, float* __restrict__ dq,
-                         Strides qs, Strides ks, Strides vs, Strides dos,
-                         int S, int H, float scale, ivg::Dropout drop) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // [query][d]
-  float* do_s = q_s + kTileFloats;   // [query][e]
-  float* k_s = do_s + kTileFloats;   // [key][d]
-  float* v_s = k_s + kTileFloats;    // [key][e]
-  float* ds_s = v_s + kTileFloats;   // dS [query][key]
-  float* lse_s = ds_s + kTileFloats;
-  float* di_s = lse_s + kTile;
-
-  const int nt = (S + kTile - 1) / kTile;
-  const int qt = nt - 1 - static_cast<int>(blockIdx.y);
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / H;
-  const int64_t h = bh % H;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int q0 = qt * kTile;
-
-  load_tile(q_s, q, qs, b, h, q0, S);
-  load_tile(do_s, dout, dos, b, h, q0, S);
-  load_rows(lse_s, lse, bh, q0, S);
-  load_rows(di_s, di, bh, q0, S);
-  float dq_acc[4][4];
-  zero(dq_acc);
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's reads of k_s, v_s, ds_s
-    load_tile(k_s, k, ks, b, h, k0, S);
-    load_tile(v_s, v, vs, b, h, k0, S);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    tile_product<1, kLd, 1, kLd>(q_s, k_s, s, ty, tx);    // s [query][key]
-    tile_product<1, kLd, 1, kLd>(do_s, v_s, dp, ty, tx);  // dP
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const float pv =
-            (col <= row && row < S) ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        if constexpr (kDrop) {
-          const float z = ivg::keep_scale(
-              drop, ivg::row_counter(drop, bh * S + row), col);
-          ds_s[r * kLd + tx + 16 * j] = pv * (dp[i][j] * z - di_s[r]);
-        } else {
-          ds_s[r * kLd + tx + 16 * j] = pv * (dp[i][j] - di_s[r]);
-        }
-      }
-    }
-    __syncthreads();
-    // dQ[query][d] += sum_key dS[query][key] K[key][d]
-    tile_product<1, kLd, kLd, 1>(ds_s, k_s, dq_acc, ty, tx);
-  }
-  store_tile(dq, dq_acc, scale, b, h, H, q0, S, ty, tx);
-}
-
 constexpr int kFwdSmem = 4 * kTileFloats * 4;
-constexpr int kDkvSmem = (6 * kTileFloats + 2 * kTile) * 4;
-constexpr int kDqSmem = (5 * kTileFloats + 2 * kTile) * 4;
 
 // ============================== launches ==================================
 
@@ -428,7 +245,7 @@ dim3 grid(int B, int S, int H) {
   return dim3(B * H, (S + kTile - 1) / kTile);
 }
 
-// The fp32 kernels take more than 48 KB of shared memory.
+// The kernel takes more than 48 KB of shared memory.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(
@@ -439,12 +256,10 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 
 // q/k/v: fp32 [B, S, H, 64] (flash_attention_sm90.cu takes bf16 with the
 // same arguments), read through the given batch/sequence/head strides
-// (elements), head dim contiguous. Outputs are contiguous: o, dq, dk, dv
-// [B, S, H, 64] fp32, lse [B, H, S] fp32. dout is contiguous fp32
-// [B, S, H, 64]; di is fp32 [B, H, S]. p_drop in [0, 1) is the attention
-// dropout, its mask drawn from (seed, offset) as philox.cuh says; 0
-// launches the kernels without dropout.
-// Each function launches one kernel on `stream` and returns the
+// (elements), head dim contiguous. Outputs are contiguous: o [B, S, H, 64]
+// fp32, lse [B, H, S] fp32. p_drop in [0, 1) is the attention dropout, its
+// mask drawn from (seed, offset) as philox.cuh says; 0 launches the kernel
+// without dropout. Launches one kernel on `stream` and returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int ivg_flash_fwd_fp32(const void* q, const void* k, const void* v,
                                   void* o, float* lse, int B, int S, int H,
@@ -466,58 +281,5 @@ extern "C" int ivg_flash_fwd_fp32(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, qs, ks, vs, S,
       H, softmax_scale(), ivg::make_dropout(p_drop, seed, offset, S));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int ivg_flash_bwd_dkv_fp32(const void* q, const void* k,
-                                      const void* v, const void* dout,
-                                      const float* lse, const float* di,
-                                      void* dk, void* dv, int B, int S, int H,
-                                      int hd, int64_t q_sb, int64_t q_ss,
-                                      int64_t q_sh, int64_t k_sb, int64_t k_ss,
-                                      int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                                      int64_t v_sh, double p_drop,
-                                      uint64_t seed, uint64_t offset,
-                                      void* stream) {
-  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
-      vs{v_sb, v_ss, v_sh}, dos = contiguous_strides(S, H);
-  const auto kernel = p_drop > 0.0 ? flash_bwd_dkv_fp32_kernel<true>
-                                   : flash_bwd_dkv_fp32_kernel<false>;
-  const cudaError_t err = allow_smem(kernel, kDkvSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid(B, S, H), kThreads, kDkvSmem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
-      static_cast<float*>(dk), static_cast<float*>(dv), qs, ks, vs, dos, S, H,
-      softmax_scale(), ivg::make_dropout(p_drop, seed, offset, S));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int ivg_flash_bwd_dq_fp32(const void* q, const void* k,
-                                     const void* v, const void* dout,
-                                     const float* lse, const float* di,
-                                     void* dq, int B, int S, int H, int hd,
-                                     int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                                     int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                                     int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                                     double p_drop, uint64_t seed,
-                                     uint64_t offset, void* stream) {
-  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
-      vs{v_sb, v_ss, v_sh}, dos = contiguous_strides(S, H);
-  const auto kernel = p_drop > 0.0 ? flash_bwd_dq_fp32_kernel<true>
-                                   : flash_bwd_dq_fp32_kernel<false>;
-  const cudaError_t err = allow_smem(kernel, kDqSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid(B, S, H), kThreads, kDqSmem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
-      static_cast<float*>(dq), qs, ks, vs, dos, S, H, softmax_scale(),
-      ivg::make_dropout(p_drop, seed, offset, S));
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,10 @@
 //   K5  _flash_attention_dkv_kernel  :796 (launched :1121)
 //   K6  _flash_attention_dq_kernel   :1146 (launched :1456)
 // A library of its own, with its own C entry points (ivg_flash_fwd_bf16,
-// ivg_flash_bwd_dkv_bf16, ivg_flash_bwd_dq_bf16, at the end). The fp32
-// kernels are in flash_attention.cu.
+// ivg_flash_bwd_dkv_bf16, ivg_flash_bwd_dq_bf16, at the end). The fp32 K5
+// and K6 are in flash_attention_tf32.cu, the fp32 K4 in flash_attention.cu;
+// the Hopper building blocks that the sm_90a kernels share (mbarriers, TMA,
+// wgmma descriptors and fences) in sm90.cuh.
 //
 // What they compute, for one (b, h), s = q.k * hd^-0.5, keys j <= query i:
 //   K4  O = softmax(s) V, lse_i = log sum_j exp(s_ij) (natural log, fp32)
@@ -109,16 +111,18 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "sm90.cuh"
 
 namespace {
 
+using namespace ivg::sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr int kHd = 64;                      // head dim
 constexpr int kTile = 64;                    // rows of a query or key tile
 constexpr int kThreads = 128;                // one warpgroup
 constexpr int kTileBytes = kTile * kHd * 2;  // one bf16 64 x 64 tile
-constexpr int kAlign = 1024;                 // the 128-byte swizzle's repeat
+constexpr int kAlign = kSwizzleAtom;         // the 128-byte swizzle's repeat
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -139,93 +143,11 @@ constexpr int kDkvKeep = kDkvBars + 64;
 constexpr int kDkvSmem = kDkvKeep + kAlign;
 constexpr int kKeepRing = 2 * ivg::kKeepWords * 4;
 
-// ------------------------- mbarriers and TMA -------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Returns once the barrier's phase with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Rows [row0, row0 + 64) of head h, batch b into the tile at dst (swizzled).
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int h, int row0,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h),
-      "r"(row0), "r"(b)
-      : "memory");
-}
-
 // ------------------------------ wgmma --------------------------------------
 
-// Descriptor of a 64 x 64 bf16 tile written by TMA with the 128-byte
-// swizzle: 8-row atoms of 1024 B (stride byte offset 1024), layout type
-// 1 (128B swizzle); the leading byte offset is unused for these shapes.
-// K-major operands step k by 16 elements = 32 B (+2 in the address field),
-// MN-major ones by 16 rows = 2048 B (+128).
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(kAlign >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
+// K-major operands step k by 16 elements = 32 B (+2 in the descriptor's
+// address field), MN-major ones by 16 rows = 2048 B (+128).
 constexpr uint64_t kStepK = 2, kStepMN = 128;
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous products that own it.
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define IVG_D32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define IVG_D32_OPS(d)                                                       \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
 
 // d (+)= A B for one k-step of 16: A [64 x 16] and B [16 x 64] both
 // K-major in shared memory; accumulate = 0 overwrites d.
@@ -280,22 +202,6 @@ __device__ __forceinline__ void to_a(const float (&d)[32],
       a[kk][r] = pack(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // Writes an accumulator times mul[row half] as bf16 into the swizzled tile
 // at `tile` (free by now), then copies rows [row0, min(row0 + 64, S)) to a
 // contiguous [B, S, H, 64] output with 16-byte stores, 8 threads a row.
@@ -324,14 +230,6 @@ __device__ __forceinline__ void store_tile(uint8_t* tile, const float (&d)[32],
     *reinterpret_cast<uint4*>(out + ((b * S + row) * H + h) * kHd +
                               8 * chunk) = v;
   }
-}
-
-// Shared memory rounded up to kAlign: (generic pointer, shared address).
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw, uint32_t* addr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
-  const uint32_t up = (a + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
-  *addr = up;
-  return raw + (up - a);
 }
 
 // K4 ----------------------------------------------------------------------
@@ -369,10 +267,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_init(bar_kv(1), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(bar_q, kTileBytes);
-    tma_load(q_s, &q_map, bar_q, h, q0, b);
+    tma_load(q_s, &q_map, bar_q, 0, h, q0, b);
     mbar_expect_tx(bar_kv(0), 2 * kTileBytes);
-    tma_load(k_s(0), &k_map, bar_kv(0), h, 0, b);
-    tma_load(v_s(0), &v_map, bar_kv(0), h, 0, b);
+    tma_load(k_s(0), &k_map, bar_kv(0), 0, h, 0, b);
+    tma_load(v_s(0), &v_map, bar_kv(0), 0, h, 0, b);
   }
   __syncthreads();
 
@@ -388,8 +286,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     if (kt > 0) __syncthreads();
     if (threadIdx.x == 0 && kt < qt) {
       mbar_expect_tx(bar_kv(st ^ 1), 2 * kTileBytes);
-      tma_load(k_s(st ^ 1), &k_map, bar_kv(st ^ 1), h, (kt + 1) * kTile, b);
-      tma_load(v_s(st ^ 1), &v_map, bar_kv(st ^ 1), h, (kt + 1) * kTile, b);
+      tma_load(k_s(st ^ 1), &k_map, bar_kv(st ^ 1), 0, h, (kt + 1) * kTile, b);
+      tma_load(v_s(st ^ 1), &v_map, bar_kv(st ^ 1), 0, h, (kt + 1) * kTile, b);
     }
     mbar_wait(bar_kv(st), (kt >> 1) & 1);
 
@@ -510,7 +408,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int kt = blockIdx.x % nt;  // key tile 0 meets the most query tiles
   const int b = bh / H, h = bh % H;
   const int k0 = kt * kTile;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int g = (threadIdx.x & 31) >> 2;
   const int key = k0 + 16 * (threadIdx.x >> 5) + g;  // and key + 8
 
   if (threadIdx.x == 0) {
@@ -519,11 +417,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_init(bar_full(1), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(bar_kv, 2 * kTileBytes);
-    tma_load(k_s, &k_map, bar_kv, h, k0, b);
-    tma_load(v_s, &v_map, bar_kv, h, k0, b);
+    tma_load(k_s, &k_map, bar_kv, 0, h, k0, b);
+    tma_load(v_s, &v_map, bar_kv, 0, h, k0, b);
     mbar_expect_tx(bar_full(0), 2 * kTileBytes);
-    tma_load(q_s(0), &q_map, bar_full(0), h, k0, b);
-    tma_load(do_s(0), &do_map, bar_full(0), h, k0, b);
+    tma_load(q_s(0), &q_map, bar_full(0), 0, h, k0, b);
+    tma_load(do_s(0), &do_map, bar_full(0), 0, h, k0, b);
   }
   // threads 0..63 carry lse, 64..127 di, one query each, into the ring
   const int qi = threadIdx.x & (kTile - 1);
@@ -553,8 +451,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     if (more) {
       if (threadIdx.x == 0) {
         mbar_expect_tx(bar_full(st ^ 1), 2 * kTileBytes);
-        tma_load(q_s(st ^ 1), &q_map, bar_full(st ^ 1), h, q0 + kTile, b);
-        tma_load(do_s(st ^ 1), &do_map, bar_full(st ^ 1), h, q0 + kTile, b);
+        tma_load(q_s(st ^ 1), &q_map, bar_full(st ^ 1), 0, h, q0 + kTile, b);
+        tma_load(do_s(st ^ 1), &do_map, bar_full(st ^ 1), 0, h, q0 + kTile, b);
       }
       next = fetch(q0 + kTile);  // stored after this tile's products
     }
@@ -582,30 +480,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     reg_fence(sT);
     reg_fence(dpT);
 
-    // P^T = exp(s - lse), dS^T = P^T (dP^T - di); columns are queries.
-    // With dropout, P^T Z / keep and dS^T = P^T (dP^T Z / keep - di), Z of
-    // (query q0 + c, key key or key + 8): bits key - k0 and key - k0 + 8 of
-    // word 2 c + warp / 2 of the stage's keep tile, one 32-bit load for both
-    const float* lse_t = lse_s(st);
-    const float* di_t = di_s(st);
-    const uint32_t* keep_t = keep_s(st) + (threadIdx.x >> 6);
-    const int key_bit = 16 * ((threadIdx.x >> 5) & 1) + g;
-    const bool edge = qt == kt || qt == nt - 1;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int c = 8 * (i >> 2) + 2 * t + (i & 1);
-      float p = ex2(fmaf(sT[i], scale_log2, -lse_t[c]));
-      if (edge && (q0 + c < key + 8 * ((i >> 1) & 1) || q0 + c >= S)) p = 0.f;
-      if constexpr (kDrop) {
-        const uint32_t kept = keep_t[2 * c] >> (key_bit + 8 * ((i >> 1) & 1));
-        const float z = (kept & 1u) ? drop.scale : 0.f;
-        sT[i] = p * z;
-        dpT[i] = p * (dpT[i] * z - di_t[c]);
-      } else {
-        sT[i] = p;
-        dpT[i] = p * (dpT[i] - di_t[c]);
-      }
-    }
+    // P^T and dS^T, with the stage's keep tile (sm90.cuh)
+    p_ds_transposed<kDrop>(sT, dpT, lse_s(st), di_s(st), keep_s(st), drop, q0,
+                           key, S, qt == kt || qt == nt - 1, scale_log2);
     uint32_t pa[4][4], dsa[4][4];  // rounded to bf16, as on the TPU
     to_a(sT, pa);
     to_a(dpT, dsa);
@@ -661,7 +538,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int qt = nt - 1 - static_cast<int>(blockIdx.x % nt);
   const int b = bh / H, h = bh % H;
   const int q0 = qt * kTile;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int g = (threadIdx.x & 31) >> 2;
   const int row = q0 + 16 * (threadIdx.x >> 5) + g;  // and row + 8
 
   if (threadIdx.x == 0) {
@@ -670,11 +547,11 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_init(bar_kv(1), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(bar_q, 2 * kTileBytes);
-    tma_load(q_s, &q_map, bar_q, h, q0, b);
-    tma_load(do_s, &do_map, bar_q, h, q0, b);
+    tma_load(q_s, &q_map, bar_q, 0, h, q0, b);
+    tma_load(do_s, &do_map, bar_q, 0, h, q0, b);
     mbar_expect_tx(bar_kv(0), 2 * kTileBytes);
-    tma_load(k_s(0), &k_map, bar_kv(0), h, 0, b);
-    tma_load(v_s(0), &v_map, bar_kv(0), h, 0, b);
+    tma_load(k_s(0), &k_map, bar_kv(0), 0, h, 0, b);
+    tma_load(v_s(0), &v_map, bar_kv(0), 0, h, 0, b);
   }
   // lse (times log2(e)) and di of this thread's two rows; rows past S read
   // zero Q and dO, so their dS is 0 and they are never stored
@@ -701,8 +578,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     if (kt > 0) __syncthreads();
     if (threadIdx.x == 0 && kt < qt) {
       mbar_expect_tx(bar_kv(st ^ 1), 2 * kTileBytes);
-      tma_load(k_s(st ^ 1), &k_map, bar_kv(st ^ 1), h, (kt + 1) * kTile, b);
-      tma_load(v_s(st ^ 1), &v_map, bar_kv(st ^ 1), h, (kt + 1) * kTile, b);
+      tma_load(k_s(st ^ 1), &k_map, bar_kv(st ^ 1), 0, h, (kt + 1) * kTile, b);
+      tma_load(v_s(st ^ 1), &v_map, bar_kv(st ^ 1), 0, h, (kt + 1) * kTile, b);
     }
     mbar_wait(bar_kv(st), (kt >> 1) & 1);
 
@@ -728,38 +605,11 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     reg_fence(s);
     reg_fence(dp);
 
-    // P = exp(s - lse), dS = P (dP - di); the diagonal tile holds the
-    // causal edge and, on the last query tile, the ragged one (col >= S).
-    // With dropout, dS = P (dP Z / keep - di): a row's 16 keys are bits
-    // 8 jj + 2 t + e of its two words in the stage's keep tile
-    const bool diag = kt == qt;
-    const int k0 = kt * kTile;
-    if constexpr (kDrop) {
-      const uint32_t* keep_t = keep_s(st) + 2 * (row - q0);
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const uint32_t kept = keep_t[16 * r + half] >> (2 * t);
-#pragma unroll
-          for (int jj = 4 * half; jj < 4 * half + 4; ++jj)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              float& x = dp[4 * jj + 2 * r + e];
-              x = (kept >> (8 * (jj & 3) + e)) & 1u ? x * drop.scale : 0.f;
-            }
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      float p = ex2(fmaf(s[i], scale_log2, -lse_r[r]));
-      if (diag) {
-        const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        if (col > row + 8 * r || col >= S) p = 0.f;
-      }
-      s[i] = p * (dp[i] - di_r[r]);
-    }
+    // dS = P (dP - di) into s, with the stage's keep tile (sm90.cuh); the
+    // diagonal tile holds the causal edge and, on the last query tile, the
+    // ragged one
+    ds_rows<kDrop>(s, dp, lse_r, di_r, keep_s(st), drop, row, q0, kt * kTile,
+                   S, kt == qt, scale_log2);
     uint32_t dsa[4][4];  // dS rounded to bf16, as the TPU kernel rounds it
     to_a(s, dsa);
 
@@ -779,28 +629,6 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ------------------------------- host --------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library needs no -lcuda.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
 
 // The map of a bf16 [B, S, H, 64] tensor read through its batch, sequence
 // and head strides st[0..2] (elements; the head dim contiguous): dims
@@ -843,8 +671,8 @@ bool bad_dropout(double p_drop) { return !(p_drop >= 0.0 && p_drop < 1.0); }
 // dq [B, S, H, 64] bf16, lse [B, H, S] fp32 (natural log). dout is contiguous
 // [B, S, H, 64] bf16; di is fp32 [B, H, S]. p_drop in [0, 1) is the
 // attention dropout, its mask drawn from (seed, offset) as philox.cuh says;
-// 0 launches the kernels without dropout. The same arguments as
-// flash_attention.cu's fp32 entry points. Each function encodes its tensor
+// 0 launches the kernels without dropout. The same arguments as the fp32
+// entry points (flash_attention.cu, flash_attention_tf32.cu). Each function encodes its tensor
 // maps, launches one kernel on `stream` and returns the first cudaError_t
 // (0 on success).
 extern "C" int ivg_flash_fwd_bf16(const void* q, const void* k, const void* v,

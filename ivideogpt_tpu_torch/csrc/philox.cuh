@@ -29,10 +29,11 @@
 // layout, padding of the ragged tile). A kept element is scaled by
 // scale = 1 / keep.
 //
-// How a kernel draws it: K5 and K6 (flash_attention_sm90.cu) draw a whole
-// 64 x 64 tile's bits into shared memory once, one call per group
-// (draw_keep_tile); K4 and the fp32 kernels call once for the two keys of a
-// group that a thread holds (drop_pair) or for one element (keep_scale).
+// How a kernel draws it: K5 and K6, bf16 (flash_attention_sm90.cu) and fp32
+// (flash_attention_tf32.cu), draw a whole 64 x 64 tile's bits into shared
+// memory once, one call per group (draw_keep_tile); the bf16 K4 calls once
+// for the two keys of a group that a thread holds (drop_pair), the fp32 K4
+// (flash_attention.cu) once for each element (keep_scale).
 
 #pragma once
 

@@ -1,5 +1,6 @@
 """Causal attention over fresh q/k/v: kernels K4 (forward), K5 (dK, dV) and
-K6 (dQ), bf16 in ``csrc/flash_attention_sm90.cu`` and fp32 in
+K6 (dQ), bf16 in ``csrc/flash_attention_sm90.cu``, fp32 K5 and K6 in
+``csrc/flash_attention_tf32.cu`` and the fp32 K4 in
 ``csrc/flash_attention.cu``, and their plain PyTorch versions.
 
 One function serves the KV-cached prefill and the training forward:
@@ -19,10 +20,14 @@ then launches K5 and K6.
 
 The kernels keep the scores, the softmax and every sum in fp32, as the TPU
 kernel does; on bf16 inputs they run on tensor cores and, like the TPU
-kernel, round P and dS to bf16 before multiplying them; on fp32 inputs
-nothing is rounded below fp32. The plain version rounds the scores and P
-to bf16 on a bf16 input (``einsum`` of bf16 operands returns bf16), so in
-bf16 the two agree to bf16 rounding, and in fp32 to fp32 rounding.
+kernel, round P and dS to bf16 before multiplying them. On fp32 inputs
+nothing is rounded to bf16: the fp32 K4 multiplies in fp32 FMAs, and the
+fp32 K5 and K6 run each product on the tensor cores as three TF32 products
+(hi * hi + hi * lo + lo * hi, hi + lo holding each operand to 2^-22 of its
+value), which stays within the fp32 tolerances. The plain version rounds
+the scores and P to bf16 on a bf16 input (``einsum`` of bf16 operands
+returns bf16), so in bf16 the two agree to bf16 rounding, and in fp32 to
+fp32 rounding.
 
 ``flash_fwd_plain``, ``flash_bwd_dkv_plain`` and ``flash_bwd_dq_plain``
 compute what each kernel computes, at its own interface (lse and di in,
@@ -187,6 +192,10 @@ def causal_attention(q, k, v, dtype, dropout: Optional[Dropout] = None):
 class _CausalFlash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, dropout):
+        # the backward reads q, k and v by TMA: refuse what it cannot read
+        # before the forward runs, not after
+        if any(ctx.needs_input_grad[:3]):
+            _check_tma(q, k, v)
         o, lse = flash_fwd(q, k, v, dropout)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.dropout = dropout
@@ -232,9 +241,10 @@ def _check(q, k, v):
 
 
 def _aligned(t):
-    """The bf16 kernels read rows as 16-byte vectors."""
-    return t.data_ptr() % 16 == 0 and all(t.stride(i) % 8 == 0
-                                          for i in range(3))
+    """TMA reads a tensor only from a 16-byte aligned base through strides
+    of whole 16-byte units (8 bf16 or 4 fp32 elements)."""
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) * t.element_size() % 16 == 0 for i in range(3))
 
 
 def _strides(*ts):
@@ -267,8 +277,16 @@ def flash_fwd(q, k, v, dropout: Optional[Dropout] = None):
     return o, lse
 
 
+def _check_tma(q, k, v):
+    """The backward kernels, of either dtype, read q, k and v by TMA."""
+    if not all(_aligned(t) for t in (q, k, v)):
+        raise ValueError("flash backward: q, k and v must be 16-byte "
+                         "aligned, with strides in multiples of 16 bytes")
+
+
 def _check_bwd(q, k, v, do, lse, di):
     B, S, H = _check(q, k, v)
+    _check_tma(q, k, v)
     if (do.shape != q.shape or do.dtype != q.dtype or do.device != q.device
             or not do.is_contiguous() or not _aligned(do)):
         raise ValueError("flash backward: dO must be contiguous, 16-byte "
@@ -316,10 +334,14 @@ flash_bwd_dq.launches = 0
 def _library(kernel, dtype):
     """(library, C symbol) of kernel "fwd", "bwd_dkv" or "bwd_dq" for
     ``dtype`` inputs: bf16 in ``csrc/flash_attention_sm90.cu`` (TMA +
-    ``wgmma``), fp32 in ``csrc/flash_attention.cu`` (FMA)."""
+    ``wgmma``); fp32 K5 and K6 in ``csrc/flash_attention_tf32.cu`` (TMA +
+    three-term TF32 ``wgmma``), the fp32 K4 in ``csrc/flash_attention.cu``
+    (FMA)."""
     if dtype == torch.bfloat16:
         return "flash_attention_sm90", f"ivg_flash_{kernel}_bf16"
-    return "flash_attention", f"ivg_flash_{kernel}_fp32"
+    if kernel == "fwd":
+        return "flash_attention", "ivg_flash_fwd_fp32"
+    return "flash_attention_tf32", f"ivg_flash_{kernel}_fp32"
 
 
 @functools.lru_cache(maxsize=None)

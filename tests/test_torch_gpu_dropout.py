@@ -12,6 +12,8 @@ and skips when there is none. Imports no JAX:
   LLAMA_MEDIUM's 16 heads and at B * H = 256 heads (3072 CTAs a kernel,
   many resident on each SM);
 - K5 and K6 with dropout bit-identical across two launches;
+- the fp32 K5 and K6 (three-term TF32) with dropout at their interface over
+  ragged S, one head and B * H = 384, q/k/v apart and from a fused qkv;
 - the kernels with dropout against the plain versions with the same
   (seed, offset), at their own interface and through ``causal_attention``
   and autograd;
@@ -130,6 +132,43 @@ def test_kernels_with_dropout_match_plain_at_their_interface(cuda, S, dtype):
         torch.testing.assert_close(got.float(), want, **tol, msg=what)
     # no atomics: bit-identical launch to launch, dropout included
     assert torch.equal(dq, fa.flash_bwd_dq(q, k, v, do, ref_lse, di, drop))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("B,H", [(1, 1), (32, 12)])
+@pytest.mark.parametrize("S", [1, 2, 63, 64, 65, 127, 128, 129, 513, 514,
+                               683, 751, 1024])
+def test_tf32_kernels_with_dropout_match_plain_at_their_interface(
+        cuda, S, B, H, fused):
+    """The fp32 K5 and K6 with dropout 0.1, fed the plain lse and di,
+    against flash_bwd_*_plain with the same (p, seed, offset) at the fp32
+    gates (rtol 1e-4, atol 1e-5); bit-identical launch to launch. fused:
+    q, k, v are strided views of one [B, S, 3, H, 64] tensor."""
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    g = torch.Generator(device=cuda).manual_seed(S * B + 3)
+    if fused:
+        q, k, v = torch.randn(B, S, 3, H, 64, device=cuda,
+                              generator=g).unbind(2)
+    else:
+        q, k, v = (torch.randn(B, S, H, 64, device=cuda, generator=g)
+                   for _ in range(3))
+    do = torch.randn(B, S, H, 64, device=cuda, generator=g)
+    drop = (0.1, 2024, 7 << 16)
+    with full_fp32():
+        o, lse = fa.flash_fwd_plain(q, k, v, drop)
+        di = (o * do).sum(-1).transpose(1, 2).contiguous()
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, di, drop)
+        ref_dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, di, drop)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, drop)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, di, drop)
+    for got, want, what in ((dk, ref_dk, "K5 dK"), (dv, ref_dv, "K5 dV"),
+                            (dq, ref_dq, "K6 dQ")):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5,
+                                   msg=what)
+    again_dk, again_dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, drop)
+    assert torch.equal(dk, again_dk) and torch.equal(dv, again_dv)
+    assert torch.equal(dq, fa.flash_bwd_dq(q, k, v, do, lse, di, drop))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

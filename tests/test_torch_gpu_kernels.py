@@ -11,8 +11,8 @@ these cover the edges: ragged tiles, small D, K1 equal to K2 bit for bit,
 ties across K1's and K2's codebook splits, fp32 queries, a single live
 slot, K3's split edges, split counts, head groups, determinism, valid on
 the card, its CUDA graph and its trap, strided views, the bf16 K4, K5 and
-K6 at their own interface (lse in, lse out) and launch to launch, and the
-wrappers' refusals.
+K6 and the fp32 (three-term TF32) K5 and K6 at their own interface (lse in,
+lse out) and launch to launch, and the wrappers' refusals.
 """
 
 import pytest
@@ -487,19 +487,19 @@ def test_flash_attention_matches_plain(cuda, S, dtype):
         torch.testing.assert_close(ours.float(), theirs, **tol)
 
 
-def _bf16_qkv_do(cuda, B, S, H, seed, fused):
-    """bf16 q, k, v, dO [B, S, H, 64]; fused: q/k/v are strided views of
+def _qkv_do(cuda, B, S, H, seed, fused, dtype=torch.bfloat16):
+    """q, k, v, dO [B, S, H, 64] in dtype; fused: q/k/v are strided views of
     one [B, S, 3, H, 64] tensor, as a fused qkv projection gives them."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     if fused:
-        x = torch.randn(B, S, 3, H, 64, device=cuda, generator=g).bfloat16()
+        x = torch.randn(B, S, 3, H, 64, device=cuda, generator=g).to(dtype)
         q, k, v = x.unbind(2)
         assert q.stride(1) == 3 * H * 64
     else:
         q, k, v = (torch.randn(B, S, H, 64, device=cuda, generator=g)
-                   .bfloat16() for _ in range(3))
+                   .to(dtype) for _ in range(3))
     return q, k, v, torch.randn(B, S, H, 64, device=cuda,
-                                generator=g).bfloat16()
+                                generator=g).to(dtype)
 
 
 def _gate(got, want, what):
@@ -523,7 +523,7 @@ def test_flash_sm90_kernels_match_plain_at_their_interface(cuda, S, B, H,
     plain lse and di, so it is tested apart from K4."""
     from ivideogpt_tpu_torch.ops import flash_attention as fa
     from ivideogpt_tpu_torch.utils.platform import full_fp32
-    q, k, v, do = _bf16_qkv_do(cuda, B, S, H, S * B, fused)
+    q, k, v, do = _qkv_do(cuda, B, S, H, S * B, fused)
     counts = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches)
     o, lse = fa.flash_fwd(q, k, v)
     with full_fp32():
@@ -557,7 +557,7 @@ def test_flash_sm90_dq_matches_plain_at_its_interface(cuda, S, B, H, fused):
     bit-identical launch to launch."""
     from ivideogpt_tpu_torch.ops import flash_attention as fa
     from ivideogpt_tpu_torch.utils.platform import full_fp32
-    q, k, v, do = _bf16_qkv_do(cuda, B, S, H, S * B + 1, fused)
+    q, k, v, do = _qkv_do(cuda, B, S, H, S * B + 1, fused)
     with full_fp32():
         ref_o, lse = fa.flash_fwd_plain(q.float(), k.float(), v.float())
         di = (ref_o * do.float()).sum(-1).transpose(1, 2).contiguous()
@@ -578,7 +578,7 @@ def test_flash_sm90_kernels_refuse_what_tma_cannot_read(cuda):
     """TMA needs a 16-byte aligned base and 16-byte strides, and the head
     dim contiguous; dO must be contiguous. The wrappers raise on the rest."""
     from ivideogpt_tpu_torch.ops import flash_attention as fa
-    q, k, v, do = _bf16_qkv_do(cuda, 2, 70, 3, 0, fused=False)
+    q, k, v, do = _qkv_do(cuda, 2, 70, 3, 0, fused=False)
     wide = torch.zeros(2, 70, 3, 72, device=cuda, dtype=torch.bfloat16)
     bad = {"misaligned": wide[..., 1:65],          # base 2 bytes off
            "sequence stride 220": torch.zeros(
@@ -601,6 +601,100 @@ def test_flash_sm90_kernels_refuse_what_tma_cannot_read(cuda):
         for bwd in (fa.flash_bwd_dkv, fa.flash_bwd_dq):
             with pytest.raises(ValueError):
                 bwd(*args)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("B,H", [(1, 1), (32, 12)])
+@pytest.mark.parametrize("S", [1, 2, 63, 64, 65, 127, 128, 129, 513, 514,
+                               683, 751, 1024])
+def test_flash_tf32_kernels_match_plain_at_their_interface(cuda, S, B, H,
+                                                           fused):
+    """The fp32 K5 (dK, dV) and K6 (dQ), three-term TF32 wgmma products,
+    against flash_bwd_dkv_plain and flash_bwd_dq_plain in fp32 (TF32 off),
+    all fed the plain lse and di, at the fp32 gates (rtol 1e-4, atol
+    1e-5); bit-identical launch to launch."""
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    q, k, v, do = _qkv_do(cuda, B, S, H, S * B + 2, fused, torch.float32)
+    with full_fp32():
+        o, lse = fa.flash_fwd_plain(q, k, v)
+        di = (o * do).sum(-1).transpose(1, 2).contiguous()
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, di)
+        ref_dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, di)
+    before = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, di)
+    again_dk, again_dv = fa.flash_bwd_dkv(q, k, v, do, lse, di)
+    again_dq = fa.flash_bwd_dq(q, k, v, do, lse, di)
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (
+        before[0] + 2, before[1] + 2)
+    for got, want, what in ((dk, ref_dk, "K5 dK"), (dv, ref_dv, "K5 dV"),
+                            (dq, ref_dq, "K6 dQ")):
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5,
+                                   msg=what)
+    # no atomics, no sums across blocks: bit-identical launch to launch
+    assert torch.equal(dk, again_dk) and torch.equal(dv, again_dv)
+    assert torch.equal(dq, again_dq)
+
+
+def test_flash_tf32_kernels_refuse_what_tma_cannot_read(cuda):
+    """The fp32 K5 and K6 read q, k, v and dO by TMA: a 16-byte aligned
+    base and strides in multiples of 4 elements, the head dim contiguous.
+    A view that breaks the rule is refused, not read; the fp32 K4 (FMA)
+    still takes it."""
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _qkv_do(cuda, 2, 70, 3, 1, False, torch.float32)
+    wide = torch.randn(2, 70, 3, 72, device=cuda)
+    bad = {"misaligned": wide[..., 1:65],          # base 4 bytes off
+           "sequence stride 218": torch.randn(
+               2, 70, 3 * 72 + 2, device=cuda)[..., :3 * 72]
+           .view(2, 70, 3, 72)[..., :64],
+           "head dim stride 2": torch.randn(
+               2, 70, 3, 128, device=cuda)[..., ::2]}
+    o, lse = fa.flash_fwd(q, k, v)
+    di = (o * do).sum(-1).transpose(1, 2).contiguous()
+    for name, t in bad.items():
+        assert t.shape == q.shape, name
+        for args in ((t, k, v), (q, t, v), (q, k, t)):
+            for bwd in (fa.flash_bwd_dkv, fa.flash_bwd_dq):
+                with pytest.raises(ValueError):
+                    bwd(*args, do, lse, di)
+    torch.testing.assert_close(
+        fa.flash_fwd(bad["misaligned"], k, v)[0],
+        fa.flash_fwd(bad["misaligned"].contiguous(), k, v)[0], rtol=0,
+        atol=0)
+    misaligned_do = torch.randn(2 * 70 * 3 * 64 + 1, device=cuda)[1:] \
+        .view(2, 70, 3, 64)
+    for bwd in (fa.flash_bwd_dkv, fa.flash_bwd_dq):
+        with pytest.raises(ValueError):
+            bwd(q, k, v, misaligned_do, lse, di)
+
+
+def test_causal_attention_refuses_a_misaligned_fp32_view_before_its_forward(
+        cuda):
+    """causal_attention accepts in its forward what its backward reads: a
+    misaligned fp32 view that needs a gradient is refused before K4 runs;
+    without autograd, K4 (FMA) alone takes it."""
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    q, k, v, _ = _qkv_do(cuda, 2, 70, 3, 1, False, torch.float32)
+    view = torch.randn(2, 70, 3, 72, device=cuda)[..., 1:65]
+    assert not fa._aligned(view)
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = view.detach().requires_grad_()
+        before = fa.flash_fwd.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.causal_attention(*args, torch.float32, (0.1, 3, 5))
+        assert fa.flash_fwd.launches == before
+    got = fa.causal_attention(view, k, v, torch.float32)
+    want = fa.causal_attention(view.contiguous(), k, v, torch.float32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # the same inputs made aligned train through K4, K5 and K6
+    ins = [t.detach().contiguous().requires_grad_() for t in (view, k, v)]
+    grads = torch.autograd.grad(fa.causal_attention(*ins, torch.float32),
+                                ins, torch.ones(2, 70, 3 * 64, device=cuda))
+    assert all(torch.isfinite(g).all() for g in grads)
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda):

@@ -109,9 +109,11 @@ def test_scan_sees_the_whole_package():
                  "utils/video_metric.py"):
         assert must in rels
     for src in ("vq_argmin", "vq_argmin_tiled", "decode_attention",
-                "flash_attention", "flash_attention_sm90"):
+                "flash_attention", "flash_attention_sm90",
+                "flash_attention_tf32"):
         assert os.path.exists(os.path.join(PKG, "csrc", f"{src}.cu"))
-    assert os.path.exists(os.path.join(PKG, "csrc", "philox.cuh"))
+    for header in ("philox.cuh", "sm90.cuh"):
+        assert os.path.exists(os.path.join(PKG, "csrc", header))
 
 
 def test_trainer_cli_wants_cuda(tmp_path):
