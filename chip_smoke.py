@@ -60,8 +60,8 @@ the final result line:
                bound beside it); a time with
                dropout bounded by bytes, FLOP or Philox's integer work (one
                call a causal group, its SASS instructions counted in a probe
-               built here, over INT32_RATE), the SASS of K5 and K6 (bf16
-               and fp32) by opcode
+               built here, over INT32_RATE), the SASS of K4, K5 and K6
+               (bf16 and fp32) by opcode, HGMMA counted
   6. main      the rollout (TOKENIZER_64 + LLAMA_BASE + action head, bf16
                under the cast rules, int8 KV cache, ctx=2, T=16, B=256) with
                random weights from a seed: shapes, token ranges, launch
@@ -425,19 +425,21 @@ def philox_sass():
 
 
 def flash_sass():
-    """Static SASS counts of K5 and K6 with and without dropout, bf16 in the
-    built flash_attention_sm90 library and fp32 in flash_attention_tf32, by
-    opcode: what the dropout instances add (the keep tile's draw twice,
+    """Static SASS counts of K4, K5 and K6 with and without dropout, bf16 in
+    the built flash_attention_sm90 library and fp32 in flash_attention_tf32,
+    by opcode: what the dropout instances add (the keep tile's draw twice,
     before the loop and inside it, and the bit reads), and the fp32
     kernels' conversion passes and three-term products (HGMMA)."""
     from ivideogpt_tpu_torch import _build
     out = {}
     for lib, dtype, kernels in (
             ("flash_attention_sm90", "bf16",
-             (("flash_bwd_dkv_sm90_kernel", "K5"),
+             (("flash_fwd_sm90_kernel", "K4"),
+              ("flash_bwd_dkv_sm90_kernel", "K5"),
               ("flash_bwd_dq_sm90_kernel", "K6"))),
             ("flash_attention_tf32", "fp32",
-             (("flash_bwd_dkv_tf32_kernel", "K5"),
+             (("flash_fwd_tf32_kernel", "K4"),
+              ("flash_bwd_dkv_tf32_kernel", "K5"),
               ("flash_bwd_dq_tf32_kernel", "K6")))):
         for name, ops in sass_opcodes(_build._lib_path(lib)).items():
             for kernel, tag in kernels:
@@ -445,7 +447,7 @@ def flash_sass():
                     drop = "ILb1E" in name
                     out[f"{tag} {dtype} "
                         f"{'dropout' if drop else 'no dropout'}"] = ops
-    check(len(out) == 8, f"flash_attention_sm90's and flash_attention_tf32's "
+    check(len(out) == 12, f"flash_attention_sm90's and flash_attention_tf32's "
           f"SASS: {sorted(out)}")
     return out
 
@@ -1065,10 +1067,10 @@ def phase_flash(torch):
         del q, k, v, do, qt, kt, vt, out, lse, di, dk, dv, dq
     torch.cuda.empty_cache()
 
-    # the fp32 K4 (FMA, no rounding below fp32) at the inference entry
-    # points' prefills, against the plain version in fp32, TF32 off, at the
-    # GPU tests' fp32 tolerance
-    fp32 = "ivideogpt_tpu_torch/csrc/flash_attention.cu"
+    # the fp32 K4 (three-term TF32 wgmma, nothing rounded below fp32) at the
+    # inference entry points' prefills, against the plain version in fp32,
+    # TF32 off, at the GPU tests' fp32 tolerance
+    fp32 = "ivideogpt_tpu_torch/csrc/flash_attention_tf32.cu"
     for name, b, s in (("predict_prefill", PRED_R, 2 * 257),
                        ("vp2_prefill", VP2_CHUNK, 2 * 257)):
         g = torch.Generator(device="cuda").manual_seed(s + b)
@@ -1155,7 +1157,6 @@ def phase_flash_dropout(torch):
     from ivideogpt_tpu_torch.utils.platform import full_fp32
     hd, s = 64, 751
     sm90 = "ivideogpt_tpu_torch/csrc/flash_attention_sm90.cu"
-    fp32_src = "ivideogpt_tpu_torch/csrc/flash_attention.cu"
     tf32_src = "ivideogpt_tpu_torch/csrc/flash_attention_tf32.cu"
     stock = "jax/experimental/pallas/ops/tpu/flash_attention.py:"
     lines = {"K4": "331", "K5": "796", "K6": "1146"}
@@ -1172,8 +1173,9 @@ def phase_flash_dropout(torch):
           f"{INT32_RATE:.4g}/s")
     for what, ops in flash_sass().items():
         top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
+        hgmma = sum(n for op, n in ops.items() if op.startswith("HGMMA"))
         print(f"flash_dropout: SASS of {what}: {sum(ops.values())} "
-              f"instructions (static), the most frequent "
+              f"instructions (static), HGMMA {hgmma}, the most frequent "
               f"{json.dumps(dict(top))}")
 
     def gate(got, want, what, tol, rel_tol=None):
@@ -1480,7 +1482,7 @@ def phase_flash_dropout(torch):
         lib_drop = sdpa_ms(q, k, v, do, DROP_P)
         plain = plain_ms(q, k, v, do, None, torch.float32)
     add_rows("train_fp32", b, 12, torch.float32,
-             {"K4": fp32_src, "K5": tf32_src, "K6": tf32_src}, errs, t_drop,
+             dict.fromkeys(lines, tf32_src), errs, t_drop,
              t_none, lib, plain, ("train_fp32", "train_gpt_check"),
              "SDPA forward, fp32, TF32 off", TF32X3_PEAK,
              dropout_first=False, lib_other=lib_drop)
@@ -4046,12 +4048,13 @@ def phase_vp2(torch, hub, root):
 def ab_kernel_times(torch):
     """K1 at K1_SHAPES, K2 at the wide shapes of K2_SHAPES, K3 at the six
     shapes of K3_SHAPES (the host-int valid, over phase_k3's cold-L2
-    rotation of caches), and K5, K6 and SDPA's backward at the training
-    shape, bf16 and fp32 (TF32 off), without and with attention dropout
-    (DROP_P, the flash_dropout phase's seed and offset; SDPA at
-    dropout_p=DROP_P), by cuda_ms and queued_ms, through the interfaces
-    every tree of the port has since dropout came in: the kernel half of an
-    A/B turn (``--ab-turn``)."""
+    rotation of caches), K4 beside SDPA's forward and K5, K6 beside SDPA's
+    backward at the training shape, bf16 and fp32 (TF32 off), without and
+    with attention dropout (DROP_P, the flash_dropout phase's seed and
+    offset; SDPA at dropout_p=DROP_P), and the fp32 K4 beside fp32 SDPA's
+    forward at predict's and VP2's prefills, by cuda_ms and queued_ms,
+    through the interfaces every tree of the port has since dropout came
+    in: the kernel half of an A/B turn (``--ab-turn``)."""
     import torch.nn.functional as F
     from ivideogpt_tpu_torch.ops import decode_attention as da
     from ivideogpt_tpu_torch.ops import flash_attention as fa
@@ -4088,6 +4091,7 @@ def ab_kernel_times(torch):
     drop = (DROP_P, DROP_SEED, philox.offset_of(7, 3))
     for key, d in (("", None), (" dropout", drop)):
         for name, fn in (
+                ("K4", lambda: fa.flash_fwd(q, k, v, d)),
                 ("K5", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di, d)),
                 ("K6", lambda: fa.flash_bwd_dq(q, k, v, do, lse, di, d))):
             out[name + key] = (cuda_ms(fn, 50), queued_ms(fn, 50)[0])
@@ -4099,13 +4103,16 @@ def ab_kernel_times(torch):
         if bwd:
             torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2))
     for key, p in (("", 0.0), (" dropout", DROP_P)):
+        out["SDPA forward" + key] = (cuda_ms(lambda: sdpa(False, p), 50),
+                                     queued_ms(lambda: sdpa(False, p), 50)[0])
         out["SDPA backward" + key] = (
             cuda_ms(lambda: sdpa(True, p), 50)
             - cuda_ms(lambda: sdpa(False, p), 50),
             queued_ms(lambda: sdpa(True, p), 50)[0]
             - queued_ms(lambda: sdpa(False, p), 50)[0])
-    # the fp32 K5 and K6 (the trainer CLI's default precision) beside fp32
-    # SDPA's backward, TF32 off, each without and with dropout
+    # the fp32 K4, K5 and K6 (the trainer CLI's default precision) beside
+    # fp32 SDPA's forward and backward, TF32 off, each without and with
+    # dropout
     del q, k, v, do, o, lse, di, qt, kt, vt
     q, k, v, do = (torch.randn(TRAIN_B, 751, 12, 64, device="cuda",
                                generator=g) for _ in range(4))
@@ -4115,16 +4122,35 @@ def ab_kernel_times(torch):
         qt, kt, vt = (t.transpose(1, 2).requires_grad_() for t in (q, k, v))
         for key, d, p in (("", None, 0.0), (" dropout", drop, DROP_P)):
             for name, fn in (
+                    ("fp32 K4", lambda: fa.flash_fwd(q, k, v, d)),
                     ("fp32 K5", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di,
                                                          d)),
                     ("fp32 K6", lambda: fa.flash_bwd_dq(q, k, v, do, lse, di,
                                                         d))):
                 out[name + key] = (cuda_ms(fn, 20), queued_ms(fn, 20)[0])
+            out["fp32 SDPA forward" + key] = (
+                cuda_ms(lambda: sdpa(False, p), 20),
+                queued_ms(lambda: sdpa(False, p), 20)[0])
             out["fp32 SDPA backward" + key] = (
                 cuda_ms(lambda: sdpa(True, p), 20)
                 - cuda_ms(lambda: sdpa(False, p), 20),
                 queued_ms(lambda: sdpa(True, p), 20)[0]
                 - queued_ms(lambda: sdpa(False, p), 20)[0])
+    # the fp32 K4 at the inference entry points' prefills, as phase_flash
+    # times it, beside fp32 SDPA's forward
+    del q, k, v, do, o, lse, di, qt, kt, vt
+    for name, b in (("predict", PRED_R), ("vp2", VP2_CHUNK)):
+        q, k, v = (torch.randn(b, 2 * 257, 12, 64, device="cuda",
+                               generator=g) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        with full_fp32():
+            for key, fn in (
+                    (f"fp32 K4 {name}", lambda: fa.flash_fwd(q, k, v)),
+                    (f"fp32 SDPA forward {name}",
+                     lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=True))):
+                out[key] = (cuda_ms(fn, 20), queued_ms(fn, 20)[0])
+        del q, k, v, qt, kt, vt
     print("ab: kernel ms (cuda_ms, queued_ms) "
           + json.dumps({k: [round(x, 4) for x in v]
                         for k, v in out.items()}))

@@ -9,10 +9,10 @@
 //   K5  _flash_attention_dkv_kernel  :796 (launched :1121)
 //   K6  _flash_attention_dq_kernel   :1146 (launched :1456)
 // A library of its own, with its own C entry points (ivg_flash_fwd_bf16,
-// ivg_flash_bwd_dkv_bf16, ivg_flash_bwd_dq_bf16, at the end). The fp32 K5
-// and K6 are in flash_attention_tf32.cu, the fp32 K4 in flash_attention.cu;
-// the Hopper building blocks that the sm_90a kernels share (mbarriers, TMA,
-// wgmma descriptors and fences) in sm90.cuh.
+// ivg_flash_bwd_dkv_bf16, ivg_flash_bwd_dq_bf16, at the end). The fp32 K4,
+// K5 and K6 are in flash_attention_tf32.cu; the Hopper building blocks that
+// the sm_90a kernels share (mbarriers, TMA, wgmma descriptors and fences,
+// the reading of the keep tile) in sm90.cuh.
 //
 // What they compute, for one (b, h), s = q.k * hd^-0.5, keys j <= query i:
 //   K4  O = softmax(s) V, lse_i = log sum_j exp(s_ij) (natural log, fp32)
@@ -85,24 +85,24 @@
 // 13.6 M a kernel: 0.033 ms at 64 integer instructions a clock an SM, as
 // long as K5's bytes take. So a call must serve its whole group and stay
 // off the critical path:
-//   - K5 and K6 draw each tile's bits once, into a 2-stage keep ring in
+//   - K4, K5 and K6 draw each tile's bits once, into a 2-stage keep ring in
 //     shared memory (ivg::draw_keep_tile: 64 queries x 64 keys, 2 words a
 //     query, 512 B). Each thread makes the 8 calls of one query's 32 keys,
 //     independent and unrolled, and shifts each word's compare in as a
 //     borrow; on the diagonal tile a warp whose keys all lie past its
 //     queries makes none. One call per group, where a thread of K5 (which
 //     holds P^T, two keys of 16 queries) would otherwise call once an
-//     element, 4 times the groups.
+//     element, 4 times the groups, and a thread of K4 or K6 (keys 2t, 2t + 1
+//     of a group) once a pair, twice the groups.
 //   - Tile t + 1's bits are drawn between the commit and the wait of tile
 //     t's score products, so the integer work runs while the tensor cores
 //     do (a tile's products last about a third of its draw, so they hide
 //     no more); the barrier that opens tile t + 1 publishes them.
 //   - A thread reads its elements' bits with 32-bit shared loads: in K5 one
 //     word holds both of its keys of a query (16 loads a tile; the 8 lanes
-//     of a column read one word, a broadcast), in K6 a row's 16 keys lie in
-//     its two words (4 loads).
-// K4 holds keys 2t, 2t + 1 of a row in one group and draws them with one
-// call (ivg::drop_pair, 16 calls a thread a tile): twice the groups.
+//     of a column read one word, a broadcast), in K4 and K6 a row's 16 keys
+//     lie in its two words (4 loads; sm90.cuh's drop_rows, on K4's P after
+//     the row sums and on K6's dP).
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -124,16 +124,16 @@ constexpr int kThreads = 128;                // one warpgroup
 constexpr int kTileBytes = kTile * kHd * 2;  // one bf16 64 x 64 tile
 constexpr int kAlign = kSwizzleAtom;         // the 128-byte swizzle's repeat
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // Dynamic shared memory, from a base rounded up to kAlign:
-//   K4: Q | K0 | V0 | K1 | V1 | 3 mbarriers
+//   K4: Q | K0 | V0 | K1 | V1 | 3 mbarriers | with dropout, keep[2][128]
 //   K5: K | V | Q0 | dO0 | Q1 | dO1 | lse[2][64] | di[2][64] | 3 mbarriers
 //       | with dropout, keep[2][128]
 //   K6: Q | dO | K0 | V0 | K1 | V1 | 3 mbarriers | with dropout, keep[2][128]
 // The keep ring (two stages of ivg::draw_keep_tile's words) comes last and
 // is allocated only for the kDrop instances, so the others are unchanged.
-constexpr int kFwdSmem = 5 * kTileBytes + 64 + kAlign;
+constexpr int kFwdKeep = 5 * kTileBytes + 64;
+constexpr int kFwdSmem = kFwdKeep + kAlign;
 constexpr int kDqKeep = 6 * kTileBytes + 64;
 constexpr int kDqSmem = kDqKeep + kAlign;
 constexpr int kDkvLse = 6 * kTileBytes;
@@ -248,18 +248,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   auto k_s = [&](int st) { return base + (1 + 2 * st) * kTileBytes; };
   auto v_s = [&](int st) { return base + (2 + 2 * st) * kTileBytes; };
   auto bar_kv = [&](int st) { return bar_q + 8 * (1 + st); };
+  // the keep bits of a stage's (64 queries, 64 keys) tile
+  auto keep_s = [&](int st) {
+    return reinterpret_cast<uint32_t*>(smem + kFwdKeep) + ivg::kKeepWords * st;
+  };
 
   const int nt = (S + kTile - 1) / kTile;
   const int bh = blockIdx.x / nt;
   const int qt = nt - 1 - static_cast<int>(blockIdx.x % nt);
   const int b = bh / H, h = bh % H;
   const int q0 = qt * kTile;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int g = (threadIdx.x & 31) >> 2;
   const int row = q0 + 16 * (threadIdx.x >> 5) + g;  // and row + 8
-  uint64_t rctr[2];  // the dropout counters of the thread's two rows
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    rctr[r] = ivg::row_counter(drop, static_cast<int64_t>(bh) * S + row + 8 * r);
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -272,6 +272,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     tma_load(k_s(0), &k_map, bar_kv(0), 0, h, 0, b);
     tma_load(v_s(0), &v_map, bar_kv(0), 0, h, 0, b);
   }
+  if constexpr (kDrop) ivg::draw_keep_tile(drop, bh, S, q0, 0, keep_s(0));
   __syncthreads();
 
   float acc[32], m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
@@ -283,6 +284,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int kt = 0; kt <= qt; ++kt) {
     const int st = kt & 1;
     // every thread is done with tile kt - 1, whose stage takes tile kt + 1
+    // (and whose keep bits it has read), and sees tile kt's keep bits
     if (kt > 0) __syncthreads();
     if (threadIdx.x == 0 && kt < qt) {
       mbar_expect_tx(bar_kv(st ^ 1), 2 * kTileBytes);
@@ -301,51 +303,17 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int kk = 0; kk < 4; ++kk)
       wgmma_ss(s, q_desc + kStepK * kk, k_desc + kStepK * kk, kk > 0);
     wg_commit();
+    // while the product runs, the next tile's keep bits into the other stage
+    if constexpr (kDrop)
+      if (kt < qt)
+        ivg::draw_keep_tile(drop, bh, S, q0, (kt + 1) * kTile, keep_s(st ^ 1));
     wg_wait_all();
     reg_fence(s);
 
-    // the diagonal tile holds the causal edge, and on the last query tile
-    // also the ragged edge (rows past S read as 0 and are never stored)
-    if (kt == qt) {
-      const int k0 = kt * kTile;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        const int r = row + 8 * ((i >> 1) & 1);
-        if (col > r || col >= S) s[i] = -CUDART_INF_F;
-      }
-    }
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    // every row sees a live key in every tile (key 0 .. or its own), so m
-    // is finite from the first tile on, and alpha is 0 there
-    float alpha[2], neg_m[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
-      alpha[r] = ex2(m[r] - m_new);
-      m[r] = m_new;
-      neg_m[r] = -m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      s[i] = ex2(fmaf(s[i], scale_log2, neg_m[r]));
-      l[r] += s[i];
-      acc[i] *= alpha[r];
-    }
-    if constexpr (kDrop) {
-      // P Z / keep, after the row sums (lse is of the undropped P)
-      const int k0 = kt * kTile;
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          ivg::drop_pair(drop, rctr[r], k0 + 8 * jj + 2 * t,
-                         s[4 * jj + 2 * r], s[4 * jj + 2 * r + 1]);
-    }
+    // the online softmax (rows past S read as 0 and are never stored)
+    softmax_rows(s, acc, m, l, row, kt * kTile, S, kt == qt, scale_log2);
+    // P Z / keep, after the row sums (lse is of the undropped P)
+    if constexpr (kDrop) drop_rows(s, keep_s(st), drop, row, q0);
     uint32_t pa[4][4];  // P rounded to bf16, as the TPU kernel rounds it
     to_a(s, pa);
 
@@ -360,16 +328,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     reg_fence(acc);
   }
 
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = quad_sum(l[r]);
-    inv[r] = 1.f / l[r];
-    if (t == 0 && row + 8 * r < S)
-      lse[static_cast<int64_t>(bh) * S + row + 8 * r] =
-          (m[r] + log2f(l[r])) * kLn2;
-  }
-  store_tile(smem, acc, inv, o, b, h, H, q0, S);
+  finish_rows(l, m, lse + static_cast<int64_t>(bh) * S, row, S);
+  store_tile(smem, acc, l, o, b, h, H, q0, S);
 }
 
 // K5 ----------------------------------------------------------------------
@@ -672,7 +632,7 @@ bool bad_dropout(double p_drop) { return !(p_drop >= 0.0 && p_drop < 1.0); }
 // [B, S, H, 64] bf16; di is fp32 [B, H, S]. p_drop in [0, 1) is the
 // attention dropout, its mask drawn from (seed, offset) as philox.cuh says;
 // 0 launches the kernels without dropout. The same arguments as the fp32
-// entry points (flash_attention.cu, flash_attention_tf32.cu). Each function encodes its tensor
+// entry points (flash_attention_tf32.cu). Each function encodes its tensor
 // maps, launches one kernel on `stream` and returns the first cudaError_t
 // (0 on success).
 extern "C" int ivg_flash_fwd_bf16(const void* q, const void* k, const void* v,
@@ -696,7 +656,8 @@ extern "C" int ivg_flash_fwd_bf16(const void* q, const void* k, const void* v,
   const ivg::Dropout drop = ivg::make_dropout(p_drop, seed, offset, S);
   const auto kernel = p_drop > 0.0 ? flash_fwd_sm90_kernel<true>
                                    : flash_fwd_sm90_kernel<false>;
-  kernel<<<grid, kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
+  const int smem = kFwdSmem + (p_drop > 0.0 ? kKeepRing : 0);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, S, H,
       kScale * kLog2e, drop);
   return static_cast<int>(cudaGetLastError());

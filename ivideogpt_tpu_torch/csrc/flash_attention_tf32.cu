@@ -1,30 +1,35 @@
-// K5 (dK, dV) and K6 (dQ) of causal flash attention on fp32 inputs, for
-// Hopper (sm_90a): TMA copies into shared memory, and every product as three
-// TF32 wgmma products summed in fp32.
+// K4 (forward), K5 (dK, dV) and K6 (dQ) of causal flash attention on fp32
+// inputs, for Hopper (sm_90a): TMA copies into shared memory, and every
+// product as three TF32 wgmma products summed in fp32.
 //
 // Replaces, for fp32 q/k/v, the stock TPU kernels that the JAX package calls
 // at ivideogpt_tpu/models/llama.py:97 (jax/experimental/pallas/ops/tpu/
 // flash_attention.py, JAX 0.9.0):
+//   K4  _flash_attention_kernel      :331 (launched :758)
 //   K5  _flash_attention_dkv_kernel  :796 (launched :1121)
 //   K6  _flash_attention_dq_kernel   :1146 (launched :1456)
-// A library of its own (ivg_flash_bwd_dkv_fp32, ivg_flash_bwd_dq_fp32, at the
-// end), with the arguments of the bf16 entry points (flash_attention_sm90.cu).
-// The fp32 K4 is flash_attention.cu's.
+// A library of its own (ivg_flash_fwd_fp32, ivg_flash_bwd_dkv_fp32,
+// ivg_flash_bwd_dq_fp32, at the end), with the arguments of the bf16 entry
+// points (flash_attention_sm90.cu).
 //
 // What they compute, for one (b, h), s = q.k * hd^-0.5, keys j <= query i:
+//   K4  O = softmax(s) V, lse_i = log sum_j exp(s_ij) (natural log)
 //   K5  P = exp(s - lse), dS = P * (dO V^T - di), dV = P^T dO,
 //       dK = dS^T Q * hd^-0.5
 //   K6  dQ = dS K * hd^-0.5
-// with dropout P Z / keep in dV and dS = P (dP Z / keep - di), Z the mask of
-// philox.cuh. Nothing is rounded to bf16: the trainer CLI's default
-// precision (--mixed_precision no) trains through these kernels.
+// with dropout O = (P Z / keep) V (lse of the undropped P), dV from
+// (P Z / keep)^T and dS = P (dP Z / keep - di), Z the mask of philox.cuh.
+// Nothing is rounded to bf16: the trainer CLI's default precision
+// (--mixed_precision no) trains through these kernels, and the fp32
+// prefills of predict and VP2 run K4.
 //
 // Bound on an H100 SXM at the train shape (B=16, S=751, H=12; causal pairs
-// only): K5 2.78e10 FLOP, K6 2.08e10. fp32 FMA (67 TFLOP/s) would take
-// 0.414 / 0.311 ms; the tensor cores' TF32 rate is 495 TFLOP/s, and an
-// fp32-accurate product takes three TF32 products, so 165 TFLOP/s: 0.168 /
-// 0.126 ms. The bytes (fp32 in and out once: 0.066 / 0.055 ms) do not bound
-// them. So the products run on the tensor cores:
+// only): K4 1.39e10 FLOP, K5 2.78e10, K6 2.08e10. fp32 FMA (67 TFLOP/s)
+// would take 0.207 / 0.414 / 0.311 ms; the tensor cores' TF32 rate is 495
+// TFLOP/s, and an fp32-accurate product takes three TF32 products, so 165
+// TFLOP/s: 0.084 / 0.168 / 0.126 ms. The bytes (fp32 in and out once:
+// 0.044 / 0.066 / 0.055 ms) do not bound them. So the products run on the
+// tensor cores:
 //   - Three terms. A B ~ A_h B_h + A_h B_l + A_l B_h, A_h = A rounded to
 //     TF32 (to nearest, ties away: cvt.rna's value, in two integer
 //     instructions), A_l = A - A_h rounded alike; the two small terms
@@ -32,13 +37,14 @@
 //     fp32 memory-efficient attention does on sm80+). hi + lo holds x to
 //     2^-22 |x|, and the dropped A_l B_l is below that.
 //   - wgmma.mma_async m64n64k8 .tf32 takes both operands K-major: it has no
-//     transpose bit. The score products (S^T = K Q^T, dP^T = V dO^T in K5;
-//     S = Q K^T, dP = dO V^T in K6) reduce over the head dim, which is
-//     contiguous as TMA lands the tiles. The products that follow reduce
-//     over the sequence (dV = P^T dO, dK = dS^T Q in K5; dQ = dS K in K6):
-//     their A (P^T, dS^T, dS) is the score product's accumulator, split into
-//     hi and lo in registers; their B (dO, Q, K) is transposed in shared
-//     memory by one conversion pass a landed tile.
+//     transpose bit. The score products (S = Q K^T in K4; S^T = K Q^T,
+//     dP^T = V dO^T in K5; S = Q K^T, dP = dO V^T in K6) reduce over the
+//     head dim, which is contiguous as TMA lands the tiles. The products
+//     that follow reduce over the sequence (O = P V in K4; dV = P^T dO,
+//     dK = dS^T Q in K5; dQ = dS K in K6): their A (P, P^T, dS^T, dS) is the
+//     score product's accumulator, split into hi and lo in registers; their
+//     B (V, dO, Q, K) is transposed in shared memory by one conversion pass
+//     a landed tile.
 //   - The conversion pass (convert_tile): 128 threads read a landed 64 x 64
 //     tile once with 16-byte loads, write its hi in place and its lo beside
 //     it and, for an operand that is also a B over the sequence, the
@@ -55,25 +61,30 @@
 //     next streamed tile's copy is in flight while this one converts and
 //     multiplies (a 2-stage landing ring).
 //   - Shared memory: a 64 x 64 tile is 16 KB, its hi and lo 32 KB a layout.
-//     K5 holds K and V (hi, lo), the ring of Q and dO, their lo and their
+//     K4 holds Q (hi, lo), the ring of K and V, K's lo and two stages of
+//     V's transposed hi and lo: 11 tiles, 176 KB (V's own hi and lo are
+//     never read, so its conversion writes only the transposed tiles); K5
+//     holds K and V (hi, lo), the ring of Q and dO, their lo and their
 //     transposed hi and lo: 14 tiles, 224 KB of the 227 KB; K6 holds Q and
 //     dO (hi, lo), the ring of K and V, their lo and two stages of K's
 //     transposed hi and lo: 14 tiles. One CTA an SM, one warpgroup on 64
-//     rows, so nothing hides a pass that runs alone: K6 converts key tile
-//     kt + 1 while tile kt's dQ product runs (into the other transposed
-//     stage). K5 has no room for a second stage and converts in series;
+//     rows, so nothing hides a pass that runs alone: K4 and K6 convert key
+//     tile kt + 1 while tile kt's last product (P V, dQ) runs (into the
+//     other transposed stage). K5 has no room for a second stage and
+//     converts in series;
 //     splitting tile qt + 1 under tile qt's dV/dK products and transposing
 //     it under its own score products measured slower (the score products
 //     already use most of the shared-memory bandwidth).
-//   - Scores, masks, lse (log2 units inside) and the dropout keep ring are
-//     the bf16 kernels' (the m64n64 fp32 accumulator has one layout for
-//     every input type): each 64 x 64 tile's keep bits are drawn once
-//     (ivg::draw_keep_tile, one Philox call a group of 4 keys) while the
-//     tile before runs its score products.
-// K5: one CTA per (b*h, key tile), key tile 0 (the most query tiles) first,
-// each walking its query tiles from the last to the diagonal; K6: one CTA
-// per (b*h, query tile), the last query tile first. No atomics and no sums
-// across CTAs: the gradients are deterministic.
+//   - Scores, masks, K4's online softmax, lse (log2 units inside) and the
+//     dropout keep ring are the bf16 kernels' (the m64n64 fp32 accumulator
+//     has one layout for every input type): each 64 x 64 tile's keep bits
+//     are drawn once (ivg::draw_keep_tile, one Philox call a group of 4
+//     keys) while the tile before runs its score products, and read through
+//     sm90.cuh's drop_rows / p_ds_transposed.
+// K4 and K6: one CTA per (b*h, query tile), the last query tile first; K5:
+// one CTA per (b*h, key tile), key tile 0 (the most query tiles) first,
+// each walking its query tiles from the last to the diagonal. No atomics
+// and no sums across CTAs: outputs and gradients are deterministic.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_runtime.h>
@@ -97,13 +108,19 @@ constexpr int kAlign = kSwizzleAtom;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Dynamic shared memory, from a base rounded up to kAlign, in 16 KB tiles:
+//   K4: Q | Q_lo | K0 | V0 | K1 | V1 | K_lo | V^T0 | V^T_lo0 | V^T1 |
+//       V^T_lo1 | 3 mbarriers | with dropout, keep[2][128]
 //   K5: K | K_lo | V | V_lo | Q0 | dO0 | Q1 | dO1 | Q_lo | dO_lo | Q^T |
 //       Q^T_lo | dO^T | dO^T_lo | lse[64] | di[64] | 3 mbarriers
 //       | with dropout, keep[2][128]
 //   K6: Q | Q_lo | dO | dO_lo | K0 | V0 | K1 | V1 | K_lo | V_lo | K^T0 |
 //       K^T_lo0 | K^T1 | K^T_lo1 | 3 mbarriers | with dropout, keep[2][128]
 // The landed tiles (K, V, Q, dO, and the ring's) hold their own hi once
-// converted; the lo and transposed tiles hold the tile being multiplied.
+// converted (K4's V excepted); the lo and transposed tiles hold the tile
+// being multiplied.
+constexpr int kFwdBars = 11 * kTileBytes;
+constexpr int kFwdKeep = kFwdBars + 64;
+constexpr int kFwdSmem = kFwdKeep + kAlign;
 constexpr int kDkvLse = 14 * kTileBytes;
 constexpr int kDkvBars = kDkvLse + 2 * kTile * 4;
 constexpr int kDkvKeep = kDkvBars + 64;
@@ -112,6 +129,7 @@ constexpr int kDqBars = 14 * kTileBytes;
 constexpr int kDqKeep = kDqBars + 64;
 constexpr int kDqSmem = kDqKeep + kAlign;
 constexpr int kKeepRing = 2 * ivg::kKeepWords * 4;
+static_assert(kFwdSmem + kKeepRing <= 232448, "K4 exceeds 227 KB");
 static_assert(kDkvSmem + kKeepRing <= 232448, "K5 exceeds 227 KB");
 static_assert(kDqSmem + kKeepRing <= 232448, "K6 exceeds 227 KB");
 
@@ -155,9 +173,9 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
 }
 
 // Splits a landed tile (64 rows x 64 floats, two 64 x 32 halves with the
-// 128-byte swizzle, as TMA writes them) into its TF32 hi, in place, and lo
-// at `lo` (the same layout); with kTrans also writes the transposed tile's
-// hi and lo at tr_hi, tr_lo: row e (a column of the landed tile) holds the
+// 128-byte swizzle, as TMA writes them): with kSplit into its TF32 hi, in
+// place, and lo at `lo` (the same layout); with kTrans into the transposed
+// tile's hi and lo at tr_hi, tr_lo: row e (a column of the landed tile) holds the
 // landed rows as the K of a product, rows 0-31 in the first 8 KB half and
 // 32-63 in the second, each k-step's 8 rows in the order [0 2 4 6 1 3 5 7]
 // (see to_a_tf32). Thread x takes rows 8 j + 2 p + s (p < 4) of the landed
@@ -166,7 +184,7 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
 // 16-byte load and store, the 8 lanes of a phase meet 8 different bank
 // groups. The caller orders the writes before wgmma reads them
 // (fence_proxy_async, a barrier).
-template <bool kTrans>
+template <bool kTrans, bool kSplit = true>
 __device__ __forceinline__ void convert_tile(uint8_t* tile, uint8_t* lo,
                                              uint8_t* tr_hi, uint8_t* tr_lo) {
   const int x = threadIdx.x;
@@ -181,8 +199,10 @@ __device__ __forceinline__ void convert_tile(uint8_t* tile, uint8_t* lo,
       const int r = 8 * j + 2 * p + s;
       const int off = ch * kHalfBytes + r * 128 + ((a ^ (r & 7)) << 4);
       split4(*reinterpret_cast<const float4*>(tile + off), h4[p], l4[p]);
-      *reinterpret_cast<float4*>(tile + off) = h4[p];
-      *reinterpret_cast<float4*>(lo + off) = l4[p];
+      if constexpr (kSplit) {
+        *reinterpret_cast<float4*>(tile + off) = h4[p];
+        *reinterpret_cast<float4*>(lo + off) = l4[p];
+      }
     }
     if constexpr (kTrans) {
 #pragma unroll
@@ -325,6 +345,130 @@ __device__ __forceinline__ void frag_fence(uint32_t (&a)[8][4]) {
 __device__ __forceinline__ void zero(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) d[i] = 0.f;
+}
+
+// K4 ----------------------------------------------------------------------
+// Q is landed once and split; K and V flow through the ring. Key tile
+// kt + 1 converts while tile kt's P V product runs: K's hi in place and its
+// lo (free once tile kt's score product is done), V's transposed hi and lo
+// into the other V^T stage.
+template <bool kDrop>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      float* __restrict__ o, float* __restrict__ lse, int S,
+                      int H, float scale_log2, ivg::Dropout drop) {
+  extern __shared__ uint8_t smem_raw[];
+  uint32_t base;
+  uint8_t* smem = aligned_smem(smem_raw, &base);
+  auto tile = [&](int i) { return smem + i * kTileBytes; };
+  auto at = [&](int i) { return base + i * kTileBytes; };
+  enum { Q, Q_LO, RING, K_LO = 6, VT };
+  auto k_st = [&](int st) { return RING + 2 * st; };      // K's hi
+  auto v_st = [&](int st) { return RING + 2 * st + 1; };  // V as landed
+  auto vt_st = [&](int st) { return VT + 2 * st; };       // V^T's hi
+  auto vtl_st = [&](int st) { return VT + 2 * st + 1; };  // V^T's lo
+  const uint32_t bar_q = base + kFwdBars;
+  auto bar_kv = [&](int st) { return bar_q + 8 * (1 + st); };
+  // the keep bits of a stage's (64 queries, 64 keys) tile
+  auto keep_s = [&](int st) {
+    return reinterpret_cast<uint32_t*>(smem + kFwdKeep) + ivg::kKeepWords * st;
+  };
+
+  const int nt = (S + kTile - 1) / kTile;
+  const int bh = blockIdx.x / nt;
+  const int qt = nt - 1 - static_cast<int>(blockIdx.x % nt);
+  const int b = bh / H, h = bh % H;
+  const int q0 = qt * kTile;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int row = q0 + 16 * (threadIdx.x >> 5) + g;  // and row + 8
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_kv(0), 1);
+    mbar_init(bar_kv(1), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_q, kTileBytes);
+    load_tile(at(Q), &q_map, bar_q, h, q0, b);
+    for (int n = 0; n < 2 && n <= qt; ++n) {
+      mbar_expect_tx(bar_kv(n), 2 * kTileBytes);
+      load_tile(at(k_st(n)), &k_map, bar_kv(n), h, n * kTile, b);
+      load_tile(at(v_st(n)), &v_map, bar_kv(n), h, n * kTile, b);
+    }
+  }
+  if constexpr (kDrop) ivg::draw_keep_tile(drop, bh, S, q0, 0, keep_s(0));
+  __syncthreads();
+  mbar_wait(bar_q, 0);
+  convert_tile<false>(tile(Q), tile(Q_LO), nullptr, nullptr);
+  mbar_wait(bar_kv(0), 0);
+  convert_tile<false>(tile(k_st(0)), tile(K_LO), nullptr, nullptr);
+  convert_tile<true, false>(tile(v_st(0)), nullptr, tile(vt_st(0)),
+                            tile(vtl_st(0)));
+
+  float acc[32], m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  zero(acc);
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int st = kt & 1;
+    // tile kt's conversion and keep bits, by every thread, before the
+    // products read them
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T
+    float s[32];
+    zero(s);
+    wg_fence();
+    product3_ss(s, at(Q), at(Q_LO), at(k_st(st)), at(K_LO));
+    wg_commit();
+    // while the product runs, the next tile's keep bits into the other
+    // stage (read by every thread in tile kt - 1, before the barrier above)
+    if constexpr (kDrop)
+      if (kt < qt)
+        ivg::draw_keep_tile(drop, bh, S, q0, (kt + 1) * kTile, keep_s(st ^ 1));
+    wg_wait_all();
+    reg_fence(s);
+    // every warp is past it: stage st's landed tiles take tile kt + 2 (its
+    // V went into V^T when it converted), K_LO takes tile kt + 1
+    __syncthreads();
+    if (threadIdx.x == 0 && kt + 2 <= qt) {
+      mbar_expect_tx(bar_kv(st), 2 * kTileBytes);
+      load_tile(at(k_st(st)), &k_map, bar_kv(st), h, (kt + 2) * kTile, b);
+      load_tile(at(v_st(st)), &v_map, bar_kv(st), h, (kt + 2) * kTile, b);
+    }
+
+    // the online softmax (rows past S read as 0 and are never stored)
+    softmax_rows(s, acc, m, l, row, kt * kTile, S, kt == qt, scale_log2);
+    // P Z / keep, after the row sums (lse is of the undropped P)
+    if constexpr (kDrop) drop_rows(s, keep_s(st), drop, row, q0);
+    uint32_t p_hi[8][4], p_lo[8][4];
+    to_a_tf32(s, p_hi, p_lo);
+
+    // O += P V, running while tile kt + 1 converts (into K_LO and the other
+    // V^T stage; nothing there writes a register the product owns)
+    reg_fence(acc);
+    frag_fence(p_hi);
+    frag_fence(p_lo);
+    wg_fence();
+    product3_rs(acc, p_hi, p_lo, at(vt_st(st)), at(vtl_st(st)));
+    wg_commit();
+    if (kt < qt) {
+      mbar_wait(bar_kv(st ^ 1), ((kt + 1) >> 1) & 1);
+      convert_tile<false>(tile(k_st(st ^ 1)), tile(K_LO), nullptr, nullptr);
+      convert_tile<true, false>(tile(v_st(st ^ 1)), nullptr,
+                                tile(vt_st(st ^ 1)), tile(vtl_st(st ^ 1)));
+    }
+    wg_wait_all();
+    reg_fence(acc);
+    frag_fence(p_hi);
+    frag_fence(p_lo);
+  }
+
+  finish_rows(l, m, lse + static_cast<int64_t>(bh) * S, row, S);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] *= l[(i >> 1) & 1];
+  store_acc(acc, 1.f, o, b, h, H, q0, S);
 }
 
 // K5 ----------------------------------------------------------------------
@@ -669,10 +813,41 @@ cudaError_t make_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
 // strides (elements), head dim contiguous, base pointers 16-byte aligned and
 // strides multiples of 4 (TMA's rule). dout is contiguous fp32 [B, S, H, 64];
 // lse (natural log) and di are fp32 [B, H, S]. Outputs are contiguous fp32
-// [B, S, H, 64]: dk, dv, dq. p_drop in [0, 1) is the attention dropout, its
-// mask drawn from (seed, offset) as philox.cuh says; 0 launches the kernels
-// without dropout. Each function encodes its tensor maps, launches one kernel
-// on `stream` and returns the first cudaError_t (0 on success).
+// [B, S, H, 64]: o, dk, dv, dq (K4 also writes lse). p_drop in [0, 1) is the
+// attention dropout, its mask drawn from (seed, offset) as philox.cuh says;
+// 0 launches the kernels without dropout. Each function encodes its tensor
+// maps, launches one kernel on `stream` and returns the first cudaError_t (0
+// on success).
+extern "C" int ivg_flash_fwd_fp32(const void* q, const void* k, const void* v,
+                                  void* o, float* lse, int B, int S, int H,
+                                  int hd, int64_t q_sb, int64_t q_ss,
+                                  int64_t q_sh, int64_t k_sb, int64_t k_ss,
+                                  int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                                  int64_t v_sh, double p_drop, uint64_t seed,
+                                  uint64_t offset, void* stream) {
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t sts[3][3] = {
+      {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}};
+  const void* ptrs[3] = {q, k, v};
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = make_map(&maps[i], ptrs[i], B, S, H, sts[i]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto kernel = p_drop > 0.0 ? flash_fwd_tf32_kernel<true>
+                                   : flash_fwd_tf32_kernel<false>;
+  const int smem = kFwdSmem + (p_drop > 0.0 ? kKeepRing : 0);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H * ((S + kTile - 1) / kTile));
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], static_cast<float*>(o), lse, S, H,
+      kScale * kLog2e, ivg::make_dropout(p_drop, seed, offset, S));
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int ivg_flash_bwd_dkv_fp32(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const float* lse, const float* di,

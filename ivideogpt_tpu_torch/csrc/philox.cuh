@@ -29,11 +29,10 @@
 // layout, padding of the ragged tile). A kept element is scaled by
 // scale = 1 / keep.
 //
-// How a kernel draws it: K5 and K6, bf16 (flash_attention_sm90.cu) and fp32
-// (flash_attention_tf32.cu), draw a whole 64 x 64 tile's bits into shared
-// memory once, one call per group (draw_keep_tile); the bf16 K4 calls once
-// for the two keys of a group that a thread holds (drop_pair), the fp32 K4
-// (flash_attention.cu) once for each element (keep_scale).
+// How a kernel draws it: K4, K5 and K6, bf16 (flash_attention_sm90.cu) and
+// fp32 (flash_attention_tf32.cu), draw a whole 64 x 64 tile's bits into
+// shared memory once, one call per group (draw_keep_tile), and read them
+// through sm90.cuh's drop_rows (K4, K6) or p_ds_transposed (K5).
 
 #pragma once
 
@@ -86,18 +85,6 @@ __device__ __forceinline__ uint64_t row_counter(const Dropout& d,
   return static_cast<uint64_t>(row) * static_cast<uint64_t>(d.n4);
 }
 
-// The four words of the group holding key j of the row at `rctr`.
-__device__ __forceinline__ uint4 group_words(const Dropout& d, uint64_t rctr,
-                                             int j) {
-  const uint64_t ctr = rctr + static_cast<uint64_t>(j >> 2);
-  return philox4x32_10(
-      make_uint4(static_cast<uint32_t>(ctr), static_cast<uint32_t>(ctr >> 32),
-                 static_cast<uint32_t>(d.offset),
-                 static_cast<uint32_t>(d.offset >> 32)),
-      make_uint2(static_cast<uint32_t>(d.seed),
-                 static_cast<uint32_t>(d.seed >> 32)));
-}
-
 // The keep bits of a tile of 64 queries x 64 keys, drawn once by a
 // warpgroup into shared memory for the tile's elements to read: word
 // 2 r + w of `bits` holds keys j0 + 32 w .. j0 + 32 w + 31 of query i0 + r,
@@ -147,10 +134,10 @@ __device__ __forceinline__ uint32_t keep_word(const Dropout& d, uint64_t ctr) {
 // x draws word 2 (x & 63) + (x >> 6), its row's 8 groups, one call each;
 // warps 0-1 take keys j0 .. j0 + 31, warps 2-3 the rest. So a tile costs
 // one call per group, at most 1024. A word that changes no output is not
-// drawn and keeps what it held: a query at or past S (K5 zeroes its P, K6
-// its dS and never stores its dQ), and 32 keys that all lie past their
-// query (on the diagonal tile; there warp 2 skips as a whole), whose P is
-// 0. The caller publishes the words with a barrier.
+// drawn and keeps what it held: a query at or past S (K4 never stores its
+// O, K5 zeroes its P, K6 its dS and never stores its dQ), and 32 keys that
+// all lie past their query (on the diagonal tile; there warp 2 skips as a
+// whole), whose P is 0. The caller publishes the words with a barrier.
 __device__ __forceinline__ void draw_keep_tile(const Dropout& d, int64_t bh,
                                                int S, int i0, int j0,
                                                uint32_t* bits) {
@@ -160,26 +147,6 @@ __device__ __forceinline__ void draw_keep_tile(const Dropout& d, int64_t bh,
     bits[2 * r + half] = keep_word(
         d, row_counter(d, bh * S + i) + static_cast<uint64_t>(j >> 2));
   __syncwarp();  // converged again for the warpgroup's aligned instructions
-}
-
-__device__ __forceinline__ uint32_t word(const uint4& w, int i) {
-  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
-}
-
-// scale where (row, j) is kept, else 0.
-__device__ __forceinline__ float keep_scale(const Dropout& d, uint64_t rctr,
-                                            int j) {
-  return word(group_words(d, rctr, j), j & 3) < d.threshold ? d.scale : 0.f;
-}
-
-// x0 and x1, at keys j and j + 1 of one row (j even, so both in one
-// group), times their keep_scale: one Philox call for the pair.
-__device__ __forceinline__ void drop_pair(const Dropout& d, uint64_t rctr,
-                                          int j, float& x0, float& x1) {
-  const uint4 w = group_words(d, rctr, j);
-  const bool upper = (j & 2) != 0;
-  x0 = (upper ? w.z : w.x) < d.threshold ? x0 * d.scale : 0.f;
-  x1 = (upper ? w.w : w.y) < d.threshold ? x1 * d.scale : 0.f;
 }
 
 }  // namespace ivg

@@ -1,14 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels:
 // mbarriers, 4-D TMA tile loads, wgmma descriptors of 128-byte-swizzled
-// K-major tiles, the wgmma fences, the backward's P and dS with the
-// dropout keep tile, and the host's cuTensorMapEncodeTiled.
+// K-major tiles, the wgmma fences, K4's online softmax, the reading of the
+// dropout keep tile (K4's P, the backward's P and dS), and the host's
+// cuTensorMapEncodeTiled.
 // flash_attention_sm90.cu (bf16 K4, K5, K6) and flash_attention_tf32.cu
-// (fp32 K5, K6) include it.
+// (fp32 K4, K5, K6) include it.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include "philox.cuh"
@@ -19,6 +21,8 @@ namespace sm90 {
 // The 128-byte swizzle repeats every 8 rows of 128 bytes: tiles start on
 // this boundary, and it is the stride between 8-row groups of a tile.
 constexpr int kSwizzleAtom = 1024;
+
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ------------------------- mbarriers and TMA -------------------------------
 
@@ -136,10 +140,95 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// ------------- the backward's P and dS, with the keep tile -----------------
+// ------------------ K4's online softmax (bf16 and fp32) --------------------
+
+// Score tile k0 of this thread's rows row and row + 8 (r = (i >> 1) & 1),
+// in log2 units: masks keys past the row and at or past S (tested only
+// where diag: the diagonal tile, on the last query tile also the ragged
+// one), raises the running max m (of s * scale_log2), rescales the running
+// sum l and the output accumulator acc by exp2(m_old - m_new), and turns s
+// into P = exp2(s * scale_log2 - m) summed into l (the undropped P). Every
+// row sees a live key in every tile (key 0 .. or its own), so m is finite
+// from the first tile on, and the rescale is 0 there.
+__device__ __forceinline__ void softmax_rows(float (&s)[32], float (&acc)[32],
+                                             float (&m)[2], float (&l)[2],
+                                             int row, int k0, int S,
+                                             bool diag, float scale_log2) {
+  const int t = threadIdx.x & 3;
+  if (diag) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      if (col > row + 8 * ((i >> 1) & 1) || col >= S) s[i] = -CUDART_INF_F;
+    }
+  }
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float alpha[2], neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+    alpha[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = ex2(fmaf(s[i], scale_log2, neg_m[r]));
+    l[r] += s[i];
+    acc[i] *= alpha[r];
+  }
+}
+
+// K4's end for rows row and row + 8 of head row lse_h (lse_h[i] = query
+// i's): the row sums l gathered from the quad, lse = (m + log2 l) ln 2 (the
+// natural log, as K6 and the backward read it) written for rows below S;
+// returns 1 / l, the rows' output scale.
+__device__ __forceinline__ void finish_rows(float (&l)[2], const float (&m)[2],
+                                            float* lse_h, int row, int S) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    if ((threadIdx.x & 3) == 0 && row + 8 * r < S)
+      lse_h[row + 8 * r] = (m[r] + log2f(l[r])) * kLn2;
+    l[r] = 1.f / l[r];
+  }
+}
+
+// ------------- P and dS with the keep tile (ivg::draw_keep_tile) ----------
 //
-// Both K5s and both K6s (bf16 and fp32) finish their score products here,
-// so the keep tile's layout (ivg::draw_keep_tile) is read in one place.
+// Both K4s, both K5s and both K6s (bf16 and fp32) read the keep tile here,
+// so its layout is read in one place.
+
+// x, a row-layout accumulator over key tile k0 (rows this thread's row and
+// row + 8, r = (i >> 1) & 1; keys k0 + 8 jj + 2 t + e at x[4 jj + 2 r + e]),
+// times Z / keep in place: x scale where kept, 0 where dropped. A row's 16
+// keys are bits 8 (jj & 3) + 2 t + e of its two words 2 (row - q0) + 16 r +
+// (jj >> 2) in the (q0, k0) keep tile, 4 loads. K4 applies it to P after
+// the row sums (lse is of the undropped P), K6 to dP.
+__device__ __forceinline__ void drop_rows(float (&x)[32], const uint32_t* keep,
+                                          const Dropout& drop, int row,
+                                          int q0) {
+  const int t = threadIdx.x & 3;
+  const uint32_t* keep_t = keep + 2 * (row - q0);
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t kept = keep_t[16 * r + half] >> (2 * t);
+#pragma unroll
+      for (int jj = 4 * half; jj < 4 * half + 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = x[4 * jj + 2 * r + e];
+          v = (kept >> (8 * (jj & 3) + e)) & 1u ? v * drop.scale : 0.f;
+        }
+    }
+}
 
 // K5: sT = K Q^T and dpT = V dO^T of key tile k0 and query tile q0, rows
 // this thread's keys (key and key + 8), columns queries q0 + c. In place,
@@ -178,8 +267,7 @@ __device__ __forceinline__ void p_ds_transposed(
 // thread's row and row + 8 (lse_r: their lse times log2(e); di_r: their
 // di). In place, s = dS = P (dP - di), P = exp(s - lse) zero past the
 // causal edge and at or past S (tested only where diag). With dropout,
-// dS = P (dP Z / keep - di): a row's 16 keys are bits 8 jj + 2 t + e of its
-// two words in the (q0, k0) keep tile.
+// dS = P (dP Z / keep - di), dP Z / keep by drop_rows.
 template <bool kDrop>
 __device__ __forceinline__ void ds_rows(float (&s)[32], float (&dp)[32],
                                         const float (&lse_r)[2],
@@ -189,22 +277,7 @@ __device__ __forceinline__ void ds_rows(float (&s)[32], float (&dp)[32],
                                         int k0, int S, bool diag,
                                         float scale_log2) {
   const int t = threadIdx.x & 3;
-  if constexpr (kDrop) {
-    const uint32_t* keep_t = keep + 2 * (row - q0);
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const uint32_t kept = keep_t[16 * r + half] >> (2 * t);
-#pragma unroll
-        for (int jj = 4 * half; jj < 4 * half + 4; ++jj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = dp[4 * jj + 2 * r + e];
-            x = (kept >> (8 * (jj & 3) + e)) & 1u ? x * drop.scale : 0.f;
-          }
-      }
-  }
+  if constexpr (kDrop) drop_rows(dp, keep, drop, row, q0);
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int r = (i >> 1) & 1;

@@ -1,7 +1,6 @@
 """Causal attention over fresh q/k/v: kernels K4 (forward), K5 (dK, dV) and
-K6 (dQ), bf16 in ``csrc/flash_attention_sm90.cu``, fp32 K5 and K6 in
-``csrc/flash_attention_tf32.cu`` and the fp32 K4 in
-``csrc/flash_attention.cu``, and their plain PyTorch versions.
+K6 (dQ), bf16 in ``csrc/flash_attention_sm90.cu`` and fp32 in
+``csrc/flash_attention_tf32.cu``, and their plain PyTorch versions.
 
 One function serves the KV-cached prefill and the training forward:
 
@@ -21,13 +20,14 @@ then launches K5 and K6.
 The kernels keep the scores, the softmax and every sum in fp32, as the TPU
 kernel does; on bf16 inputs they run on tensor cores and, like the TPU
 kernel, round P and dS to bf16 before multiplying them. On fp32 inputs
-nothing is rounded to bf16: the fp32 K4 multiplies in fp32 FMAs, and the
-fp32 K5 and K6 run each product on the tensor cores as three TF32 products
-(hi * hi + hi * lo + lo * hi, hi + lo holding each operand to 2^-22 of its
-value), which stays within the fp32 tolerances. The plain version rounds
-the scores and P to bf16 on a bf16 input (``einsum`` of bf16 operands
-returns bf16), so in bf16 the two agree to bf16 rounding, and in fp32 to
-fp32 rounding.
+nothing is rounded to bf16: the fp32 kernels run each product on the
+tensor cores as three TF32 products (hi * hi + hi * lo + lo * hi, hi + lo
+holding each operand to 2^-22 of its value), which stays within the fp32
+tolerances. The plain version rounds the scores and P to bf16 on a bf16
+input (``einsum`` of bf16 operands returns bf16), so in bf16 the two agree
+to bf16 rounding, and in fp32 to fp32 rounding. All six kernels read q, k
+and v by TMA, so :func:`flash_fwd` and the backward refuse a view whose
+base or strides are not whole 16 bytes.
 
 ``flash_fwd_plain``, ``flash_bwd_dkv_plain`` and ``flash_bwd_dq_plain``
 compute what each kernel computes, at its own interface (lse and di in,
@@ -41,8 +41,9 @@ the same bits from ``csrc/philox.cuh``). As in the JAX package's
 ``nn.Dropout`` after the fp32 softmax, the row max and lse come from the
 undropped P, O = (P Z / keep) V, and the backward takes
 dV = (P Z / keep)^T dO and dS = P (dP Z / keep - di), di = rowsum(dO O) on
-the dropped O. K4 applies the mask to its fp32 P before rounding it for the
-P V product; K5 and K6 regenerate the same mask. Every plain version draws
+the dropped O. K4 applies the mask to its fp32 P before rounding or
+splitting it for the P V product; K5 and K6 regenerate the same mask, each
+kernel drawing a 64 x 64 tile's bits once. Every plain version draws
 its chunk's part of the mask by index, so its chunk size does not change
 the mask. p = 0 (or None) launches the kernels without dropout, bit-equal to
 a launch that never heard of it.
@@ -192,10 +193,7 @@ def causal_attention(q, k, v, dtype, dropout: Optional[Dropout] = None):
 class _CausalFlash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, dropout):
-        # the backward reads q, k and v by TMA: refuse what it cannot read
-        # before the forward runs, not after
-        if any(ctx.needs_input_grad[:3]):
-            _check_tma(q, k, v)
+        # flash_fwd refuses, before its launch, what no kernel reads
         o, lse = flash_fwd(q, k, v, dropout)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.dropout = dropout
@@ -234,9 +232,9 @@ def _check(q, k, v):
                          "fp32")
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError("causal_attention: the head dim must be contiguous")
-    if q.dtype == torch.bfloat16 and not all(_aligned(t) for t in ts):
-        raise ValueError("causal_attention: bf16 inputs must be 16-byte "
-                         "aligned, with strides in multiples of 8")
+    if not all(_aligned(t) for t in ts):
+        raise ValueError("causal_attention: q, k and v must be 16-byte "
+                         "aligned, with strides in multiples of 16 bytes")
     return B, S, H
 
 
@@ -277,16 +275,8 @@ def flash_fwd(q, k, v, dropout: Optional[Dropout] = None):
     return o, lse
 
 
-def _check_tma(q, k, v):
-    """The backward kernels, of either dtype, read q, k and v by TMA."""
-    if not all(_aligned(t) for t in (q, k, v)):
-        raise ValueError("flash backward: q, k and v must be 16-byte "
-                         "aligned, with strides in multiples of 16 bytes")
-
-
 def _check_bwd(q, k, v, do, lse, di):
     B, S, H = _check(q, k, v)
-    _check_tma(q, k, v)
     if (do.shape != q.shape or do.dtype != q.dtype or do.device != q.device
             or not do.is_contiguous() or not _aligned(do)):
         raise ValueError("flash backward: dO must be contiguous, 16-byte "
@@ -334,13 +324,10 @@ flash_bwd_dq.launches = 0
 def _library(kernel, dtype):
     """(library, C symbol) of kernel "fwd", "bwd_dkv" or "bwd_dq" for
     ``dtype`` inputs: bf16 in ``csrc/flash_attention_sm90.cu`` (TMA +
-    ``wgmma``); fp32 K5 and K6 in ``csrc/flash_attention_tf32.cu`` (TMA +
-    three-term TF32 ``wgmma``), the fp32 K4 in ``csrc/flash_attention.cu``
-    (FMA)."""
+    ``wgmma``), fp32 in ``csrc/flash_attention_tf32.cu`` (TMA + three-term
+    TF32 ``wgmma``)."""
     if dtype == torch.bfloat16:
         return "flash_attention_sm90", f"ivg_flash_{kernel}_bf16"
-    if kernel == "fwd":
-        return "flash_attention", "ivg_flash_fwd_fp32"
     return "flash_attention_tf32", f"ivg_flash_{kernel}_fp32"
 
 

@@ -118,21 +118,19 @@ def test_plain_forward_and_backward_agree_with_autograd():
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
 def test_entry_points_by_dtype(kernel, dt):
     """bf16 K4, K5 and K6 are the TMA + wgmma kernels of
-    flash_attention_sm90.cu; the fp32 K5 and K6 the TMA + three-term TF32
-    wgmma kernels of flash_attention_tf32.cu; the fp32 K4 the FMA kernel of
-    flash_attention.cu. Decided without loading a library."""
+    flash_attention_sm90.cu; the fp32 K4, K5 and K6 the TMA + three-term
+    TF32 wgmma kernels of flash_attention_tf32.cu. Decided without loading
+    a library."""
     lib, sym = _library(kernel, DT[dt])
     if dt == "bf16":
         assert (lib, sym) == ("flash_attention_sm90",
                               f"ivg_flash_{kernel}_bf16")
-    elif kernel == "fwd":
-        assert (lib, sym) == ("flash_attention", "ivg_flash_fwd_fp32")
     else:
         assert (lib, sym) == ("flash_attention_tf32",
                               f"ivg_flash_{kernel}_fp32")
+    assert lib in _build.SOURCES
     # each symbol is defined by its library's source, and only there
-    for name in ("flash_attention", "flash_attention_sm90",
-                 "flash_attention_tf32"):
+    for name in ("flash_attention_sm90", "flash_attention_tf32"):
         with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
             defined = f'extern "C" int {sym}(' in f.read()
         assert defined == (name == lib), (name, sym)

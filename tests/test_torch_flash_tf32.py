@@ -1,4 +1,4 @@
-"""The arithmetic of the fp32 K5 and K6 (``csrc/flash_attention_tf32.cu``),
+"""The arithmetic of the fp32 K4, K5 and K6 (``csrc/flash_attention_tf32.cu``),
 emulated on the CPU: every product as three TF32 products,
 A B ~ A_h B_h + A_h B_l + A_l B_h, with A_h = A rounded to TF32 (round to
 nearest, ties away from zero: ``cvt.rna.tf32.f32``) and A_l = A - A_h
@@ -10,10 +10,12 @@ tests/test_torch_gpu_dropout.py) hold them against the plain versions.
 The tensor cores sum the three terms and the k-steps in another order than
 ``torch.matmul`` on the CPU, so these tests check the error budget of the
 split against the fp32 tolerances (rtol 1e-4, atol 1e-5), not bit equality
-with the kernels. The backward is held against ``flash_bwd_dkv_plain`` /
-``flash_bwd_dq_plain`` and against the stock JAX ``mha_reference_bwd``
-(jax/experimental/pallas/ops/tpu/flash_attention.py, JAX 0.9.0), called as
-tests/test_torch_flash_interface.py calls it.
+with the kernels. The forward is held against ``flash_fwd_plain`` (also
+with the Philox mask) and against the stock JAX
+``mha_reference_no_custom_vjp``, the backward against
+``flash_bwd_dkv_plain`` / ``flash_bwd_dq_plain`` and the stock JAX
+``mha_reference_bwd`` (jax/experimental/pallas/ops/tpu/flash_attention.py,
+JAX 0.9.0), called as tests/test_torch_flash_interface.py calls it.
 """
 
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ import torch
 from jax.experimental.pallas.ops.tpu.flash_attention import (
     mha_reference_bwd, mha_reference_no_custom_vjp)
 
+from ivideogpt_tpu_torch.ops import philox
 from ivideogpt_tpu_torch.ops.flash_attention import (_aligned,
                                                      flash_bwd_dkv_plain,
                                                      flash_bwd_dq_plain,
@@ -53,6 +56,27 @@ def mm3(a, b):
     a_h, a_l = split(a)
     b_h, b_l = split(b)
     return (a_h @ b_l + a_l @ b_h) + a_h @ b_h
+
+
+def forward_tf32(q, k, v, dropout=None):
+    """(O [B, S, H, HD], lse [B, H, S]) of the causal forward with its two
+    products (S = Q K^T, O = P V) as mm3, as K4 computes them: P = exp(s -
+    m) unnormalised in [0, 1] (times Z / keep with dropout, after the row
+    sums), split into TF32 hi and lo as the kernel splits its score
+    accumulator, and O = (P V) / l."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    S = q.shape[1]
+    s = mm3(qh, kh.transpose(-1, -2)) * SCALE
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
+                      float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    if dropout is not None:
+        z = philox.keep_mask(dropout, q.shape[0], q.shape[2], S, 0, S, 0, S)
+        p = p * z / (1.0 - dropout[0])
+    o = mm3(p, vh) / l
+    return o.transpose(1, 2), (m + torch.log(l))[..., 0]
 
 
 def backward_tf32(q, k, v, do, lse, di):
@@ -108,6 +132,41 @@ def test_three_terms_hold_fp32_where_one_does_not():
     assert float(one.max()) > 1e-4
 
 
+@pytest.mark.parametrize("S", [65, 300, 514, 751])
+def test_three_term_forward_matches_plain(S):
+    q, k, v, _ = _inputs(S, seed=S + 2)
+    o, lse = forward_tf32(q, k, v)
+    want_o, want_lse = flash_fwd_plain(q, k, v)
+    torch.testing.assert_close(o, want_o, **TOL)
+    assert float((lse - want_lse).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("S", [65, 300, 514, 751])
+def test_three_term_forward_matches_stock_reference(S):
+    q, k, v, _ = _inputs(S, seed=S + 3)
+    jq, jk, jv = (jnp.asarray(t.transpose(1, 2).numpy()) for t in (q, k, v))
+    out, l, m = mha_reference_no_custom_vjp(jq, jk, jv, causal=True,
+                                            sm_scale=SCALE,
+                                            save_residuals=True)
+    o, lse = forward_tf32(q, k, v)
+    np.testing.assert_allclose(
+        o.numpy(), np.swapaxes(np.asarray(out, np.float32), 1, 2), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(m + jnp.log(l)),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("S", [65, 300, 514, 751])
+def test_three_term_forward_with_dropout_matches_plain(S):
+    """With the Philox mask: O = (P Z / keep) V, lse of the undropped P."""
+    q, k, v, _ = _inputs(S, seed=S + 4)
+    drop = (0.1, 2024, philox.offset_of(3, 1))
+    o, lse = forward_tf32(q, k, v, drop)
+    want_o, want_lse = flash_fwd_plain(q, k, v, drop)
+    torch.testing.assert_close(o, want_o, **TOL)
+    assert float((lse - want_lse).abs().max()) < 1e-4
+    assert not torch.allclose(o, flash_fwd_plain(q, k, v)[0], **TOL)
+
+
 @pytest.mark.parametrize("S", [65, 300, 751])
 def test_three_term_backward_matches_plain(S):
     q, k, v, do = _inputs(S, seed=S)
@@ -146,7 +205,7 @@ def test_three_term_backward_matches_stock_reference(S):
 def test_tma_alignment_rule():
     """What the TMA-fed kernels take (the wrappers refuse the rest): a
     16-byte aligned base and strides of whole 16 bytes, 4 fp32 or 8 bf16
-    elements; the fp32 backward as the bf16 kernels."""
+    elements; the fp32 kernels, K4 among them, as the bf16 kernels."""
     x = torch.zeros(2, 70, 3, 80)
     assert _aligned(x[..., :64])
     assert not _aligned(x[..., 1:65])                       # base 4 B off

@@ -12,8 +12,9 @@ and skips when there is none. Imports no JAX:
   LLAMA_MEDIUM's 16 heads and at B * H = 256 heads (3072 CTAs a kernel,
   many resident on each SM);
 - K5 and K6 with dropout bit-identical across two launches;
-- the fp32 K5 and K6 (three-term TF32) with dropout at their interface over
-  ragged S, one head and B * H = 384, q/k/v apart and from a fused qkv;
+- the fp32 K4, K5 and K6 (three-term TF32) with dropout at their interface
+  over ragged S, one head and B * H = 384, q/k/v apart and from a fused
+  qkv, and the bf16 K4 with dropout at the same shapes, its mask read back;
 - the kernels with dropout against the plain versions with the same
   (seed, offset), at their own interface and through ``causal_attention``
   and autograd;
@@ -169,6 +170,78 @@ def test_tf32_kernels_with_dropout_match_plain_at_their_interface(
     again_dk, again_dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, drop)
     assert torch.equal(dk, again_dk) and torch.equal(dv, again_dv)
     assert torch.equal(dq, fa.flash_bwd_dq(q, k, v, do, lse, di, drop))
+
+
+K4_SHAPES = dict(argnames="S", argvalues=[1, 63, 64, 65, 300, 514, 751,
+                                           1024])
+
+
+def _k4_inputs(cuda, B, S, H, dtype, seed, fused):
+    """q, k, v [B, S, H, 64] in dtype; fused: strided views of one
+    [B, S, 3, H, 64] tensor, as a fused qkv projection gives them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if fused:
+        return torch.randn(B, S, 3, H, 64, device=cuda,
+                           generator=g).to(dtype).unbind(2)
+    return [torch.randn(B, S, H, 64, device=cuda, generator=g).to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("B,H", [(1, 1), (32, 12)])
+@pytest.mark.parametrize(**K4_SHAPES)
+def test_tf32_k4_with_dropout_matches_plain_at_its_interface(cuda, S, B, H,
+                                                             fused):
+    """The fp32 K4 with dropout 0.1 against flash_fwd_plain with the same
+    (p, seed, offset) at the fp32 gates (rtol 1e-4, atol 1e-5; lse, of the
+    undropped P, within 1e-4); bit-identical launch to launch."""
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    q, k, v = _k4_inputs(cuda, B, S, H, torch.float32, S * B + 7, fused)
+    drop = (0.1, 2024, 7 << 16)
+    with full_fp32():
+        ref_o, ref_lse = fa.flash_fwd_plain(q, k, v, drop)
+    o, lse = fa.flash_fwd(q, k, v, drop)
+    torch.testing.assert_close(o, ref_o, rtol=1e-4, atol=1e-5)
+    assert float((lse - ref_lse).abs().max()) < 1e-4
+    again_o, again_lse = fa.flash_fwd(q, k, v, drop)
+    assert torch.equal(o, again_o) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("B,H", [(1, 1), (32, 12)])
+@pytest.mark.parametrize(**K4_SHAPES)
+def test_bf16_k4_with_dropout_matches_plain_and_reads_back_its_mask(
+        cuda, S, B, H, fused):
+    """The bf16 K4 with dropout 0.1 against flash_fwd_plain in fp32 on the
+    same bf16 inputs (the bf16 gates), bit-identical launch to launch; then
+    its mask read back through one-hot V blocks at q = k = 0 (O[i, m] =
+    P Z / keep at key c0 + m), equal to ``keep_mask`` on the causal part."""
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.ops import philox
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    q, k, v = _k4_inputs(cuda, B, S, H, torch.bfloat16, S * B + 8, fused)
+    drop = (0.1, 2024, 7 << 16)
+    with full_fp32():
+        ref_o, ref_lse = fa.flash_fwd_plain(q.float(), k.float(), v.float(),
+                                            drop)
+    o, lse = fa.flash_fwd(q, k, v, drop)
+    torch.testing.assert_close(o.float(), ref_o, **_tol(torch.bfloat16))
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    again_o, again_lse = fa.flash_fwd(q, k, v, drop)
+    assert torch.equal(o, again_o) and torch.equal(lse, again_lse)
+    del q, k, v, o, lse, ref_o, ref_lse, again_o, again_lse
+    zero = torch.zeros(B, S, H, 64, device=cuda, dtype=torch.bfloat16)
+    got = torch.zeros(B, H, S, S, device=cuda, dtype=torch.bool)
+    for c0 in _blocks(S):
+        n = min(64, S - c0)
+        o, _ = fa.flash_fwd(zero, zero,
+                            _onehot_block(B, S, H, c0, torch.bfloat16, cuda),
+                            drop)
+        got[..., c0:c0 + n] = o[..., :n].permute(0, 2, 1, 3) != 0
+    causal = torch.ones(S, S, device=cuda, dtype=torch.bool).tril()
+    want = philox.keep_mask(drop, B, H, S, 0, S, 0, S, device=cuda)
+    assert torch.equal(got, want & causal)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -109,8 +109,7 @@ def test_scan_sees_the_whole_package():
                  "utils/video_metric.py"):
         assert must in rels
     for src in ("vq_argmin", "vq_argmin_tiled", "decode_attention",
-                "flash_attention", "flash_attention_sm90",
-                "flash_attention_tf32"):
+                "flash_attention_sm90", "flash_attention_tf32"):
         assert os.path.exists(os.path.join(PKG, "csrc", f"{src}.cu"))
     for header in ("philox.cuh", "sm90.cuh"):
         assert os.path.exists(os.path.join(PKG, "csrc", header))

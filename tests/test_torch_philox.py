@@ -118,3 +118,76 @@ def test_causal_groups_at_the_training_shapes():
     """LLAMA_BASE's 12 heads and LLAMA_MEDIUM's 16 at B=16, S=751."""
     assert philox.causal_groups(16, 12, 751) == 13_608_192
     assert philox.causal_groups(16, 16, 751) == 18_144_256
+
+
+def _keep_tile(drop, S, bh, i0, j0):
+    """The 128 words ``ivg::draw_keep_tile`` (csrc/philox.cuh) leaves for the
+    (i0, j0) tile of head bh, in numpy: thread x draws word 2 (x & 63) +
+    (x >> 6), query i0 + (x & 63), keys j0 + 32 (x >> 6) .. + 31, as 8
+    Philox calls at consecutive group counters whose compares ``keep_word``
+    shifts in from key 31 down (w >= threshold: dropped), so key n of the
+    word ends at bit n once inverted. Returns (words, drawn): a query at or
+    past S and 32 keys all past their query are not drawn."""
+    p, seed, offset = drop
+    x = np.arange(128)
+    r, half = x & 63, x >> 6
+    i, j = i0 + r, j0 + 32 * half
+    ctr = (bh * S + i) * ((S + 3) // 4) + (j >> 2)
+    ctrs = torch.from_numpy(ctr[:, None] + np.arange(8))
+    w = [t.numpy() for t in philox.philox4x32_10(
+        (ctrs & M, ctrs >> 32, offset & M, offset >> 32),
+        (seed & M, seed >> 32))]
+    dropped = np.zeros(128, np.int64)
+    for u in range(7, -1, -1):
+        for word in (w[3], w[2], w[1], w[0]):
+            dropped = (dropped << 1) | (word[:, u] >= philox.threshold(p))
+    words = np.zeros(128, np.int64)
+    words[2 * r + half] = ~dropped & M
+    drawn = np.zeros(128, bool)
+    drawn[2 * r + half] = (i < S) & (j <= i)
+    return words, drawn
+
+
+@pytest.mark.parametrize("S,i0,j0", [(751, 0, 0), (751, 320, 128),
+                                     (751, 704, 704), (751, 704, 448),
+                                     (65, 64, 0), (65, 64, 64), (5, 0, 0)])
+def test_keep_tile_layout_gives_each_accumulator_element_its_own_bit(S, i0,
+                                                                     j0):
+    """The words of draw_keep_tile, read as sm90.cuh reads them, give every
+    accumulator element of the m64n64 tile (warp w, lane 4 g + t: x[4 jj +
+    2 r + e] at row 16 w + g + 8 r, key 8 jj + 2 t + e) the keep bit of its
+    own (query, key) from ``keep_mask``, wherever the element is causal
+    and its query below S. drop_rows (both K4s' P, K6's dP) reads word
+    2 row + 16 r + (jj >> 2), bit 8 (jj & 3) + 2 t + e; p_ds_transposed
+    (K5's P^T and dS^T: rows keys, columns queries) reads word 2 c + w / 2,
+    bit 16 (w & 1) + g + 8 r for query c."""
+    B, H, bh = 2, 3, 4
+    drop = (0.25, 2 ** 33 + 5, philox.offset_of(9, 2))
+    b, h = divmod(bh, H)
+    want = philox.keep_mask(drop, B, H, S, 0, S, 0, S)[b, h].numpy()
+    words, drawn = _keep_tile(drop, S, bh, i0, j0)
+    live = 0
+    for x in range(128):
+        w, g, t = x >> 5, (x & 31) >> 2, x & 3
+        for idx in range(32):
+            jj, r, e = idx >> 2, (idx >> 1) & 1, idx & 1
+            # drop_rows: rows are queries, columns keys
+            row, col = 16 * w + g + 8 * r, 8 * jj + 2 * t + e
+            i, j = i0 + row, j0 + col
+            if i < S and j <= i:
+                word = 2 * row + (jj >> 2)
+                assert drawn[word]
+                bit = (words[word] >> (2 * t + 8 * (jj & 3) + e)) & 1
+                assert bit == want[i, j], ("drop_rows", x, idx)
+                live += 1
+            # p_ds_transposed: rows are keys, columns queries
+            key, c = row, col
+            i, j = i0 + c, j0 + key
+            if i < S and j <= i:
+                word = 2 * c + (w >> 1)
+                assert drawn[word]
+                bit = (words[word] >> (16 * (w & 1) + g + 8 * r)) & 1
+                assert bit == want[i, j], ("p_ds_transposed", x, idx)
+    # every causal element of the tile below S was read
+    assert live == sum(max(0, min(i, j0 + 63) - j0 + 1)
+                       for i in range(i0, min(S, i0 + 64)))
