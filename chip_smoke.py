@@ -107,6 +107,21 @@ the final result line:
  16. mbrl train check  one fp32 train() call at B=2 (tokenizer at full
                width, LLAMA_BASE widths at 2 layers) on the card and the CPU:
                metrics, grad norms, the updates' signs, frozen codebooks
+     drq_update  one DrQ-v2 agent update at MBPOConfig's widths (batch 256,
+               hidden 1024, feature 50, 64 x 64 x 9, fp32, TF32 off) on the
+               card and the CPU from the same weights and draws: metrics,
+               gradients, parameters after AdamW, the Polyak target; ms an
+               update queued and wall
+     mbpo      python -m ivideogpt_tpu_torch.mbrl_train --fake_env in-process
+               at MBPOConfig's widths (TOKENIZER_64 + LLAMA_BASE with random
+               weights), cut in its frame counts only (MBPO_CUTS): launches
+               of each train() call and rollout, episodes on disk and
+               imagined, GIFs decoded, losses and val/obs_mse finite, env
+               steps/s, update, train() and generate times, a profiled
+               generate's busy share, peak memory; a resume through the CLI
+               bit-equal, its next agent update equal
+     drq       the same CLI with --drq_only (DRQ_CUTS): the same checks
+               without the world model, no kernel of the port launched
  17. hub       TOKENIZER_64 + LLAMA_BASE with the action head, fp32, random
                weights from a seed, written by the port's own safetensors
                writer as a hub (the tokenizer, an action-conditioned
@@ -177,8 +192,8 @@ the final result line:
                step (K1 2, K4/K5/K6 24), ms/step, tokens/s, peak memory
  26. train_gpt check  the train check's fp32 step at B=2, 2 layers, with
                attention dropout keyed alike on the card and the CPU
-Then the launches by path, the kernels' JSON line, the card line again, and
-the result line.
+Each phase's seconds follow it ("[time]" lines). Then the launches by path,
+the kernels' JSON line, the card line again, and the result line.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -193,6 +208,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CTX, T, B = 2, 16, 256
+# timed rollouts, predict calls and VP2 queries after the first
 N_TIMED = 3
 FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
@@ -235,6 +251,17 @@ TOK_WIDE_WARMUP, TOK_WIDE_TIMED = 1, 3
 # at B=16 on 12-frame segments with at most 5 target frames
 MB_B, MB_H, MB_K, MB_SEG, MB_A = 32, 10, 3, 12, 4
 MB_TRAIN_B, MB_TARGETS, MB_TIMED = 16, 5, 3
+# the DrQ-v2 agent at MBPOConfig's widths: a batch of 256; the MBPO and
+# DrQ-v2 loops through the CLI, cut only in their frame counts (an episode
+# is 100 steps, 200 frames)
+AGENT_B, AGENT_TIMED = 256, 10
+MBPO_CUTS = (("num_seed_frames", 200), ("start_mbpo", 200),
+             ("num_expl_steps", 100), ("init_update_gen_steps", 10),
+             ("init_gen_times", 2), ("num_train_frames", 800),
+             ("eval_every_frames", 400), ("num_eval_episodes", 1))
+DRQ_CUTS = (("num_seed_frames", 200), ("num_expl_steps", 100),
+            ("num_train_frames", 600), ("eval_every_frames", 400),
+            ("num_eval_episodes", 1))
 MB_P1 = 257 * CTX                       # prelude + first sdf: 514
 MB_M = MB_P1 + 17 * MB_H                # the rollout's KV cache: 684 slots
 MB_L = MB_P1 - 1 + 17 * (MB_SEG - CTX)  # a train() segment's stream: 683
@@ -1670,17 +1697,39 @@ def kernel_trace(torch, out):
     the kernels they hold and are left out. The device activity alone is
     traced: nothing here reads the CPU's ops, which only lengthen reading
     the trace back (a B=256 generate launches over 200k kernels)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         yield
         torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and not getattr(e, "is_user_annotation", False)),
-                     key=lambda e: e.self_device_time_total, reverse=True)
+    kernels = device_kernels(prof)
     out["kernels"] = kernels
     out["seconds"] = sum(e.self_device_time_total for e in kernels) / 1e6
+
+
+class KernelSum(tuple):
+    """A kernel's name, launches and device microseconds in a trace, named
+    as ``key_averages()``'s rows are."""
+    key = property(lambda self: self[0])
+    count = property(lambda self: self[1])
+    self_device_time_total = property(lambda self: self[2])
+
+
+def device_kernels(prof, skip=()):
+    """The trace's device events (kernels and copies, not the ranges that
+    annotate the device timeline, nor names in ``skip``) summed by name,
+    largest first: ``key_averages()``'s device rows, read from the kineto
+    events without building the profiler's Python event tree, which takes
+    minutes for a rollout's trace."""
+    from torch.autograd import DeviceType
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or e.name() in skip):
+            continue
+        n, us = sums.get(e.name(), (0, 0.0))
+        sums[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return sorted((KernelSum((k, n, us)) for k, (n, us) in sums.items()),
+                  key=lambda e: e.self_device_time_total, reverse=True)
 
 
 def top_kernels(kernels, n, width=60):
@@ -2070,7 +2119,6 @@ def phase_mbrl(torch, vp):
     dispatched before the previous one is fetched; the clock starts with
     one in flight), then one profiled rollout split by part."""
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from ivideogpt_tpu_torch.mbrl import drqv2
     from ivideogpt_tpu_torch.mbrl.video_predictor import ROLLOUT_RANGES
@@ -2134,9 +2182,7 @@ def phase_mbrl(torch, vp):
         t0 = time.time()
         dispatch().fetch()
         wall = time.time() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    kernels = device_kernels(prof, skip=ROLLOUT_RANGES)
     total = sum(e.self_device_time_total for e in kernels) / 1e6
     if not total:
         print("mbrl: the profiler recorded no device time: device seconds "
@@ -2151,7 +2197,6 @@ def phase_mbrl(torch, vp):
         + json.dumps({k: round(v, 4) for k, v in device.items()})
         + f" (device s not attributed to a part "
         f"{total - sum(device.values()):.4f})")
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     print("mbrl: top kernels (name, launches, device s): "
           + json.dumps(top_kernels(kernels, 12, width=70)))
     return launches
@@ -2392,6 +2437,486 @@ def phase_mbrl_train_check(torch):
           "differ from the CPU path")
     del card, host
     torch.cuda.empty_cache()
+
+
+def agent_states(agent):
+    """Every tensor of a DrQ-v2 agent's state, by a name: its weights (the
+    Polyak target among them) and its three AdamW states."""
+    out = {f"w/{k}": v for k, v in agent.state_dict().items()}
+    for name, state in agent.train_states().items():
+        for i, p in enumerate(state.params):
+            for k, v in state.optimizer.state.get(p, {}).items():
+                out[f"{name}/{i}/{k}"] = v
+    return out
+
+
+def world_model_states(vp):
+    """Every tensor of the world model's two train states, by a name."""
+    out = {}
+    for name, state in (("model", vp.model_state), ("tok", vp.tok_state)):
+        sd = state.state_dict()
+        out.update({f"{name}/w/{k}": v for k, v in sd["model"].items()})
+        for i, entry in sd["optimizer"]["state"].items():
+            out.update({f"{name}/{i}/{k}": v for k, v in entry.items()})
+    return out
+
+
+def same_tensors(torch, a, b, what):
+    check(sorted(a) == sorted(b), f"{what}: other tensors")
+    for k in a:
+        check(torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])),
+              f"{what}: {k} differs")
+
+
+def update_pair_errors(torch, card, host, lr=1e-4, eps=1e-8):
+    """Card-vs-CPU errors of one DrQ-v2 update taken from the same weights.
+    The worst relative norm of a gradient (AdamW's first moment after one
+    step, 0.1 g) and its tensor. The worst parameter error beyond what
+    AdamW's first step, lr g / (|g| + eps), makes of the two gradients:
+    lr |g / (|g| + eps) - h / (|h| + eps)| for the card's g and the CPU's
+    h (a few 1e-7 where the two agree to 1 %; up to 2 lr where they differ
+    in sign). The worst share, in a tensor, of the elements whose gradient
+    is above rounding level (1e-5 of the tensor's largest) and yet differs
+    between the card and the CPU by more than 1 %, as "n of numel in the
+    tensor", and the count of such elements over all tensors."""
+    grad, worst, excess, share, share_at, n_all = 0.0, None, 0.0, 0.0, None, 0
+    for name, sc in card.train_states().items():
+        sh = host.train_states()[name]
+        for (pname, p), q in zip(sc.model.named_parameters(), sh.params):
+            g = sc.optimizer.state[p]["exp_avg"].cpu().double() * 10
+            h = sh.optimizer.state[q]["exp_avg"].double() * 10
+            rel = float((g - h).norm() / h.norm().clamp_min(1e-30))
+            if rel >= grad:
+                grad, worst = rel, f"{name}.{pname}"
+            step = lr * (g / (g.abs() + eps) - h / (h.abs() + eps)).abs()
+            err = (p.detach().cpu().double() - q.detach().double()).abs()
+            excess = max(excess, float((err - step).max()))
+            loose = ((h.abs() > 1e-5 * h.abs().max())
+                     & ((g - h).abs() > 1e-2 * h.abs()))
+            n = int(loose.sum())
+            n_all += n
+            if n / loose.numel() >= share:
+                share = n / loose.numel()
+                share_at = f"{n} of {loose.numel()} in {name}.{pname}"
+    return grad, worst, excess, share, share_at, n_all
+
+
+def phase_drq_update(torch):
+    """One DrQ-v2 agent update at MBPOConfig's widths (batch 256, hidden
+    1024, feature 50, 64 x 64 x 9 frame stacks, 4 actions; fp32, TF32 off)
+    on the card and on the CPU from the same weights, batch and draws (the
+    shifts and normals of ``update_draws``), with the actor step: the
+    metrics within 1e-4 relative; each gradient within 1e-2 of its norm
+    (the tokenizer checks' tolerance: the encoder's ReLUs at near-zero
+    activations); in no tensor more than a tenth of the gradients above
+    rounding level differing by more than 1 % (the first conv's bias has 32
+    elements: one is 3 %); every updated parameter
+    within 1e-6 beyond the difference that AdamW's first step makes of the
+    two gradients (``update_pair_errors``); the Polyak target within 1e-6.
+    Then the update's ms on the card alone (queued behind a spin) and a
+    call's wall ms from a host batch with its metrics read back
+    (``DrQV2Agent.update``, as the MBPO loop calls it)."""
+    import numpy as np
+    from ivideogpt_tpu_torch.mbrl.drqv2 import DrQV2Agent, update_draws
+    from ivideogpt_tpu_torch.mbrl.utils import schedule
+    from ivideogpt_tpu_torch.utils.platform import to_device
+    obs_shape = (64, 64, 3 * MB_K)
+    card = DrQV2Agent(obs_shape, MB_A, seed=70, update_every_steps=1)
+    host = DrQV2Agent(obs_shape, MB_A, seed=71, update_every_steps=1,
+                      device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(72)
+    batch = (rng.integers(0, 256, (AGENT_B, *obs_shape)).astype(np.uint8),
+             rng.uniform(-1, 1, (AGENT_B, MB_A)).astype(np.float32),
+             rng.normal(size=(AGENT_B, 1)).astype(np.float32),
+             np.full((AGENT_B, 1), 0.99 ** 3, np.float32),
+             rng.integers(0, 256, (AGENT_B, *obs_shape)).astype(np.uint8))
+    draws = update_draws(AGENT_B, MB_A, torch.Generator().manual_seed(73))
+    stddev = schedule("linear(1.0,0.1,100000)", 2000)
+    on_card = tuple(to_device(x, torch.device("cuda")) for x in batch)
+    draws_card = type(draws)(*(d.cuda() for d in draws))
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.time()
+    m_cpu = host.update_step(tuple(torch.from_numpy(x) for x in batch),
+                             stddev, draws, True)
+    cpu_s = time.time() - t0
+    m_card = card.update_step(on_card, stddev, draws_card, True)
+    rel = {k: abs(float(m_card[k]) - float(v)) / max(abs(float(v)), 1e-30)
+           for k, v in m_cpu.items()}
+    grad, worst, excess, share, share_at, n_loose = update_pair_errors(
+        torch, card, host)
+    target = max(float((p.detach().cpu() - q).abs().max()) for p, q in zip(
+        card.critic_target.parameters(), host.critic_target.parameters()))
+    n_params = sum(p.numel() for p in card.parameters()
+                   if p.requires_grad)
+    print(f"drq_update: B={AGENT_B}, {n_params} trained parameters, "
+          f"stddev {stddev}; card against the CPU ({cpu_s:.2f} s there): "
+          f"metric relative diffs " + json.dumps(
+              {k: float(f"{v:.3e}") for k, v in rel.items()})
+          + f" (tolerance 1e-4); worst gradient relative norm {grad:.3e} "
+          f"({worst}; tolerance 1e-2, the tokenizer checks': ReLU kinks "
+          f"at near-zero activations); gradients above rounding level "
+          f"differing by more than 1 %: {n_loose} in all, at most "
+          f"{share:.3e} of a tensor ({share_at}; tolerance 1e-1); updated "
+          f"parameters max |diff| "
+          f"beyond AdamW's step of the two gradients {excess:.3e} "
+          f"(tolerance 1e-6); Polyak target {target:.3e} (tolerance 1e-6)")
+    failed = [k for k, v in rel.items() if not v <= 1e-4]
+    check(not failed, f"drq_update: {', '.join(failed)} differ from the "
+          f"CPU")
+    check(grad <= 1e-2, "drq_update: gradients differ from the CPU")
+    check(share <= 1e-1, "drq_update: gradients unresolved between the "
+          "card and the CPU")
+    check(excess <= 1e-6,
+          "drq_update: updated parameters differ from the CPU")
+    check(target <= 1e-6, "drq_update: the Polyak target differs")
+
+    # the host takes ~28 ms to issue one update: two fit in the spin
+    q_ms, host_ms = queued_ms(
+        lambda: card.update_step(on_card, stddev, draws_card, True), 2)
+    np.random.seed(74)
+    card.update(batch, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(AGENT_TIMED):
+        card.update(batch, step)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / AGENT_TIMED
+    print(f"drq_update: an update {q_ms:.3f} ms on the card (queued; the "
+          f"host takes {host_ms:.3f} ms to issue one), {wall_ms:.3f} ms wall "
+          f"a call from a host batch with its metrics read back (mean of "
+          f"{AGENT_TIMED}); card {card_line()}")
+    del card, host
+    torch.cuda.empty_cache()
+
+
+def mbrl_cli(torch, argv):
+    """``python -m ivideogpt_tpu_torch.mbrl_train``'s ``main`` in-process,
+    with the loop's parts wrapped to record them: each ``VideoPredictor.
+    train`` call (update_tokenizer, its launches, wall s, metrics), each
+    ``rollout_async`` (batch, horizon, policy-driven, launches), each
+    agent update (wall s, metrics), each ``generate`` (wall s, the previous
+    round's fetch included) and ``validate`` (metrics), and the wall time
+    after each step of the train env. Returns (the workspace, the
+    record)."""
+    from ivideogpt_tpu_torch import mbrl_train
+    from ivideogpt_tpu_torch.mbrl import drqv2, fake_env, mbpo
+    from ivideogpt_tpu_torch.mbrl.video_predictor import VideoPredictor
+    rec = {k: [] for k in ("train", "rollout", "update", "generate",
+                           "validate", "steps")}
+    saved = [(VideoPredictor, "train"), (VideoPredictor, "rollout_async"),
+             (drqv2.DrQV2Agent, "update"), (mbpo.Workspace, "generate"),
+             (mbpo.Workspace, "validate"), (fake_env, "make_fake")]
+    real = {(o, n): getattr(o, n) for o, n in saved}
+
+    def delta(before):
+        after = read_counts()
+        return {k: after[k] - before[k] for k in after}
+
+    def train(self, batch, update_tokenizer=True, update_model=True):
+        before, t = read_counts(), time.perf_counter()
+        m = real[VideoPredictor, "train"](self, batch, update_tokenizer,
+                                          update_model)
+        rec["train"].append((update_tokenizer, delta(before),
+                             time.perf_counter() - t, m))
+        return m
+
+    def rollout_async(self, obs, policy_fn, agent_state, horizon, **kw):
+        before = read_counts()
+        out = real[VideoPredictor, "rollout_async"](
+            self, obs, policy_fn, agent_state, horizon, **kw)
+        rec["rollout"].append((len(obs), horizon, policy_fn is not None,
+                               delta(before)))
+        return out
+
+    def update(self, batch, step):
+        t = time.perf_counter()
+        m = real[drqv2.DrQV2Agent, "update"](self, batch, step)
+        if m:
+            rec["update"].append((time.perf_counter() - t, m))
+        return m
+
+    def generate(self):
+        t = time.perf_counter()
+        m = real[mbpo.Workspace, "generate"](self)
+        rec["generate"].append(time.perf_counter() - t)
+        return m
+
+    def validate(self, global_frame):
+        m = real[mbpo.Workspace, "validate"](self, global_frame)
+        rec["validate"].append(m)
+        return m
+
+    envs = []
+
+    def make_fake(*a, **kw):
+        env = real[fake_env, "make_fake"](*a, **kw)
+        if not envs:   # the first env made is the train env
+            step = env.step
+
+            def stamped(action):
+                ts = step(action)
+                rec["steps"].append(time.perf_counter())
+                return ts
+            env.step = stamped
+        envs.append(env)
+        return env
+
+    for (o, n), f in zip(saved, (train, rollout_async, update, generate,
+                                 validate, make_fake)):
+        setattr(o, n, f)
+    try:
+        ws = mbrl_train.main(argv)
+    finally:
+        for (o, n), f in real.items():
+            setattr(o, n, f)
+    return ws, rec
+
+
+def cli_argv(work_dir, cuts, *extra):
+    return ["--fake_env", "--work_dir", work_dir, *extra] + [
+        a for k, v in cuts for a in (f"--{k}", str(v))]
+
+
+def steps_per_s(stamps, first, last):
+    """Train-env steps a second between the steps ``first`` and ``last``."""
+    return (last - first) / (stamps[last] - stamps[first])
+
+
+def finite(values):
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def resume_check(torch, ws, argv, what, world_model):
+    """Snapshot the live workspace, resume a second one through the CLI
+    (which finds the snapshot, restores it and has no frames left to
+    train), and hold the two equal: the counters, the agent (weights, the
+    Polyak target, AdamW moments and counts, updated_steps) and, with
+    ``world_model``, ``_gen_starts``, whether the world model's initial
+    training and imagination rounds are done, and both of its train states,
+    bit for bit; then
+    one agent update on the same batch from the same numpy seed in each
+    (cuDNN's deterministic algorithms), whose metrics and resulting states
+    must be equal. Returns the resumed workspace."""
+    import numpy as np
+    from ivideogpt_tpu_torch import mbrl_train
+    ws.save_snapshot()
+    t0 = time.time()
+    ws2 = mbrl_train.main(argv)
+    resume_s = time.time() - t0
+    check((ws2.global_step, ws2._global_episode) ==
+          (ws.global_step, ws._global_episode),
+          f"{what}: the resume restored counters "
+          f"{(ws2.global_step, ws2._global_episode)}, not "
+          f"{(ws.global_step, ws._global_episode)}")
+    check(ws2.agent.updated_steps == ws.agent.updated_steps,
+          f"{what}: updated_steps differs after the resume")
+    same_tensors(torch, agent_states(ws2.agent), agent_states(ws.agent),
+                 f"{what} resume: the agent")
+    if world_model:
+        check(len(ws2._gen_starts) == len(ws._gen_starts),
+              f"{what}: _gen_starts differs after the resume")
+        check((ws2._init_model, ws2._init_gen)
+              == (ws._init_model, ws._init_gen),
+              f"{what}: the initial training's flags differ after the "
+              f"resume")
+        same_tensors(torch, world_model_states(ws2.video_predictor),
+                     world_model_states(ws.video_predictor),
+                     f"{what} resume: the world model")
+        batch = ws.mixed_batch()
+    else:
+        batch = next(ws.replay_iter)
+    metrics = []
+    # cuDNN's default weight-gradient algorithms may sum in another order
+    # from one call to the next; the comparison takes deterministic ones
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        for w in (ws, ws2):
+            np.random.seed(75)
+            metrics.append(w.agent.update(batch, ws.global_step))
+    check(metrics[0] == metrics[1], f"{what}: the next update after the "
+          f"resume differs: {metrics}")
+    same_tensors(torch, agent_states(ws2.agent), agent_states(ws.agent),
+                 f"{what}: the agent after the next update")
+    print(f"{what}: resumed from the snapshot in {resume_s:.1f} s (the "
+          f"workspace built anew): counters, agent"
+          + (", world model" if world_model else "")
+          + " bit-equal; the next update equal " + json.dumps(metrics[0]))
+    return ws2
+
+
+def phase_mbpo(torch, root):
+    """``python -m ivideogpt_tpu_torch.mbrl_train --fake_env`` in-process
+    (MBPO): 64 px, frame stack 3, action repeat 2, episodes of 100 steps,
+    MBPOConfig's widths (agent batch 256, hidden 1024; world model
+    TOKENIZER_64 + LLAMA_BASE with random weights, bf16 over fp32 masters,
+    int8 rollout cache; imagination at B=32, horizon 10; train() at B=16 on
+    12-frame segments), cut only in its frame counts (MBPO_CUTS).
+
+    Gates: the run reaches its global step; 4 real episodes on disk and 32
+    imagined episodes stored a policy rollout; launches of each train()
+    call K1 4 (2 without the tokenizer step) / K4-K6 12, of each rollout K1
+    1 / K4 12 / K3 17 x 12 a frame, and none outside them; the imagination
+    and validation GIFs and the eval GIF decoded; losses and val/obs_mse
+    finite; a resume bit-equal (``resume_check``). Prints env steps/s in
+    the seed phase and after start_mbpo, an agent update's, a train()
+    call's and a generate's wall time, the busy share of one profiled
+    generate, peak memory. Returns the run's launches."""
+    import glob
+    import numpy as np
+    cuts = dict(MBPO_CUTS)
+    work = os.path.join(root, "mbpo")
+    argv = cli_argv(work, MBPO_CUTS, "--save_video", "true")
+    print("mbpo: " + " ".join(argv))
+    for k, v in MBPO_CUTS:
+        print(f"mbpo: cut {k} = {v}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    ws, rec = mbrl_cli(torch, argv)
+    run_s = time.time() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = cuts["num_train_frames"] // 2
+    seed_steps = cuts["num_seed_frames"] // 2
+    check(ws.global_step == steps, f"mbpo: global_step {ws.global_step}, "
+          f"not {steps}")
+    check(len(rec["steps"]) == steps, f"mbpo: {len(rec['steps'])} env steps")
+    episodes = sorted(glob.glob(os.path.join(work, "buffer", "*.npz")))
+    check(len(episodes) == steps // ws.cfg.duration,
+          f"mbpo: {len(episodes)} real episodes on disk")
+    policy = [r for r in rec["rollout"] if r[2]]
+    check(ws.imag_replay_storage._num_episodes == 32 * len(policy) > 0,
+          f"mbpo: {ws.imag_replay_storage._num_episodes} imagined episodes "
+          f"stored for {len(policy)} rollouts")
+    zero = dict.fromkeys(launches, 0)
+    total = dict(zero)
+    for upd_tok, got, _, _ in rec["train"]:
+        want = dict(zero, vq_argmin=4 if upd_tok else 2,
+                    flash_attention_fwd=12, flash_attention_bwd_dkv=12,
+                    flash_attention_bwd_dq=12)
+        check(got == want, f"mbpo: a train() call launched {got}")
+        total = {k: total[k] + got[k] for k in total}
+    for b, horizon, _, got in rec["rollout"]:
+        want = dict(zero, vq_argmin=1, flash_attention_fwd=12,
+                    decode_attention=17 * 12 * horizon)
+        check(got == want, f"mbpo: a B={b} rollout of horizon {horizon} "
+              f"launched {got}")
+        total = {k: total[k] + got[k] for k in total}
+    check(total == launches, f"mbpo: kernels launched outside train() and "
+          f"the rollouts: {launches} against {total}")
+    metrics = ([v for _, _, _, m in rec["train"] for v in m.values()]
+               + [v for _, m in rec["update"] for v in m.values()]
+               + [v for m in rec["validate"] for v in m.values()])
+    check(rec["validate"] and finite(metrics),
+          "mbpo: a loss or val/obs_mse is not finite")
+    imag = sorted(glob.glob(os.path.join(work, "imag_gif", "*.gif")))
+    val = sorted(glob.glob(os.path.join(work, "validate_gif", "*.gif")))
+    evals = sorted(glob.glob(os.path.join(work, "eval_video", "*.gif")))
+    check(len(imag) == 4 * len(policy) and len(val) == 16 and evals,
+          f"mbpo: {len(imag)} imagination, {len(val)} validation, "
+          f"{len(evals)} eval GIFs")
+    for path, n, shape in ((imag[0], 11, (64, 64, 3)),
+                           (imag[-1], 11, (64, 64, 3)),
+                           (val[0], 10, (64, 192, 3)),
+                           (evals[0], 101, (64, 64, 3))):
+        frames, _, _ = read_gif(path)
+        check(len(frames) == n and frames[0].shape == shape,
+              f"mbpo: {path} decodes to {len(frames)} frames of "
+              f"{frames[0].shape}")
+    tok_ms = [s * 1e3 for u, _, s, _ in rec["train"] if u]
+    lm_ms = [s * 1e3 for u, _, s, _ in rec["train"] if not u]
+    upd_ms = [s * 1e3 for s, _ in rec["update"]]
+    seed_rate = steps_per_s(rec["steps"], 1, seed_steps - 1)
+    mbpo_rate = steps_per_s(rec["steps"], seed_steps, steps - 1)
+    print(f"mbpo: {steps} env steps in {run_s:.1f} s (the workspace built "
+          f"in it); env steps/s {seed_rate:.2f} in the seed phase (steps 1-"
+          f"{seed_steps - 1}), {mbpo_rate:.2f} after start_mbpo (steps "
+          f"{seed_steps}-{steps - 1}: {len(upd_ms)} agent updates, "
+          f"{len(rec['train'])} train() calls, {len(rec['generate'])} "
+          f"generates, an eval); peak memory {peak:.2f} GiB")
+    print(f"mbpo: an agent update {np.mean(upd_ms):.3f} ms wall (median "
+          f"{np.median(upd_ms):.3f}, B={ws.cfg.batch_size}); a train() call "
+          f"{np.mean(tok_ms):.2f} ms with the tokenizer step "
+          f"({len(tok_ms)} calls), {np.mean(lm_ms):.2f} ms without "
+          f"({len(lm_ms)}); a generate {np.mean(rec['generate']):.4f} s "
+          f"(dispatch and the previous round's fetch and store; "
+          f"{len(rec['generate'])} calls); validation val/obs_mse "
+          f"{rec['validate'][0]['val/obs_mse']:.5f}, val/time "
+          f"{rec['validate'][0]['val/time']:.3f} s; launches "
+          + json.dumps(launches))
+    # one generate, dispatch to stored episodes, under the profiler
+    res = {}
+    with kernel_trace(torch, res):
+        t0 = time.perf_counter()
+        ws.generate()
+        ws._store_pending_gen()
+        wall = time.perf_counter() - t0
+    if res["seconds"]:
+        print(f"mbpo: one profiled generate (B={ws.cfg.gen_batch}, horizon "
+              f"{ws.cfg.gen_horizon}, dispatch to stored episodes): wall "
+              f"{wall:.4f} s, device {res['seconds']:.4f} s, busy share "
+              f"{res['seconds'] / wall:.4f}; top kernels " + json.dumps(
+                  top_kernels(res["kernels"], 6, width=50)))
+    else:
+        print("mbpo: the profiler recorded no device time: busy share not "
+              "measured")
+    ws2 = resume_check(torch, ws, argv, "mbpo", world_model=True)
+    for w in (ws, ws2):
+        w.close()
+    del ws, ws2
+    torch.cuda.empty_cache()
+    print(f"mbpo: card {card_line()}")
+    return launches
+
+
+def phase_drq(torch, root):
+    """``python -m ivideogpt_tpu_torch.mbrl_train --drq_only --fake_env``
+    in-process on the same env and agent widths, cut in its frame counts
+    (DRQ_CUTS): the run reaches its global step, 3 real episodes on disk,
+    a snapshot at each episode's end, finite losses, the eval GIF decoded,
+    no kernel of the port launched (the DrQ-v2 convs and MLPs are cuDNN and
+    cuBLAS), a resume bit-equal. Prints env steps/s and an update's wall
+    ms. Returns the run's launches."""
+    import glob
+    import numpy as np
+    from ivideogpt_tpu_torch.mbrl.drq_workspace import has_snapshot
+    cuts = dict(DRQ_CUTS)
+    work = os.path.join(root, "drq")
+    argv = cli_argv(work, DRQ_CUTS, "--drq_only")
+    for k, v in DRQ_CUTS:
+        print(f"drq: cut {k} = {v}")
+    reset_counts()
+    t0 = time.time()
+    ws, rec = mbrl_cli(torch, argv)
+    run_s = time.time() - t0
+    launches = read_counts()
+    steps = cuts["num_train_frames"] // 2
+    seed_steps = cuts["num_seed_frames"] // 2
+    check(ws.global_step == steps, f"drq: global_step {ws.global_step}")
+    episodes = glob.glob(os.path.join(work, "buffer", "*.npz"))
+    check(len(episodes) == steps // ws.cfg.duration and has_snapshot(work),
+          f"drq: {len(episodes)} episodes on disk, snapshot "
+          f"{has_snapshot(work)}")
+    check(not any(launches.values()), f"drq: launches {launches}")
+    check(rec["update"] and finite(v for _, m in rec["update"]
+                                   for v in m.values()),
+          "drq: a loss is not finite")
+    evals = sorted(glob.glob(os.path.join(work, "eval_video", "*.gif")))
+    frames, _, _ = read_gif(evals[0])
+    check(len(frames) == ws.cfg.duration + 1, "drq: the eval GIF")
+    upd_ms = [s * 1e3 for s, _ in rec["update"]]
+    print(f"drq: {steps} env steps in {run_s:.1f} s; env steps/s "
+          f"{steps_per_s(rec['steps'], 1, seed_steps - 1):.2f} in the seed "
+          f"phase, {steps_per_s(rec['steps'], seed_steps, steps - 1):.2f} "
+          f"after it ({len(upd_ms)} updates); an update "
+          f"{np.mean(upd_ms):.3f} ms wall (median {np.median(upd_ms):.3f})")
+    ws2 = resume_check(torch, ws, argv, "drq", world_model=False)
+    ws.close()
+    ws2.close()
+    del ws, ws2
+    torch.cuda.empty_cache()
+    return launches
 
 
 def grad_errors(names, grads, grads_ref):
@@ -4224,47 +4749,88 @@ def main():
         if mode == ["--k3-splits"]:
             k3_splits(torch)
             return 0
+        started = [time.time()] * 2
+
+        def mark(phase):
+            now = time.time()
+            print(f"[time] {phase}: {now - started[1]:.1f} s, "
+                  f"{now - started[0]:.1f} s since the build")
+            started[1] = now
         k1 = phase_k1(torch)
+        mark("K1")
         k2 = phase_k2(torch, k1)
+        mark("K2")
         k3 = phase_k3(torch)
+        mark("K3")
         flash = phase_flash(torch)
+        mark("flash")
         flash.update(phase_flash_dropout(torch))
+        mark("flash_dropout")
         by_path = {"rollout": phase_main(torch)}
+        mark("main")
         phase_check(torch)
+        mark("check")
         by_path["train"] = phase_train(torch)
+        mark("train")
         by_path["train_fp32"] = phase_train(torch, fp32=True)
+        mark("train_fp32")
         phase_train_check(torch)
+        mark("train check")
         by_path["tokenizer_train"] = phase_tok_train(torch, wide=False)
+        mark("tok_train")
         by_path["tokenizer_train_wide"] = phase_tok_train(torch, wide=True)
+        mark("tok_train_wide")
         phase_tok_train_check(torch)
+        mark("tok_train check")
         vp = mbrl_models(torch, torch.bfloat16, seed=59)
         by_path["mbrl_rollout"] = phase_mbrl(torch, vp)
+        mark("mbrl")
         phase_mbrl_check(torch)
+        mark("mbrl check")
         by_path["mbrl_train"] = phase_mbrl_train(torch, vp)
+        mark("mbrl train")
         del vp
         torch.cuda.empty_cache()
         phase_mbrl_train_check(torch)
+        mark("mbrl train check")
         scratch = os.path.join(REPO, "outputs")
         os.makedirs(scratch, exist_ok=True)
+        phase_drq_update(torch)
+        mark("drq_update")
+        with tempfile.TemporaryDirectory(prefix="mbrl-", dir=scratch) as root:
+            by_path["mbpo"] = phase_mbpo(torch, root)
+            mark("mbpo")
+            by_path["drq"] = phase_drq(torch, root)
+            mark("drq")
         with tempfile.TemporaryDirectory(prefix="hub-", dir=scratch) as root:
             hub, tok_cpu, lm_cpu = phase_hub(torch, root)
+            mark("hub")
             by_path["predict"] = phase_predict(torch, hub, tok_cpu, lm_cpu)
+            mark("predict")
             del tok_cpu, lm_cpu
             by_path["rollout_ctx1"] = phase_rollout_ctx1(torch, hub)
+            mark("rollout_ctx1")
             by_path["vp2"] = phase_vp2(torch, hub, root)
+            mark("vp2")
             write_bair(root, GPT_EPISODES, EVAL_BATCHES * EVAL_B, GPT_FRAMES,
                        seed=93)
             with contextlib.chdir(root):
                 by_path["train_gpt"] = phase_train_gpt(
                     torch, root, hub, os.path.join(root, "free",
                                                    "transformer"))
+                mark("train_gpt")
                 by_path["eval_gpt"] = phase_eval_gpt(torch, root, hub)
+                mark("eval_gpt")
             by_path["train_tokenizer"] = phase_train_tokenizer(torch, root,
                                                                hub)
+            mark("train_tokenizer")
             by_path["train_tokenizer_256"] = phase_train_tokenizer_256(
                 torch, root)
+            mark("train_tokenizer_256")
         by_path["train_medium"] = phase_train_medium(torch)
+        mark("train_medium")
         by_path["train_gpt_check"] = phase_train_check(torch, dropout=True)
+        mark("train_gpt check")
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4282,7 +4848,7 @@ def main():
           f"{EVAL_B} x {EVAL_REPS} samples; "
           f"train_tokenizer_256: the CLI's {TT256_STEPS} micro-steps; "
           f"train_medium: the {MEDIUM_TIMED} timed steps; train_gpt_check: "
-          f"one step): "
+          f"one step; mbpo: the MBPO CLI's run; drq: the DrQ-v2 run): "
           + json.dumps(by_path))
     per_run = {"rollout": ("rollout", 1), "train_step": ("train", TRAIN_TIMED),
                "train_fp32_step": ("train_fp32", TRAIN_TIMED),
@@ -4297,7 +4863,8 @@ def main():
                "train_tokenizer_run": ("train_tokenizer", 1),
                "train_tokenizer_256_run": ("train_tokenizer_256", 1),
                "train_medium_step": ("train_medium", MEDIUM_TIMED),
-               "train_gpt_check": ("train_gpt_check", 1)}
+               "train_gpt_check": ("train_gpt_check", 1),
+               "mbpo_run": ("mbpo", 1), "drq_run": ("drq", 1)}
     rows = (k1, k2, k3, flash["K4_train"], flash["K4_prefill"],
             flash["K4_mbrl_prefill"], flash["K4_mbrl_train"],
             flash["K4_ctx1_prefill"], flash["K4_eval_loss"],

@@ -49,6 +49,7 @@ copy.
 from __future__ import annotations
 
 import copy
+import os
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -66,6 +67,9 @@ from ivideogpt_tpu_torch.models.lpips import LPIPS
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
 from ivideogpt_tpu_torch.train.optim import TrainState, global_norm
 from ivideogpt_tpu_torch.train.tokenizer_trainer import recon_loss
+from ivideogpt_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                  restore_train_state,
+                                                  save_train_state)
 from ivideogpt_tpu_torch.utils.platform import (full_fp32, resolve_device,
                                                 to_device)
 
@@ -130,9 +134,10 @@ class PendingRollout:
 
 class VideoPredictor:
     """The tokenizer and the action-conditioned LM with their training
-    states; ``train``, ``rollout_async`` and ``rollout``. Weights are random
-    from ``seed`` unless state dicts in the port's names are given. On CUDA
-    unless ``device`` says otherwise."""
+    states; ``train``, ``rollout_async``, ``rollout`` and the snapshot.
+    Weights are random from ``seed`` unless state dicts in the port's names
+    are given (``llm_state_dict``: the LLaMA alone, the heads random). On
+    CUDA unless ``device`` says otherwise."""
 
     def __init__(self, tok_cfg: CompressiveVQConfig,
                  lm_cfg: TransformerConfig, head_cfg: ActionModelConfig, *,
@@ -142,7 +147,7 @@ class VideoPredictor:
                  max_grad_norm: float = 1.0, freeze_codebook: bool = False,
                  max_target_frames: int = 16, seed: int = 0,
                  tok_state_dict=None, lm_state_dict=None,
-                 lpips_state_dict=None,
+                 llm_state_dict=None, lpips_state_dict=None,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  rollout_cache_dtype: torch.dtype = torch.int8, device=None):
         if not head_cfg.reward_prediction:
@@ -164,8 +169,11 @@ class VideoPredictor:
             self.tokenizer = CompressiveVQModel(tok_cfg, compute_dtype)
             self.model = HeadModelWithAction(lm_cfg, head_cfg, compute_dtype)
             self.lpips = LPIPS(compute_dtype)
+        if lm_state_dict is not None and llm_state_dict is not None:
+            raise ValueError("give lm_state_dict or llm_state_dict, not both")
         for module, sd in ((self.tokenizer, tok_state_dict),
                            (self.model, lm_state_dict),
+                           (self.model.llm, llm_state_dict),
                            (self.lpips, lpips_state_dict)):
             if sd is not None:
                 module.load_state_dict(sd, strict=True)
@@ -393,3 +401,37 @@ class VideoPredictor:
             policy_stddev=policy_stddev, generator=generator,
             replay_actions=replay_actions,
             expl_uniform=expl_uniform).fetch()
+
+    # ------------------------------------------------------------------
+    # snapshot
+
+    def save_snapshot(self, workdir: str, step: int, suffix: str = ""):
+        """Both train states (weights, AdamW moments, counters) under
+        ``{workdir}/model{suffix}`` and ``{workdir}/tokenizer{suffix}`` as
+        ``checkpoint-{step}``, in the port's train-state format, replacing
+        an earlier snapshot."""
+        for name, state in (("model", self.model_state),
+                            ("tokenizer", self.tok_state)):
+            save_train_state(os.path.join(workdir, f"{name}{suffix}"), step,
+                             state, keep=1)
+
+    def load_snapshot(self, workdir: str, suffix: str = "") -> int:
+        """Restore what :meth:`save_snapshot` wrote, and the rollout's
+        copies of the weights with it; returns its step. Raises when the
+        two parts are of different steps."""
+        steps = set()
+        for name, state in (("model", self.model_state),
+                            ("tokenizer", self.tok_state)):
+            path = latest_checkpoint(os.path.join(workdir, f"{name}{suffix}"))
+            if path is None:
+                raise FileNotFoundError(
+                    f"no {name}{suffix} snapshot under {workdir}")
+            restore_train_state(path, state)
+            steps.add(int(path.rsplit("-", 1)[1]))
+        if len(steps) != 1:
+            raise ValueError(f"{workdir}: model{suffix} and "
+                             f"tokenizer{suffix} snapshots of steps "
+                             f"{sorted(steps)}")
+        _copy_params(self.tokenizer, self.rollout_tokenizer)
+        _copy_params(self.model, self.rollout_model)
+        return steps.pop()

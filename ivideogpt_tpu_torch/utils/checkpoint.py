@@ -250,6 +250,41 @@ def drqv2_state_dict(encoder_params: dict, actor_params: dict
     return _to_torch(sd)
 
 
+def drqv2_critic_state_dict(critic_params: dict) -> Dict[str, torch.Tensor]:
+    """A DrQ-v2 ``Critic``'s parameters -> the state dict of
+    ``mbrl.drqv2.Critic``: ``Dense_0`` / ``LayerNorm_0`` -> ``trunk.0`` /
+    ``trunk.1``, the heads ``Q1_1`` ... ``Q2_out`` by their own names
+    (kernels transposed, ``scale`` -> ``weight``)."""
+    sd = {}
+    for path, v in _flatten(critic_params["params"]).items():
+        mod, leaf = path.split("/")
+        name = {"Dense_0": "trunk.0", "LayerNorm_0": "trunk.1"}.get(mod, mod)
+        if leaf == "kernel":
+            sd[f"{name}.weight"] = v.T
+        elif leaf == "scale":
+            sd[f"{name}.weight"] = v
+        else:
+            sd[f"{name}.{leaf}"] = v
+    return _to_torch(sd)
+
+
+def drqv2_agent_state_dict(encoder_params: dict, actor_params: dict,
+                           critic_params: dict, critic_target_params: dict
+                           ) -> Dict[str, torch.Tensor]:
+    """The weights of a JAX ``AgentState`` (its encoder, actor, critic and
+    critic-target params) -> the state dict of ``mbrl.drqv2.DrQV2Agent``:
+    :func:`drqv2_state_dict` under ``policy.``, the critic and its target
+    by :func:`drqv2_critic_state_dict` under ``critic.`` and
+    ``critic_target.``."""
+    sd = {f"policy.{k}": v for k, v in
+          drqv2_state_dict(encoder_params, actor_params).items()}
+    for prefix, params in (("critic", critic_params),
+                           ("critic_target", critic_target_params)):
+        sd.update({f"{prefix}.{k}": v for k, v in
+                   drqv2_critic_state_dict(params).items()})
+    return sd
+
+
 def _llama_numpy(params: dict) -> Dict[str, np.ndarray]:
     sd = {}
     for path, v in _flatten(params["params"]).items():

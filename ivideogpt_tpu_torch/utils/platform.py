@@ -31,9 +31,12 @@ def full_fp32():
     bf16 computation is unaffected."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn = torch.backends.cudnn
     try:
-        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
-                                        allow_tf32=False):
+        # the other cuDNN settings stay as the caller has them
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev

@@ -2,8 +2,10 @@
 - the package and ``chip_smoke.py`` import no ``jax``, ``flax`` or
   ``ivideogpt_tpu`` (AST scan), and nothing the card's machine lacks
   (``cv2``, ``yaml``, ``safetensors``, ``transformers``, ``imageio``,
-  ``scipy``) anywhere: image files are written by ``utils/image_io.py``,
-  FVD's matrix root is taken with numpy;
+  ``scipy``, ``dm_env``, ``termcolor``, ``tensorboard``) anywhere: image
+  files are written by ``utils/image_io.py``, FVD's matrix root is taken
+  with numpy; ``metaworld`` and ``mujoco`` only inside
+  ``mbrl/metaworld_env.make``;
 - entry points run on CUDA unless asked for the CPU, and raise when CUDA is
   absent;
 - nothing builds or imports a GPU toolchain at import time.
@@ -19,7 +21,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ivideogpt_tpu_torch")
 FORBIDDEN = ("jax", "flax", "ivideogpt_tpu")
 # not on the card's machine, so imported nowhere
-ABSENT = ("cv2", "yaml", "safetensors", "transformers", "imageio", "scipy")
+ABSENT = ("cv2", "yaml", "safetensors", "transformers", "imageio", "scipy",
+          "dm_env", "termcolor", "tensorboard")
 
 
 def _port_files():
@@ -90,6 +93,20 @@ def test_gif_writer_imports_imageio_lazily():
             assert f"image_io import {name}" in f.read(), rel
 
 
+def test_metaworld_and_mujoco_imported_only_inside_make():
+    """A real Metaworld task needs ``metaworld`` and ``mujoco``, which
+    neither machine has: only ``mbrl/metaworld_env.make`` imports them, so
+    the fake env and every other module import without them."""
+    for path in _port_files():
+        for where, mod in _imports_by_function(path):
+            if mod.split(".")[0] in ("metaworld", "mujoco"):
+                assert (os.path.relpath(path, PKG),
+                        where) == ("mbrl/metaworld_env.py", "make"), (
+                    f"{path} imports {mod} in {where}")
+    with open(os.path.join(PKG, "mbrl", "metaworld_env.py")) as f:
+        assert "import mujoco" in f.read()
+
+
 def test_scan_sees_the_whole_package():
     rels = {os.path.relpath(p, PKG) for p in _port_files()}
     for must in ("rollout.py", "generation.py", "ops/vq.py",
@@ -106,7 +123,10 @@ def test_scan_sees_the_whole_package():
                  "data/dataset_mixes.py", "utils/loggers.py",
                  "utils/provenance.py", "utils/image_io.py",
                  "train_tokenizer.py", "models/i3d.py",
-                 "utils/video_metric.py"):
+                 "utils/video_metric.py", "mbrl_train.py", "mbrl/mbpo.py",
+                 "mbrl/drq_workspace.py", "mbrl/replay_buffer.py",
+                 "mbrl/metaworld_env.py", "mbrl/fake_env.py",
+                 "mbrl/logger.py", "mbrl/video.py"):
         assert must in rels
     for src in ("vq_argmin", "vq_argmin_tiled", "decode_attention",
                 "flash_attention_sm90", "flash_attention_tf32"):
