@@ -33,6 +33,16 @@ the final result line:
                version, two launches bit-identical, valid on the card
                bit-equal to the host int, one CUDA graph a shape replayed
                at two lengths; its split plan; timed against a cold L2
+     K3 variants  K3 over grouped KV heads (int8 K, Hkv 4 and 1) and over
+               the mixed cache (bf16 K, int8 V) at B=256, M=752, valid 515,
+               633, 751: against the plain version and the plain split,
+               two launches bit-identical, each launch on its variant's
+               count; timed against a cold L2
+     qconv     Q1 (the int8 implicit-GEMM conv) and its quantize kernel at
+               every distinct conv shape of TOKENIZER_64's int8 detokenize
+               at the rollout's chunk of 128 clips: codes, int32
+               accumulators and bf16 outputs bit-equal to the plain
+               versions; timed beside bf16 cuDNN channels-last
   5. flash     K4 (causal flash-attention forward) at the training shape
                (B=16, H=12, S=751), the prefill shape (B=256, S=514), the
                MBRL train() shape (B=16, S=683), the MBRL prefill (B=32,
@@ -66,6 +76,16 @@ the final result line:
                under the cast rules, int8 KV cache, ctx=2, T=16, B=256) with
                random weights from a seed: shapes, token ranges, launch
                counts (K3: exactly 2832 a rollout, K4: 12), frames/s
+     rollout variants  the main rollout with int8_detok="static" and "1":
+               token ids equal to the bf16 render's, launches (Q1 and the
+               quantize 114, K3 2832), PSNR to the bf16 render, detokenize
+               wall and device s by mode, 2 clips with every conv bit-equal
+               to the plain int8 conv and the render against the CPU's;
+               cache_dtype="mixed" (K3 2832 on the mixed variant; an fp32
+               LM's replay: K bit-equal to the bf16 cache's, logits against
+               the bf16 cache's); a grouped-head LLAMA_BASE (Hkv=4: K3 2832
+               on the grouped variant); frames/s over 3 timed rollouts
+               (mixed, grouped)
   7. check     a B=2 fp32 rollout on the GPU held against the plain CPU path
                on the same stream: context ids, teacher-forced logits, frames
   8. train     the GPT training step (frozen tokenize -> LLAMA_BASE forward/
@@ -143,6 +163,10 @@ the final result line:
                context, actions [200, 10, 5]: launches a query (K1 and 12 K4
                a chunk, K3 0), rgb [200, 11, 64, 64, 3] finite in [0, 1],
                seconds a query, peak memory
+     vp2_int8  the same query with int8_detok=True: Q1 and the quantize 228
+               a query, the pixel gap to the exact render, s a query over 3
+               timed queries, the int8 render's share of a traced query's
+               device s
  21. train_gpt the trainer CLI (ivideogpt_tpu_torch/train_gpt.py) in-process
                with the BAIR finetune recipe's LM flags (bf16, attention
                dropout 0.1, action-conditioned, --load_internal_llm from
@@ -199,6 +223,7 @@ Imports nothing of JAX or of the JAX package.
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -217,6 +242,7 @@ BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
 # attention rows are bounded by it, their FMA bound (FP32_PEAK) beside it
 TF32X3_PEAK = 495e12 / 3
 HBM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s
+INT8_PEAK = 1979e12    # H100 SXM dense int8 tensor cores, operations/s
 # 32-bit integer instructions/s (one lane each): 64 results a clock an SM
 # for integer add, multiply(-add), logic and compare at compute capability
 # 9.0 (CUDA C++ Programming Guide, throughput of native arithmetic
@@ -284,6 +310,23 @@ K3_SHAPES = ((B, 752, (515, 633, 751)), (MB_B, MB_M, (MB_P1, 599, MB_M - 1)),
              (B, CTX1_M, (CTX1_P1 + 1, 384, CTX1_M - 2)))
 K3_SPLIT_CANDIDATES = {B: (1, 2, 3, 4), MB_B: (1, 2, 3, 4, 5, 6, 8, 11)}
 L2_ROTATION_BYTES = 200_000_000  # >= 4 x the H100's 50 MB L2
+# K3's variants at the main rollout's cache: int8 K over 4 and 1 KV
+# heads (grouped), and the "mixed" cache (bf16 K, int8 V) over 12
+K3_VARIANTS = (("grouped", 4, False), ("grouped", 1, False),
+               ("mixed", 12, True))
+# Q1 at the rollout's detokenize chunk (rollout.rollout's detok_chunk)
+QCONV_CLIPS = 128
+# the rollout's variants: int8 renders, the mixed cache and a
+# grouped-head LLAMA_BASE; three timed rollouts after the first over the
+# mixed cache and the grouped LM (the int8 renders are timed by their
+# detokenize), three timed VP2 int8 queries; the card-vs-CPU check of the
+# int8 render on 2 clips
+VARIANT_TIMED, INT8_CHECK_CLIPS = 3, 2
+# the mixed cache's teacher-forced logits (fp32 LM) against the bf16
+# cache's, mean |difference|: between the mixed cache's reading and the int8
+# cache's (0.000751 and 0.000755 on an H100 80GB HBM3 at 700 W, the same
+# in three runs), so that a mixed cache that rounds K like int8 fails
+MIXED_LOGIT_LIMIT = 7.53e-4
 # K1's lookups on the main paths (K=8192, D=64): the rollout's context
 # frames, the context frames of a B=16 GPT step and tokenizer pair, and the
 # dynamics frames of the GPT step (16 x 14 x 16) and of the pair (16 x 6 x
@@ -718,13 +761,19 @@ def rotating(caches, fn):
     return call
 
 
-def k3_bound(b, valid, H=12):
-    """(bound_ms, by) of one K3 call: the live int8 K and V and their bf16
-    scales read once, q read and out written once (bf16), against 4 FLOP a
-    cached value at the fp32 rate."""
-    nbytes = 2 * b * valid * H * 64 + 2 * b * valid * H * 2 \
-        + 2 * b * H * 64 * 2
-    return bound(nbytes, 4 * b * H * valid * 64, FP32_PEAK)
+def k3_bound(b, valid, H=12, kv=None, mixed=False):
+    """(bound_ms, by) of one K3 call over kv KV heads (H, the rollout's
+    cache, by default): the live K (int8, or bf16 where ``mixed``) and the
+    int8 V read once with their bf16 scales (vs alone where mixed), q read
+    and out written once (bf16), against each query head's two products:
+    q . K, 2 FLOP a cached value at the bf16 tensor-core rate (a bf16 q and
+    an int8 or bf16 K are exact in bf16), and P . V, 2 FLOP a cached value
+    in fp32 at the three-term TF32 rate, as the fp32 attention rows."""
+    kv = H if kv is None else kv
+    nbytes = b * valid * kv * (64 * (3 if mixed else 2)
+                               + 2 * (1 if mixed else 2)) + 2 * b * H * 64 * 2
+    n = b * H * valid * 64
+    return bound(nbytes, 2 * n * (1 + BF16_PEAK / TF32X3_PEAK), BF16_PEAK)
 
 
 def k3_graph_gate(torch, da, q, cache, valids):
@@ -836,6 +885,270 @@ def phase_k3(torch):
     row["max_abs_err"] = max_err
     row["at_shape"] = at_shape
     return row
+
+
+def k3_variant_caches(torch, b, M, kv, mixed, g):
+    """Caches (k, ks, v, vs) of a K3 variant at batch b, M slots, kv KV
+    heads, hd=64 (``mixed``: bf16 k and ks None), as many as hold
+    ``L2_ROTATION_BYTES`` together, as ``k3_caches``."""
+    one = b * M * kv * (64 * (3 if mixed else 2) + 2 * (1 if mixed else 2))
+    caches = []
+    for _ in range(-(-L2_ROTATION_BYTES // one)):
+        k = (torch.randn(b, M, kv, 64, device="cuda", generator=g).bfloat16()
+             if mixed else torch.randint(-127, 128, (b, M, kv, 64),
+                                         device="cuda", generator=g,
+                                         dtype=torch.int8))
+        v = torch.randint(-127, 128, (b, M, kv, 64), device="cuda",
+                          generator=g, dtype=torch.int8)
+        ks = None if mixed else (torch.rand(b, M, kv, device="cuda",
+                                            generator=g) * 0.02
+                                 + 0.001).bfloat16()
+        vs = (torch.rand(b, M, kv, device="cuda", generator=g) * 0.02
+              + 0.001).bfloat16()
+        caches.append((k, ks, v, vs))
+    return caches
+
+
+def phase_k3_variants(torch):
+    """K3's two variants at the main rollout's cache (B=256, M=752,
+    valid 515, 633, 751, H=12, hd=64): int8 K over 4 and 1 KV heads (query
+    head h reads KV head h // (12 / Hkv)) and the mixed cache (bf16 K
+    without scales, int8 V) over 12. Gates at each valid: the plain version
+    and the plain split-then-merge within K3's tolerance, two launches
+    bit-identical, one launch counted on the variant's own count. Times by
+    cuda_ms and queued_ms over a cold-L2 rotation of the variant's caches
+    (``k3_variant_caches``), the plain version beside. Returns the
+    kernels line's rows: the grouped variant (Hkv=4 at valid 751; both
+    Hkv under ``at_shape``) and the mixed one (valid 751)."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    H, M, valids = 12, 752, (515, 633, 751)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rows = {}
+    for tag, kv, mixed in K3_VARIANTS:
+        name = f"decode_attention_{tag}"
+        row = rows.setdefault(name, dict(
+            name=name, route="cuda",
+            source="ivideogpt_tpu_torch/csrc/decode_attention.cu",
+            replaces="ivideogpt_tpu/ops/decode_attention.py:45",
+            max_abs_err=0.0, at_shape={}))
+        count = "mixed_launches" if mixed else "grouped_launches"
+        caches = k3_variant_caches(torch, B, M, kv, mixed, g)
+        q = torch.randn(B, H, 64, device="cuda", generator=g).bfloat16()
+        k, ks, v, vs = caches[0]
+        for valid in valids:
+            before = getattr(da.decode_attention, count)
+            out = da.decode_attention(q, k, ks, v, vs, valid)
+            check(getattr(da.decode_attention, count) == before + 1,
+                  f"K3 {tag}: the launch was not counted on its variant")
+            again = da.decode_attention(q, k, ks, v, vs, valid)
+            ref = da.decode_attention_plain(q, k, ks, v, vs, valid)
+            split = da.decode_attention_split_plain(q, k, ks, v, vs, valid)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            for want, what in ((ref, "plain"), (split, "split plain")):
+                check(torch.allclose(out.float(), want.float(), rtol=2e-2,
+                                     atol=2e-3),
+                      f"K3 {tag} Hkv={kv} disagrees with the {what} version "
+                      f"at valid={valid}")
+            check(torch.equal(out, again), f"K3 {tag}: two launches differ")
+            fn = rotating(caches, lambda k, ks, v, vs:
+                          da.decode_attention(q, k, ks, v, vs, valid))
+            ms = cuda_ms(fn, 60)
+            q_ms, host_ms = queued_ms(fn, 240)
+            plain_ms = cuda_ms(
+                lambda: da.decode_attention_plain(q, k, ks, v, vs, valid), 3)
+            b_ms, b_by = k3_bound(B, valid, kv=kv, mixed=mixed)
+            print(f"K3 {tag} B={B} Hkv={kv} M={M} valid={valid}: "
+                  f"max_abs_err={err:.3e} (rtol 2e-2, atol 2e-3, plain and "
+                  f"split plain), two launches bit-equal; cold L2 "
+                  f"({len(caches)} caches): kernel_ms={ms:.4f} plain_ms="
+                  f"{plain_ms:.4f} library_ms=null bound_ms={b_ms:.4f} "
+                  f"({b_by}) share_of_bound={b_ms / ms:.3f}; queued: "
+                  f"kernel_ms={q_ms:.4f} (share {b_ms / q_ms:.3f}), host_ms "
+                  f"per call {host_ms:.4f}")
+            row["at_shape"][f"Hkv={kv} valid={valid}"] = dict(
+                ms=ms, queued_ms=q_ms, host_ms=host_ms, plain_ms=plain_ms,
+                bound_ms=b_ms)
+            if valid == valids[-1] and kv in (4, 12):
+                row.update(shape=f"B={B} H={H} Hkv={kv} M={M} valid={valid}",
+                           ms=ms, queued_ms=q_ms, host_ms=host_ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=None)
+        del caches, k, ks, v, vs, q
+        torch.cuda.empty_cache()
+    return list(rows.values())
+
+
+def detok_conv_shapes(torch, tokenizer):
+    """The convs one int8 detokenize of one clip runs, as {(N, C, H, W, O,
+    k, stride, padding): calls}, recorded by wrapping
+    ``ops.qconv.int8_conv`` (the context decoder's N is ctx frames, the
+    conditional decoder's T - ctx)."""
+    from ivideogpt_tpu_torch import tokens as tok_lib
+    from ivideogpt_tpu_torch.ops import qconv
+    cfg = tokenizer.config
+    seen = {}
+    inner = qconv.int8_conv
+
+    def record(conv, x, *args):
+        key = (*x.shape, conv.out_channels, conv.kernel_size[0],
+               conv.stride[0], conv.padding[0])
+        seen[key] = seen.get(key, 0) + 1
+        return inner(conv, x, *args)
+    g = torch.Generator(device="cuda").manual_seed(71)
+    c = torch.randint(0, cfg.num_vq_embeddings, (1, CTX, 256), device="cuda",
+                      generator=g)
+    d = torch.randint(0, cfg.num_dyn_embeddings, (1, T - CTX, 16),
+                      device="cuda", generator=g)
+    ids, _ = tok_lib.assemble(c, d, cfg.num_vq_embeddings,
+                              cfg.num_dyn_embeddings)
+    qconv.int8_conv = record
+    try:
+        with torch.inference_mode(), qconv.int8_convs():
+            tokenizer.detokenize(ids, CTX)
+    finally:
+        qconv.int8_conv = inner
+    return seen
+
+
+def phase_qconv(torch):
+    """Q1 (``csrc/qconv.cu``) and its quantize kernel at every distinct conv
+    shape of TOKENIZER_64's int8 detokenize (bf16, the rollout's render) at
+    the rollout's chunk of ``QCONV_CLIPS`` clips (the context decoder's 256
+    frames, the conditional decoder's 1792), recorded from the tokenizer
+    itself (``detok_conv_shapes``). At each shape, on random bf16
+    activations and weights: the quantize kernel's codes equal the plain
+    quantize's, Q1's int32 accumulators equal ``qconv_plain``'s bit for bit
+    and its bf16 outputs equal the plain epilogue's. Times Q1 by cuda_ms and
+    queued_ms beside the plain version (one call: its accumulator and
+    epilogue) and bf16 cuDNN ``F.conv2d`` channels-last at the same shape
+    (the library's time), the quantize kernel beside its plain version;
+    bounds: Q1 by int8 operations (INT8_PEAK) or bytes (the codes read,
+    the int8 weight read, the bf16 output written), the quantize by bytes.
+    Returns the two rows (each summed over a chunk's convs, every shape
+    under ``at_shape``) and the convs a detokenize call runs."""
+    import torch.nn.functional as F
+    from ivideogpt_tpu_torch import generation
+    from ivideogpt_tpu_torch.configs import TOKENIZER_64
+    from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+    from ivideogpt_tpu_torch.ops import qconv
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        tokenizer = CompressiveVQModel(
+            TOKENIZER_64.replace(context_length=CTX), torch.bfloat16)
+    generation.cast_conv_params(tokenizer, torch.bfloat16)
+    tokenizer = tokenizer.cuda().eval()
+    shapes = detok_conv_shapes(torch, tokenizer)
+    calls = sum(shapes.values())
+    del tokenizer
+    chunks = B // QCONV_CLIPS
+    print(f"qconv: a detokenize call runs {calls} int8 convs at "
+          f"{len(shapes)} shapes; {calls * chunks} launches of Q1 and of "
+          f"the quantize a B={B} rollout ({chunks} chunks of {QCONV_CLIPS})")
+    g = torch.Generator(device="cuda").manual_seed(72)
+    keys = ("ms", "queued_ms", "plain_ms", "bound_ms", "library_ms")
+    q1 = dict(name="qconv", route="cuda",
+              source="ivideogpt_tpu_torch/csrc/qconv.cu",
+              replaces="ivideogpt_tpu/ops/qconv.py:84 (XLA's int8 conv in "
+                       "_int8_conv_call; no TPU kernel)",
+              shape=f"the {calls} convs of one detokenize chunk of "
+                    f"{QCONV_CLIPS} clips, summed ({len(shapes)} shapes)",
+              max_abs_err=0.0, at_shape={}, **{k: 0.0 for k in keys})
+    qz = dict(name="quantize", route="cuda",
+              source="ivideogpt_tpu_torch/csrc/qconv.cu",
+              replaces="ivideogpt_tpu/ops/qconv.py:67 (XLA's quantize in "
+                       "_quantize_per_tensor; no TPU kernel)",
+              shape=q1["shape"], max_abs_err=0.0, library_ms=None,
+              at_shape={}, ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for (n1, c, h, w, o, k, stride, pad), count in sorted(shapes.items()):
+        n = n1 * QCONV_CLIPS
+        tag = f"N={n} C={c} {h}x{w} O={o} k={k} s={stride} p={pad}"
+        x = torch.randn(n, c, h, w, device="cuda", generator=g).bfloat16()
+        wt = torch.randn(o, c, k, k, device="cuda", generator=g) \
+            * (c * k * k) ** -0.5
+        bias = torch.randn(o, device="cuda", generator=g) * 0.1
+        packed = qconv.PackedWeight(wt)
+        scale = (qconv.amax(x) / 127.0).clamp_min(1e-12)
+        xq = qconv.quantize(x, scale)
+        codes = qconv.quantize_per_tensor(x, scale)[0]
+        check(torch.equal(xq[..., :c], codes.permute(0, 2, 3, 1)),
+              f"qconv {tag}: the quantize kernel's codes differ")
+        acc = qconv.qconv(xq, scale, packed, bias, stride, pad,
+                          torch.bfloat16, accumulator=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        acc_ref = qconv.qconv_plain(codes, scale, packed.wq, packed.w_scale,
+                                    bias, stride, pad, torch.bfloat16,
+                                    accumulator=True)
+        ref = qconv.dequantize(acc_ref, scale, packed.w_scale, bias,
+                               torch.bfloat16)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        check(torch.equal(acc, acc_ref), f"qconv {tag}: Q1's int32 "
+              f"accumulators differ from the plain version's")
+        del acc, acc_ref
+        out = qconv.qconv(xq, scale, packed, bias, stride, pad,
+                          torch.bfloat16)
+        check(torch.equal(out, ref), f"qconv {tag}: Q1's output differs "
+              f"from the plain epilogue's")
+        del out, ref, codes
+
+        def run():
+            return qconv.qconv(xq, scale, packed, bias, stride, pad,
+                               torch.bfloat16)
+        iters = 5 if n * h * w * o * k * k * c > 2**40 else 20
+        ms = cuda_ms(run, iters)
+        q_ms = queued_ms(run, iters)[0]
+        xcl = x.contiguous(memory_format=torch.channels_last)
+        wcl = wt.bfloat16().contiguous(memory_format=torch.channels_last)
+        bcl = bias.bfloat16()
+        lib_ms = cuda_ms(lambda: F.conv2d(xcl, wcl, bcl, stride, pad), iters)
+        del xcl, wcl
+        ho = (h + 2 * pad - k) // stride + 1
+        wo = (w + 2 * pad - k) // stride + 1
+        b_ms, b_by = bound(n * h * w * xq.shape[-1] + o * k * k * c
+                           + 2 * n * o * ho * wo,
+                           2 * n * ho * wo * o * k * k * c, INT8_PEAK)
+        z_ms = cuda_ms(lambda: qconv.quantize(x, scale), iters)
+
+        def plain_quantize():
+            out = torch.zeros(xq.shape, dtype=torch.int8, device="cuda")
+            out[..., :c] = qconv.quantize_per_tensor(x, scale)[0].permute(
+                0, 2, 3, 1)
+            return out
+        zp_ms = cuda_ms(plain_quantize, 2, warmup=1)
+        zb_ms, _ = bound(2 * x.numel() + xq.numel(), 0, INT8_PEAK)
+        print(f"qconv {tag}: {count} a chunk, {count * chunks} launches a "
+              f"rollout; int32 accumulators and bf16 outputs bit-equal to "
+              f"the plain version; kernel_ms={ms:.4f} queued_ms={q_ms:.4f} "
+              f"plain_ms={plain_ms:.2f} library_ms={lib_ms:.4f} (bf16 cuDNN, "
+              f"channels-last; Q1 {lib_ms / q_ms:.2f}x its speed by q) "
+              f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound="
+              f"{b_ms / q_ms:.3f} (q); quantize: kernel_ms={z_ms:.4f} "
+              f"plain_ms={zp_ms:.4f} bound_ms={zb_ms:.4f} (bytes) share "
+              f"{zb_ms / z_ms:.3f}, codes bit-equal")
+        q1["at_shape"][tag] = dict(calls=count, ms=ms, queued_ms=q_ms,
+                                   plain_ms=plain_ms, library_ms=lib_ms,
+                                   bound_ms=b_ms, bound_by=b_by)
+        qz["at_shape"][tag] = dict(calls=count, ms=z_ms, plain_ms=zp_ms,
+                                   bound_ms=zb_ms)
+        for key, val in zip(keys, (ms, q_ms, plain_ms, b_ms, lib_ms)):
+            q1[key] += count * val
+        for key, val in (("ms", z_ms), ("plain_ms", zp_ms),
+                         ("bound_ms", zb_ms)):
+            qz[key] += count * val
+        del x, xq, wt, packed
+        torch.cuda.empty_cache()
+    q1["bound_by"] = ("operations" if sum(
+        r["bound_ms"] * r["calls"] for r in q1["at_shape"].values()
+        if r["bound_by"] == "operations") > q1["bound_ms"] / 2 else "bytes")
+    qz["bound_by"] = "bytes"
+    print(f"qconv: a chunk's {calls} convs: Q1 {q1['ms']:.3f} ms (q "
+          f"{q1['queued_ms']:.3f}), bf16 cuDNN {q1['library_ms']:.3f} ms, "
+          f"bound {q1['bound_ms']:.3f} ms (mostly {q1['bound_by']}); "
+          f"quantize {qz['ms']:.3f} ms, bound {qz['bound_ms']:.3f} ms")
+    return (q1, qz), calls
 
 
 def k3_splits(torch):
@@ -1556,25 +1869,33 @@ def check_stream(torch, tokens_mod, cfg, toks, batch, ctx=CTX):
 
 
 def counted():
-    """Every kernel wrapper, by the name the kernels line gives it."""
+    """Every kernel's launch count, by the name the kernels line gives it,
+    as (wrapper, attribute): K3's variants count on attributes of their
+    one wrapper."""
     from ivideogpt_tpu_torch.ops import decode_attention as da
     from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.ops import qconv
     from ivideogpt_tpu_torch.ops import vq
-    return {"vq_argmin": vq.vq_argmin,
-            "vq_argmin_tiled": vq.vq_argmin_tiled,
-            "decode_attention": da.decode_attention,
-            "flash_attention_fwd": fa.flash_fwd,
-            "flash_attention_bwd_dkv": fa.flash_bwd_dkv,
-            "flash_attention_bwd_dq": fa.flash_bwd_dq}
+    return {"vq_argmin": (vq.vq_argmin, "launches"),
+            "vq_argmin_tiled": (vq.vq_argmin_tiled, "launches"),
+            "decode_attention": (da.decode_attention, "launches"),
+            "decode_attention_grouped": (da.decode_attention,
+                                         "grouped_launches"),
+            "decode_attention_mixed": (da.decode_attention, "mixed_launches"),
+            "flash_attention_fwd": (fa.flash_fwd, "launches"),
+            "flash_attention_bwd_dkv": (fa.flash_bwd_dkv, "launches"),
+            "flash_attention_bwd_dq": (fa.flash_bwd_dq, "launches"),
+            "qconv": (qconv.qconv, "launches"),
+            "quantize": (qconv.quantize, "launches")}
 
 
 def reset_counts():
-    for fn in counted().values():
-        fn.launches = 0
+    for fn, attr in counted().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in counted().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counted().items()}
 
 
 def phase_main(torch):
@@ -1766,6 +2087,281 @@ def profile_stages(torch, tag, tokenizer, lm, px, action, gen):
     print(f"{tag}: the port's kernels by stage (device s, by name fragment): "
           + json.dumps(ours))
     return out
+
+
+def frame_gap(torch, a, b):
+    """(mean |a - b|, max |a - b|, PSNR of a against b) over frames clipped
+    to [0, 1]."""
+    a, b = a.float().clamp(0, 1), b.float().clamp(0, 1)
+    d = (a - b).abs()
+    mse = float((d * d).mean())
+    psnr = 10 * math.log10(1 / mse) if mse > 0 else float("inf")
+    return float(d.mean()), float(d.max()), psnr
+
+
+def phase_rollout_variants(torch, convs):
+    """The rollout's inference knobs at B=256 (the main phase's models, seed 0),
+    each through ``rollout.rollout`` with one generator seed:
+    ``int8_detok="static"`` (calibrated on its first chunk, margin 1.1),
+    then ``"1"`` (dynamic), against the bf16 render; ``cache_dtype=
+    "mixed"``; and a grouped-head LLAMA_BASE (Hkv=4) over the int8 cache.
+    Gates: each int8 render keeps the bf16 render's token ids, its frames
+    finite; launches of its first rollout (Q1 and the quantize kernel
+    ``convs`` a chunk, K3 2832, K4 12, K1 1; the mixed cache's K3 2832 on
+    its variant, the grouped LM's 2832 on its); the card's dynamic int8
+    render of ``INT8_CHECK_CLIPS`` clips with each conv bit-equal to the
+    plain int8 conv of its own input, and against the CPU port's render
+    (plain versions) of the same ids: the CPU's int8-vs-bf16 gap within
+    [0.8, 1.25] of the card's, the two renders less than 1.5 gaps apart (at
+    random weights a render is chaotic under float rounding, and bf16's
+    roundings between card and CPU flip codes apart,
+    tests/test_torch_qconv.py);
+    the mixed cache's teacher-forced replay (the fp32 LM of the same
+    weights, 16 samples of the mixed rollout's stream): its K bit for bit
+    the bf16 cache's and its V and scales the int8 cache's where the
+    replays wrote the same values, its logits' mean |difference| to the
+    bf16 cache's below ``MIXED_LOGIT_LIMIT`` and below the int8 cache's,
+    and through K3 within 1e-3 of the same replay through K3's plain
+    version. Prints PSNR and mean |difference| to the bf16 render, the
+    mixed cache's and grouped LM's s/rollout and frames/s
+    (``VARIANT_TIMED`` after the first, with their range; an int8 render's
+    cost is its detokenize's, timed alone), detokenize wall and device s by
+    mode, Q1's and the quantize's device s."""
+    import copy
+    from ivideogpt_tpu_torch import generation
+    from ivideogpt_tpu_torch import rollout as ro
+    from ivideogpt_tpu_torch import tokens as tok_lib
+    from ivideogpt_tpu_torch.configs import LLAMA_BASE
+    from ivideogpt_tpu_torch.ops import qconv
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    tokenizer, lm = ro.build_models(context_length=CTX, segment_length=T,
+                                    seed=0)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    px = torch.rand(B, CTX, 64, 64, 3, device="cuda", generator=g)
+    action = torch.randn(B, T, 4, device="cuda", generator=g)
+    chunks = B // 128
+
+    def run(model, mode="0", cache=torch.int8, scales=None):
+        return ro.rollout(tokenizer, model, px, action, segment_length=T,
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(41),
+                          cache_dtype=cache, int8_detok=mode,
+                          static_scales=scales)
+
+    def first(tag, want, *args, timed=VARIANT_TIMED, **kw):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        res = run(*args, **kw)
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        launches = read_counts()
+        for name, n in want.items():
+            check(launches[name] == n, f"{tag}: {name} ran {launches[name]} "
+                  f"times in a rollout, not {n}")
+        check_stream(torch, tok_lib, tokenizer.config, res.tokens, B)
+        check(tuple(res.frames.shape) == (B, T, 64, 64, 3)
+              and bool(torch.isfinite(res.frames).all()),
+              f"{tag}: frames {tuple(res.frames.shape)} not finite")
+        times = []
+        for _ in range(timed):
+            t0 = time.time()
+            run(*args, **kw)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+        speed = ""
+        if times:
+            dt = sum(times) / len(times)
+            fps = sorted(B * (T - CTX) / t for t in times)
+            speed = (f"; {timed} timed: {dt:.4f} s/rollout, "
+                     f"{B * (T - CTX) / dt:.2f} frames/s (runs {fps[0]:.2f} "
+                     f"to {fps[-1]:.2f})")
+        print(f"{tag}: first rollout {first_s:.2f}s, launches {launches}"
+              + speed)
+        return res, launches
+
+    base = {"vq_argmin": 1, "flash_attention_fwd": 12,
+            "decode_attention": 2832, "decode_attention_grouped": 0,
+            "decode_attention_mixed": 0}
+    by_path = {}
+    ref = run(lm)
+    scales = {}
+    for mode, key in (("static", "rollout_int8_static"),
+                      ("1", "rollout_int8_detok")):
+        res, by_path[key] = first(
+            key, dict(base, qconv=convs * chunks, quantize=convs * chunks),
+            lm, mode, timed=0, scales=scales if mode == "static" else None)
+        check(torch.equal(res.tokens, ref.tokens), f"{key}: the token ids "
+              f"differ from the bf16 render's rollout")
+        mean, mx, psnr = frame_gap(torch, res.frames, ref.frames)
+        print(f"{key}: token ids equal to the bf16-render rollout's; frames "
+              f"against the bf16 render: mean |diff| {mean:.5f}, max "
+              f"{mx:.4f}, PSNR {psnr:.2f} dB")
+    check(len(scales) == convs, f"static: {len(scales)} calibrated convs, "
+          f"not {convs}")
+
+    device, wall = {}, {}
+    for mode in ("0", "1", "static"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.inference_mode():
+            ro.detokenize(tokenizer, ref.tokens, CTX, 128, mode, scales)
+        torch.cuda.synchronize()
+        wall[mode] = time.time() - t0
+        res = {}
+        with kernel_trace(torch, res), torch.inference_mode():
+            ro.detokenize(tokenizer, ref.tokens, CTX, 128, mode, scales)
+        device[mode] = dict(seconds=round(res["seconds"], 5), **{
+            name: round(sum(e.self_device_time_total for e in res["kernels"]
+                            if frag in e.key) / 1e6, 5)
+            for name, frag in (("Q1", "qconv_kernel"),
+                               ("quantize", "quantize_kernel"))})
+    print("rollout_int8: detokenize of a B=256 stream (2 chunks) by "
+          "int8_detok mode, wall s " + json.dumps(
+              {k: round(v, 4) for k, v in wall.items()})
+          + ", device s " + json.dumps(device))
+
+    # the card's dynamic int8 render of INT8_CHECK_CLIPS clips, each conv
+    # held bit-equal to the plain int8 conv of its own input on the card,
+    # then the whole render against the CPU port's
+    ids = ref.tokens[:INT8_CHECK_CLIPS]
+    inner, held = qconv.int8_conv, []
+
+    def held_conv(conv, x, *args):
+        out = inner(conv, x, *args)
+        scale = (qconv.amax(x) / 127.0).clamp_min(1e-12)
+        w = qconv.packed_weight(conv)
+        want = qconv.qconv_plain(qconv.quantize_per_tensor(x, scale)[0],
+                                 scale, w.wq, w.w_scale, conv.bias,
+                                 conv.stride[0], conv.padding[0], x.dtype)
+        check(torch.equal(out, want), f"rollout_int8 check: Q1 in "
+              f"{conv.qconv_key} differs from the plain int8 conv")
+        held.append(conv.qconv_key)
+        return out
+    with torch.inference_mode():
+        exact = tokenizer.detokenize(ids, CTX).float().cpu()
+        qconv.int8_conv = held_conv
+        try:
+            with qconv.int8_convs():
+                card = tokenizer.detokenize(ids, CTX).float().cpu()
+        finally:
+            qconv.int8_conv = inner
+    check(len(held) == convs, f"rollout_int8 check: {len(held)} convs held")
+    torch.set_num_threads(os.cpu_count() or 1)
+    tok_cpu = copy.deepcopy(tokenizer).cpu()
+    t0 = time.time()
+    with torch.inference_mode(), qconv.int8_convs():
+        host = tok_cpu.detokenize(ids.cpu(), CTX).float()
+    host_s = time.time() - t0
+    del tok_cpu
+    gap = float((card - exact).abs().mean())
+    drift = float((card - host).abs().mean())
+    ratio = float((host - exact).abs().mean()) / gap
+    print(f"rollout_int8 check: {INT8_CHECK_CLIPS} clips; in the card's "
+          f"int8 render each of the {convs} convs bit-equal to the plain int8 "
+          f"conv of its own input; the whole render against the CPU's "
+          f"({host_s:.1f} s): mean |diff| {drift:.5f} (max "
+          f"{float((card - host).abs().max()):.4f}); the card's int8-vs-bf16 "
+          f"gap {gap:.5f} (max {float((card - exact).abs().max()):.4f}); the "
+          f"CPU's gap / the card's {ratio:.4f} (tolerances: ratio in [0.8, "
+          f"1.25], drift below 1.5 gaps: in bf16 the float layers differ "
+          f"between card and CPU by bf16 roundings, so the two int8 renders "
+          f"flip codes apart)")
+    check(0.8 < ratio < 1.25, "rollout_int8 check: the CPU's int8 render "
+          "is not as far from the bf16 render as the card's")
+    check(drift < 1.5 * gap, "rollout_int8 check: the card's int8 render is "
+          "farther from the CPU's than 1.5 gaps")
+
+    res, by_path["rollout_mixed"] = first(
+        "rollout_mixed", dict(base, decode_attention=0,
+                              decode_attention_mixed=2832, qconv=0),
+        lm, cache="mixed")
+    # the logits in fp32 (the same weights), so that the bf16 cache's K is
+    # exact and the caches differ only by what they quantize; the mixed
+    # replay again with K3's plain version in place of K3
+    from ivideogpt_tpu_torch.models import llama as llama_mod
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    del lm
+    _, lm32 = ro.build_models(context_length=CTX, segment_length=T,
+                              dtype=torch.float32, seed=0)
+
+    caches = {}
+
+    def replay(dt, tag=None):
+        inner = lm32.init_cache
+
+        def kept(*args):
+            caches[tag] = inner(*args)
+            return caches[tag]
+        if tag is not None:
+            lm32.init_cache = kept
+        try:
+            return generation.replay_logits(
+                lm32, res.tokens[:16], segment_length=T, context_length=CTX,
+                action=action[:16], cache_dtype=dt)
+        finally:
+            lm32.__dict__.pop("init_cache", None)
+    with full_fp32():
+        logits = {c: replay(dt, c) for c, dt in (("mixed", "mixed"),
+                                                 ("bf16", torch.bfloat16),
+                                                 ("int8", torch.int8))}
+        llama_mod.decode_attention = da.decode_attention_plain
+        try:
+            plain = replay("mixed")
+        finally:
+            llama_mod.decode_attention = da.decode_attention
+    # what the mixed cache is for: its K is the bf16 cache's bit for bit,
+    # its V and scales the int8 cache's, wherever the three replays wrote
+    # the same values (the prefill's slots of every layer, attended over
+    # fresh k/v; every slot of layer 0, whose k/v depend on the embeddings
+    # alone)
+    P1 = tok_lib.prelude_len(CTX) + 1    # the replay's prefill
+    for i, (mix, b16, i8) in enumerate(zip(caches["mixed"], caches["bf16"],
+                                           caches["int8"])):
+        upto = None if i == 0 else P1
+        check(torch.equal(mix["k"][:, :upto], b16["k"][:, :upto]),
+              f"rollout_mixed: layer {i}'s K in the mixed cache is not the "
+              f"bf16 cache's")
+        check(torch.equal(mix["v"][:, :upto], i8["v"][:, :upto])
+              and torch.equal(mix["vs"][:, :upto], i8["vs"][:, :upto]),
+              f"rollout_mixed: layer {i}'s V in the mixed cache is not the "
+              f"int8 cache's")
+    d_mixed = (logits["mixed"] - logits["bf16"]).abs()
+    d_int8 = (logits["int8"] - logits["bf16"]).abs()
+    d_plain = float((logits["mixed"] - plain).abs().max())
+    print(f"rollout_mixed: after the replays the mixed cache's K equals the "
+          f"bf16 cache's and its V and scales the int8 cache's, bit for bit, "
+          f"at the {P1} prefill slots of all {len(caches['mixed'])} layers "
+          f"and every slot of layer 0; teacher-forced logits (fp32 LM, 16 "
+          f"samples of the stream) against the bf16 cache's: mixed mean "
+          f"|diff| {float(d_mixed.mean()):.7f} (max "
+          f"{float(d_mixed.max()):.6f}), int8 {float(d_int8.mean()):.7f} "
+          f"(max {float(d_int8.max()):.6f}); |logit| mean "
+          f"{float(logits['bf16'].abs().mean()):.4f}; the mixed replay "
+          f"through K3 against K3's plain version: max |diff| {d_plain:.3e} "
+          f"(tolerances: mixed mean below {MIXED_LOGIT_LIMIT} and below "
+          f"int8's, K3 against plain 1e-3)")
+    check(float(d_mixed.mean()) < MIXED_LOGIT_LIMIT, "rollout_mixed: the "
+          f"mixed cache's logits lie {MIXED_LOGIT_LIMIT} or more from the "
+          "bf16 cache's")
+    check(float(d_mixed.mean()) < float(d_int8.mean()), "rollout_mixed: the "
+          "mixed cache's logits are not closer to the bf16 cache's than the "
+          "int8 cache's")
+    check(d_plain < 1e-3, "rollout_mixed: the replay through K3's mixed "
+          "variant differs from the plain version's")
+    del lm32, logits, plain, caches
+
+    _, lm_g = ro.build_models(lm_cfg=LLAMA_BASE.replace(
+        num_key_value_heads=4), context_length=CTX, segment_length=T, seed=0)
+    check(lm_g.llm.model.layers[0].self_attn.k_proj.weight.shape[0] == 256,
+          "rollout_grouped: k_proj is not 4 heads wide")
+    _, by_path["rollout_grouped"] = first(
+        "rollout_grouped", dict(base, decode_attention=0,
+                                decode_attention_grouped=2832, qconv=0),
+        lm_g)
+    del tokenizer, lm_g
+    torch.cuda.empty_cache()
+    return by_path
 
 
 def phase_check(torch):
@@ -3416,11 +4012,11 @@ def phase_train_gpt(torch, root, hub, free):
     n_val = GPT_STEPS // GPT_CKPT
     # a validation: 4 held-out batches (K1 2, K4 12 each), one generation
     # batch (its loss: K1 2, K4 12; generate's prefill: K4 12)
-    expect = {"vq_argmin": 2 * GPT_STEPS + n_val * 10,
-              "flash_attention_fwd": 12 * GPT_STEPS + n_val * 72,
-              "flash_attention_bwd_dkv": 12 * GPT_STEPS,
-              "flash_attention_bwd_dq": 12 * GPT_STEPS,
-              "decode_attention": 0, "vq_argmin_tiled": 0}
+    expect = dict(dict.fromkeys(launches, 0),
+                  vq_argmin=2 * GPT_STEPS + n_val * 10,
+                  flash_attention_fwd=12 * GPT_STEPS + n_val * 72,
+                  flash_attention_bwd_dkv=12 * GPT_STEPS,
+                  flash_attention_bwd_dq=12 * GPT_STEPS)
     check(launches == expect, f"train_gpt: launches {launches}, not "
           f"{expect}")
     dropped = [d for d in drops if d is not None and d[0] > 0]
@@ -3688,10 +4284,8 @@ def phase_eval_gpt(torch, root, hub):
     n_gen = EVAL_BATCHES * EVAL_REPS * EVAL_B
     check(result["generated"] == n_gen,
           f"eval_gpt: {result['generated']} clips generated, not {n_gen}")
-    want = {"vq_argmin": 2 * EVAL_BATCHES,
-            "flash_attention_fwd": 12 * EVAL_BATCHES * (1 + EVAL_REPS),
-            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-            "decode_attention": 0, "vq_argmin_tiled": 0}
+    want = dict(dict.fromkeys(launches, 0), vq_argmin=2 * EVAL_BATCHES,
+                flash_attention_fwd=12 * EVAL_BATCHES * (1 + EVAL_REPS))
     check(launches == want, f"eval_gpt: launches {launches}, not {want}")
 
     # FVD from the features the run fed, and real against real
@@ -4522,7 +5116,7 @@ def phase_vp2(torch, hub, root):
     actions [200, 10, 5]. Gates: the first query's launches (K1 once a
     chunk, K4 12 a chunk, fp32; K3 0), the output [200, 11, 64, 64, 3]
     finite in [0, 1]. Seconds a query, mean of 3 after it, and the peak
-    memory."""
+    memory. Returns the launches and the first query's rgb."""
     import numpy as np
     from ivideogpt_tpu_torch.vp.interface import IVideoGPTPredictor
     pred = IVideoGPTPredictor(
@@ -4566,6 +5160,89 @@ def phase_vp2(torch, hub, root):
           f"frames/s), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del pred
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_vp2_int8(torch, hub, root, exact, convs):
+    """The VP2 predictor with ``int8_detok=True`` on phase_vp2's query (the
+    same seed, so the same token ids): launches of its first query (Q1 and
+    the quantize kernel ``convs`` a decode chunk of 67, 4 chunks; K1 2, K4
+    24, K3 0), rgb finite in [0, 1], the pixel gap to the exact render
+    ``exact`` (mean, max, PSNR), seconds a query (``VARIANT_TIMED`` after
+    the first, with their range), and the int8 render's device seconds
+    against the first query's, which is traced (the exact render's
+    beside)."""
+    import numpy as np
+    from ivideogpt_tpu_torch import rollout as ro
+    from ivideogpt_tpu_torch.utils.platform import full_fp32
+    from ivideogpt_tpu_torch.vp.interface import IVideoGPTPredictor
+    pred = IVideoGPTPredictor(
+        pretrained_vqgan_name_or_path=os.path.join(hub, "tokenizer"),
+        pretrained_transformer_path=os.path.join(root, "vp2",
+                                                 "transformer"),
+        action_dim=VP2_A, generate_max_batchsize=VP2_CHUNK,
+        decode_max_batchsize=VP2_DECODE, seed=0, int8_detok=True)
+    rng = np.random.default_rng(94)
+    batch = {"video": np.repeat(rng.uniform(0, 1, (1, CTX, 64, 64, 3))
+                                .astype(np.float32), VP2_B, axis=0),
+             "actions": rng.uniform(-1, 1, (VP2_B, VP2_T, VP2_A))
+             .astype(np.float32)}
+    # the first query traced, its token ids kept as the predictor hands
+    # them to rollout.detokenize, for the render's share of a query
+    inner, chunks_seen, query = ro.detokenize, [], {}
+
+    def kept(tokenizer, ids, *args, **kw):
+        chunks_seen.append(ids.clone())
+        return inner(tokenizer, ids, *args, **kw)
+    torch.cuda.synchronize()
+    reset_counts()
+    ro.detokenize = kept
+    t0 = time.time()
+    try:
+        with kernel_trace(torch, query):
+            out = pred(batch)["rgb"]
+    finally:
+        ro.detokenize = inner
+    first_s = time.time() - t0
+    launches = read_counts()
+    chunks = VP2_B // VP2_CHUNK * -(-VP2_CHUNK // VP2_DECODE)
+    want = {"vq_argmin": 2, "decode_attention": 0, "flash_attention_fwd": 24,
+            "qconv": convs * chunks, "quantize": convs * chunks}
+    for name, n in want.items():
+        check(launches[name] == n, f"vp2_int8: {name} ran {launches[name]} "
+              f"times in a query, not {n}")
+    check(out.shape == exact.shape and bool(
+        np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1),
+        "vp2_int8: rgb not finite in [0, 1]")
+    mean, mx, psnr = frame_gap(torch, torch.from_numpy(out),
+                               torch.from_numpy(exact))
+    times = []
+    for _ in range(VARIANT_TIMED):
+        t0 = time.time()
+        pred(batch)
+        times.append(time.time() - t0)
+    dt = sum(times) / len(times)
+    print(f"vp2_int8: first query {first_s:.2f}s (traced), launches "
+          f"{launches}; against the exact render of the same ids: mean "
+          f"|diff| {mean:.5f}, max {mx:.4f}, PSNR {psnr:.2f} dB; "
+          f"{VARIANT_TIMED} timed: {dt:.4f} s a query (runs {min(times):.4f}"
+          f" to {max(times):.4f})")
+    # the first query's render chunks alone, traced, int8 and exact
+    render = {}
+    for mode in ("1", "0"):
+        res = {}
+        with kernel_trace(torch, res), torch.inference_mode(), full_fp32():
+            for ids in chunks_seen:
+                inner(pred.tokenizer, ids, pred.ctx, chunk=ids.shape[0],
+                      int8_detok=mode)
+        render[mode] = res["seconds"]
+    print(f"vp2_int8: the first query {query['seconds']:.4f} device s; its "
+          f"{len(chunks_seen)} render chunks alone: int8 "
+          f"{render['1']:.4f} device s ({render['1'] / query['seconds']:.4f} "
+          f"of the query's device s, {render['1'] / dt:.4f} of its wall), "
+          f"exact {render['0']:.4f}")
+    del pred, chunks_seen
     torch.cuda.empty_cache()
     return launches
 
@@ -4762,12 +5439,18 @@ def main():
         mark("K2")
         k3 = phase_k3(torch)
         mark("K3")
+        k3_variants = phase_k3_variants(torch)
+        mark("K3 variants")
+        q1_rows, convs = phase_qconv(torch)
+        mark("qconv")
         flash = phase_flash(torch)
         mark("flash")
         flash.update(phase_flash_dropout(torch))
         mark("flash_dropout")
         by_path = {"rollout": phase_main(torch)}
         mark("main")
+        by_path.update(phase_rollout_variants(torch, convs))
+        mark("rollout variants")
         phase_check(torch)
         mark("check")
         by_path["train"] = phase_train(torch)
@@ -4810,8 +5493,12 @@ def main():
             del tok_cpu, lm_cpu
             by_path["rollout_ctx1"] = phase_rollout_ctx1(torch, hub)
             mark("rollout_ctx1")
-            by_path["vp2"] = phase_vp2(torch, hub, root)
+            by_path["vp2"], vp2_rgb = phase_vp2(torch, hub, root)
             mark("vp2")
+            by_path["vp2_int8"] = phase_vp2_int8(torch, hub, root, vp2_rgb,
+                                                 convs)
+            del vp2_rgb
+            mark("vp2_int8")
             write_bair(root, GPT_EPISODES, EVAL_BATCHES * EVAL_B, GPT_FRAMES,
                        seed=93)
             with contextlib.chdir(root):
@@ -4848,7 +5535,10 @@ def main():
           f"{EVAL_B} x {EVAL_REPS} samples; "
           f"train_tokenizer_256: the CLI's {TT256_STEPS} micro-steps; "
           f"train_medium: the {MEDIUM_TIMED} timed steps; train_gpt_check: "
-          f"one step; mbpo: the MBPO CLI's run; drq: the DrQ-v2 run): "
+          f"one step; mbpo: the MBPO CLI's run; drq: the DrQ-v2 run; "
+          f"rollout_int8_detok, rollout_int8_static, rollout_mixed, "
+          f"rollout_grouped: the first B={B} rollout of each; vp2_int8: "
+          f"the first int8-render query): "
           + json.dumps(by_path))
     per_run = {"rollout": ("rollout", 1), "train_step": ("train", TRAIN_TIMED),
                "train_fp32_step": ("train_fp32", TRAIN_TIMED),
@@ -4864,8 +5554,14 @@ def main():
                "train_tokenizer_256_run": ("train_tokenizer_256", 1),
                "train_medium_step": ("train_medium", MEDIUM_TIMED),
                "train_gpt_check": ("train_gpt_check", 1),
-               "mbpo_run": ("mbpo", 1), "drq_run": ("drq", 1)}
-    rows = (k1, k2, k3, flash["K4_train"], flash["K4_prefill"],
+               "mbpo_run": ("mbpo", 1), "drq_run": ("drq", 1),
+               "rollout_int8_detok": ("rollout_int8_detok", 1),
+               "rollout_int8_static": ("rollout_int8_static", 1),
+               "rollout_mixed": ("rollout_mixed", 1),
+               "rollout_grouped": ("rollout_grouped", 1),
+               "vp2_int8": ("vp2_int8", 1)}
+    rows = (k1, k2, k3, *k3_variants, *q1_rows, flash["K4_train"],
+            flash["K4_prefill"],
             flash["K4_mbrl_prefill"], flash["K4_mbrl_train"],
             flash["K4_ctx1_prefill"], flash["K4_eval_loss"],
             flash["K4_eval_prefill"], flash["K4_predict_prefill"],

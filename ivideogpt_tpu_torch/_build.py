@@ -22,7 +22,7 @@ from typing import Dict
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("vq_argmin", "vq_argmin_tiled", "decode_attention",
-           "flash_attention_sm90", "flash_attention_tf32")
+           "flash_attention_sm90", "flash_attention_tf32", "qconv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -9,6 +9,17 @@
 // over the port's bshd cache [B, M, H, hd] (int8) with bf16 scales
 // [B, M, H], both sums in fp32; no dequantised cache is ever written.
 //
+// Two variants of the same kernel serve the JAX package's other caches:
+// - grouped KV heads (a runtime argument of every instance): the cache has
+//   Hkv < H heads, [B, M, Hkv, hd] and [B, M, Hkv], and query head h reads
+//   KV head h / (H / Hkv). A block fetches each KV head its query heads
+//   read once; the cache is never repeated.
+// - the "mixed" cache (the instance kKInt8 = false): K in bf16 without
+//   scales, V int8 with vs. Its scores are fp32 sums of bf16 q . bf16 K
+//   products (q rounded to bf16 nowhere: a fp32 q stays fp32), in place of
+//   the int8 digit planes; it reads twice K's bytes, so its bound is
+//   bytes as the int8 instance's is.
+//
 // Bound on the H100: memory. A call must read the live int8 cache and its
 // scales once, 2*B*valid*H*(hd + 2) bytes, plus q and out (34.7 MB at B=32,
 // H=12, valid=683: 10.4 us at 3.35 TB/s; 305 MB at B=256, valid=751: 91 us),
@@ -74,6 +85,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kHd = 64;
@@ -87,21 +100,34 @@ constexpr int kMergeChunk = 8;        // splits a merge step loads at once
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMagic = 8388736.0f;  // 2^23 + 128
 
-// Byte offsets of one ring stage: K rows, V rows, K scales, V scales.
+// Byte offsets of one ring stage: K rows, V rows, K scales (int8 K only),
+// V scales.
 struct Stage {
-  int pitch;  // bytes between slot rows (a block's G heads)
-  int kv;     // one of the K / V tiles
-  int sc;     // one of the scale runs (all H heads), with 16 bytes of slack
-  int bytes;  // the stage
+  int kp, vp;   // bytes between slot rows of K and of V (a block's Gkv
+                // KV heads)
+  int v_at;     // the V tile (after the K tile)
+  int sc;       // one scale run (all Hkv heads), with 16 bytes of slack
+  int ks_at;    // the K scales' run
+  int vs_at;    // the V scales' run
+  int bytes;    // the stage
 };
 
-__host__ __device__ inline Stage stage_of(int G, int H) {
+__host__ __device__ inline Stage stage_of(int Gkv, int Hkv, bool k_int8) {
   Stage s;
-  s.pitch = G * kHd;
-  s.kv = kTile * s.pitch;
-  s.sc = ((kTile * H * 2 + 15) / 16 + 1) * 16;
-  s.bytes = 2 * s.kv + 2 * s.sc;
+  s.vp = Gkv * kHd;
+  s.kp = k_int8 ? s.vp : 2 * s.vp;
+  s.v_at = kTile * s.kp;
+  s.sc = ((kTile * Hkv * 2 + 15) / 16 + 1) * 16;
+  s.ks_at = s.v_at + kTile * s.vp;
+  s.vs_at = s.ks_at + (k_int8 ? s.sc : 0);
+  s.bytes = s.vs_at + s.sc;
   return s;
+}
+
+// The KV heads [kv0, kv0 + n) that query heads [h0, h0 + gh) read.
+__host__ __device__ inline int kv_first(int h0, int rep) { return h0 / rep; }
+__host__ __device__ inline int kv_count(int h0, int gh, int rep) {
+  return (h0 + gh - 1) / rep - h0 / rep + 1;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -228,15 +254,17 @@ __device__ __forceinline__ void merge(float& m, float& l, float* a, float mo,
   m = mm;
 }
 
-template <typename T>
+// kKInt8: K int8 with ks (the int8 cache), else bf16 K without ks (the
+// "mixed" cache).
+template <typename T, bool kKInt8>
 __global__ void __launch_bounds__(kMaxHeads * 32, 2)
-decode_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
+decode_attn_kernel(const T* __restrict__ q, const void* __restrict__ kc,
                    const __nv_bfloat16* __restrict__ ks,
                    const int8_t* __restrict__ vc,
                    const __nv_bfloat16* __restrict__ vs, T* __restrict__ out,
                    float* __restrict__ partials, int* __restrict__ counters,
-                   int M, int H, int G, int per, const int* valid_dev,
-                   int valid_host, float scale_log2) {
+                   int M, int H, int Hkv, int G, int Gkv, int per,
+                   const int* valid_dev, int valid_host, float scale_log2) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ __align__(8) uint64_t bars[kStages];
   __shared__ int last_s;
@@ -244,7 +272,9 @@ decode_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   const int valid = valid_dev != nullptr ? *valid_dev : valid_host;
   if (valid < 1 || valid > M) __trap();
 
-  const Stage S = stage_of(G, H);
+  const Stage S = stage_of(Gkv, Hkv, kKInt8);
+  constexpr int kKb = kKInt8 ? 1 : 2;  // bytes of a K value
+  const int rep = H / Hkv;
   const int tid = threadIdx.x;
   const int split = blockIdx.x, splits = gridDim.x;
   const int b = blockIdx.y, group = blockIdx.z;
@@ -257,6 +287,9 @@ decode_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   // nothing, so every warp runs the same code
   const int hw = has_head ? warp : 0;
   const int h = h0 + hw;
+  const int kv0 = kv_first(h0, rep);
+  const int gkv = kv_count(h0, gh, rep);  // KV heads of this block
+  const int hk = h / rep;                 // this warp's KV head
 
   const int s_begin = split * per;
   const int s_end = min(s_begin + per, valid);
@@ -277,59 +310,64 @@ decode_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   if (n_tiles > 0) {
     // Copies, by warp 0, as TMA bulk copies (no tensor map) completing on
     // the stage's mbarrier: the tile's live slot rows of K and of V, one
-    // copy each where the block holds every head (the rows are then one
-    // run of n * H * 64 bytes), else one a slot row (gh * 64 bytes); and
-    // the scales of the tile's slots (all H heads, one run) in the 16-byte
-    // chunks around it.
+    // copy each where the block reads every KV head (the rows are then one
+    // run of n * Hkv * 64 values), else one a slot row (gkv * 64 values);
+    // and the scales of the tile's slots (all Hkv heads, one run each of
+    // ks, where K is int8, and vs) in the 16-byte chunks around it.
     const uint32_t bar0 = smem_u32(&bars[0]);
-    const uint32_t row_bytes = gh * kHd;
-    const int8_t* kblk = kc + (row_base * H + h0) * kHd;
-    const int8_t* vblk = vc + (row_base * H + h0) * kHd;
-    const int64_t sc_start = row_base * H * 2;  // bytes
+    const uint32_t k_row = gkv * kHd * kKb, v_row = gkv * kHd;
+    const uint8_t* kblk = static_cast<const uint8_t*>(kc) +
+                          (row_base * Hkv + kv0) * kHd * kKb;
+    const int8_t* vblk = vc + (row_base * Hkv + kv0) * kHd;
+    const int64_t sc_start = row_base * Hkv * 2;  // bytes
     const int sc_off = static_cast<int>(sc_start & 15);
-    const int64_t sc_total = static_cast<int64_t>(gridDim.y) * M * H * 2;
+    const int64_t sc_total = static_cast<int64_t>(gridDim.y) * M * Hkv * 2;
 
     auto issue = [&](int t) {
       uint8_t* st = smem + (t % kStages) * S.bytes;
       const uint32_t bar = bar0 + (t % kStages) * 8;
       const int n = min(kTile, s_end - s_begin - t * kTile);
       const int64_t slot0 = static_cast<int64_t>(t) * kTile;  // in the split
-      // kTile * H * 2 is a multiple of 16: every tile's run starts sc_off
+      // kTile * Hkv * 2 is a multiple of 16: every tile's run starts sc_off
       // into its first chunk
-      const int64_t at = sc_start - sc_off + slot0 * H * 2;
-      const uint32_t sc_bytes = (sc_off + n * H * 2 + 15) & ~15;
+      const int64_t at = sc_start - sc_off + slot0 * Hkv * 2;
+      const uint32_t sc_bytes = (sc_off + n * Hkv * 2 + 15) & ~15;
       // the chunks stay inside the scale tensors but at their very end
       const bool sc_bulk = at + sc_bytes <= sc_total;
       if (lane == 0)
-        mbar_expect_tx(bar, 2 * n * row_bytes + (sc_bulk ? 2 * sc_bytes : 0));
+        mbar_expect_tx(bar, n * (k_row + v_row) +
+                                (sc_bulk ? (kKInt8 ? 2 : 1) * sc_bytes : 0));
       __syncwarp();
-      if (gh == H) {
+      if (gkv == Hkv) {
         if (lane == 0)
-          bulk_load(smem_u32(st), kblk + slot0 * H * kHd, n * row_bytes, bar);
+          bulk_load(smem_u32(st), kblk + slot0 * Hkv * kHd * kKb, n * k_row,
+                    bar);
         if (lane == 1)
-          bulk_load(smem_u32(st + S.kv), vblk + slot0 * H * kHd,
-                    n * row_bytes, bar);
+          bulk_load(smem_u32(st + S.v_at), vblk + slot0 * Hkv * kHd,
+                    n * v_row, bar);
       } else if (lane < n) {
-        const int64_t src = (slot0 + lane) * H * kHd;
-        bulk_load(smem_u32(st + lane * S.pitch), kblk + src, row_bytes, bar);
-        bulk_load(smem_u32(st + S.kv + lane * S.pitch), vblk + src,
-                  row_bytes, bar);
+        const int64_t src = (slot0 + lane) * Hkv * kHd;
+        bulk_load(smem_u32(st + lane * S.kp), kblk + src * kKb, k_row, bar);
+        bulk_load(smem_u32(st + S.v_at + lane * S.vp), vblk + src, v_row,
+                  bar);
       }
       const uint8_t* ksb = reinterpret_cast<const uint8_t*>(ks);
       const uint8_t* vsb = reinterpret_cast<const uint8_t*>(vs);
       if (sc_bulk) {
-        if (lane == 2)
-          bulk_load(smem_u32(st + 2 * S.kv), ksb + at, sc_bytes, bar);
+        if (kKInt8 && lane == 2)
+          bulk_load(smem_u32(st + S.ks_at), ksb + at, sc_bytes, bar);
         if (lane == 3)
-          bulk_load(smem_u32(st + 2 * S.kv + S.sc), vsb + at, sc_bytes, bar);
+          bulk_load(smem_u32(st + S.vs_at), vsb + at, sc_bytes, bar);
       } else {  // plain copies of the run itself, done before the barrier
-        const int64_t e0 = (row_base + slot0) * H;
+        const int64_t e0 = (row_base + slot0) * Hkv;
         __nv_bfloat16* kd =
-            reinterpret_cast<__nv_bfloat16*>(st + 2 * S.kv + sc_off);
+            reinterpret_cast<__nv_bfloat16*>(st + S.ks_at + sc_off);
         __nv_bfloat16* vd =
-            reinterpret_cast<__nv_bfloat16*>(st + 2 * S.kv + S.sc + sc_off);
-        for (int e = lane; e < n * H; e += 32)
-          kd[e] = ks[e0 + e], vd[e] = vs[e0 + e];
+            reinterpret_cast<__nv_bfloat16*>(st + S.vs_at + sc_off);
+        for (int e = lane; e < n * Hkv; e += 32) {
+          if (kKInt8) kd[e] = ks[e0 + e];
+          vd[e] = vs[e0 + e];
+        }
       }
     };
 
@@ -341,17 +379,18 @@ decode_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
     if (warp == 0)
       for (int t = 0; t < kStages - 1 && t < n_tiles; ++t) issue(t);
 
-    // q . K exactly in integers: q = 2^(e - 22) * Q, Q an int32 (|Q| <=
-    // 2^22) cut into three signed int8 digits (Q = 2^16 D2 + 2^8 D1 + D0,
-    // each packed four dims a word as the cache packs K), so that dp4a
-    // sums each digit plane against the int8 K exactly and the planes
+    // int8 K: q . K exactly in integers: q = 2^(e - 22) * Q, Q an int32
+    // (|Q| <= 2^22) cut into three signed int8 digits (Q = 2^16 D2 + 2^8
+    // D1 + D0, each packed four dims a word as the cache packs K), so that
+    // dp4a sums each digit plane against the int8 K exactly and the planes
     // combine in fp32. e bounds the head's |q|: Q keeps every bit of a
     // bf16 q within 2^14 of the largest, and 22 bits of an fp32 one.
+    // bf16 K: q stays in fp32 and the lane's 16 products sum by fmaf.
     uint32_t qd[3][4];
-    float q_scale;
-    {
-      float qr[16];
-      load16(q + bh * kHd + part * 16, qr);
+    float qr[16];
+    float q_scale = scale_log2;
+    load16(q + bh * kHd + part * 16, qr);
+    if (kKInt8) {
       float amax = 0.f;
 #pragma unroll
       for (int i = 0; i < 16; ++i) amax = fmaxf(amax, fabsf(qr[i]));
@@ -383,9 +422,10 @@ decode_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
     }
 
     // Reads, fixed for the whole walk: slot quad + 8 j of a tile, dims
-    // part * 16 .. + 15 of head h; its two scales.
-    const int kv_at = quad * S.pitch + hw * kHd + part * 16;
-    const int sc_at = 2 * S.kv + sc_off + (quad * H + h) * 2;
+    // part * 16 .. + 15 of KV head hk; its scales.
+    const int k_at = quad * S.kp + ((hk - kv0) * kHd + part * 16) * kKb;
+    const int v_at = S.v_at + quad * S.vp + (hk - kv0) * kHd + part * 16;
+    const int sc_at = sc_off + (quad * Hkv + hk) * 2;
 
     for (int t = 0; t < n_tiles; ++t) {
       mbar_wait(bar0 + (t % kStages) * 8, (t / kStages) & 1);
@@ -397,24 +437,41 @@ decode_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
       float s[kSpq];
 #pragma unroll
       for (int j = 0; j < kSpq; ++j) {
-        const uint4 w = *reinterpret_cast<const uint4*>(
-            st + kv_at + j * kQuads * S.pitch);
-        const int kw[4] = {static_cast<int>(w.x), static_cast<int>(w.y),
-                           static_cast<int>(w.z), static_cast<int>(w.w)};
-        int a[3] = {0, 0, 0};
+        const uint8_t* kp = st + k_at + j * kQuads * S.kp;
+        float d;
+        if (kKInt8) {
+          const uint4 w = *reinterpret_cast<const uint4*>(kp);
+          const int kw[4] = {static_cast<int>(w.x), static_cast<int>(w.y),
+                             static_cast<int>(w.z), static_cast<int>(w.w)};
+          int a[3] = {0, 0, 0};
 #pragma unroll
-        for (int p = 0; p < 3; ++p)
+          for (int p = 0; p < 3; ++p)
 #pragma unroll
-          for (int x = 0; x < 4; ++x)
-            a[p] = __dp4a(kw[x], static_cast<int>(qd[p][x]), a[p]);
-        float d = fmaf(static_cast<float>(a[2]), 65536.f,
-                       fmaf(static_cast<float>(a[1]), 256.f,
-                            static_cast<float>(a[0])));
+            for (int x = 0; x < 4; ++x)
+              a[p] = __dp4a(kw[x], static_cast<int>(qd[p][x]), a[p]);
+          d = fmaf(static_cast<float>(a[2]), 65536.f,
+                   fmaf(static_cast<float>(a[1]), 256.f,
+                        static_cast<float>(a[0])));
+        } else {
+          d = 0.f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const uint4 w = reinterpret_cast<const uint4*>(kp)[half];
+            const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              d = fmaf(qr[8 * half + 2 * i], __uint_as_float(u[i] << 16), d);
+              d = fmaf(qr[8 * half + 2 * i + 1],
+                       __uint_as_float(u[i] & 0xffff0000u), d);
+            }
+          }
+        }
         d += __shfl_xor_sync(0xffffffffu, d, 1);
         d += __shfl_xor_sync(0xffffffffu, d, 2);
-        const float ksc = __bfloat162float(
-            *reinterpret_cast<const __nv_bfloat16*>(
-                st + sc_at + j * kQuads * H * 2));
+        const float ksc =
+            kKInt8 ? __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                         st + S.ks_at + sc_at + j * kQuads * Hkv * 2))
+                   : 1.f;
         s[j] = quad + kQuads * j < n ? d * ksc * q_scale : -CUDART_INF_F;
       }
       float m_new = m_run;
@@ -432,10 +489,10 @@ decode_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
         l_run += p;
         const float vsc = __bfloat162float(
             *reinterpret_cast<const __nv_bfloat16*>(
-                st + sc_at + S.sc + j * kQuads * H * 2));
+                st + S.vs_at + sc_at + j * kQuads * Hkv * 2));
         const float wv = quad + kQuads * j < n ? p * vsc : 0.f;
         const uint4 w = *reinterpret_cast<const uint4*>(
-            st + S.kv + kv_at + j * kQuads * S.pitch);
+            st + v_at + j * kQuads * S.vp);
         float f[16];
         int8x16(w, f);
 #pragma unroll
@@ -535,61 +592,77 @@ decode_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   if (tid == 0) *counter = 0;
 }
 
-template <typename T>
-int launch(const void* q, const int8_t* k, const void* ks, const int8_t* v,
+template <typename T, bool kKInt8>
+int launch(const void* q, const void* k, const void* ks, const int8_t* v,
            const void* vs, void* out, float* partials, int* counters, int B,
-           int M, int H, int splits, int per, const int* valid_dev,
+           int M, int H, int Hkv, int splits, int per, const int* valid_dev,
            int valid_host, cudaStream_t stream) {
   const int groups = (H + kMaxHeads - 1) / kMaxHeads;
   const int G = (H + groups - 1) / groups;
-  const int smem = kStages * stage_of(G, H).bytes;
+  int Gkv = 0;  // the most KV heads a head group reads
+  for (int h0 = 0; h0 < H; h0 += G)
+    Gkv = max(Gkv, kv_count(h0, min(G, H - h0), H / Hkv));
+  const int smem = kStages * stage_of(Gkv, Hkv, kKInt8).bytes;
   static int raised[64] = {};  // dynamic shared memory allowed, by device
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 64 || smem > raised[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        decode_attn_kernel<T, kKInt8>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev < 64) raised[dev] = smem;
   }
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(kHd));
-  decode_attn_kernel<T><<<dim3(splits, B, groups), G * 32, smem, stream>>>(
-      static_cast<const T*>(q), k, static_cast<const __nv_bfloat16*>(ks), v,
-      static_cast<const __nv_bfloat16*>(vs), static_cast<T*>(out), partials,
-      counters, M, H, G, per, valid_dev, valid_host, scale_log2);
+  decode_attn_kernel<T, kKInt8>
+      <<<dim3(splits, B, groups), G * 32, smem, stream>>>(
+          static_cast<const T*>(q), k, static_cast<const __nv_bfloat16*>(ks),
+          v, static_cast<const __nv_bfloat16*>(vs), static_cast<T*>(out),
+          partials, counters, M, H, Hkv, G, Gkv, per, valid_dev, valid_host,
+          scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q/out [B, H, 64] in bf16 (q_is_bf16=1) or fp32; k/v [B, M, H, 64] int8;
-// ks/vs [B, M, H] bf16; all contiguous and 16-byte aligned. A block holds
-// the heads of a batch row (ceil(H / 12) groups of them where H > 12); the
-// slots are cut into `splits` runs of `per` (splits * per >= M). With
-// splits > 1, partials holds B*H*splits*66 floats and counters
-// B*ceil(H/12) int32 zeros, left zero by the call. valid: *valid_dev when
-// valid_dev is not null (an int32 on the device, trapping outside [1, M]),
-// else valid_host. Returns the cudaError_t of the launch (0 on success).
-extern "C" int ivg_decode_attention(const void* q, const int8_t* k,
+// q/out [B, H, 64] in bf16 (q_is_bf16=1) or fp32; k [B, M, Hkv, 64] int8
+// with ks [B, M, Hkv] bf16 (k_is_int8=1), or bf16 with ks null; v
+// [B, M, Hkv, 64] int8, vs [B, M, Hkv] bf16; H a multiple of Hkv (query
+// head h reads KV head h / (H / Hkv)); all contiguous and 16-byte aligned.
+// A block holds the heads of a batch row (ceil(H / 12) groups of them
+// where H > 12); the slots are cut into `splits` runs of `per` (splits *
+// per >= M). With splits > 1, partials holds B*H*splits*66 floats and
+// counters B*ceil(H/12) int32 zeros, left zero by the call. valid:
+// *valid_dev when valid_dev is not null (an int32 on the device, trapping
+// outside [1, M]), else valid_host. Returns the cudaError_t of the launch
+// (0 on success).
+extern "C" int ivg_decode_attention(const void* q, const void* k,
                                     const void* ks, const int8_t* v,
                                     const void* vs, void* out,
                                     float* partials, int* counters, int B,
-                                    int M, int H, int hd, int splits, int per,
-                                    const int* valid_dev, int valid_host,
-                                    int q_is_bf16, void* stream) {
-  if (hd != kHd || B < 1 || H < 1 || splits < 1 || per < 1 ||
-      static_cast<int64_t>(splits) * per < M ||
+                                    int M, int H, int Hkv, int hd, int splits,
+                                    int per, const int* valid_dev,
+                                    int valid_host, int q_is_bf16,
+                                    int k_is_int8, void* stream) {
+  if (hd != kHd || B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 ||
+      splits < 1 || per < 1 || static_cast<int64_t>(splits) * per < M ||
       (splits > 1 && (partials == nullptr || counters == nullptr)) ||
+      (k_is_int8 && ks == nullptr) ||
       (valid_dev == nullptr && (valid_host < 1 || valid_host > M)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return q_is_bf16 ? launch<__nv_bfloat16>(q, k, ks, v, vs, out, partials,
-                                           counters, B, M, H, splits, per,
-                                           valid_dev, valid_host, s)
-                   : launch<float>(q, k, ks, v, vs, out, partials, counters,
-                                   B, M, H, splits, per, valid_dev,
-                                   valid_host, s);
+  auto go = [&](auto q_type, auto k_int8) {
+    using T = decltype(q_type);
+    return launch<T, decltype(k_int8)::value>(
+        q, k, ks, v, vs, out, partials, counters, B, M, H, Hkv, splits, per,
+        valid_dev, valid_host, s);
+  };
+  using Int8K = std::integral_constant<bool, true>;
+  using Bf16K = std::integral_constant<bool, false>;
+  if (q_is_bf16)
+    return k_is_int8 ? go(__nv_bfloat16{}, Int8K{})
+                     : go(__nv_bfloat16{}, Bf16K{});
+  return k_is_int8 ? go(0.f, Int8K{}) : go(0.f, Bf16K{});
 }
 
 // The heads a block holds: the wrapper's head groups must count as these.

@@ -15,7 +15,7 @@ top-k sets, never token for token.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -120,7 +120,8 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
              on_frame: Optional[Callable] = None,
              tokens_per_dyna: int = 16, top_k: int = 100,
              temperature: float = 1.0, reward_prediction: bool = False,
-             cache_dtype: torch.dtype = torch.bfloat16) -> GenerateResult:
+             cache_dtype: Union[torch.dtype, str] = torch.bfloat16
+             ) -> GenerateResult:
     """Autoregressive rollout of (segment_length - context_length) frames.
 
     model: a HeadModelWithAction; prelude_tokens [B, P1] context tokens and
@@ -134,7 +135,9 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
     are read after each frame's last dyn token. The prefill and each
     frame's decode steps run inside the profiler ranges
     ``generation.prefill`` and ``generation.decode``; the callbacks outside
-    them.
+    them. ``cache_dtype``: the KV cache's (``models.llama.init_cache``):
+    a float dtype, ``torch.int8`` or ``"mixed"``, over the model's
+    ``num_key_value_heads``.
     """
     B, P1 = prelude_tokens.shape
     F = segment_length - context_length
@@ -201,11 +204,13 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
 def replay_logits(model, stream: torch.Tensor, *, segment_length: int,
                   context_length: int, action: Optional[torch.Tensor] = None,
                   tokens_per_dyna: int = 16,
-                  cache_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                  cache_dtype: Union[torch.dtype, str] = torch.bfloat16
+                  ) -> torch.Tensor:
     """Teacher-forced cached replay of a token stream: the per-step logits
     the decode path samples from. logits[0] is the prefill output at
     position P1-1; logits[s] for s > 0 follows the decode of stream position
     P1-1+s. stream [B, L] (final sdf dropped) -> [L - P1 + 1, B, V] fp32.
+    ``cache_dtype`` as in :func:`generate`.
     """
     B, L = stream.shape
     D1 = tokens_per_dyna + 1

@@ -9,7 +9,7 @@ are the building blocks ``generation.generate`` calls.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -55,7 +55,7 @@ class HeadModelWithAction(nn.Module):
         return self.llm.unembed(hidden)
 
     def init_cache(self, batch: int, max_len: int,
-                   cache_dtype: torch.dtype = torch.bfloat16,
+                   cache_dtype: Union[torch.dtype, str] = torch.bfloat16,
                    device=None) -> Cache:
         return self.llm.init_cache(batch, max_len, cache_dtype, device)
 

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ivideogpt_tpu_torch.ops import qconv
+
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -42,7 +44,12 @@ class Dense(nn.Linear):
 
 
 class Conv(nn.Conv2d):
-    """NCHW conv; ``padding`` is symmetric, as Flax's ``padding=1``."""
+    """NCHW conv; ``padding`` is symmetric, as Flax's ``padding=1``. Under
+    ``ops.qconv.int8_convs`` it runs as an int8 conv (Q1) with its output
+    in the input's dtype; under ``ops.qconv.calibrate_convs`` it records
+    its input's absmax under ``qconv_key`` (``ops.qconv.name_convs``)."""
+
+    qconv_key = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
@@ -52,6 +59,9 @@ class Conv(nn.Conv2d):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = qconv.intercepted(self, x)
+        if out is not None:
+            return out
         dt = self.dtype
         return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
                         self.stride, self.padding)

@@ -1,33 +1,41 @@
 """LLaMA-architecture causal LM with a KV cache, the port of
 ``ivideogpt_tpu/models/llama.py`` (RMSNorm, rotate-half RoPE, SwiGLU, no
-biases, fp32 softmax and logits).
+biases, fp32 softmax and logits), with grouped KV heads: query head h reads
+KV head ``h // (num_attention_heads / num_key_value_heads)``.
 
-The cache is a list of per-layer dicts in the ``bshd`` layout, updated in
-place:
-- bf16 (or any float dtype): ``k``/``v`` [B, M, H, hd];
-- int8: ``k``/``v`` int8 [B, M, H, hd] with bf16 per-(slot, head) scales
-  ``ks``/``vs`` [B, M, H], s = max|x|/127 + 1e-8, round half to even.
+The cache is a list of per-layer dicts in the ``bshd`` layout over the KV
+heads, updated in place:
+- bf16 (or any float dtype): ``k``/``v`` [B, M, Hkv, hd];
+- int8: ``k``/``v`` int8 [B, M, Hkv, hd] with bf16 per-(slot, head) scales
+  ``ks``/``vs`` [B, M, Hkv], s = max|x|/127 + 1e-8, round half to even;
+- ``"mixed"``: ``k`` bf16 without ``ks``, ``v`` int8 with ``vs``.
 
 Attention:
 - the training forward (``LlamaForCausalLM.forward``, no cache) and the
   prefill (cache_index 0, S > 1): causal attention over the fresh,
   unquantised k/v, ``ops.flash_attention.causal_attention`` (K4 forward,
-  K5/K6 backward); the prefill also writes the cache for later steps;
-- one-token decode over the int8 cache: ``ops.decode_attention`` (K3);
-- one-token decode over a float cache: plain torch.
+  K5/K6 backward), K and V repeated across each head group; the prefill
+  also writes the cache for later steps;
+- one-token decode over the int8 or mixed cache: ``ops.decode_attention``
+  (K3), which reads each KV head for its group of query heads;
+- one-token decode over a float cache, and S > 1 tokens at a nonzero
+  index over any cache: plain torch over the cache as written (quantized
+  where it is, the new tokens included), keys masked past
+  cache_index + i, the int8 scales folded into the scores and weights.
 Attention dropout (``config.attention_dropout``, 0.1 in every published
 recipe) acts in the training forward only, inside the attention kernels:
 ``forward(..., dropout_key=(seed, step))`` gives layer ``i`` the Philox
 stream ``(seed, offset_of(step, i))`` (``ops/philox.py``), a pure function
 of (seed, step, layer), so a remat recompute and a resumed run draw the
 same masks. ``eval()`` never drops.
-Multi-token steps at a nonzero index, grouped KV heads, the "dots" remat
-policy and the TPU-only ``ghdm``/``"mixed"`` caches are not in this port.
+The "dots" remat policy is not in this port. The JAX package's ``ghdm``
+cache is its TPU kernel's own transposed layout; K3 serves the same
+attention on ``bshd``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -95,15 +103,16 @@ class LlamaAttention(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         c = config
-        if c.num_key_value_heads != c.num_attention_heads:
-            raise ValueError("grouped KV heads are not ported; every "
-                             "published config is multi-head")
+        if c.num_attention_heads % c.num_key_value_heads:
+            raise ValueError(f"{c.num_attention_heads} query heads do not "
+                             f"group over {c.num_key_value_heads} KV heads")
         self.config = c
         self.dtype = dtype
         width = c.num_attention_heads * c.head_dim
+        kv_width = c.num_key_value_heads * c.head_dim
         self.q_proj = Dense(c.hidden_size, width, bias=False, dtype=dtype)
-        self.k_proj = Dense(c.hidden_size, width, bias=False, dtype=dtype)
-        self.v_proj = Dense(c.hidden_size, width, bias=False, dtype=dtype)
+        self.k_proj = Dense(c.hidden_size, kv_width, bias=False, dtype=dtype)
+        self.v_proj = Dense(c.hidden_size, kv_width, bias=False, dtype=dtype)
         self.o_proj = Dense(width, c.hidden_size, bias=False, dtype=dtype)
 
     def forward(self, x, cos, sin,
@@ -112,50 +121,70 @@ class LlamaAttention(nn.Module):
         """Without a cache: causal attention over the whole sequence (the
         training forward), with ``dropout`` = (p, seed, offset) on its
         probabilities. With one: S positions written at ``cache_index``
-        and attended as below."""
+        and attended as the module docstring says."""
         c = self.config
         B, S, _ = x.shape
-        H, hd = c.num_attention_heads, c.head_dim
+        H, Hkv, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        rep = H // Hkv
         q = apply_rope(self.q_proj(x).view(B, S, H, hd), cos, sin)
-        k = apply_rope(self.k_proj(x).view(B, S, H, hd), cos, sin)
-        v = self.v_proj(x).view(B, S, H, hd)
+        k = apply_rope(self.k_proj(x).view(B, S, Hkv, hd), cos, sin)
+        v = self.v_proj(x).view(B, S, Hkv, hd)
         if cache is None:
-            return self.o_proj(causal_attention(q, k, v, self.dtype,
-                                                dropout))
+            return self.o_proj(causal_attention(
+                q, _repeat_kv(k, rep), _repeat_kv(v, rep), self.dtype,
+                dropout))
         if dropout is not None:
             raise ValueError("attention dropout acts in the training "
                              "forward only, never with a cache")
 
         end = cache_index + S
-        int8 = "ks" in cache
-        if int8:
-            kq, ks = quantize_int8(k)
-            vq, vs = quantize_int8(v)
-            cache["k"][:, cache_index:end] = kq
-            cache["v"][:, cache_index:end] = vq
-            cache["ks"][:, cache_index:end] = ks
-            cache["vs"][:, cache_index:end] = vs
-        else:
-            cache["k"][:, cache_index:end] = k.to(cache["k"].dtype)
-            cache["v"][:, cache_index:end] = v.to(cache["v"].dtype)
+        for name, x in (("k", k), ("v", v)):
+            if name + "s" in cache:     # int8 with its scales
+                x, cache[name + "s"][:, cache_index:end] = quantize_int8(x)
+            cache[name][:, cache_index:end] = x.to(cache[name].dtype)
 
-        if S > 1:
-            if cache_index != 0:
-                raise ValueError("multi-token steps run only as the prefill "
-                                 "at cache_index 0")
-            out = causal_attention(q, k, v, self.dtype)
-        elif int8:
+        if S > 1 and cache_index == 0:
+            out = causal_attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
+                                   self.dtype)
+        elif S == 1 and "vs" in cache:
             out = decode_attention(q[:, 0].contiguous(), cache["k"],
-                                   cache["ks"], cache["v"], cache["vs"],
+                                   cache.get("ks"), cache["v"], cache["vs"],
                                    end).reshape(B, 1, H * hd)
         else:
-            keys = cache["k"][:, :end].to(self.dtype)
-            values = cache["v"][:, :end].to(self.dtype)
-            attn = torch.einsum("bqhd,bkhd->bhqk", q, keys).float()
-            attn = torch.softmax(attn * (hd ** -0.5), dim=-1)
-            out = torch.einsum("bhqk,bkhd->bqhd", attn.to(self.dtype), values)
-            out = out.reshape(B, 1, H * hd)
+            out = self._cached_attention(q, cache, cache_index, end, rep)
         return self.o_proj(out)
+
+    def _cached_attention(self, q, cache, cache_index: int, end: int,
+                          rep: int):
+        """S queries at cache_index .. end - 1 over the cache's slots
+        [0, end), as written (int8 values upcast, their scales folded into
+        the fp32 scores and the weights), query i seeing slots <=
+        cache_index + i; K and V repeated across each head group."""
+        B, S, H, hd = q.shape
+        dt = self.dtype
+        keys = _repeat_kv(cache["k"][:, :end].to(dt), rep)
+        values = _repeat_kv(cache["v"][:, :end].to(dt), rep)
+        attn = torch.einsum("bqhd,bkhd->bhqk", q, keys).float() * hd ** -0.5
+        if "ks" in cache:
+            attn = attn * _repeat_kv(cache["ks"][:, :end], rep).float(
+                ).transpose(1, 2)[:, :, None, :]
+        if S > 1:
+            k_pos = torch.arange(end, device=q.device)
+            q_pos = cache_index + torch.arange(S, device=q.device)
+            attn = attn.masked_fill(k_pos[None, :] > q_pos[:, None],
+                                    torch.finfo(torch.float32).min)
+        attn = torch.softmax(attn, dim=-1)
+        if "vs" in cache:
+            attn = attn * _repeat_kv(cache["vs"][:, :end], rep).float(
+                ).transpose(1, 2)[:, :, None, :]
+        out = torch.einsum("bhqk,bkhd->bqhd", attn.to(dt), values)
+        return out.reshape(B, S, H * hd)
+
+
+def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
+    """[B, S, Hkv, ...] -> [B, S, Hkv * rep, ...], each KV head repeated
+    for its group of query heads (``jnp.repeat(x, rep, axis=2)``)."""
+    return x if rep == 1 else x.repeat_interleave(rep, dim=2)
 
 
 class LlamaMLP(nn.Module):
@@ -273,22 +302,32 @@ class LlamaForCausalLM(nn.Module):
         return out
 
     def init_cache(self, batch: int, max_len: int,
-                   cache_dtype: torch.dtype = torch.bfloat16,
+                   cache_dtype: Union[torch.dtype, str] = torch.bfloat16,
                    device=None) -> Cache:
-        """Zeroed ``bshd`` cache; ``cache_dtype=torch.int8`` selects the
-        quantised cache with bf16 scales."""
+        """Zeroed ``bshd`` cache over the KV heads; ``cache_dtype=
+        torch.int8`` selects the quantised cache with bf16 scales,
+        ``"mixed"`` a bf16 K and an int8 V with its scales."""
         c = self.config
         if device is None:
             device = self.model.embed_tokens.weight.device
         shape = (batch, max_len, c.num_key_value_heads, c.head_dim)
+        sshape = shape[:3]
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        if isinstance(cache_dtype, str):
+            if cache_dtype != "mixed":
+                raise ValueError(f"cache_dtype {cache_dtype!r}: a dtype or "
+                                 f"'mixed'")
+            return [{"k": zeros(shape, torch.bfloat16),
+                     "v": zeros(shape, torch.int8),
+                     "vs": zeros(sshape, torch.bfloat16)}
+                    for _ in range(c.num_hidden_layers)]
         if cache_dtype == torch.int8:
-            sshape = shape[:3]
-            return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                     "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                     "ks": torch.zeros(sshape, dtype=torch.bfloat16,
-                                       device=device),
-                     "vs": torch.zeros(sshape, dtype=torch.bfloat16,
-                                       device=device)}
+            return [{"k": zeros(shape, torch.int8),
+                     "v": zeros(shape, torch.int8),
+                     "ks": zeros(sshape, torch.bfloat16),
+                     "vs": zeros(sshape, torch.bfloat16)}
                     for _ in range(c.num_hidden_layers)]
         return [{"k": torch.zeros(shape, dtype=cache_dtype, device=device),
                  "v": torch.zeros(shape, dtype=cache_dtype, device=device)}

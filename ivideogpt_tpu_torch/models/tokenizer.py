@@ -27,6 +27,7 @@ from ivideogpt_tpu_torch.models.conditional_vae import (ConditionalDecoder,
                                                         ConditionalEncoder)
 from ivideogpt_tpu_torch.models.layers import Conv, Dense
 from ivideogpt_tpu_torch.models.vae import Decoder, Encoder
+from ivideogpt_tpu_torch.ops import qconv
 from ivideogpt_tpu_torch.ops import vq as vq_ops
 from ivideogpt_tpu_torch.utils.platform import full_fp32
 
@@ -132,6 +133,7 @@ class CompressiveVQModel(nn.Module):
         self.post_quant_linear = Dense(d, c.latent_channels * p2, dtype=dtype)
         self.quantize = _Codebook(c.num_vq_embeddings, d)
         self.dynamics_quantize = _Codebook(c.num_dyn_embeddings, d)
+        qconv.name_convs(self, Conv)
 
     # ------------------------------------------------------------------
 

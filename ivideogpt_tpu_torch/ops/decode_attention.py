@@ -25,6 +25,17 @@ algorithm in plain PyTorch.
 ``valid`` is a host int or a one-element int32 tensor on the card. A
 CUDA graph of the call can change the tensor between replays, because the
 launch depends on B, H and M only. See the source for the design.
+
+Two variants of K3 serve the JAX package's other caches (the source's
+``kKInt8`` instances and its ``Hkv`` argument):
+- grouped KV heads: k/v [B, M, Hkv, hd] and scales [B, M, Hkv] with H a
+  multiple of Hkv; query head h reads KV head h // (H / Hkv);
+- the ``"mixed"`` cache: k bf16 and ``ks`` None, the scores q . K in fp32
+  without a K scale; v int8 with ``vs`` as before.
+Each wrapper call counts one launch on the variant it launched:
+``decode_attention.launches`` (int8 K, one KV head a query head, the
+rollout's), ``decode_attention.grouped_launches`` (int8 K over fewer KV
+heads) or ``decode_attention.mixed_launches`` (bf16 K, any KV heads).
 """
 
 from __future__ import annotations
@@ -44,18 +55,36 @@ K3_PARTIAL = 66        # floats of a split's state a head: max, sum, 64 sums
 H100_SMS = 132
 
 
+def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    """[B, m, Hkv, ...] fp32 -> [B, m, h, ...], KV head g serving query
+    heads g * rep .. (g + 1) * rep - 1."""
+    return x.float().repeat_interleave(h // x.shape[2], dim=2)
+
+
+def _scores(qf, k, ks, lo: int, hi: int):
+    """fp32 q . K over slots [lo, hi), times ks where K is int8 (``ks``
+    None: the mixed cache's bf16 K), [B, H, hi - lo]."""
+    H = qf.shape[1]
+    s = torch.einsum("bhd,bmhd->bhm", qf, _heads(k[:, lo:hi], H))
+    if ks is not None:
+        s = s * _heads(ks[:, lo:hi], H).transpose(1, 2)
+    return s
+
+
+def _values(p, vs, v, lo: int, hi: int):
+    """sum over slots [lo, hi) of p * vs * V in fp32, [B, H, hd]."""
+    H = p.shape[1]
+    pv = p * _heads(vs[:, lo:hi], H).transpose(1, 2)
+    return torch.einsum("bhm,bmhd->bhd", pv, _heads(v[:, lo:hi], H))
+
+
 def decode_attention_plain(q, k_cache, ks, v_cache, vs, valid):
     """Plain version of :func:`decode_attention` in fp32 (the math of
-    ``decode_attention_xla``), returning q's dtype."""
+    ``decode_attention_xla``), both variants, returning q's dtype."""
     valid = _host_valid(valid)
-    qf = q.float()
-    k = k_cache[:, :valid].float()                     # [B, m, H, hd]
-    s = torch.einsum("bhd,bmhd->bhm", qf, k)
-    s = s * ks[:, :valid].float().transpose(1, 2) * (q.shape[-1] ** -0.5)
+    s = _scores(q.float(), k_cache, ks, 0, valid) * (q.shape[-1] ** -0.5)
     p = torch.softmax(s, dim=-1)
-    pv = p * vs[:, :valid].float().transpose(1, 2)    # [B, H, m]
-    out = torch.einsum("bhm,bmhd->bhd", pv, v_cache[:, :valid].float())
-    return out.to(q.dtype)
+    return _values(p, vs, v_cache, 0, valid).to(q.dtype)
 
 
 def head_groups(h: int) -> int:
@@ -85,10 +114,10 @@ def split_len(m: int, splits: int) -> int:
 
 def decode_attention_split_plain(q, k_cache, ks, v_cache, vs, valid,
                                  splits: int | None = None):
-    """K3's algorithm in plain PyTorch: each split's partial state (max and
-    denominator of base-2 scores, fp32 sums of P . V) over its live slots,
-    then the lse merge in split order. ``splits`` defaults to
-    :func:`decode_splits`."""
+    """K3's algorithm in plain PyTorch, both variants: each split's partial
+    state (max and denominator of base-2 scores, fp32 sums of P . V) over
+    its live slots, then the lse merge in split order. ``splits`` defaults
+    to :func:`decode_splits`."""
     B, H, hd = q.shape
     M = k_cache.shape[1]
     valid = _host_valid(valid)
@@ -102,13 +131,10 @@ def decode_attention_split_plain(q, k_cache, ks, v_cache, vs, valid,
         lo, hi = i * per, min((i + 1) * per, valid)
         if hi <= lo:
             continue       # an empty split weighs nothing in the merge
-        s = torch.einsum("bhd,bmhd->bhm", qf, k_cache[:, lo:hi].float())
-        s = s * ks[:, lo:hi].float().transpose(1, 2) * scale
+        s = _scores(qf, k_cache, ks, lo, hi) * scale
         m = s.amax(-1)
         p = torch.exp2(s - m[..., None])
-        pv = p * vs[:, lo:hi].float().transpose(1, 2)
-        acc = torch.einsum("bhm,bmhd->bhd", pv, v_cache[:, lo:hi].float())
-        states.append((m, p.sum(-1), acc))
+        states.append((m, p.sum(-1), _values(p, vs, v_cache, lo, hi)))
     m_all = torch.stack([m for m, _, _ in states]).amax(0)
     l_all = torch.zeros_like(m_all)
     o = torch.zeros_like(qf)
@@ -120,31 +146,38 @@ def decode_attention_split_plain(q, k_cache, ks, v_cache, vs, valid,
 
 
 def decode_attention(q, k_cache, ks, v_cache, vs, valid):
-    """One decode step of attention over the int8 ``bshd`` cache.
+    """One decode step of attention over the int8 or mixed ``bshd`` cache,
+    with H query heads over Hkv KV heads (H a multiple of Hkv).
 
-    ``valid`` is a Python int or a one-element int32 tensor on q's device
-    (read by the kernel; outside [1, M] it traps the card). On CPU tensors
-    this is :func:`decode_attention_plain`; on CUDA tensors it launches K3
-    or raises."""
+    ``ks`` is None for the mixed cache (bf16 K). ``valid`` is a Python int
+    or a one-element int32 tensor on q's device (read by the kernel;
+    outside [1, M] it traps the card). On CPU tensors this is
+    :func:`decode_attention_plain`; on CUDA tensors it launches K3 or
+    raises."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, ks, v_cache, vs, valid)
     B, H, hd = q.shape
-    M = k_cache.shape[1]
-    tensors = (q, k_cache, ks, v_cache, vs)
+    M, Hkv = k_cache.shape[1], k_cache.shape[2]
+    mixed = ks is None
+    tensors = tuple(t for t in (q, k_cache, ks, v_cache, vs) if t is not None)
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError("decode_attention: all inputs must be on one CUDA "
                          "device")
-    if (k_cache.shape != (B, M, H, hd) or v_cache.shape != (B, M, H, hd)
-            or ks.shape != (B, M, H) or vs.shape != (B, M, H)):
+    if (H % Hkv or k_cache.shape != (B, M, Hkv, hd)
+            or v_cache.shape != (B, M, Hkv, hd) or vs.shape != (B, M, Hkv)
+            or (not mixed and ks.shape != (B, M, Hkv))):
         raise ValueError(
             f"decode_attention: shapes q {tuple(q.shape)}, k "
-            f"{tuple(k_cache.shape)}, ks {tuple(ks.shape)}, v "
+            f"{tuple(k_cache.shape)}, ks "
+            f"{None if mixed else tuple(ks.shape)}, v "
             f"{tuple(v_cache.shape)}, vs {tuple(vs.shape)} do not match")
-    if (k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8
-            or ks.dtype != torch.bfloat16 or vs.dtype != torch.bfloat16
+    k_dtype = torch.bfloat16 if mixed else torch.int8
+    if (k_cache.dtype != k_dtype or v_cache.dtype != torch.int8
+            or (not mixed and ks.dtype != torch.bfloat16)
+            or vs.dtype != torch.bfloat16
             or q.dtype not in (torch.bfloat16, torch.float32)):
-        raise ValueError("decode_attention: takes int8 k/v, bf16 scales and "
-                         "a bf16 or fp32 query")
+        raise ValueError("decode_attention: takes int8 k (bf16 without ks), "
+                         "int8 v, bf16 scales and a bf16 or fp32 query")
     if hd != 64:
         raise ValueError(f"decode_attention: the kernel takes hd=64, got {hd}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
@@ -166,13 +199,15 @@ def decode_attention(q, k_cache, ks, v_cache, vs, valid):
 
 
 decode_attention.launches = 0
+decode_attention.grouped_launches = 0
+decode_attention.mixed_launches = 0
 
 
 def _launch(q, k_cache, ks, v_cache, vs, valid, splits: int):
     """K3 on checked inputs with a given split count (the wrapper passes
     :func:`decode_splits`; ``chip_smoke.py --k3-splits`` times others)."""
     B, H, hd = q.shape
-    M = k_cache.shape[1]
+    M, Hkv = k_cache.shape[1], k_cache.shape[2]
     per, partials, counters = _workspace(q.device, B, H, M, splits)
     if isinstance(valid, torch.Tensor):
         valid_dev, valid_host = valid.data_ptr(), 0
@@ -180,14 +215,20 @@ def _launch(q, k_cache, ks, v_cache, vs, valid, splits: int):
         valid_dev, valid_host = None, int(valid)
     out = torch.empty_like(q)
     err = _entry()(
-        q.data_ptr(), k_cache.data_ptr(), ks.data_ptr(), v_cache.data_ptr(),
-        vs.data_ptr(), out.data_ptr(), partials, counters, B, M, H, hd,
+        q.data_ptr(), k_cache.data_ptr(),
+        None if ks is None else ks.data_ptr(), v_cache.data_ptr(),
+        vs.data_ptr(), out.data_ptr(), partials, counters, B, M, H, Hkv, hd,
         splits, per, valid_dev, valid_host, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(ks is not None), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"decode_attention kernel launch failed: cudaError {err}")
-    decode_attention.launches += 1
+    if ks is None:
+        decode_attention.mixed_launches += 1
+    elif Hkv != H:
+        decode_attention.grouped_launches += 1
+    else:
+        decode_attention.launches += 1
     return out
 
 
@@ -233,9 +274,9 @@ def _host_valid(valid) -> int:
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("decode_attention").ivg_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

@@ -9,15 +9,22 @@ action head, bf16 under the cast rules, int8 KV cache):
                      segment_length=16, generator=torch.Generator("cuda"))
 
 ``build_models`` runs on CUDA unless given ``device="cpu"`` and raises
-when CUDA is absent. ``load_hub_models`` builds the same pair from a
+when CUDA is absent. The two knobs of ``bench.py`` are arguments here:
+``cache_dtype`` (``BENCH_KV``: ``torch.int8``, the default, bf16 or
+``"mixed"``, bf16 K and int8 V) and ``int8_detok`` (``BENCH_INT8_DETOK``:
+``"0"``, the default bf16 render, ``"1"`` int8 convs with dynamic scales,
+``"static"`` int8 convs with scales calibrated once, on the first chunk
+rendered, and a margin of 1.1; see :func:`detokenize`).
+``load_hub_models`` builds the same pair from a
 published hub dir instead, its tokenizer re-sliced to a shorter context
 where asked: the ctx=2 hub tokenizer at ctx=1 is the BAIR eval protocol.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -28,6 +35,7 @@ from ivideogpt_tpu_torch.configs import (LLAMA_BASE, TOKENIZER_64,
                                          TransformerConfig)
 from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+from ivideogpt_tpu_torch.ops import qconv
 from ivideogpt_tpu_torch.utils import checkpoint as ckpt
 from ivideogpt_tpu_torch.utils.platform import resolve_device
 
@@ -102,11 +110,16 @@ def load_hub_models(root: str, *, context_length: int, segment_length: int,
 def rollout(tokenizer: CompressiveVQModel, lm: HeadModelWithAction,
             context_frames: torch.Tensor, action: Optional[torch.Tensor], *,
             segment_length: int, generator: torch.Generator,
-            cache_dtype: torch.dtype = torch.int8, top_k: int = 100,
-            temperature: float = 1.0, detok_chunk: int = 128) -> RolloutResult:
+            cache_dtype: Union[torch.dtype, str] = torch.int8,
+            top_k: int = 100, temperature: float = 1.0,
+            detok_chunk: int = 128, int8_detok: str = "0",
+            static_scales: Optional[Dict[str, torch.Tensor]] = None
+            ) -> RolloutResult:
     """context_frames [B, ctx, H, W, C] (and action [B, T, A]) -> the token
-    stream [B, seq_len] and frames [B, T, H, W, C]. Detokenize runs in
-    chunks of ``detok_chunk`` samples to cap its activation memory."""
+    stream [B, seq_len] and frames [B, T, H, W, C]. ``cache_dtype``: the
+    KV cache's, ``"mixed"`` included. Detokenize runs in chunks of
+    ``detok_chunk`` samples to cap its activation memory, rendered as
+    ``int8_detok`` says (:func:`detokenize`)."""
     device = next(tokenizer.parameters()).device
     if context_frames.device != device:
         raise ValueError(f"context frames on {context_frames.device}, "
@@ -120,6 +133,44 @@ def rollout(tokenizer: CompressiveVQModel, lm: HeadModelWithAction,
         generator=generator, action=action,
         tokens_per_dyna=cfg.dyn_tokens_per_frame, top_k=top_k,
         temperature=temperature, cache_dtype=cache_dtype)
-    frames = torch.cat([tokenizer.detokenize(res.tokens[i:i + detok_chunk], ctx)
-                        for i in range(0, B, detok_chunk)])
+    frames = detokenize(tokenizer, res.tokens, ctx, detok_chunk, int8_detok,
+                        static_scales)
     return RolloutResult(res.tokens, frames)
+
+
+STATIC_MARGIN = 1.1  # bench.py's headroom over the calibrated absmax
+
+
+def detokenize(tokenizer: CompressiveVQModel, stream: torch.Tensor,
+               ctx: int, chunk: int = 128, int8_detok: str = "0",
+               static_scales: Optional[Dict[str, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """The token stream [B, L] -> frames [B, T, H, W, C], ``chunk`` samples
+    at a time. ``int8_detok``: ``"0"`` the render in the tokenizer's dtype;
+    ``"1"`` under ``ops.qconv.int8_convs()`` (dynamic per-tensor scales);
+    ``"static"`` under ``int8_convs(static_scales, margin=1.1)``, where
+    ``static_scales`` (a dict the caller keeps across rollouts; a fresh
+    one when None) is filled on first use from the first chunk's float
+    render under ``calibrate_convs``, as ``bench.py`` calibrates on the
+    first chunk actually rendered."""
+    if int8_detok not in ("0", "1", "static"):
+        raise ValueError(f"int8_detok={int8_detok!r}: expected '0', '1' or "
+                         f"'static'")
+    if static_scales is None:
+        static_scales = {}
+    parts = []
+    for i in range(0, stream.shape[0], chunk):
+        ids = stream[i:i + chunk]
+        if int8_detok == "static" and not static_scales:
+            with qconv.calibrate_convs() as rec:
+                tokenizer.detokenize(ids, ctx)
+            static_scales.update(rec.scales())
+        if int8_detok == "0":
+            mode = contextlib.nullcontext()
+        elif int8_detok == "1":
+            mode = qconv.int8_convs()
+        else:
+            mode = qconv.int8_convs(static_scales, margin=STATIC_MARGIN)
+        with mode:
+            parts.append(tokenizer.detokenize(ids, ctx))
+    return torch.cat(parts)

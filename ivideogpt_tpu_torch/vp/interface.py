@@ -29,7 +29,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ivideogpt_tpu_torch import generation, tokens
+from ivideogpt_tpu_torch import generation, rollout, tokens
 from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
 from ivideogpt_tpu_torch.train import lora as lora_lib
@@ -133,14 +133,13 @@ class IVideoGPTPredictor:
         yaml's checkpoint paths. ``action_recon``, ``lora_dropout`` and
         ``epoch`` are accepted for the harness and unused, as in the JAX
         package. ``u8_transfer`` ships renders to the host as
-        round(px * 255) in uint8 (a 1/510 pixel error; off by default)."""
+        round(px * 255) in uint8 (a 1/510 pixel error; off by default).
+        ``int8_detok`` renders with int8 convs (``ops.qconv.int8_convs``,
+        dynamic scales; kernel Q1 on the card): other pixels, the same
+        token ids; off by default."""
         if context_length != 2 or segment_length != 12:
             raise ValueError("Only support context_length=2 and "
                              "segment_length=12.")
-        if int8_detok:
-            raise NotImplementedError(
-                "int8_detok (the int8 convs of ivideogpt_tpu/ops/qconv.py) "
-                "is not ported: ROADMAP Queue 1 item 9")
         self.device = resolve_device(device)
         if tokenizer is None or model is None:
             if not (pretrained_vqgan_name_or_path
@@ -175,6 +174,7 @@ class IVideoGPTPredictor:
         self._calls = 0
         self.max_pending_chunks = max(1, int(max_pending_chunks))
         self._u8 = bool(u8_transfer)
+        self._int8 = bool(int8_detok)
 
     def close(self):
         pass
@@ -228,7 +228,9 @@ class IVideoGPTPredictor:
         db = self.decode_max_batch or B
         out = []
         for j in range(0, B, db):
-            px = self.tokenizer.detokenize(res.tokens[j:j + db], self.ctx)
+            px = rollout.detokenize(self.tokenizer, res.tokens[j:j + db],
+                                    self.ctx, chunk=db,
+                                    int8_detok="1" if self._int8 else "0")
             px = px.clamp(0.0, 1.0)[:, 1:]
             if self._u8:
                 px = torch.round(px.float() * 255.0).to(torch.uint8)

@@ -10,7 +10,8 @@ The checks at the main path's full shapes are ``chip_smoke.py``'s phases;
 these cover the edges: ragged tiles, small D, K1 equal to K2 bit for bit,
 ties across K1's and K2's codebook splits, fp32 queries, a single live
 slot, K3's split edges, split counts, head groups, determinism, valid on
-the card, its CUDA graph and its trap, strided views, the bf16 K4, K5 and
+the card, its CUDA graph and its trap, K3's grouped-head and mixed-cache
+variants, strided views, the bf16 K4, K5 and
 K6 and the fp32 (three-term TF32) K4, K5 and K6 at their own interface (lse
 in, lse out) and launch to launch, and the wrappers' refusals.
 """
@@ -390,6 +391,92 @@ def test_decode_attention_is_deterministic_and_reads_valid_on_the_card(
             [valid], dtype=torch.int32, device=cuda))
         assert da.decode_attention.launches == before + 3
         assert torch.equal(a, b) and torch.equal(a, dev)
+
+
+def _k3_variant_inputs(cuda, B, M, H, kv, mixed, qdtype, seed):
+    """A grouped (kv < H KV heads) and/or mixed (bf16 K, no ks) cache."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, H, 64, device=cuda, generator=g).to(qdtype)
+    k = (torch.randn(B, M, kv, 64, device=cuda, generator=g).bfloat16()
+         if mixed else torch.randint(-127, 128, (B, M, kv, 64), device=cuda,
+                                     generator=g, dtype=torch.int8))
+    v = torch.randint(-127, 128, (B, M, kv, 64), device=cuda, generator=g,
+                      dtype=torch.int8)
+    ks = None if mixed else (torch.rand(B, M, kv, device=cuda, generator=g)
+                             * 0.02 + 0.001).bfloat16()
+    vs = (torch.rand(B, M, kv, device=cuda, generator=g) * 0.02
+          + 0.001).bfloat16()
+    return q, k, ks, v, vs
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,M,H,kv,mixed", [
+    (256, 752, 12, 4, False), (256, 752, 12, 1, False),
+    (256, 752, 12, 12, True), (256, 752, 12, 4, True),
+    (32, 684, 12, 4, False), (32, 684, 12, 12, True), (3, 301, 16, 4, False),
+    (3, 301, 16, 2, True), (2, 100, 24, 8, True), (2, 100, 25, 5, False),
+    (1, 64, 6, 3, True)])
+def test_decode_attention_variants_match_plain(cuda, B, M, H, kv, mixed,
+                                               qdtype):
+    """K3 over grouped KV heads and over the mixed cache against the plain
+    version and the plain split-then-merge, at a single slot, ragged tiles,
+    split edges and a full cache; head groups (H 16, 24, 25) whose blocks
+    read part of the KV heads (one slot row a copy); two launches the same
+    bits; the launch counted on its variant alone."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    q, k, ks, v, vs = _k3_variant_inputs(cuda, B, M, H, kv, mixed, qdtype,
+                                         B + H + kv)
+    splits = da.decode_splits(B, H, M, da._sms(cuda))
+    per = da.split_len(M, splits)
+    fn = da.decode_attention
+    count = "mixed_launches" if mixed else "grouped_launches"
+    for valid in sorted({1, 17, per, min(per + 1, M), M - 1, M}):
+        before = (getattr(fn, count), fn.launches)
+        ours = da.decode_attention(q, k, ks, v, vs, valid)
+        assert (getattr(fn, count), fn.launches) == (before[0] + 1, before[1])
+        tol = _k3_tol(qdtype)
+        torch.testing.assert_close(
+            ours, da.decode_attention_plain(q, k, ks, v, vs, valid), **tol)
+        torch.testing.assert_close(
+            ours, da.decode_attention_split_plain(q, k, ks, v, vs, valid,
+                                                  splits), **tol)
+        assert torch.equal(ours, da.decode_attention(q, k, ks, v, vs, valid))
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7])
+def test_decode_attention_variants_at_every_split_count(cuda, splits):
+    """The variants through the split launch, valid on the card too."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    for kv, mixed in ((4, False), (12, True), (3, True)):
+        q, k, ks, v, vs = _k3_variant_inputs(cuda, 2, 301, 12, kv, mixed,
+                                             torch.float32, splits)
+        for valid in (1, 97, 301):
+            ours = da._launch(q, k, ks, v, vs, valid, splits)
+            torch.testing.assert_close(
+                ours, da.decode_attention_split_plain(q, k, ks, v, vs, valid,
+                                                      splits),
+                **_k3_tol(torch.float32))
+            dev = da._launch(q, k, ks, v, vs, torch.tensor(
+                [valid], dtype=torch.int32, device=cuda), splits)
+            assert torch.equal(ours, dev)
+
+
+def test_decode_attention_variants_refuse(cuda):
+    """What no instance launches raises: query heads that do not group over
+    the KV heads, an int8 K without ks, a bf16 K with ks, fp32 K."""
+    from ivideogpt_tpu_torch.ops import decode_attention as da
+    q, k, ks, v, vs = _k3_variant_inputs(cuda, 2, 64, 12, 5, False,
+                                         torch.bfloat16, 1)
+    with pytest.raises(ValueError, match="shapes"):
+        da.decode_attention(q, k, ks, v, vs, 10)
+    q, k, ks, v, vs = _k3_variant_inputs(cuda, 2, 64, 12, 4, False,
+                                         torch.bfloat16, 2)
+    with pytest.raises(ValueError, match="takes int8 k"):
+        da.decode_attention(q, k, None, v, vs, 10)
+    with pytest.raises(ValueError, match="takes int8 k"):
+        da.decode_attention(q, k.bfloat16(), ks, v, vs, 10)
+    with pytest.raises(ValueError, match="takes int8 k"):
+        da.decode_attention(q, k.float(), None, v, vs, 10)
 
 
 def test_decode_attention_graph_replays_at_two_lengths(cuda):
