@@ -5,6 +5,8 @@ against their plain PyTorch versions.
     python3 chip_smoke.py
     python3 <path to>/chip_smoke.py --ab-turn   # one A/B turn, see ab_turn
     python3 <path to>/chip_smoke.py --ab-kernels   # its kernel half alone
+                                    # (K1-K6, and Q1 and the quantize at a
+                                    # detokenize chunk's 23 conv shapes)
     python3 chip_smoke.py --vq-routing   # K1 against K2, see vq_routing
     python3 chip_smoke.py --k3-splits    # K3's split counts, see k3_splits
 
@@ -38,11 +40,16 @@ the final result line:
                633, 751: against the plain version and the plain split,
                two launches bit-identical, each launch on its variant's
                count; timed against a cold L2
-     qconv     Q1 (the int8 implicit-GEMM conv) and its quantize kernel at
+     qconv     Q1 (the int8 implicit-GEMM conv: s8 wgmma fed by TMA, a
+               persistent grid, TMA stores) and its quantize kernel at
                every distinct conv shape of TOKENIZER_64's int8 detokenize
                at the rollout's chunk of 128 clips: codes, int32
                accumulators and bf16 outputs bit-equal to the plain
-               versions; timed beside bf16 cuDNN channels-last
+               versions; each Q1 instance's SASS with IGMMA and UTMALDG and
+               without IMMA or LDGSTS, its ptxas registers and spills and
+               its dynamic shared memory; each shape's tile plan, share of
+               bound and speed against bf16 cuDNN channels-last, timed
+               beside it
   5. flash     K4 (causal flash-attention forward) at the training shape
                (B=16, H=12, S=751), the prefill shape (B=256, S=514), the
                MBRL train() shape (B=16, S=683), the MBRL prefill (B=32,
@@ -84,7 +91,7 @@ the final result line:
                cache_dtype="mixed" (K3 2832 on the mixed variant; an fp32
                LM's replay: K bit-equal to the bf16 cache's, logits against
                the bf16 cache's); a grouped-head LLAMA_BASE (Hkv=4: K3 2832
-               on the grouped variant); frames/s over 3 timed rollouts
+               on the grouped variant); frames/s over 2 timed rollouts
                (mixed, grouped)
   7. check     a B=2 fp32 rollout on the GPU held against the plain CPU path
                on the same stream: context ids, teacher-forced logits, frames
@@ -164,7 +171,7 @@ the final result line:
                a chunk, K3 0), rgb [200, 11, 64, 64, 3] finite in [0, 1],
                seconds a query, peak memory
      vp2_int8  the same query with int8_detok=True: Q1 and the quantize 228
-               a query, the pixel gap to the exact render, s a query over 3
+               a query, the pixel gap to the exact render, s a query over 2
                timed queries, the int8 render's share of a traced query's
                device s
  21. train_gpt the trainer CLI (ivideogpt_tpu_torch/train_gpt.py) in-process
@@ -222,6 +229,7 @@ Imports nothing of JAX or of the JAX package.
 """
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -233,8 +241,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CTX, T, B = 2, 16, 256
-# timed rollouts, predict calls and VP2 queries after the first
-N_TIMED = 3
+# timed rollouts, predict calls and VP2 queries after the first (two, so
+# that the whole script keeps ~150 s from its 1200 s limit on a slow host)
+N_TIMED = 2
 FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
 # fp32-accurate products on the tensor cores: three TF32 products each
@@ -317,11 +326,11 @@ K3_VARIANTS = (("grouped", 4, False), ("grouped", 1, False),
 # Q1 at the rollout's detokenize chunk (rollout.rollout's detok_chunk)
 QCONV_CLIPS = 128
 # the rollout's variants: int8 renders, the mixed cache and a
-# grouped-head LLAMA_BASE; three timed rollouts after the first over the
+# grouped-head LLAMA_BASE; two timed rollouts after the first over the
 # mixed cache and the grouped LM (the int8 renders are timed by their
-# detokenize), three timed VP2 int8 queries; the card-vs-CPU check of the
+# detokenize), two timed VP2 int8 queries; the card-vs-CPU check of the
 # int8 render on 2 clips
-VARIANT_TIMED, INT8_CHECK_CLIPS = 3, 2
+VARIANT_TIMED, INT8_CHECK_CLIPS = 2, 2
 # the mixed cache's teacher-forced logits (fp32 LM) against the bf16
 # cache's, mean |difference|: between the mixed cache's reading and the int8
 # cache's (0.000751 and 0.000755 on an H100 80GB HBM3 at 700 W, the same
@@ -1012,7 +1021,64 @@ def detok_conv_shapes(torch, tokenizer):
     return seen
 
 
-def phase_qconv(torch):
+def chunk_conv_shapes(torch):
+    """``detok_conv_shapes`` of TOKENIZER_64 at random weights (seed 0, bf16
+    under the cast rules, the rollout's render) and the convs a detokenize
+    call runs."""
+    from ivideogpt_tpu_torch import generation
+    from ivideogpt_tpu_torch.configs import TOKENIZER_64
+    from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        tokenizer = CompressiveVQModel(
+            TOKENIZER_64.replace(context_length=CTX), torch.bfloat16)
+    generation.cast_conv_params(tokenizer, torch.bfloat16)
+    tokenizer = tokenizer.cuda().eval()
+    shapes = detok_conv_shapes(torch, tokenizer)
+    del tokenizer
+    torch.cuda.empty_cache()
+    return shapes, sum(shapes.values())
+
+
+def qconv_sass():
+    """Static SASS counts of Q1's instances (``qconv_kernel<BN, MB, mode>``)
+    in the built qconv library, by opcode, keyed "BN=.. MB=.. mode=..", and
+    of the quantize kernel's two."""
+    from ivideogpt_tpu_torch import _build
+    out = {}
+    for name, ops in sass_opcodes(_build._lib_path("qconv")).items():
+        m = re.search(r"qconv_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        if m:
+            out["Q1 BN={} MB={} mode={}".format(*m.groups())] = ops
+        elif "quantize_kernel" in name:
+            out["quantize " + ("bf16" if "bfloat16" in name else "fp32")] = ops
+    check(len(out) == 11, f"qconv's SASS: {sorted(out)}")
+    return out
+
+
+def qconv_build_lines(log):
+    """{Q1 instance or quantize kernel: (registers, spill stores, spill
+    loads)} from nvcc's -Xptxas -v log of the qconv library."""
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            q = re.search(r"qconv_kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
+            name = ("Q1 BN={} MB={} mode={}".format(*q.groups()) if q else
+                    "quantize " + ("bf16" if "bfloat16" in m.group(1)
+                                   else "fp32"))
+            found[name] = [0, 0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            found[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found[name][0] = int(m.group(1))
+    return found
+
+
+def phase_qconv(torch, build_log=""):
     """Q1 (``csrc/qconv.cu``) and its quantize kernel at every distinct conv
     shape of TOKENIZER_64's int8 detokenize (bf16, the rollout's render) at
     the rollout's chunk of ``QCONV_CLIPS`` clips (the context decoder's 256
@@ -1026,22 +1092,35 @@ def phase_qconv(torch):
     (the library's time), the quantize kernel beside its plain version;
     bounds: Q1 by int8 operations (INT8_PEAK) or bytes (the codes read,
     the int8 weight read, the bf16 output written), the quantize by bytes.
+    Before them, Q1's build: each instance's SASS holds int8 wgmma (IGMMA)
+    and TMA loads (UTMALDG), and neither mma.sync (IMMA) nor cp.async
+    (LDGSTS); its registers and spills (ptxas, from ``build_log``) and
+    dynamic shared memory; the quantize kernels' too. Each shape prints
+    its tile plan, its share of bound and its speed against cuDNN.
     Returns the two rows (each summed over a chunk's convs, every shape
     under ``at_shape``) and the convs a detokenize call runs."""
     import torch.nn.functional as F
-    from ivideogpt_tpu_torch import generation
-    from ivideogpt_tpu_torch.configs import TOKENIZER_64
-    from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
     from ivideogpt_tpu_torch.ops import qconv
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        tokenizer = CompressiveVQModel(
-            TOKENIZER_64.replace(context_length=CTX), torch.bfloat16)
-    generation.cast_conv_params(tokenizer, torch.bfloat16)
-    tokenizer = tokenizer.cuda().eval()
-    shapes = detok_conv_shapes(torch, tokenizer)
-    calls = sum(shapes.values())
-    del tokenizer
+    sass = qconv_sass()
+    ptxas = qconv_build_lines(build_log)
+    smem_of = qconv._build.load("qconv").ivg_qconv_smem
+    smem_of.argtypes, smem_of.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for name, ops in sass.items():
+        regs, st, ld = ptxas.get(name, ("not in this build's log",) * 3)
+        n = {op: sum(v for k, v in ops.items() if k.split(".")[0] == op)
+             for op in ("IGMMA", "IMMA", "UTMALDG", "UTMASTG", "LDGSTS")}
+        smem = ""
+        if name.startswith("Q1"):
+            bn, _, mode = (int(v) for v in re.search(
+                r"BN=(\d+) MB=(\d+) mode=(\d+)", name).groups())
+            check(n["IGMMA"] > 0 and n["UTMALDG"] > 0 and not n["IMMA"]
+                  and not n["LDGSTS"], f"qconv: {name}'s SASS: {n}")
+            smem = f", {smem_of(bn, mode)} bytes dynamic smem"
+        print(f"qconv build: {name}: {sum(ops.values())} SASS instructions, "
+              + ", ".join(f"{op} {c}" for op, c in n.items())
+              + f"; ptxas: {regs} registers at entry, spill stores {st}, "
+              f"loads {ld}{smem}")
+    shapes, calls = chunk_conv_shapes(torch)
     chunks = B // QCONV_CLIPS
     print(f"qconv: a detokenize call runs {calls} int8 convs at "
           f"{len(shapes)} shapes; {calls * chunks} launches of Q1 and of "
@@ -1060,7 +1139,8 @@ def phase_qconv(torch):
               replaces="ivideogpt_tpu/ops/qconv.py:67 (XLA's quantize in "
                        "_quantize_per_tensor; no TPU kernel)",
               shape=q1["shape"], max_abs_err=0.0, library_ms=None,
-              at_shape={}, ms=0.0, plain_ms=0.0, bound_ms=0.0)
+              at_shape={}, ms=0.0, queued_ms=0.0, plain_ms=0.0,
+              bound_ms=0.0)
     for (n1, c, h, w, o, k, stride, pad), count in sorted(shapes.items()):
         n = n1 * QCONV_CLIPS
         tag = f"N={n} C={c} {h}x{w} O={o} k={k} s={stride} p={pad}"
@@ -1111,6 +1191,7 @@ def phase_qconv(torch):
                            + 2 * n * o * ho * wo,
                            2 * n * ho * wo * o * k * k * c, INT8_PEAK)
         z_ms = cuda_ms(lambda: qconv.quantize(x, scale), iters)
+        zq_ms = queued_ms(lambda: qconv.quantize(x, scale), iters)[0]
 
         def plain_quantize():
             out = torch.zeros(xq.shape, dtype=torch.int8, device="cuda")
@@ -1119,24 +1200,29 @@ def phase_qconv(torch):
             return out
         zp_ms = cuda_ms(plain_quantize, 2, warmup=1)
         zb_ms, _ = bound(2 * x.numel() + xq.numel(), 0, INT8_PEAK)
+        plan = qconv.q1_plan(ho, wo, o, 2)
         print(f"qconv {tag}: {count} a chunk, {count * chunks} launches a "
-              f"rollout; int32 accumulators and bf16 outputs bit-equal to "
+              f"rollout; tiles {plan.bm} pixels ({plan.br} x {plan.bw}) x "
+              f"{plan.bn} channels, stored by "
+              f"{'TMA' if plan.tma_store else 'the warpgroups'}; "
+              f"int32 accumulators and bf16 outputs bit-equal to "
               f"the plain version; kernel_ms={ms:.4f} queued_ms={q_ms:.4f} "
               f"plain_ms={plain_ms:.2f} library_ms={lib_ms:.4f} (bf16 cuDNN, "
               f"channels-last; Q1 {lib_ms / q_ms:.2f}x its speed by q) "
               f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound="
               f"{b_ms / q_ms:.3f} (q); quantize: kernel_ms={z_ms:.4f} "
-              f"plain_ms={zp_ms:.4f} bound_ms={zb_ms:.4f} (bytes) share "
-              f"{zb_ms / z_ms:.3f}, codes bit-equal")
+              f"queued_ms={zq_ms:.4f} plain_ms={zp_ms:.4f} bound_ms="
+              f"{zb_ms:.4f} (bytes) share {zb_ms / zq_ms:.3f} (q), codes "
+              f"bit-equal")
         q1["at_shape"][tag] = dict(calls=count, ms=ms, queued_ms=q_ms,
                                    plain_ms=plain_ms, library_ms=lib_ms,
                                    bound_ms=b_ms, bound_by=b_by)
-        qz["at_shape"][tag] = dict(calls=count, ms=z_ms, plain_ms=zp_ms,
-                                   bound_ms=zb_ms)
+        qz["at_shape"][tag] = dict(calls=count, ms=z_ms, queued_ms=zq_ms,
+                                   plain_ms=zp_ms, bound_ms=zb_ms)
         for key, val in zip(keys, (ms, q_ms, plain_ms, b_ms, lib_ms)):
             q1[key] += count * val
-        for key, val in (("ms", z_ms), ("plain_ms", zp_ms),
-                         ("bound_ms", zb_ms)):
+        for key, val in (("ms", z_ms), ("queued_ms", zq_ms),
+                         ("plain_ms", zp_ms), ("bound_ms", zb_ms)):
             qz[key] += count * val
         del x, xq, wt, packed
         torch.cuda.empty_cache()
@@ -1147,7 +1233,8 @@ def phase_qconv(torch):
     print(f"qconv: a chunk's {calls} convs: Q1 {q1['ms']:.3f} ms (q "
           f"{q1['queued_ms']:.3f}), bf16 cuDNN {q1['library_ms']:.3f} ms, "
           f"bound {q1['bound_ms']:.3f} ms (mostly {q1['bound_by']}); "
-          f"quantize {qz['ms']:.3f} ms, bound {qz['bound_ms']:.3f} ms")
+          f"quantize {qz['ms']:.3f} ms (q {qz['queued_ms']:.3f}), bound "
+          f"{qz['bound_ms']:.3f} ms")
     return (q1, qz), calls
 
 
@@ -4507,7 +4594,8 @@ def phase_train_tokenizer(torch, root, hub):
     restored from checkpoint-40 bit-equal to the live one (both
     TrainStates, the EMA copy, the counters), and so is one more
     generator step, EMA update and discriminator step from each; with the
-    discriminator on, its loss moves off its first reading. Prints ms/step,
+    discriminator on, one update a D step, every discriminator parameter
+    off its initial value, and its loss off its first reading. Prints ms/step,
     samples/s and the loader's wait over the steady windows, the
     validations' seconds, the peak memory, and a G step's wall time with
     no loader running beside its device time in one profiled step.
@@ -4684,23 +4772,42 @@ def phase_train_tokenizer(torch, root, hub):
     record = []
     restore = counted_steps(cli, record)
     gan_out = os.path.join(root, "tok_gan")
+    gan_argv = argv("--max_train_steps", str(TT_GAN_STEPS), "--disc_start",
+                    "0", "--lr_warmup_steps", "0", "--log_steps", "2",
+                    "--log_image_steps", "0", "--validation_steps", "100000",
+                    "--checkpointing_steps", "100000", out=gan_out)
     try:
-        cli.main(argv("--max_train_steps", str(TT_GAN_STEPS), "--disc_start",
-                      "0", "--lr_warmup_steps", "0", "--log_steps", "2",
-                      "--log_image_steps", "0", "--validation_steps",
-                      "100000", "--checkpointing_steps", "100000",
-                      out=gan_out))
+        _, gan_disc, _ = cli.main(gan_argv)
     finally:
         restore()
     kinds = [k for k, _, _ in record]
-    check(kinds == ["G_gan", "D"] * (TT_GAN_STEPS // 2),
+    n_d = TT_GAN_STEPS // 2
+    check(kinds == ["G_gan", "D"] * n_d,
           f"train_tokenizer GAN: step calls {kinds}")
     k1_per_step(record, "train_tokenizer GAN")
     metrics = cli_metrics(gan_out)
     finite_metrics(metrics, "train_tokenizer GAN")
+    # the discriminator trained: its AdamW updated it once a D step, every
+    # parameter left its initial value (built again from the same seed),
+    # and its loss moved off its first reading. The loader's 16 workers
+    # make the batch order, and so each reading, differ from run to run.
+    check((gan_disc.step, gan_disc.updates) == (n_d, n_d),
+          f"train_tokenizer GAN: discriminator counters "
+          f"{gan_disc.step, gan_disc.updates}, want {n_d, n_d}")
+    gan_args = cli.parse_args(gan_argv)
+    _, disc0, _ = cli.build_models(gan_args, cli.tokenizer_config(gan_args),
+                                   torch.device("cuda"))
+    trained = dict(gan_disc.model.named_parameters())
+    still = [k for k, p in disc0.named_parameters()
+             if torch.equal(p, trained[k])]
+    check(sorted(trained) == sorted(k for k, _ in disc0.named_parameters())
+          and not still, f"train_tokenizer GAN: discriminator parameters "
+          f"at their initial values after {n_d} D steps: {still}")
     d_loss = [m["discr_loss"] for m in metrics]
-    check(len(d_loss) == TT_GAN_STEPS // 2 and abs(d_loss[-1] - d_loss[0])
-          > 1e-3, f"train_tokenizer GAN: discriminator losses {d_loss}")
+    check(len(d_loss) == n_d
+          and max(abs(d - d_loss[0]) for d in d_loss[1:]) > 1e-3,
+          f"train_tokenizer GAN: discriminator losses {d_loss}")
+    del disc0, trained, gan_disc
     ms = {k: [round(t * 1e3, 2) for kk, _, t in record if kk == k]
           for k in ("G_gan", "D")}
     print(f"train_tokenizer GAN: discr_loss {d_loss}; gan_loss "
@@ -5254,9 +5361,11 @@ def ab_kernel_times(torch):
     backward at the training shape, bf16 and fp32 (TF32 off), without and
     with attention dropout (DROP_P, the flash_dropout phase's seed and
     offset; SDPA at dropout_p=DROP_P), and the fp32 K4 beside fp32 SDPA's
-    forward at predict's and VP2's prefills, by cuda_ms and queued_ms,
-    through the interfaces every tree of the port has since dropout came
-    in: the kernel half of an A/B turn (``--ab-turn``)."""
+    forward at predict's and VP2's prefills, and Q1 and the quantize
+    kernel at a detokenize chunk's 23 conv shapes (``ab_qconv_times``), by
+    cuda_ms and queued_ms, through the interfaces every tree of the port
+    has since dropout came in (Q1's since PR 17): the kernel half of an
+    A/B turn (``--ab-turn``)."""
     import torch.nn.functional as F
     from ivideogpt_tpu_torch.ops import decode_attention as da
     from ivideogpt_tpu_torch.ops import flash_attention as fa
@@ -5353,22 +5462,105 @@ def ab_kernel_times(torch):
                          qt, kt, vt, is_causal=True))):
                 out[key] = (cuda_ms(fn, 20), queued_ms(fn, 20)[0])
         del q, k, v, qt, kt, vt
+    ab_qconv_times(torch, out)
     print("ab: kernel ms (cuda_ms, queued_ms) "
           + json.dumps({k: [round(x, 4) for x in v]
                         for k, v in out.items()}))
     return out
 
 
+def ab_qconv_times(torch, out):
+    """Q1 (bf16 out, the rollout's render) and the quantize kernel at each of
+    the 23 conv shapes of a detokenize chunk of ``QCONV_CLIPS`` clips (as
+    phase_qconv draws them), by cuda_ms and queued_ms into ``out``, and
+    their sums over the chunk's 57 convs ("Q1 chunk", "quantize chunk")."""
+    from ivideogpt_tpu_torch.ops import qconv
+    shapes, _ = chunk_conv_shapes(torch)
+    g = torch.Generator(device="cuda").manual_seed(72)
+    chunk = {"Q1": [0.0, 0.0], "quantize": [0.0, 0.0]}
+    for (n1, c, h, w, o, k, stride, pad), count in sorted(shapes.items()):
+        n = n1 * QCONV_CLIPS
+        tag = f"N={n} C={c} {h}x{w} O={o} k={k}"
+        x = torch.randn(n, c, h, w, device="cuda", generator=g).bfloat16()
+        wt = torch.randn(o, c, k, k, device="cuda", generator=g) \
+            * (c * k * k) ** -0.5
+        bias = torch.randn(o, device="cuda", generator=g) * 0.1
+        packed = qconv.PackedWeight(wt)
+        scale = (qconv.amax(x) / 127.0).clamp_min(1e-12)
+        xq = qconv.quantize(x, scale)
+        iters = 5 if n * h * w * o * k * k * c > 2**40 else 20
+        for name, fn in (
+                ("Q1", lambda: qconv.qconv(xq, scale, packed, bias, stride,
+                                           pad, torch.bfloat16)),
+                ("quantize", lambda: qconv.quantize(x, scale))):
+            out[f"{name} {tag}"] = (cuda_ms(fn, iters),
+                                    queued_ms(fn, iters)[0])
+            for i in range(2):
+                chunk[name][i] += count * out[f"{name} {tag}"][i]
+        del x, xq, wt, packed
+        torch.cuda.empty_cache()
+    out.update({f"{name} chunk": tuple(v) for name, v in chunk.items()})
+
+
+def ab_render(torch):
+    """The B=256 render alone, as the rollout runs it: ``rollout.detokenize``
+    of one stream of random ids (assembled as a rollout's) in chunks of 128
+    with ``int8_detok`` "0" (the bf16 render), "1" and "static" (calibrated
+    on the first chunk by the warm-up call), TOKENIZER_64 from
+    ``rollout.build_models`` (seed 0): wall s (the mean of 2 after a
+    warm-up) and device s (one traced call) by mode, Q1's and the
+    quantize's device s in it."""
+    from ivideogpt_tpu_torch import rollout as ro
+    from ivideogpt_tpu_torch import tokens as tok_lib
+    tokenizer, lm = ro.build_models(context_length=CTX, segment_length=T,
+                                    seed=0)
+    del lm
+    cfg = tokenizer.config
+    g = torch.Generator(device="cuda").manual_seed(95)
+    c = torch.randint(0, cfg.num_vq_embeddings, (B, CTX, 256), device="cuda",
+                      generator=g)
+    d = torch.randint(0, cfg.num_dyn_embeddings, (B, T - CTX, 16),
+                      device="cuda", generator=g)
+    ids, _ = tok_lib.assemble(c, d, cfg.num_vq_embeddings,
+                              cfg.num_dyn_embeddings)
+    scales, wall, device = {}, {}, {}
+    for mode in ("0", "1", "static"):
+        with torch.inference_mode():
+            ro.detokenize(tokenizer, ids, CTX, 128, mode, scales)
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                ro.detokenize(tokenizer, ids, CTX, 128, mode, scales)
+                torch.cuda.synchronize()
+                times.append(time.time() - t0)
+        wall[mode] = sum(times) / len(times)
+        res = {}
+        with kernel_trace(torch, res), torch.inference_mode():
+            ro.detokenize(tokenizer, ids, CTX, 128, mode, scales)
+        device[mode] = dict(seconds=round(res["seconds"], 5), **{
+            name: round(sum(e.self_device_time_total for e in res["kernels"]
+                            if frag in e.key) / 1e6, 5)
+            for name, frag in (("Q1", "qconv_kernel"),
+                               ("quantize", "quantize_kernel"))})
+    print(f"ab: the B={B} render by int8_detok mode, wall s "
+          + json.dumps({k: round(v, 4) for k, v in wall.items()})
+          + ", device s " + json.dumps(device))
+    del tokenizer
+    torch.cuda.empty_cache()
+
+
 def ab_turn(torch):
     """One turn of an A/B between two trees of the port on one card, run as
     ``python3 <this file> --ab-turn`` from the root of the tree to measure
-    (its package is the one imported): the kernels' times, then the
-    rollout, the GPT step, the tokenizer pair and the wide pair, each with
+    (its package is the one imported): the kernels' times, the B=256
+    render by int8 mode (``ab_render``), then the rollout, the GPT step, the tokenizer pair and the wide pair, each with
     its profiled device seconds (the GPT step twice: bf16, and fp32 with
     dropout at the trainer CLI's default precision), and the MBRL
     imagination rollout with its device seconds by part (``generation.decode`` holds its K3 calls).
     Turns alternate between the trees, parent first."""
     ab_kernel_times(torch)
+    ab_render(torch)
     phase_main(torch)
     phase_train(torch)
     phase_train(torch, fp32=True)
@@ -5441,7 +5633,7 @@ def main():
         mark("K3")
         k3_variants = phase_k3_variants(torch)
         mark("K3 variants")
-        q1_rows, convs = phase_qconv(torch)
+        q1_rows, convs = phase_qconv(torch, logs.get("qconv", ""))
         mark("qconv")
         flash = phase_flash(torch)
         mark("flash")

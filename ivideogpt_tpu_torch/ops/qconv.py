@@ -26,12 +26,13 @@ once for each weight version and kept on the module.
 
 Q1 is no TPU kernel's counterpart: it replaces XLA's int8 conv in
 ``ivideogpt_tpu/ops/qconv.py::_int8_conv_call``, for which PyTorch has no
-CUDA operator. It is an implicit GEMM over int8 tensor cores with the
-dequantize, bias and cast fused; a second kernel of the same library
-(``quantize``) makes the channels-last int8 activation from the NCHW
-input in one pass. On a CPU tensor the wrappers run the plain versions; on
-a CUDA tensor they launch the kernels or raise. See the source for the
-design.
+CUDA operator. It is an implicit GEMM on Hopper's int8 ``wgmma``, fed by
+one TMA box a tap, over a persistent grid whose NCHW stores (by TMA) overlap
+the next tile, with the dequantize, bias and cast fused; a second kernel of
+the same library (``quantize``) makes the channels-last int8 activation
+from the NCHW input as a shared-memory transpose. :func:`q1_plan` is Q1's
+tile plan. On a CPU tensor the wrappers run the plain versions; on a CUDA
+tensor they launch the kernels or raise. See the source for the design.
 """
 
 from __future__ import annotations
@@ -41,15 +42,15 @@ import contextvars
 import ctypes
 import functools
 import re
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ivideogpt_tpu_torch import _build
 
-Q1_TILE_N = 64    # output channels a block
-Q1_TILE_K = 64    # bytes of the reduction a pipeline stage
+Q1_TILE_N = (16, 128, 256)   # a tile's output channels: the first >= O
+Q1_TILE_K = 128   # bytes of the reduction a K step: one tap's channel block
 Q1_CHANNEL_PAD = 16   # the channels-last activation's C, padded: 16 bytes
 Q1_KERNELS = (1, 3)
 Q1_STRIDES = (1, 2)
@@ -60,6 +61,33 @@ PLAIN_FRAMES = 64
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+class Plan(NamedTuple):
+    """Q1's tiles for one conv: ``bn`` output channels by ``bm`` output
+    pixels, a pixel tile ``br`` rows of ``bw`` pixels (whole rows where Wo
+    <= bm, else a segment of bm pixels), and whether every tile is whole so
+    that the epilogue stores by TMA."""
+    bn: int
+    bm: int
+    bw: int
+    br: int
+    tma_store: bool
+
+
+def q1_plan(ho: int, wo: int, o: int, out_bytes: int) -> Plan:
+    """The tile plan Q1 runs an [N, O, ho, wo] output with (``out_bytes``
+    a value): 128 pixels x 256 channels, or 256 x 128 where O <= 128, or
+    256 x 16 where O <= 16. A tile stores by TMA where its pixels are
+    contiguous in the NCHW output and no pixel of another tile follows them
+    in its box: whole rows filling the tile (or the whole frame), or
+    segments dividing the row; and the frame's bytes a 16-byte multiple."""
+    bn = next((n for n in Q1_TILE_N if o <= n), Q1_TILE_N[-1])
+    bm = 128 if bn == 256 else 256
+    bw = min(wo, bm)
+    br = max(1, min(bm // bw, ho))
+    whole = (bw * br == bm or br >= ho) if bw == wo else wo % bw == 0
+    return Plan(bn, bm, bw, br, whole and ho * wo * out_bytes % 16 == 0)
 
 
 def quantize_per_tensor(x: torch.Tensor, scale=None
@@ -155,23 +183,18 @@ quantize.launches = 0
 
 class PackedWeight:
     """A conv's quantized weight: ``wq`` int8 OIHW and ``w_scale`` fp32
-    [O] (the plain version's), and ``packed`` int8 [Op, Kp], Q1's: row o
-    is output channel o's taps in (dy, dx, c) order over the padded
-    channels, O padded to ``Q1_TILE_N`` and the reduction to ``Q1_TILE_K``
-    with zeros."""
+    [O] (the plain version's), and ``packed`` int8 [O, k * k * Cb], Q1's B
+    operand: row o is output channel o's taps in (dy, dx, c) order, each
+    tap's channels padded with zeros to Cb, a multiple of ``Q1_TILE_K``
+    (one K step a channel block)."""
 
     def __init__(self, w: torch.Tensor):
         self.wq, self.w_scale = quantize_weight_per_channel(w)
         O, C, kh, kw = w.shape
-        cp = _round_up(C, Q1_CHANNEL_PAD)
-        k = kh * kw * cp
-        taps = torch.zeros((O, kh, kw, cp), dtype=torch.int8,
-                           device=w.device)
+        taps = torch.zeros((O, kh, kw, _round_up(C, Q1_TILE_K)),
+                           dtype=torch.int8, device=w.device)
         taps[..., :C] = self.wq.permute(0, 2, 3, 1)
-        self.packed = torch.zeros(
-            (_round_up(O, Q1_TILE_N), _round_up(k, Q1_TILE_K)),
-            dtype=torch.int8, device=w.device)
-        self.packed[:O, :k] = taps.reshape(O, k)
+        self.packed = taps.reshape(O, -1)
 
 
 def qconv(xq: torch.Tensor, x_scale: torch.Tensor, weight: PackedWeight,
@@ -205,18 +228,22 @@ def qconv(xq: torch.Tensor, x_scale: torch.Tensor, weight: PackedWeight,
     _check_cuda("qconv", *tensors)
     if xq.dtype != torch.int8 or not xq.is_contiguous():
         raise ValueError("qconv: xq must be contiguous int8")
+    if weight.packed.dim() != 2 or weight.packed.shape[1] % 16:
+        raise ValueError("qconv: the packed weight's rows must be a 16-byte "
+                         "multiple (TMA's rule)")
     ho = (H + 2 * padding - kh) // stride + 1
     wo = (W + 2 * padding - kw) // stride + 1
     if ho < 1 or wo < 1:
         raise ValueError(f"qconv: no output for a {H}x{W} input")
     out = torch.empty((N, O, ho, wo), device=xq.device,
                       dtype=torch.int32 if accumulator else out_dtype)
+    plan = q1_plan(ho, wo, O, out.element_size())
     err = _entry("ivg_qconv")(
         xq.data_ptr(), weight.packed.data_ptr(), weight.w_scale.data_ptr(),
         x_scale.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), N, H, W, cp, O, ho, wo, kh, stride, padding,
         weight.packed.shape[1], 2 if accumulator
-        else int(out_dtype == torch.bfloat16),
+        else int(out_dtype == torch.bfloat16), *plan,
         torch.cuda.current_stream(xq.device).cuda_stream)
     if err:
         raise RuntimeError(f"qconv kernel launch failed: cudaError {err}")
@@ -241,7 +268,7 @@ def _check_cuda(what: str, *tensors):
 def _entry(name: str):
     fn = getattr(_build.load("qconv"), name)
     if name == "ivg_qconv":
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 17
                        + [ctypes.c_void_p])
     else:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5

@@ -162,7 +162,7 @@ def test_packed_weight_follows_the_weight():
     np.testing.assert_array_equal(again.wq.numpy(), first.wq.numpy())
     np.testing.assert_allclose(again.w_scale.numpy(),
                                2 * first.w_scale.numpy(), rtol=1e-6)
-    assert again.packed.shape == (64, 192)   # O to 64, 9 x 16 to 64
+    assert again.packed.shape == (4, 1152)   # O rows, 9 taps x 128 bytes
 
 
 @pytest.fixture(scope="module")
