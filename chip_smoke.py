@@ -17,8 +17,9 @@ the final result line:
   3. K1        VQ argmin at every shape of the main paths (N=131072, 8192,
                3584, 1536, 16384, 1280, 2560, the inference entry
                points' 512, 224 and 65536, the tokenizer CLI's 4096, 1792,
-               1024 and 192, the BAIR evaluation's 20480 and 19200;
-               K=8192, D=64 fp32) against the
+               1024 and 192, the BAIR evaluation's 20480 and 19200, the
+               oxe-256 GPT stage's 2048 and 896, the goal-conditioned
+               one's 8192 and 3840; K=8192, D=64 fp32) against the
                plain version
                (TF32 off) and K2 (bit for bit), ties across a codebook
                split; timed beside K2, the plain version, cdist+argmin
@@ -66,7 +67,9 @@ the final result line:
                printed
      flash_dropout  K4, K5 and K6 with attention dropout 0.1: each kernel's
                mask read back equal to the plain Philox mask at B=16,
-               S=751, H=12; bf16 at that shape and at H=16 against the
+               S=751 and S=768, H=12; bf16 at B=16, S=751 with H=12 and 16,
+               at the oxe-256 GPT stage's B=4, S=751 and the
+               goal-conditioned one's B=16, S=768 against the
                plain versions with the same (seed, offset), K5 and K6 with
                dropout bit-identical across two launches, p=0 bit-equal to
                no dropout, the fp32 kernels with and without dropout at
@@ -91,7 +94,7 @@ the final result line:
                cache_dtype="mixed" (K3 2832 on the mixed variant; an fp32
                LM's replay: K bit-equal to the bf16 cache's, logits against
                the bf16 cache's); a grouped-head LLAMA_BASE (Hkv=4: K3 2832
-               on the grouped variant); frames/s over 2 timed rollouts
+               on the grouped variant); frames/s over a timed rollout
                (mixed, grouped)
   7. check     a B=2 fp32 rollout on the GPU held against the plain CPU path
                on the same stream: context ids, teacher-forced logits, frames
@@ -171,8 +174,8 @@ the final result line:
                a chunk, K3 0), rgb [200, 11, 64, 64, 3] finite in [0, 1],
                seconds a query, peak memory
      vp2_int8  the same query with int8_detok=True: Q1 and the quantize 228
-               a query, the pixel gap to the exact render, s a query over 2
-               timed queries, the int8 render's share of a traced query's
+               a query, the pixel gap to the exact render, s a query over a
+               timed query, the int8 render's share of a traced query's
                device s
  21. train_gpt the trainer CLI (ivideogpt_tpu_torch/train_gpt.py) in-process
                with the BAIR finetune recipe's LM flags (bf16, attention
@@ -190,7 +193,7 @@ the final result line:
  22. eval_gpt  the trainer CLI's --eval_only in-process with the BAIR
                evaluation recipe's flags (bf16, LLAMA_BASE, ctx 1, seg 16,
                action-conditioned, --use_fvd --use_frame_metrics,
-               --eval_max_batchsize 80) from the hub, cut to 4 samples a
+               --eval_max_batchsize 80) from the hub, cut to 2 samples a
                clip and 2 batches of the synthetic BAIR test split, I3D
                and LPIPS at random weights: every metric finite, FVD
                recomputed and real-vs-real 0 within the eigenvalue floor,
@@ -198,6 +201,22 @@ the final result line:
                logits and best-of-t metrics on the card against the CPU;
                wall s split among generate, detokenize, I3D and LPIPS,
                I3D's TFLOP/s, peak memory
+     train_gpt_lora  the trainer CLI with --lora --lora_r 8 --lora_alpha 16
+               and the VP2 RoboDesk finetune recipe's LM flags (bf16,
+               dropout 0.1, action_dim 5, ctx 2, seg 12, B=16,
+               --load_internal_llm from the hub's bare LLaMA,
+               --use_eval_dataset --use_fvd --use_frame_metrics) on
+               synthetic RoboDesk episodes: 5 steps with a checkpoint, a
+               resume to 10 with a checkpoint and a validation with
+               generation on the merged weights; launches (K4/K5/K6 12 a
+               step with dropout keyed by (seed, global step, layer), K1 2
+               a step); checkpoints of adapters and AdamW state alone; the
+               exported base bit-equal to the warm start, every adapter's
+               b off 0; a restored state and its next step bit-equal;
+               IVideoGPTPredictor(lora=True) over the export against the
+               trainer's merged model (weights, teacher-forced logits in
+               fp32 and bf16); ms/step, peak memory and AdamW bytes of a
+               LoRA step beside a full step on one batch
  23. train_tokenizer  the tokenizer trainer CLI
                (ivideogpt_tpu_torch/train_tokenizer.py) in-process with the
                BAIR finetune recipe's tokenizer flags (bf16, B=16, ctx 1, seg
@@ -218,9 +237,19 @@ the final result line:
                with remat against none (ids bit-equal, gradients within
                1e-5 of their max) and the bf16 B=2 step's peak memory with
                and without remat
+     train_gpt_256, train_gpt_goal  the GPT stages of the oxe-256 recipe
+               (B=4 over a frozen fp32 TOKENIZER_256, 256 px) and the
+               goal-conditioned one (--goal_conditioned --segment_length
+               17, B=16, L=768) through the CLI, 6 steps each: finite
+               losses, batches [B, L], launches (K4/K5/K6 12 a step, K1 2),
+               ms/step, peak memory
  25. train_medium  LLAMA_MEDIUM (24 layers, H=16), act-free, bf16, dropout
                0.1, B=16, L=751: 2 warm-up and 5 timed steps, launches a
                step (K1 2, K4/K5/K6 24), ms/step, tokens/s, peak memory
+     train_medium_dots  the same with remat_policy "none" and "dots": the
+               loss bit-equal to no remat's and every gradient within 1e-3
+               of its norm, launches a step (K4 48, K5/K6 24), ms/step and
+               peak memory of each beside no remat's
  26. train_gpt check  the train check's fp32 step at B=2, 2 layers, with
                attention dropout keyed alike on the card and the CPU
 Each phase's seconds follow it ("[time]" lines). Then the launches by path,
@@ -241,9 +270,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CTX, T, B = 2, 16, 256
-# timed rollouts, predict calls and VP2 queries after the first (two, so
-# that the whole script keeps ~150 s from its 1200 s limit on a slow host)
-N_TIMED = 2
+# timed rollouts, predict calls and VP2 queries after the first (one, so
+# that the whole script, the GPT recipes' phases included, keeps ~100 s
+# from its 1200 s limit on a slow host)
+N_TIMED = 1
 FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
 # fp32-accurate products on the tensor cores: three TF32 products each
@@ -266,11 +296,22 @@ TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 16, 3, 10
 DROP_P, DROP_SEED = 0.1, 2024
 GPT_STEPS, GPT_CKPT, GPT_EPISODES, GPT_FRAMES = 30, 15, 64, 24
 # the BAIR evaluation recipe (scripts/evaluation/bair-64-act-cond.sh: ctx 1,
-# seg 16, B=80, bf16) cut to 4 samples a clip (100 in the recipe) and 2
+# seg 16, B=80, bf16) cut to 2 samples a clip (100 in the recipe) and 2
 # batches: 160 test episodes; the card-vs-CPU checks of its metrics take
 # 2 clips
-EVAL_B, EVAL_REPS, EVAL_BATCHES, EVAL_CHECK = 80, 4, 2, 2
+EVAL_B, EVAL_REPS, EVAL_BATCHES, EVAL_CHECK = 80, 2, 2, 2
 MEDIUM_WARMUP, MEDIUM_TIMED = 2, 5
+# the pretrain recipes' GPT stages: oxe-256-act-free.sh at B=4 over
+# TOKENIZER_256 (whose 16 x 16 latent gives the 256 context and 16 dynamics
+# tokens a frame of 64 px, so L = 751), and oxe-64-goal-cond.sh at B=16
+# with segment 17 (the goal frame first, then 16): L = 2 * 257 - 1 + 15 *
+# 17 = 768; 6 CLI steps of each (ms/step from the last 3). The LoRA run:
+# the VP2 RoboDesk finetune recipe's LM (B=16, action_dim 5, ctx 2, segment
+# 12, L = 683) with --lora, rank 8, alpha 16: 5 steps, then a resume to 10
+GPT256_B, GOAL_B, GOAL_T = 4, 16, 17
+GOAL_L = 257 * CTX - 1 + 17 * (GOAL_T - CTX)
+RECIPE_STEPS = 6
+LORA_STEPS, LORA_CKPT, LORA_R, LORA_ALPHA = 10, 5, 8, 16.0
 TOK_T, TOK_CTX = 8, 2          # the tokenizer trainer's clips (B=TRAIN_B)
 # the tokenizer trainer CLI: the BAIR finetune recipe's tokenizer (ctx 1,
 # seg 8, B=16) for 40 micro-steps with a checkpoint and a resume at 20,
@@ -326,25 +367,28 @@ K3_VARIANTS = (("grouped", 4, False), ("grouped", 1, False),
 # Q1 at the rollout's detokenize chunk (rollout.rollout's detok_chunk)
 QCONV_CLIPS = 128
 # the rollout's variants: int8 renders, the mixed cache and a
-# grouped-head LLAMA_BASE; two timed rollouts after the first over the
+# grouped-head LLAMA_BASE; one timed rollout after the first over the
 # mixed cache and the grouped LM (the int8 renders are timed by their
-# detokenize), two timed VP2 int8 queries; the card-vs-CPU check of the
+# detokenize), one timed VP2 int8 query; the card-vs-CPU check of the
 # int8 render on 2 clips
-VARIANT_TIMED, INT8_CHECK_CLIPS = 2, 2
+VARIANT_TIMED, INT8_CHECK_CLIPS = 1, 2
 # the mixed cache's teacher-forced logits (fp32 LM) against the bf16
 # cache's, mean |difference|: between the mixed cache's reading and the int8
 # cache's (0.000751 and 0.000755 on an H100 80GB HBM3 at 700 W, the same
 # in three runs), so that a mixed cache that rounds K like int8 fails
 MIXED_LOGIT_LIMIT = 7.53e-4
 # K1's lookups on the main paths (K=8192, D=64): the rollout's context
-# frames, the context frames of a B=16 GPT step and tokenizer pair, and the
+# frames, the context frames of a B=16 GPT step and tokenizer pair (and of
+# the goal-conditioned recipe's step), and the
 # dynamics frames of the GPT step (16 x 14 x 16) and of the pair (16 x 6 x
 # 16); the MBRL rollout's context frames (32 x 2 x 256); train()'s target
 # frames (16 x 5 x 16) and its LM step's dynamics frames (16 x 10 x 16), its
 # context lookups being the "context" shape; the tokenizer CLI's BAIR
 # recipe (B=16, ctx 1: 16 x 256 context and 16 x 7 x 16 dynamics tokens)
 # and TOKENIZER_256 at the oxe-256 recipe's B=2 (2 x 2 x 256, 2 x 6 x 16);
-# the BAIR evaluation's batch (80 x 256, 80 x 15 x 16)
+# the BAIR evaluation's batch (80 x 256, 80 x 15 x 16); the oxe-256 GPT
+# stage's (4 x 2 x 256, 4 x 14 x 16) and the goal-conditioned one's
+# dynamics (16 x 15 x 16)
 K1_SHAPES = (("rollout", B * CTX * 256), ("context", TRAIN_B * CTX * 256),
              ("GPT-step dynamics", TRAIN_B * (T - CTX) * 16),
              ("tokenizer dynamics", TRAIN_B * (TOK_T - TOK_CTX) * 16),
@@ -359,7 +403,11 @@ K1_SHAPES = (("rollout", B * CTX * 256), ("context", TRAIN_B * CTX * 256),
              ("tokenizer-256 context", TT256_B * 2 * 256),
              ("tokenizer-256 dynamics", TT256_B * (TOK_T - 2) * 16),
              ("BAIR eval context", EVAL_B * 256),
-             ("BAIR eval dynamics", EVAL_B * (T - 1) * 16))
+             ("BAIR eval dynamics", EVAL_B * (T - 1) * 16),
+             ("oxe-256 GPT context", GPT256_B * CTX * 256),
+             ("oxe-256 GPT dynamics", GPT256_B * (T - CTX) * 16),
+             ("goal-conditioned GPT dynamics",
+              GOAL_B * (GOAL_T - CTX) * 16))
 # K2's: the wide tokenizer pair's context and dynamics lookups against
 # 16384 x 256 codebooks, and the rollout's lookup, which the routing sends
 # to K1 (one timed shape on each side of it)
@@ -1618,39 +1666,46 @@ def phase_flash_dropout(torch):
                   f"over {rel_tol}")
         return e
 
-    # the masks, read back from each kernel at the training shape
-    b, H = TRAIN_B, 12
-    want = philox.keep_mask(drop, b, H, s, 0, s, 0, s, device="cuda")
-    kept = float(want.float().mean())
-    sigma = (DROP_P * (1 - DROP_P) / want.numel()) ** 0.5
-    check(abs(kept - (1 - DROP_P)) < 5 * sigma, f"flash_dropout: the plain "
-          f"mask keeps {kept:.6f}, more than 5 sigma from {1 - DROP_P}")
-    want &= torch.ones(s, s, device="cuda", dtype=torch.bool).tril()
-    zero = torch.zeros(b, s, H, hd, device="cuda", dtype=torch.bfloat16)
-    e0 = zero.clone()
-    e0[..., 0] = 1
-    lse_u = torch.log(torch.arange(1, s + 1, device="cuda").float()) \
-        .expand(b, H, s).contiguous()
-    di0 = torch.zeros(b, H, s, device="cuda")
-    got = torch.zeros(3, b, H, s, s, device="cuda", dtype=torch.bool)
-    for c0 in range(0, s, 64):
-        n = min(64, s - c0)
-        hot = torch.zeros(b, s, H, hd, device="cuda")
-        hot[:, c0:c0 + n] = torch.eye(hd, device="cuda")[:n, None, :]
-        hot = hot.bfloat16()
-        o, _ = fa.flash_fwd(zero, zero, hot, drop)
-        got[0, ..., c0:c0 + n] = o[..., :n].permute(0, 2, 1, 3) != 0
-        _, dv = fa.flash_bwd_dkv(zero, zero, zero, hot, lse_u, di0, drop)
-        got[1, :, :, c0:c0 + n, :] = dv[..., :n].permute(0, 2, 3, 1) != 0
-        dq = fa.flash_bwd_dq(zero, hot, e0, e0, lse_u, di0, drop)
-        got[2, ..., c0:c0 + n] = dq[..., :n].permute(0, 2, 1, 3) != 0
-    for i, k in enumerate(("K4", "K5", "K6")):
-        check(torch.equal(got[i], want), f"flash_dropout: {k}'s mask at "
-              f"B={b} S={s} H={H} differs from the plain mask")
-    print(f"flash_dropout: the masks of K4, K5 and K6 at B={b} S={s} H={H} "
-          f"equal the plain mask bit for bit; it keeps {kept:.6f} of "
-          f"{want.numel()} (1 - p = {1 - DROP_P}, 5 sigma = {5 * sigma:.2e})")
-    del want, got, zero, e0, lse_u, di0, hot, o, dv, dq
+    def read_masks(b, H, s):
+        """Each kernel's mask, read back, against the plain mask."""
+        want = philox.keep_mask(drop, b, H, s, 0, s, 0, s, device="cuda")
+        kept = float(want.float().mean())
+        sigma = (DROP_P * (1 - DROP_P) / want.numel()) ** 0.5
+        check(abs(kept - (1 - DROP_P)) < 5 * sigma, f"flash_dropout: the "
+              f"plain mask keeps {kept:.6f}, more than 5 sigma from "
+              f"{1 - DROP_P}")
+        want &= torch.ones(s, s, device="cuda", dtype=torch.bool).tril()
+        zero = torch.zeros(b, s, H, hd, device="cuda", dtype=torch.bfloat16)
+        e0 = zero.clone()
+        e0[..., 0] = 1
+        lse_u = torch.log(torch.arange(1, s + 1, device="cuda").float()) \
+            .expand(b, H, s).contiguous()
+        di0 = torch.zeros(b, H, s, device="cuda")
+        got = torch.zeros(3, b, H, s, s, device="cuda", dtype=torch.bool)
+        for c0 in range(0, s, 64):
+            n = min(64, s - c0)
+            hot = torch.zeros(b, s, H, hd, device="cuda")
+            hot[:, c0:c0 + n] = torch.eye(hd, device="cuda")[:n, None, :]
+            hot = hot.bfloat16()
+            o, _ = fa.flash_fwd(zero, zero, hot, drop)
+            got[0, ..., c0:c0 + n] = o[..., :n].permute(0, 2, 1, 3) != 0
+            _, dv = fa.flash_bwd_dkv(zero, zero, zero, hot, lse_u, di0, drop)
+            got[1, :, :, c0:c0 + n, :] = dv[..., :n].permute(0, 2, 3, 1) != 0
+            dq = fa.flash_bwd_dq(zero, hot, e0, e0, lse_u, di0, drop)
+            got[2, ..., c0:c0 + n] = dq[..., :n].permute(0, 2, 1, 3) != 0
+        for i, k in enumerate(("K4", "K5", "K6")):
+            check(torch.equal(got[i], want), f"flash_dropout: {k}'s mask at "
+                  f"B={b} S={s} H={H} differs from the plain mask")
+        print(f"flash_dropout: the masks of K4, K5 and K6 at B={b} S={s} "
+              f"H={H} equal the plain mask bit for bit; it keeps "
+              f"{kept:.6f} of {want.numel()} (1 - p = {1 - DROP_P}, 5 sigma "
+              f"= {5 * sigma:.2e})")
+        del want, got
+
+    # the masks at the training shape and at the goal-conditioned recipe's
+    # (S a whole number of 64-key tiles)
+    read_masks(TRAIN_B, 12, s)
+    read_masks(GOAL_B, 12, GOAL_L)
 
     def inputs(b, H, seed, dtype):
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1775,10 +1830,15 @@ def phase_flash_dropout(torch):
                   f"({suffix[1:]}: bound_ms={b_ms0:.4f} ({b_by0}) share "
                   f"{b_ms0 / q_ms0:.3f}); host_ms per call {host:.4f}")
 
-    # bf16 at the training shape (LLAMA_BASE, H=12) and LLAMA_MEDIUM's H=16
-    for tag, H, paths in (("train_dropout", 12, ("train_gpt",)),
-                          ("medium_dropout", 16, ("train_medium",))):
-        b = TRAIN_B
+    # bf16 at the training shape (LLAMA_BASE, H=12), LLAMA_MEDIUM's H=16 and
+    # the pretrain recipes' GPT stages: oxe-256 (B=4) and goal-conditioned
+    # (S=768); ``s`` is read by inputs(), plain_ms() and add_rows()
+    for tag, b, s, H, paths in (
+            ("train_dropout", TRAIN_B, 751, 12, ("train_gpt",)),
+            ("medium_dropout", TRAIN_B, 751, 16, ("train_medium",
+                                                  "train_medium_dots")),
+            ("oxe256_dropout", GPT256_B, 751, 12, ("train_gpt_256",)),
+            ("goal_dropout", GOAL_B, GOAL_L, 12, ("train_gpt_goal",))):
         q, k, v, do = inputs(b, H, H, torch.bfloat16)
         f = [t.float() for t in (q, k, v, do)]
         with full_fp32():
@@ -1810,7 +1870,7 @@ def phase_flash_dropout(torch):
         print(f"flash_dropout: K5 and K6 with dropout ({tag}) bit-identical "
               f"across two launches")
         del ref_o, ref_dk, ref_dv, ref_dq, dk, dv, dq, dk2, dv2
-        if H == 12:
+        if tag == "train_dropout":
             # end to end: causal_attention and autograd against autograd
             # through the plain version in fp32
             ins = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -1841,7 +1901,7 @@ def phase_flash_dropout(torch):
 
     # fp32: with dropout at the training shape against the plain version,
     # p = 0 bit-equal
-    b = TRAIN_B
+    b, s = TRAIN_B, 751
     q, k, v, do = inputs(b, 12, 5, torch.float32)
     with full_fp32():
         fns = kernels(q, k, v, do, drop)
@@ -4467,29 +4527,60 @@ def phase_train_medium(torch):
     TOKENIZER_64 in front; one fixed batch of pixels made on the card.
     MEDIUM_WARMUP then MEDIUM_TIMED steps: finite losses, launches a step
     (K1 2, K4/K5/K6 24), ms/step, tokens/s, peak memory. Returns the timed
-    steps' launches."""
-    from ivideogpt_tpu_torch import tokens as tok
+    steps' launches and the reading {"ms", "peak"}."""
+    t0 = time.time()
+    tokenizer, model, state, tokenize, px = medium_models(torch)
+    n_lm = sum(p.numel() for p in model.parameters())
+    L = 257 * CTX - 1 + 17 * (T - CTX)
+    print(f"train_medium: models built in {time.time() - t0:.1f}s (LM "
+          f"{n_lm / 1e6:.1f}M fp32 masters, bf16 compute, dropout {DROP_P})")
+    losses, ms, peak, launches = timed_medium_steps(torch, state, tokenize,
+                                                    px, 0)
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          "train_medium: a loss is not finite")
+    want = {"vq_argmin": 2, "decode_attention": 0, "flash_attention_fwd": 24,
+            "flash_attention_bwd_dkv": 24, "flash_attention_bwd_dq": 24}
+    for name, n in want.items():
+        check(launches[name] == n * MEDIUM_TIMED,
+              f"train_medium: {name} ran {launches[name]} times in "
+              f"{MEDIUM_TIMED} steps, not {n} a step")
+    print(f"train_medium: losses {[round(x, 4) for x in losses]}; "
+          f"{MEDIUM_TIMED} timed steps, {ms:.2f} ms/step, "
+          f"{TRAIN_B * L / ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak:.2f} GiB")
+    del tokenizer, model, state
+    torch.cuda.empty_cache()
+    return launches, {"ms": ms, "peak": peak}
+
+
+def medium_models(torch):
+    """The medium recipe's frozen fp32 TOKENIZER_64 and LLAMA_MEDIUM (bf16
+    over fp32 masters, attention dropout DROP_P, no remat) from seed 15,
+    a state with the recipe's optimizer, and one fixed batch of pixels made
+    on the card."""
     from ivideogpt_tpu_torch.configs import LLAMA_MEDIUM, GPTTrainConfig
     from ivideogpt_tpu_torch.train import gpt_trainer as gt
-    t0 = time.time()
     tokenizer, model = gt.build_train_models(
         lm_cfg=LLAMA_MEDIUM.replace(attention_dropout=DROP_P),
         context_length=CTX, segment_length=T, seed=15)
-    n_lm = sum(p.numel() for p in model.parameters())
     state = gt.create_train_state(model, GPTTrainConfig(
         learning_rate=1e-4, lr_scheduler="cosine", lr_warmup_steps=0,
         max_train_steps=1000))
-    tokenize = gt.make_tokenize_fn(tokenizer, CTX)
     g = torch.Generator(device="cuda").manual_seed(16)
     px = torch.rand(TRAIN_B, T, 64, 64, 3, device="cuda", generator=g)
-    L = tok.seq_len(CTX, T)
-    print(f"train_medium: models built in {time.time() - t0:.1f}s (LM "
-          f"{n_lm / 1e6:.1f}M fp32 masters, bf16 compute, dropout {DROP_P})")
+    return tokenizer, model, state, gt.make_tokenize_fn(tokenizer, CTX), px
+
+
+def timed_medium_steps(torch, state, tokenize, px, first_step):
+    """MEDIUM_WARMUP then MEDIUM_TIMED train steps (the frozen tokenize
+    inside each) on ``px``: (losses, ms/step of the timed ones, their peak
+    memory in GiB, their launches)."""
+    from ivideogpt_tpu_torch.train import gpt_trainer as gt
 
     def step(i):
         ids, labels = tokenize(px)
         return gt.train_step(state, {"input_ids": ids, "labels": labels},
-                             rng=(0, i))
+                             rng=(0, first_step + i))
 
     warm = [step(i) for i in range(MEDIUM_WARMUP)]
     torch.cuda.synchronize()
@@ -4501,22 +4592,499 @@ def phase_train_medium(torch):
     dt = (time.time() - t0) / MEDIUM_TIMED
     launches = read_counts()
     losses = [float(m["loss"]) for m in warm + metrics]
-    check(all(x == x and abs(x) != float("inf") for x in losses),
-          "train_medium: a loss is not finite")
-    want = {"vq_argmin": 2, "decode_attention": 0, "flash_attention_fwd": 24,
-            "flash_attention_bwd_dkv": 24, "flash_attention_bwd_dq": 24}
-    for name, n in want.items():
-        check(launches[name] == n * MEDIUM_TIMED,
-              f"train_medium: {name} ran {launches[name]} times in "
-              f"{MEDIUM_TIMED} steps, not {n} a step")
-    print(f"train_medium: losses {[round(x, 4) for x in losses]}; "
-          f"{MEDIUM_TIMED} timed steps, {dt * 1e3:.2f} ms/step, "
-          f"{TRAIN_B * L / dt:.1f} tokens/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del tokenizer, model, state, metrics, warm
+    return (losses, dt * 1e3, torch.cuda.max_memory_allocated() / 2**30,
+            launches)
+
+
+def phase_train_medium_dots(torch, plain):
+    """LLAMA_MEDIUM as ``phase_train_medium`` builds it (B=16, L=751, bf16,
+    attention dropout 0.1), with remat: ``remat_policy`` "none" (each
+    layer recomputed) and "dots" (the seven projections' products kept,
+    ``models/llama.py``), beside ``plain``, the no-remat reading of
+    ``phase_train_medium`` ({"ms", "peak"}). First one forward and backward
+    of each of the three on one batch with the dropout key (0, 0): the
+    losses bit-equal, every gradient within 1e-3 of its tensor's norm
+    (printed: whether bit-equal). Then MEDIUM_WARMUP and MEDIUM_TIMED steps
+    under each policy: finite losses, launches a step (K1 2, K4 48: the
+    forward's and the recompute's, K5/K6 24), ms/step and peak memory;
+    the kept products' bytes predicted beside the peaks' difference.
+    Returns the timed steps' launches (both policies)."""
+    t0 = time.time()
+    tokenizer, model, state, tokenize, px = medium_models(torch)
+    llm = model.llm
+    base_cfg = llm.config
+    L = 257 * CTX - 1 + 17 * (T - CTX)
+    print(f"train_medium_dots: models built in {time.time() - t0:.1f}s")
+    ids, labels = tokenize(px)
+    losses, grads, held = {}, {}, {}
+    for policy in ("no remat", "none", "dots"):
+        llm.config = base_cfg.replace(remat=policy != "no remat",
+                                      remat_policy=("none" if policy ==
+                                                    "no remat" else policy))
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loss = model(ids, labels, dropout_key=(0, 0))["loss"]
+        # what the forward leaves for the backward (the logits' included)
+        held[policy] = (torch.cuda.memory_allocated() - before) / 2**30
+        loss.backward()
+        losses[policy] = loss.detach()
+        # the act-free step leaves the action head without a gradient
+        grads[policy] = [torch.zeros_like(p) if p.grad is None
+                         else p.grad.clone() for p in state.params]
+    model.zero_grad(set_to_none=True)
+    ref = grads.pop("no remat")
+    for policy, got in grads.items():
+        check(torch.equal(losses[policy], losses["no remat"]),
+              f"train_medium_dots: the loss under remat_policy {policy!r} "
+              f"{float(losses[policy])!r} is not bit-equal to no remat's "
+              f"{float(losses['no remat'])!r}")
+        rel = max(float((g - r).norm() / r.norm().clamp_min(1e-30))
+                  for g, r in zip(got, ref))
+        same = all(torch.equal(g, r) for g, r in zip(got, ref))
+        check(rel < 1e-3, f"train_medium_dots: a gradient under "
+              f"remat_policy {policy!r} is {rel:.3e} of its norm from no "
+              f"remat's")
+        print(f"train_medium_dots: remat_policy {policy!r}: loss bit-equal "
+              f"to no remat's ({float(losses[policy]):.6f}); gradients "
+              f"{'bit-equal' if same else f'within {rel:.3e} of each norm'}")
+    del grads, ref
+    torch.cuda.empty_cache()
+
+    launches, readings = {}, {}
+    for i, policy in enumerate(("none", "dots")):
+        llm.config = base_cfg.replace(remat=True, remat_policy=policy)
+        step_losses, ms, peak, got = timed_medium_steps(
+            torch, state, tokenize, px,
+            i * (MEDIUM_WARMUP + MEDIUM_TIMED))
+        check(all(x == x and abs(x) != float("inf") for x in step_losses),
+              f"train_medium_dots ({policy}): a loss is not finite")
+        want = {"vq_argmin": 2, "flash_attention_fwd": 48,
+                "flash_attention_bwd_dkv": 24, "flash_attention_bwd_dq": 24}
+        for name, n in want.items():
+            check(got[name] == n * MEDIUM_TIMED,
+                  f"train_medium_dots ({policy}): {name} ran {got[name]} "
+                  f"times in {MEDIUM_TIMED} steps, not {n} a step")
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        readings[policy] = (ms, peak)
+        print(f"train_medium_dots: remat_policy {policy!r}: losses "
+              f"{[round(x, 4) for x in step_losses]}; {MEDIUM_TIMED} timed "
+              f"steps, {ms:.2f} ms/step, {TRAIN_B * L / ms * 1e3:.1f} "
+              f"tokens/s, peak memory {peak:.2f} GiB; launches a step "
+              + json.dumps({k: v // MEDIUM_TIMED for k, v in got.items()
+                            if v}))
+    llm.config = base_cfg
+    c = base_cfg
+    kept = (c.num_hidden_layers * TRAIN_B * L * 2
+            * (4 * c.hidden_size + 2 * c.intermediate_size + c.hidden_size))
+    (ms_n, peak_n), (ms_d, peak_d) = readings["none"], readings["dots"]
+    print(f"train_medium_dots: ms/step no remat {plain['ms']:.2f} "
+          f"(train_medium), remat 'none' {ms_n:.2f} "
+          f"({ms_n / plain['ms']:.3f}x), 'dots' {ms_d:.2f} "
+          f"({ms_d / plain['ms']:.3f}x); peak memory {plain['peak']:.2f} / "
+          f"{peak_n:.2f} / {peak_d:.2f} GiB; held after the forward (no "
+          f"remat / 'none' / 'dots') {held['no remat']:.2f} / "
+          f"{held['none']:.2f} / {held['dots']:.2f} GiB; the products "
+          f"'dots' keeps: {kept / 1e9:.2f} GB predicted, 'dots' holds "
+          f"{(held['dots'] - held['none']) * 2**30 / 1e9:.2f} GB more than "
+          f"'none' ({card_line()})")
+    del tokenizer, model, state
     torch.cuda.empty_cache()
     return launches
 
+
+def write_robodesk(root, n_train, n_test, frames, seed):
+    """``{root}/robodesk/desk/{train,validation}_0/ep_*.npz`` (uint8
+    ``image`` [frames, 64, 64, 3] and ``action`` [frames, 5], from a seed)
+    for ``--dataset_name vp2_robodesk``, and its ``robodesk_dataset`` line
+    appended to ``{root}/DATASET.yaml``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    top = os.path.join(root, "robodesk")
+    for split, n in (("train_0", n_train), ("validation_0", n_test)):
+        d = os.path.join(top, "desk", split)
+        os.makedirs(d)
+        for e in range(n):
+            np.savez(os.path.join(d, f"ep_{e:04d}.npz"),
+                     image=rng.integers(0, 256, (frames, 64, 64, 3),
+                                        dtype=np.uint8),
+                     action=rng.normal(size=(frames, VP2_A)).astype(
+                         np.float32))
+    with open(os.path.join(root, "DATASET.yaml"), "a") as f:
+        f.write(f"robodesk_dataset: {top}\n")
+
+
+def optimizer_bytes(state):
+    return sum(t.numel() * t.element_size()
+               for entry in state.optimizer.state.values()
+               for t in entry.values() if hasattr(t, "numel"))
+
+
+def recording_steps(train_gpt, name, keys, per_step, batches=None):
+    """Wrap ``train_gpt.<name>`` (the CLI's step function): each call
+    appends its dropout key to ``keys``, the kernels' launches inside it to
+    ``per_step`` and, where asked, its batch's shapes to ``batches``.
+    Returns a function that restores it."""
+    real = getattr(train_gpt, name)
+
+    def step(*args, rng=None):
+        keys.append(rng)
+        if batches is not None:
+            batches.append({k: tuple(v.shape) for k, v in args[-1].items()})
+        before = read_counts()
+        m = real(*args, rng=rng)
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return m
+    setattr(train_gpt, name, step)
+    return lambda: setattr(train_gpt, name, real)
+
+
+def steady_ms(metrics, last=3):
+    """The median step_ms of the last ``last`` logged steps."""
+    import numpy as np
+    return float(np.median([m["step_ms"] for m in metrics
+                            if "step_ms" in m][-last:]))
+
+
+def phase_train_gpt_lora(torch, root, hub, free):
+    """``python -m ivideogpt_tpu_torch.train_gpt --lora`` in-process with
+    the LM flags of the VP2 RoboDesk finetune recipe
+    (``scripts/finetune/vp2-robodesk-64-act-cond.sh:15-27``: bf16, attention
+    dropout 0.1, action-conditioned with action_dim 5, ctx 2, seg 12, B=16,
+    the LLaMA warm-started from the hub's bare LLaMA through
+    ``--load_internal_llm``, ``--use_eval_dataset --use_fvd
+    --use_frame_metrics``) plus ``--lora --lora_r 8 --lora_alpha 16``, on
+    synthetic RoboDesk episodes registered in the working directory's
+    DATASET.yaml: steps 1-5 checkpoint at 5, a second run resumes and trains
+    to 10, checkpointing and validating (with generation, FVD and the frame
+    metrics, on the merged weights) there.
+
+    Gates: finite metrics; the steps' dropout keys (seed, global step)
+    across the resume and the kernels' (p, seed, offset_of(step, layer));
+    K4/K5/K6 12 a step with dropout, K1 2 a step outside it, the
+    validation's K1 10 / K4 72; both checkpoints hold the adapters and
+    their AdamW state alone; the exported ``model.safetensors`` bit-equal
+    to the warm-started base and every adapter's ``b`` off 0; a state
+    restored from checkpoint-10 bit-equal to the live one, and so is one
+    more step from each; ``IVideoGPTPredictor(lora=True, lora_r=8,
+    lora_alpha=16)`` over the export: its folded weights within 1e-6 of
+    each merged weight's largest element, its teacher-forced logits (fp32)
+    within 1e-3 of the trainer's merged model run in fp32, and within 3e-2
+    (relative L2: bf16 keeps 8 bits) of the trainer's own bf16 model.
+    Prints ms/step (the CLI's, and a LoRA step against a full step on one
+    batch in-process), peak memory and the optimizer state's bytes of
+    each. Returns the two runs' launches."""
+    import numpy as np
+    from ivideogpt_tpu_torch import train_gpt
+    from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.ops import philox
+    from ivideogpt_tpu_torch.train import lora
+    from ivideogpt_tpu_torch.utils import checkpoint as ckpt
+    from ivideogpt_tpu_torch.utils import safetensors as st
+    from ivideogpt_tpu_torch.vp.interface import IVideoGPTPredictor
+    write_robodesk(root, 32, TRAIN_B, 16, seed=95)
+    out = os.path.join(root, "lora_run")
+    recipe = ["--pretrained_model_name_or_path", hub,
+              "--pretrained_transformer_path", free, "--load_internal_llm",
+              "--llm_config", "base", "--action_conditioned",
+              "--action_dim", str(VP2_A), "--mixed_precision", "bf16",
+              "--attention_dropout", str(DROP_P), "--embed_no_wd",
+              "--weight_decay", "0.01", "--batch_size", str(TRAIN_B),
+              "--gradient_accumulation_steps", "1", "--learning_rate", "1e-4",
+              "--lr_scheduler_type", "cosine", "--num_warmup_steps", "0",
+              "--dataset_name", "vp2_robodesk", "--dataset_path", root,
+              "--resolution", "64", "--dataloader_num_workers", "16",
+              "--video_stepsize", "1", "--segment_length", str(VP2_SEG),
+              "--context_length", str(CTX), "--use_eval_dataset",
+              "--use_fvd", "--use_frame_metrics",
+              "--validation_eval_batches", "1", "--log_steps", "1",
+              "--seed", "0", "--lora", "--lora_r", str(LORA_R),
+              "--lora_alpha", str(LORA_ALPHA), "--output_dir", out]
+    keys, per_step, drops = [], [], []
+    restore = recording_steps(train_gpt, "lora_train_step", keys, per_step)
+    real_drop = fa._drop_args
+
+    def drop_recording(dropout):
+        drops.append(dropout)
+        return real_drop(dropout)
+    fa._drop_args = drop_recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        train_gpt.main(recipe + [
+            "--max_train_steps", str(LORA_CKPT), "--checkpointing_steps",
+            str(LORA_CKPT), "--validation_steps", "100000"])
+        t1 = time.time()
+        live = train_gpt.main(recipe + [
+            "--max_train_steps", str(LORA_STEPS), "--checkpointing_steps",
+            str(LORA_STEPS), "--validation_steps", str(LORA_STEPS),
+            "--resume_from_checkpoint", "latest"])
+        torch.cuda.synchronize()
+        t2 = time.time()
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        restore()
+        fa._drop_args = real_drop
+    adapters = live.model
+    n_adapt = sum(p.numel() for p in adapters.parameters())
+    print(f"train_gpt_lora: two runs (1-{LORA_CKPT}, then resumed "
+          f"{LORA_CKPT + 1}-{LORA_STEPS}) in {t1 - t0:.1f} s and "
+          f"{t2 - t1:.1f} s, models, loaders, a validation and checkpoints "
+          f"included; {len(adapters.names())} adapter pairs of rank "
+          f"{adapters.rank}, {n_adapt / 1e6:.3f}M parameters; launches "
+          f"{json.dumps(launches)}; peak memory {peak:.2f} GiB")
+    check(keys == [(0, i) for i in range(LORA_STEPS)],
+          f"train_gpt_lora: the steps' dropout keys are {keys[:3]}..., not "
+          f"(seed, global step) across the resume")
+    want = {"vq_argmin": 0, "flash_attention_fwd": 12,
+            "flash_attention_bwd_dkv": 12, "flash_attention_bwd_dq": 12}
+    for i, got in enumerate(per_step):
+        check(all(got[k] == n for k, n in want.items())
+              and sum(got.values()) == 36,
+              f"train_gpt_lora: step {i} launched {got}")
+    expect = dict(dict.fromkeys(launches, 0),
+                  vq_argmin=2 * LORA_STEPS + 10,
+                  flash_attention_fwd=12 * LORA_STEPS + 72,
+                  flash_attention_bwd_dkv=12 * LORA_STEPS,
+                  flash_attention_bwd_dq=12 * LORA_STEPS)
+    check(launches == expect, f"train_gpt_lora: launches {launches}, not "
+          f"{expect}")
+    dropped = [d for d in drops if d is not None and d[0] > 0]
+    check(sorted(dropped) == sorted(
+        (DROP_P, 0, philox.offset_of(i, layer)) for i in range(LORA_STEPS)
+        for layer in range(12) for _ in range(3)),
+        "train_gpt_lora: the kernels' dropout arguments are not (0.1, seed, "
+        "offset_of(step, layer)) for K4, K5 and K6 of every step")
+    metrics = cli_metrics(out)
+    finite_metrics(metrics, "train_gpt_lora")
+    val = [m for m in metrics if "eval_loss" in m]
+    check([m["step"] for m in val] == [LORA_STEPS]
+          and "gen_fvd" in val[0] and val[0]["gen_generated"] == TRAIN_B,
+          f"train_gpt_lora: validations {val}")
+    for step in (LORA_CKPT, LORA_STEPS):
+        held = st.load_file(os.path.join(out, f"checkpoint-{step}",
+                                         ckpt.STATE_TENSORS))
+        check(all(k.startswith(("model/a.", "model/b.", "optimizer/"))
+                  for k in held), f"train_gpt_lora: checkpoint-{step} holds "
+              f"more than the adapters and their AdamW state")
+        size = sum(v.numel() * v.element_size() for v in held.values())
+    print(f"train_gpt_lora: checkpoint-{LORA_STEPS} holds {len(held)} "
+          f"tensors, {size / 2**20:.2f} MiB (adapters and AdamW state); "
+          f"validation at {LORA_STEPS} on the merged weights: "
+          + json.dumps({k: val[0][k] for k in
+                        ("eval_loss", "gen_mse", "gen_psnr", "gen_fvd",
+                         "validation_seconds")}))
+
+    # the export: the base as warm-started, the adapters beside it
+    args = train_gpt.parse_args(recipe + ["--max_train_steps",
+                                          str(LORA_STEPS)])
+    dev = torch.device("cuda")
+    tokenizer, model = train_gpt.build_models(args, dev)
+    tf_dir = os.path.join(out, "transformer")
+    exported = st.load_file(os.path.join(tf_dir, ckpt.TRANSFORMER_FILE))
+    base_sd = model.state_dict()
+    check(sorted(exported) == sorted(base_sd) and all(
+        torch.equal(exported[k], v.cpu()) for k, v in base_sd.items()),
+        "train_gpt_lora: the exported base differs from the warm start")
+    moved = [float(adapters.b[n].abs().max()) for n in adapters.names()]
+    check(min(moved) > 0, f"train_gpt_lora: {moved.count(0.0)} adapters' b "
+          f"still 0")
+    flat = st.load_file(os.path.join(tf_dir, ckpt.LORA_FILE))
+    check(sorted(flat) == sorted(adapters.flat()) and all(
+        torch.equal(flat[k], v.cpu()) for k, v in adapters.flat().items()),
+        "train_gpt_lora: lora.safetensors differs from the live adapters")
+
+    # resume: a fresh state from checkpoint-10 equals the live one, and so
+    # does one more step from each on the same batch
+    lora.attach(model, adapters)
+    _, fresh_model = train_gpt.build_models(args, dev)
+    fresh = train_gpt.make_train_state(
+        args, train_gpt.build_lora(args, fresh_model))
+    ckpt.restore_train_state(os.path.join(out, f"checkpoint-{LORA_STEPS}"),
+                             fresh)
+    same_train_state(torch, live, fresh, "train_gpt_lora resume")
+    g = torch.Generator(device="cuda").manual_seed(96)
+    px = torch.rand(TRAIN_B, VP2_SEG, 64, 64, 3, device="cuda", generator=g)
+    action = torch.randn(TRAIN_B, VP2_SEG, VP2_A, device="cuda", generator=g)
+    ids, labels = train_gpt.make_tokenize_fn(tokenizer, CTX)(px)
+    batch = {"input_ids": ids, "labels": labels, "action": action}
+    for state, m in ((live, model), (fresh, fresh_model)):
+        train_gpt.lora_train_step(state, m, batch, rng=(0, LORA_STEPS))
+    same_train_state(torch, live, fresh, "train_gpt_lora: the step after "
+                     "resume")
+    del fresh, fresh_model
+    print(f"train_gpt_lora: checkpoint-{LORA_CKPT} and "
+          f"checkpoint-{LORA_STEPS} written; the exported base equals the "
+          f"warm start bit for bit, lora.safetensors the live adapters; "
+          f"every b off 0 (smallest max |b| {min(moved):.3e}); a state "
+          f"restored from checkpoint-{LORA_STEPS} equals the live one "
+          f"(adapters, AdamW moments and counts, counters), and so does the "
+          f"next step from each")
+
+    # the VP2 predictor over the export against the trainer's merged model
+    pred = IVideoGPTPredictor(
+        pretrained_vqgan_name_or_path=os.path.join(hub, "tokenizer"),
+        pretrained_transformer_path=tf_dir, action_dim=VP2_A, lora=True,
+        lora_r=LORA_R, lora_alpha=LORA_ALPHA)
+    fp32 = HeadModelWithAction(model.llm_config, model.head_config)
+    fp32.load_state_dict(lora.base_state_dict(model))
+    lora.attach(fp32.to(dev).eval(), adapters)
+    w_err = 0.0
+    with torch.no_grad():
+        for name, p in pred.model.named_parameters():
+            mod, _, attr = name.rpartition(".")
+            want_w = getattr(fp32.get_submodule(mod), attr)
+            w_err = max(w_err, float((p - want_w).abs().max()
+                                     / want_w.abs().max().clamp_min(1e-30)))
+        model.eval()
+        tf = {what: m(ids[:2], None, action[:2])["logits"]
+              for what, m in (("predictor", pred.model), ("fp32", fp32),
+                              ("bf16", model))}
+    e_fp32 = float((tf["predictor"] - tf["fp32"]).abs().max())
+    e_bf16 = float((tf["predictor"] - tf["bf16"]).norm()
+                   / tf["predictor"].norm())
+    check(w_err < 1e-6, f"train_gpt_lora: a folded weight is {w_err:.3e} of "
+          f"its largest element from the merged weight")
+    check(e_fp32 < 1e-3, f"train_gpt_lora: the predictor's teacher-forced "
+          f"logits are {e_fp32:.3e} from the merged model's in fp32")
+    check(e_bf16 < 3e-2, f"train_gpt_lora: the predictor's teacher-forced "
+          f"logits are {e_bf16:.3e} (relative L2) from the trainer's bf16 "
+          f"merged model's")
+    print(f"train_gpt_lora: IVideoGPTPredictor(lora=True, lora_r={LORA_R}, "
+          f"lora_alpha={LORA_ALPHA:g}) folds the export: weights within "
+          f"{w_err:.3e} of the merged ones (relative to each tensor's "
+          f"largest), teacher-forced logits {e_fp32:.3e} (max abs) from the "
+          f"merged model in fp32 and {e_bf16:.3e} (relative L2) from the "
+          f"trainer's bf16 model")
+    pred.close()
+    del pred, fp32, tf
+
+    # a LoRA step against a full step on one batch, in-process
+    ms_cli = steady_ms(metrics)
+
+    def timed(step):
+        for i in range(2):
+            step(LORA_STEPS + 1 + i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        for i in range(5):
+            step(LORA_STEPS + 3 + i)
+        torch.cuda.synchronize()
+        return ((time.time() - t) / 5 * 1e3,
+                torch.cuda.max_memory_allocated() / 2**30)
+    model.train()
+    lora_ms, lora_peak = timed(lambda i: train_gpt.lora_train_step(
+        live, model, batch, rng=(0, i)))
+    lora_bytes = optimizer_bytes(live)
+    lora.detach(model).requires_grad_(True)
+    args.lora = False            # the same recipe's full run
+    full = train_gpt.make_train_state(args, model)
+    full_ms, full_peak = timed(lambda i: train_gpt.train_step(
+        full, batch, rng=(0, i)))
+    full_bytes = optimizer_bytes(full)
+    print(f"train_gpt_lora: the CLI's steady ms/step {ms_cli:.2f} (median of "
+          f"the last 3 logged steps); on one batch in-process (B={TRAIN_B}, "
+          f"L={ids.shape[1]}, the tokenize outside): LoRA step "
+          f"{lora_ms:.2f} ms, peak {lora_peak:.2f} GiB, AdamW state "
+          f"{lora_bytes / 2**20:.2f} MiB; full step {full_ms:.2f} ms, peak "
+          f"{full_peak:.2f} GiB, AdamW state {full_bytes / 2**20:.2f} MiB "
+          f"({card_line()})")
+    del live, full, model, tokenizer, batch, adapters
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_gpt_recipe(torch, root, hub, which):
+    """A pretrain recipe's GPT stage through the CLI in-process, RECIPE_STEPS
+    steps, no checkpoint or validation: ``which`` "256" is
+    ``scripts/pretrain/oxe-256-act-free.sh:12-20`` (B=4, a frozen fp32
+    TOKENIZER_256 at random weights from the seed, as the JAX driver builds
+    one where the dir has no tokenizer, on the 256 px episodes of
+    ``phase_train_tokenizer_256``), "goal" is
+    ``scripts/pretrain/oxe-64-goal-cond.sh:15-23`` (``--goal_conditioned
+    --segment_length 17``, B=16, the hub's TOKENIZER_64 on 64 px episodes):
+    LLAMA_BASE from the seed, bf16, attention dropout 0.1, act-free, the
+    ``debug`` mix (the recipes' ``select`` mix names OXE sets that are not
+    here). Gates: finite losses; each step's batch [B, L] (L 751 / 768);
+    K4/K5/K6 12 a step with dropout, K1 2 a step outside it. Prints
+    ms/step (median of the last 3 steps), samples/s and peak memory.
+    Returns the run's launches."""
+    from ivideogpt_tpu_torch import train_gpt
+    if which == "256":
+        b, seg, res, L = GPT256_B, T, 256, 257 * CTX - 1 + 17 * (T - CTX)
+        data = os.path.join(root, "tok256_data")
+        tok_hub = os.path.join(root, "no_tokenizer")
+        os.makedirs(tok_hub, exist_ok=True)
+        extra = []
+    else:
+        b, seg, res, L = GOAL_B, GOAL_T, 64, GOAL_L
+        data = write_episodes(os.path.join(root, "goal_data"), 16, 24,
+                              seed=98)
+        tok_hub = os.path.join(root, "goal_hub")
+        os.makedirs(tok_hub, exist_ok=True)
+        if not os.path.exists(os.path.join(tok_hub, "tokenizer")):
+            os.symlink(os.path.join(hub, "tokenizer"),
+                       os.path.join(tok_hub, "tokenizer"))
+        extra = ["--goal_conditioned"]
+    tag = f"train_gpt_{which}"
+    out = os.path.join(root, f"{which}_run")
+    argv = ["--output_dir", out, "--seed", "0", "--mixed_precision", "bf16",
+            "--pretrained_model_name_or_path", tok_hub, "--llm_config",
+            "base", "--batch_size", str(b), "--learning_rate", "1e-4",
+            "--lr_scheduler_type", "cosine", "--dataset_name", "debug",
+            "--resolution", str(res), "--dataloader_num_workers", "16",
+            "--dataset_path", data, "--video_stepsize", "1",
+            "--segment_length", str(seg), "--context_length", str(CTX),
+            "--weight_decay", "0.01", "--attention_dropout", str(DROP_P),
+            "--embed_no_wd", "--max_train_steps", str(RECIPE_STEPS),
+            "--checkpointing_steps", "100000", "--validation_steps",
+            "100000", "--log_steps", "1", *extra]
+    keys, per_step, shapes = [], [], []
+    restore = recording_steps(train_gpt, "train_step", keys, per_step,
+                              shapes)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        state = train_gpt.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        restore()
+    metrics = cli_metrics(out)
+    finite_metrics(metrics, tag)
+    check(len(per_step) == RECIPE_STEPS
+          and all(s_ == {"input_ids": (b, L), "labels": (b, L)}
+                  for s_ in shapes),
+          f"{tag}: the steps' batches {shapes[:2]}, not [{b}, {L}]")
+    for i, got in enumerate(per_step):
+        check(got == dict(dict.fromkeys(got, 0), flash_attention_fwd=12,
+                          flash_attention_bwd_dkv=12,
+                          flash_attention_bwd_dq=12),
+              f"{tag}: step {i} launched {got}")
+    check(launches["vq_argmin"] == 2 * RECIPE_STEPS,
+          f"{tag}: K1 ran {launches['vq_argmin']} times in {RECIPE_STEPS} "
+          f"steps")
+    ms = steady_ms(metrics)
+    n_tok = sum(p.numel() for p in state.model.parameters())
+    print(f"{tag}: {RECIPE_STEPS} steps in {wall:.1f} s (models and loaders "
+          f"included), batches [{b}, {L}], LM {n_tok / 1e6:.1f}M; losses "
+          f"{[m['loss'] for m in metrics]}; {ms:.2f} ms/step (median of the "
+          f"last 3), {b / ms * 1e3:.2f} samples/s, {b * L / ms * 1e3:.1f} "
+          f"tokens/s, peak memory {peak:.2f} GiB; launches "
+          f"{json.dumps(launches)} ({card_line()})")
+    del state
+    torch.cuda.empty_cache()
+    return launches
 
 def counted_steps(cli, record, sync=False):
     """Wrap the tokenizer CLI's step factories: every step call appends
@@ -5700,14 +6268,24 @@ def main():
                 mark("train_gpt")
                 by_path["eval_gpt"] = phase_eval_gpt(torch, root, hub)
                 mark("eval_gpt")
+                by_path["train_gpt_lora"] = phase_train_gpt_lora(
+                    torch, root, hub, os.path.join(root, "free",
+                                                   "transformer"))
+                mark("train_gpt_lora")
             by_path["train_tokenizer"] = phase_train_tokenizer(torch, root,
                                                                hub)
             mark("train_tokenizer")
             by_path["train_tokenizer_256"] = phase_train_tokenizer_256(
                 torch, root)
             mark("train_tokenizer_256")
-        by_path["train_medium"] = phase_train_medium(torch)
+            for which in ("256", "goal"):
+                by_path[f"train_gpt_{which}"] = phase_train_gpt_recipe(
+                    torch, root, hub, which)
+                mark(f"train_gpt_{which}")
+        by_path["train_medium"], medium = phase_train_medium(torch)
         mark("train_medium")
+        by_path["train_medium_dots"] = phase_train_medium_dots(torch, medium)
+        mark("train_medium_dots")
         by_path["train_gpt_check"] = phase_train_check(torch, dropout=True)
         mark("train_gpt check")
     except PhaseError as e:
@@ -5726,7 +6304,12 @@ def main():
           f"eval_gpt: the --eval_only run, {EVAL_BATCHES} batches of "
           f"{EVAL_B} x {EVAL_REPS} samples; "
           f"train_tokenizer_256: the CLI's {TT256_STEPS} micro-steps; "
-          f"train_medium: the {MEDIUM_TIMED} timed steps; train_gpt_check: "
+          f"train_gpt_lora: the --lora CLI's two runs, {LORA_STEPS} steps "
+          f"and a validation; train_gpt_256, train_gpt_goal: the recipe's "
+          f"{RECIPE_STEPS} CLI steps; "
+          f"train_medium: the {MEDIUM_TIMED} timed steps; train_medium_dots: "
+          f"the {MEDIUM_TIMED} timed steps under remat 'none' and the "
+          f"{MEDIUM_TIMED} under 'dots'; train_gpt_check: "
           f"one step; mbpo: the MBPO CLI's run; drq: the DrQ-v2 run; "
           f"rollout_int8_detok, rollout_int8_static, rollout_mixed, "
           f"rollout_grouped: the first B={B} rollout of each; vp2_int8: "
@@ -5745,6 +6328,11 @@ def main():
                "train_tokenizer_run": ("train_tokenizer", 1),
                "train_tokenizer_256_run": ("train_tokenizer_256", 1),
                "train_medium_step": ("train_medium", MEDIUM_TIMED),
+               "train_medium_dots_step": ("train_medium_dots",
+                                          2 * MEDIUM_TIMED),
+               "train_gpt_lora_run": ("train_gpt_lora", 1),
+               "train_gpt_256_step": ("train_gpt_256", RECIPE_STEPS),
+               "train_gpt_goal_step": ("train_gpt_goal", RECIPE_STEPS),
                "train_gpt_check": ("train_gpt_check", 1),
                "mbpo_run": ("mbpo", 1), "drq_run": ("drq", 1),
                "rollout_int8_detok": ("rollout_int8_detok", 1),
@@ -5760,7 +6348,9 @@ def main():
             flash["K4_vp2_prefill"], flash["K5"], flash["K5_mbrl_train"],
             flash["K6"], flash["K6_mbrl_train"],
             *(flash[f"{k}_{tag}"] for tag in ("train_dropout",
-                                               "medium_dropout", "train_fp32")
+                                               "medium_dropout", "train_fp32",
+                                               "oxe256_dropout",
+                                               "goal_dropout")
               for k in ("K4", "K5", "K6")))
     for r in rows:
         # launches: all the path runs read (the first rollouts + the timed

@@ -28,19 +28,29 @@ recipe) acts in the training forward only, inside the attention kernels:
 stream ``(seed, offset_of(step, i))`` (``ops/philox.py``), a pure function
 of (seed, step, layer), so a remat recompute and a resumed run draw the
 same masks. ``eval()`` never drops.
-The "dots" remat policy is not in this port. The JAX package's ``ghdm``
+Remat (``config.remat``) recomputes each layer in the backward through a
+non-reentrant ``torch.utils.checkpoint``: with ``remat_policy`` "none"
+the whole layer, with "dots" everything but the outputs of the matrix
+products without batch dimensions (``aten.mm``, ``aten.addmm``: the seven
+projections a layer), which are kept, as
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` keeps them;
+the norms, RoPE, SiLU * up, the residual adds and the attention (the
+kernels, or the plain version's batched products) are recomputed, as
+under JAX, where a ``pallas_call`` is no dot. The JAX package's ``ghdm``
 cache is its TPU kernel's own transposed layout; K3 serves the same
 attention on ``bshd``.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ivideogpt_tpu_torch.configs import TransformerConfig
 from ivideogpt_tpu_torch.models.layers import Dense
@@ -52,6 +62,25 @@ from ivideogpt_tpu_torch.tokens import IGNORE_INDEX
 Cache = List[Dict[str, torch.Tensor]]
 # (seed, step) of one training step's attention dropout
 DropoutKey = Tuple[int, int]
+
+
+# the "dots" policy's kept products: 2-D matrix products (with a bias)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kwargs(policy: str) -> dict:
+    """``checkpoint``'s arguments for a remat policy."""
+    if policy == "none":
+        return {"use_reentrant": False}
+    if policy == "dots":
+        return {"use_reentrant": False, "context_fn": partial(
+            create_selective_checkpoint_contexts, _keep_dots)}
+    raise ValueError(f"remat_policy {policy!r}: 'none' or 'dots'")
 
 
 def _rotate_half(x):
@@ -263,15 +292,13 @@ class LlamaForCausalLM(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         """Full training/eval forward over positions 0..S-1, no cache.
         Returns dict(logits fp32[, loss][, hidden_states]); with
-        ``config.remat`` each layer is recomputed in the backward. In
+        ``config.remat`` each layer is recomputed in the backward, as its
+        ``remat_policy`` says (the module docstring). In
         ``train()`` with ``config.attention_dropout > 0`` the step's
         ``dropout_key`` (seed, step) is required: layer i drops with the
         Philox stream (seed, offset_of(step, i))."""
         c = self.config
-        if c.remat and c.remat_policy != "none":
-            raise NotImplementedError(
-                f"remat_policy {c.remat_policy!r}: only 'none' (recompute "
-                f"the whole layer) is ported")
+        remat = _remat_kwargs(c.remat_policy) if c.remat else None
         drop = self.training and c.attention_dropout > 0
         if drop and dropout_key is None:
             raise ValueError(
@@ -287,10 +314,9 @@ class LlamaForCausalLM(nn.Module):
         for i, layer in enumerate(self.model.layers):
             dropout = ((c.attention_dropout, dropout_key[0],
                         offset_of(dropout_key[1], i)) if drop else None)
-            if c.remat and torch.is_grad_enabled():
+            if remat and torch.is_grad_enabled():
                 # the recompute draws the same mask: it is (seed, step, i)'s
-                x = checkpoint(layer, x, cos, sin, None, 0, dropout,
-                               use_reentrant=False)
+                x = checkpoint(layer, x, cos, sin, None, 0, dropout, **remat)
             else:
                 x = layer(x, cos, sin, dropout=dropout)
         hidden = self.model.norm(x)

@@ -13,6 +13,11 @@ attention), clip and take an AdamW step.
 Compute is bf16 over fp32 master parameters by default, as ``train_gpt.py``
 builds it: the LM's parameters stay fp32 and each layer casts them to bf16
 at use, so gradients and AdamW run on the fp32 masters.
+
+The LoRA step (``lora_train_step``, the counterpart of
+``ivideogpt_tpu/train/lora.py``'s ``make_lora_train_step``) trains only the
+adapters a model carries (``train/lora.attach``) through the merged
+weights; its state (``create_lora_train_state``) decays every adapter.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from ivideogpt_tpu_torch.configs import (LLAMA_BASE, TOKENIZER_64,
 from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
 from ivideogpt_tpu_torch.models.llama import DropoutKey
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+from ivideogpt_tpu_torch.train.lora import LoraAdapters
 from ivideogpt_tpu_torch.train.optim import TrainState, global_norm
 from ivideogpt_tpu_torch.utils.platform import full_fp32, resolve_device
 
@@ -68,10 +74,23 @@ def create_train_state(model: HeadModelWithAction,
                        cfg: GPTTrainConfig) -> TrainState:
     """AdamW, schedule, clipping and accumulation from the trainer config,
     as ``train_gpt.py`` passes them to ``make_optimizer``."""
+    return _state(model, cfg, cfg.embed_no_wd)
+
+
+def create_lora_train_state(adapters: LoraAdapters,
+                            cfg: GPTTrainConfig) -> TrainState:
+    """The LoRA run's state: AdamW over the adapters alone with the
+    config's schedule, clipping and accumulation, every adapter decayed
+    (the JAX driver's ``make_optimizer(..., embed_no_wd=False)``, so the
+    ``embed_tokens`` pair is not exempt)."""
+    return _state(adapters, cfg, embed_no_wd=False)
+
+
+def _state(model, cfg: GPTTrainConfig, embed_no_wd: bool) -> TrainState:
     return TrainState(
         model, learning_rate=cfg.learning_rate, lr_scheduler=cfg.lr_scheduler,
         warmup_steps=cfg.lr_warmup_steps, total_steps=cfg.max_train_steps,
-        weight_decay=cfg.weight_decay, embed_no_wd=cfg.embed_no_wd,
+        weight_decay=cfg.weight_decay, embed_no_wd=embed_no_wd,
         b1=cfg.adam_beta1, b2=cfg.adam_beta2, eps=cfg.adam_epsilon,
         max_grad_norm=cfg.max_grad_norm,
         gradient_accumulation_steps=cfg.gradient_accumulation_steps)
@@ -106,6 +125,24 @@ def train_step(state: TrainState, batch: Batch,
     state.apply_gradients()
     loss = loss.detach()
     return {"loss": loss, "grad_norm": gnorm, "perplexity": torch.exp(loss)}
+
+
+def lora_train_step(state: TrainState, model: HeadModelWithAction,
+                    batch: Batch, rng: Optional[DropoutKey] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """One micro-batch of a LoRA run: ``model`` carries the adapters that
+    ``state`` trains (``train/lora.attach``), so its forward reads the
+    merged weights and the backward reaches only the adapters; then
+    ``state.apply_gradients``. ``batch`` and ``rng`` as in
+    :func:`train_step`. Returns 0-dim tensors: loss and perplexity, the
+    JAX step's metrics."""
+    model.train()
+    loss = model(batch["input_ids"], batch["labels"], batch.get("action"),
+                 dropout_key=rng)["loss"]
+    loss.backward()
+    state.apply_gradients()
+    loss = loss.detach()
+    return {"loss": loss, "perplexity": torch.exp(loss)}
 
 
 @torch.no_grad()

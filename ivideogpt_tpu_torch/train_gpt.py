@@ -1,9 +1,10 @@
 """Token-transformer training driver, the port of ``train_gpt.py``: frozen-
 tokenizer pixel tokenization, LLaMA next-token training with optional
 action conditioning and attention dropout, cosine/warmup schedules,
-grouped weight decay, validation with generation, FVD and best-of-t frame
-metrics (also alone, ``--eval_only``), train-state checkpoints with resume,
-and the transformer exported in the hub layout.
+grouped weight decay, LoRA adapters (``--lora``), validation with
+generation, FVD and best-of-t frame metrics (also alone, ``--eval_only``),
+train-state checkpoints with resume, and the transformer exported in the
+hub layout.
 
     python -m ivideogpt_tpu_torch.train_gpt \\
         --pretrained_model_name_or_path <dir with tokenizer/> \\
@@ -37,10 +38,17 @@ Differences from the JAX driver, each on purpose:
   file raises, where the JAX loader keeps the random weights. Without a
   weights file I3D and LPIPS run at random weights from seed 0, with the
   JAX driver's warnings.
-- Not ported, and refused with the ROADMAP item that holds them: LoRA
-  training (``--lora``, Queue 1 item 5), more than one process or
-  ``--n_model > 1`` (Queue 1 item 10), the Something-Something mixes
-  (raised by the loader).
+- ``--lora`` trains adapters over the frozen base, as the JAX driver
+  does, but everything after the step reads the adapters too, where the
+  JAX driver reads the untouched base (``train_gpt.py:557-632``): the
+  validation and its generation run on the merged weights;
+  ``checkpoint-{step}`` holds the adapters, their AdamW state and the
+  counters, so a resume continues the run; the export writes
+  ``transformer/lora.safetensors`` (the file ``vp/interface`` folds)
+  beside the base's unchanged ``model.safetensors``.
+- Not ported, and refused with the ROADMAP item that holds them: more
+  than one process or ``--n_model > 1`` (Queue 1 item 10), the
+  Something-Something mixes (raised by the loader).
 - Metrics go to ``{output_dir}/metrics.jsonl`` (no TensorBoard), with
   ``step_ms`` and ``loader_wait_ms`` (the loop's wait on the loader a step)
   beside ``samples_per_sec`` at each log, and ``validation_seconds``.
@@ -57,6 +65,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.nn.utils import parametrize
 
 from ivideogpt_tpu_torch import generation
 from ivideogpt_tpu_torch import tokens as token_lib
@@ -72,7 +81,9 @@ from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
 from ivideogpt_tpu_torch.models.i3d import I3D, load_torch_i3d
 from ivideogpt_tpu_torch.models.lpips import LPIPS, load_torch_lpips
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+from ivideogpt_tpu_torch.train import lora
 from ivideogpt_tpu_torch.train.gpt_trainer import (eval_step,
+                                                   lora_train_step,
                                                    make_tokenize_fn,
                                                    train_step)
 from ivideogpt_tpu_torch.train.optim import TrainState
@@ -110,7 +121,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--gradient_checkpointing", action="store_true",
                    help="recompute each LM layer in the backward")
     p.add_argument("--lora", action="store_true",
-                   help="not ported (ROADMAP Queue 1 item 5): raises")
+                   help="train LoRA adapters over the frozen transformer")
     p.add_argument("--lora_r", type=int, default=8)
     p.add_argument("--lora_alpha", type=float, default=16.0)
     # data
@@ -197,9 +208,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def refuse_unported(args):
     """Raise on the flags whose paths the port does not have."""
-    if args.lora:
-        raise NotImplementedError(
-            "--lora: LoRA training is not ported (ROADMAP Queue 1 item 5)")
     if (args.n_model != 1 or (args.num_processes or 1) > 1
             or args.coordinator_address or args.process_id):
         raise NotImplementedError(
@@ -380,30 +388,53 @@ def evaluate(args, tokenizer: CompressiveVQModel, model: HeadModelWithAction,
 
 
 def export_transformer(output_dir: str, model: HeadModelWithAction,
-                       lm_cfg: TransformerConfig):
+                       lm_cfg: TransformerConfig,
+                       adapters: Optional[lora.LoraAdapters] = None):
     """``{output_dir}/transformer/model.safetensors`` (the whole
-    HeadModelWithAction, fp32 masters) and ``config.json`` (the LLaMA's
-    config), as ``train_gpt.py:626-636`` writes them."""
+    HeadModelWithAction, fp32 masters; with LoRA the frozen base) and
+    ``config.json`` (the LLaMA's config), as ``train_gpt.py:626-636``
+    writes them; with ``adapters``, also ``lora.safetensors`` beside them
+    (an older one is removed otherwise)."""
     tf_dir = os.path.join(output_dir, "transformer")
-    safetensors.save_file(model.state_dict(),
+    safetensors.save_file(lora.base_state_dict(model),
                           os.path.join(tf_dir, ckpt.TRANSFORMER_FILE))
     with open(os.path.join(tf_dir, "config.json"), "w") as f:
         f.write(lm_cfg.to_json())
+    lora_path = os.path.join(tf_dir, ckpt.LORA_FILE)
+    if adapters is not None:
+        lora.save_lora(adapters, lora_path)
+    elif os.path.exists(lora_path):
+        os.remove(lora_path)
 
 
-def make_train_state(args, model: HeadModelWithAction) -> TrainState:
+def build_lora(args, model: HeadModelWithAction) -> lora.LoraAdapters:
+    """Rank --lora_r adapters at scale --lora_alpha / --lora_r for the
+    (warm-started) model, ``a`` drawn from --seed; attached, so the model
+    computes on the merged weights and its base is frozen
+    (``train_gpt.py:439-454``)."""
+    adapters = lora.init_lora(model, torch.Generator().manual_seed(args.seed),
+                              rank=args.lora_r, alpha=args.lora_alpha)
+    lora.attach(model, adapters)
+    return adapters
+
+
+def make_train_state(args, trained) -> TrainState:
+    """The run's TrainState over ``trained``: the model, or with --lora its
+    adapters, all of which decay (``train_gpt.py:444-450``)."""
     return TrainState(
-        model, learning_rate=args.learning_rate,
+        trained, learning_rate=args.learning_rate,
         lr_scheduler=args.lr_scheduler_type,
         warmup_steps=args.num_warmup_steps, total_steps=args.max_train_steps,
-        weight_decay=args.weight_decay, embed_no_wd=args.embed_no_wd,
+        weight_decay=args.weight_decay,
+        embed_no_wd=args.embed_no_wd and not args.lora,
         max_grad_norm=args.max_grad_norm,
         gradient_accumulation_steps=args.gradient_accumulation_steps)
 
 
 def main(argv: Optional[List[str]] = None):
     """Train (or, with --eval_only, evaluate). Returns the TrainState at
-    the end of training, or the evaluation's result."""
+    the end of training (with --lora, over the adapters), or the
+    evaluation's result."""
     args = parse_args(argv)
     refuse_unported(args)
     dev = resolve_device(args.device)
@@ -427,7 +458,10 @@ def main(argv: Optional[List[str]] = None):
         print(json.dumps(result))
         return result
 
-    state = make_train_state(args, model)
+    adapters = None
+    if args.lora:
+        adapters = build_lora(args, model)
+    state = make_train_state(args, adapters if args.lora else model)
     global_step = 0
     if args.resume_from_checkpoint:
         path = (ckpt.latest_checkpoint(args.output_dir)
@@ -506,13 +540,19 @@ def main(argv: Optional[List[str]] = None):
         logger.log(agg, step)
 
     n_params = sum(p.numel() for p in state.params)
-    print(f"training on {dev}; LM params {n_params / 1e6:.1f}M")
+    print(f"training on {dev}; LM params "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M, "
+          f"trained {n_params / 1e6:.3f}M")
     t_end, wait_end = time.time(), loader.wait_s
     for batch in loader:
         if global_step >= args.max_train_steps:
             break
-        metrics = train_step(state, device_batch(batch),
-                             rng=(args.seed, global_step))
+        if args.lora:
+            metrics = lora_train_step(state, model, device_batch(batch),
+                                      rng=(args.seed, global_step))
+        else:
+            metrics = train_step(state, device_batch(batch),
+                                 rng=(args.seed, global_step))
         global_step += 1
 
         if global_step % args.log_steps == 0:
@@ -526,7 +566,9 @@ def main(argv: Optional[List[str]] = None):
             logger.log(metrics, global_step)
 
         if global_step % args.validation_steps == 0:
-            run_validation(global_step)
+            # with --lora on the merged weights, each merged once
+            with parametrize.cached():
+                run_validation(global_step)
 
         if global_step % args.checkpointing_steps == 0:
             # only on a sane loss (train_gpt.py:622)
@@ -534,7 +576,7 @@ def main(argv: Optional[List[str]] = None):
                     or global_step <= args.checkpointing_steps):
                 ckpt.save_train_state(args.output_dir, global_step, state,
                                       keep=args.checkpoints_total_limit)
-                export_transformer(args.output_dir, model, lm_cfg)
+                export_transformer(args.output_dir, model, lm_cfg, adapters)
 
     loader.close()
     if isinstance(val_loader, InfiniteDataLoader):

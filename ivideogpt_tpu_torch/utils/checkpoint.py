@@ -347,6 +347,9 @@ def action_model_flax_path(name: str) -> str:
 
 TOKENIZER_FILE = "diffusion_pytorch_model.safetensors"
 TRANSFORMER_FILE = "model.safetensors"
+# LoRA adapters beside a transformer's weights (``train/lora.py``): the
+# transformer loaders below read the weights without it
+LORA_FILE = "lora.safetensors"
 HEADS = ("action_linear", "reward_linear", "action_recon_linear")
 StateDict = Dict[str, torch.Tensor]
 
@@ -455,8 +458,8 @@ def load_tokenizer_safetensors(path: str) -> StateDict:
 def load_llama_safetensors(path: str, alpha: Optional[float] = None,
                            rank: Optional[int] = None) -> StateDict:
     """A bare LlamaForCausalLM file (peft-wrapped: pass alpha and rank)."""
-    return llama_names(merge_peft_state_dict(safetensors.load(path), alpha,
-                                             rank))
+    return llama_names(merge_peft_state_dict(
+        safetensors.load(path, skip=(LORA_FILE,)), alpha, rank))
 
 
 def load_llm_only_safetensors(path: str, alpha: Optional[float] = None,
@@ -464,7 +467,8 @@ def load_llm_only_safetensors(path: str, alpha: Optional[float] = None,
     """Only the LLaMA of a transformer file: a bare-LLaMA file as it is, or
     the ``llm.`` subtree of a HeadModelWithAction export (its heads
     dropped)."""
-    sd = merge_peft_state_dict(safetensors.load(path), alpha, rank)
+    sd = merge_peft_state_dict(safetensors.load(path, skip=(LORA_FILE,)),
+                               alpha, rank)
     if any(k.startswith("llm.") for k in sd):
         sd = {k[len("llm."):]: v for k, v in sd.items()
               if k.startswith("llm.")}
@@ -475,7 +479,10 @@ def load_action_model_safetensors(path: str,
                                   lora_alpha: Optional[float] = None,
                                   lora_rank: Optional[int] = None
                                   ) -> StateDict:
-    return action_model_names(safetensors.load(path), lora_alpha, lora_rank)
+    """A HeadModelWithAction's state dict from a transformer file or
+    directory (a directory's ``lora.safetensors`` is not read)."""
+    return action_model_names(safetensors.load(path, skip=(LORA_FILE,)),
+                              lora_alpha, lora_rank)
 
 
 def tokenizer_config_from_hub(d: dict) -> CompressiveVQConfig:

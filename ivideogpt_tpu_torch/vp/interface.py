@@ -38,8 +38,6 @@ from ivideogpt_tpu_torch.utils import safetensors
 from ivideogpt_tpu_torch.utils.platform import (full_fp32, resolve_device,
                                                 to_device)
 
-LORA_FILE = "lora.safetensors"
-
 
 def _load_from_checkpoints(vqgan_path: str, transformer_path: str,
                            config_name: Optional[str], *, action_dim: int,
@@ -69,7 +67,7 @@ def _load_from_checkpoints(vqgan_path: str, transformer_path: str,
         ckpt.read_json(config_name
                        or os.path.join(transformer_path, "config.json")),
         vocab_size=tok_cfg.vocab_size)
-    raw = safetensors.load(transformer_path, skip=(LORA_FILE,))
+    raw = safetensors.load(transformer_path, skip=(ckpt.LORA_FILE,))
     peft_wrapped = ckpt.is_peft_state_dict(raw)
     if peft_wrapped and not lora:
         # the fold needs alpha/r, which the file does not record
@@ -85,7 +83,7 @@ def _load_from_checkpoints(vqgan_path: str, transformer_path: str,
         segment_length=segment_length))
     model.load_state_dict(sd)
     if lora and not peft_wrapped:
-        lora_path = os.path.join(transformer_path, LORA_FILE)
+        lora_path = os.path.join(transformer_path, ckpt.LORA_FILE)
         if os.path.exists(lora_path):
             lora_lib.merge(model, safetensors.load_file(lora_path),
                            alpha=lora_alpha, rank=lora_r)

@@ -123,14 +123,11 @@ def test_remat_gives_the_same_gradients(heads_lm):
 
 
 def test_unported_training_options_raise(heads_lm):
-    """The "dots" remat policy is not ported; attention dropout in
-    train() needs the step's dropout key, and runs with one."""
+    """Attention dropout in train() needs the step's dropout key, and runs
+    with one (the "dots" remat policy, once refused here, is ported:
+    tests/test_torch_remat_dots.py)."""
     _, _, port = heads_lm
     ids, labels, act = _batch(3)
-    m = TorchHead(port.llm_config.replace(remat=True, remat_policy="dots"),
-                  port.head_config).train()
-    with pytest.raises(NotImplementedError):
-        m(ids, labels, torch.from_numpy(act))
     m = TorchHead(port.llm_config.replace(attention_dropout=0.1),
                   port.head_config).train()
     with pytest.raises(ValueError, match="dropout_key"):

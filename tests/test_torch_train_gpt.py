@@ -17,7 +17,18 @@ made here:
   streams: the loss, the best-of-t frame metrics and FVD agree; the
   validations of a training run carry them as ``gen_*``;
 - the flags of paths the port does not have raise, and so does an
-  ``--i3d_weights`` file that does not exist.
+  ``--i3d_weights`` file that does not exist;
+- ``--lora``: a run checkpointed and resumed equals an uninterrupted one
+  (adapters, AdamW, counters); the base export stays bit-equal to the
+  warm start and ``lora.safetensors`` beside it, folded by
+  ``vp/interface``, gives the trainer's merged model; the validation's loss
+  is the merged model's, not the base's;
+- the GPT stage of ``scripts/pretrain/oxe-256-act-free.sh`` (``--resolution
+  256`` over a narrow five-level 256 px tokenizer hub) and
+  ``scripts/pretrain/oxe-64-goal-cond.sh`` (``--goal_conditioned
+  --segment_length 17``), one step each through the CLI, against the JAX
+  package's tokenizer and ``make_train_step`` on the same pixels, weights
+  and dropout masks.
 """
 
 import importlib.util
@@ -31,10 +42,17 @@ import numpy as np
 import pytest
 import torch
 
+from ivideogpt_tpu import configs as jax_configs
 from ivideogpt_tpu import generation as jax_generation
 from ivideogpt_tpu.data import EvalDataLoader as JaxEvalDataLoader
 from ivideogpt_tpu.models.i3d import I3D as JaxI3D
+from ivideogpt_tpu.models.action_model import \
+    HeadModelWithAction as JaxHead
 from ivideogpt_tpu.models.lpips import LPIPS as JaxLPIPS
+from ivideogpt_tpu.models.tokenizer import \
+    CompressiveVQModel as JaxTokenizer
+from ivideogpt_tpu.train import gpt_trainer as jtrain
+from ivideogpt_tpu.train import optim as joptim
 from ivideogpt_tpu.utils import checkpoint as jax_ckpt
 from ivideogpt_tpu_torch import generation, train_gpt
 from ivideogpt_tpu_torch import rollout as ro
@@ -44,9 +62,12 @@ from ivideogpt_tpu_torch.models.i3d import I3D
 from ivideogpt_tpu_torch.models.lpips import VGG_FEATURE_CONVS, LPIPS
 from ivideogpt_tpu_torch.models.llama import LlamaForCausalLM
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+from ivideogpt_tpu_torch.train import lora
 from ivideogpt_tpu_torch.train.optim import TrainState
 from ivideogpt_tpu_torch.utils import checkpoint as ckpt
 from ivideogpt_tpu_torch.utils import safetensors
+from ivideogpt_tpu_torch.vp import interface as vp_interface
+from tests.test_torch_flash_dropout import _patched_bernoulli, _port_masks
 
 # tools/make_fake_hub.py's tiny geometry: 64 px frames at toy width
 TOK = CompressiveVQConfig(
@@ -302,8 +323,7 @@ def test_bair_eval_split_validates_and_evaluates(root, tmp_path, monkeypatch):
     assert result["perplexity"] == pytest.approx(np.exp(result["eval_loss"]))
 
 
-@pytest.mark.parametrize("extra", [["--lora"],
-                                   ["--n_model", "2"],
+@pytest.mark.parametrize("extra", [["--n_model", "2"],
                                    ["--num_processes", "2"]])
 def test_unported_flags_raise(root, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="Queue 1 item"):
@@ -328,6 +348,257 @@ def test_reference_flag_spellings_parse(root, tmp_path):
             args.llm_config_json, args.batch_size) == ("bair", True, 0.2,
                                                        "c.json", 4)
     assert args.device == "cuda" and args.mixed_precision == "no"
+
+
+def _one_episode(root, frames=4, size=64):
+    """One episode of exactly ``frames`` frames, as the held-out split's
+    file and the training split's: with ``--no_aug`` every batch is that
+    clip, whatever the loader's seed."""
+    data = root / "cmu_stretch"
+    data.mkdir(parents=True)
+    rng = np.random.default_rng(4)
+    episode = {"image": rng.integers(0, 256, (frames, size, size, 3),
+                                     dtype=np.uint8),
+               "action": rng.normal(size=(frames, 4)).astype(np.float32)}
+    for e in range(2):
+        np.savez(data / f"episode_{e:03d}.npz", **episode)
+    return root
+
+
+def test_lora_run_resumes_exports_and_validates_on_the_merged_model(
+        root, tmp_path, monkeypatch):
+    data = _one_episode(tmp_path / "data")
+    evals = []
+    real_eval = train_gpt.eval_step
+
+    def recording(model, batch):
+        m = real_eval(model, batch)
+        evals.append(({k: v.clone() for k, v in batch.items()},
+                      float(m["loss"])))
+        return m
+    monkeypatch.setattr(train_gpt, "eval_step", recording)
+
+    def argv(out, steps, *extra):
+        a = _argv(root, out, "--lora", "--lora_r", "4", "--lora_alpha", "8",
+                  "--no_aug", "--learning_rate", "1e-3", "--max_train_steps",
+                  str(steps), "--checkpointing_steps", str(steps), *extra)
+        a[a.index("--dataset_path") + 1] = str(data)
+        return a
+    whole = tmp_path / "whole"
+    live = train_gpt.main(argv(whole, 4, "--validation_steps", "4",
+                               "--validation_eval_batches", "1"))
+    assert isinstance(live.model, lora.LoraAdapters)
+    assert live.step == live.updates == 4
+    assert all(g["weight_decay"] == 0.01
+               for g in live.optimizer.param_groups)
+    assert len(evals) == 5   # 4 held-out batches, the generation batch's
+    val = [m for m in _metrics(whole) if "eval_loss" in m]
+    assert len(val) == 1 and val[0]["gen_generated"] == 2
+    assert all("grad_norm" not in m for m in _metrics(whole))
+
+    # checkpoint-2, then a resume to 4, equals the uninterrupted run
+    parts = tmp_path / "parts"
+    train_gpt.main(argv(parts, 2, "--no_validation_generation"))
+    held = safetensors.load_file(str(parts / "checkpoint-2" /
+                                     ckpt.STATE_TENSORS))
+    assert held and all(k.startswith(("model/a.params/llm/",
+                                      "model/b.params/llm/", "optimizer/"))
+                        for k in held)
+    resumed = train_gpt.main(argv(parts, 4, "--no_validation_generation",
+                                  "--resume_from_checkpoint", "latest"))
+    _same_state(live, resumed)
+
+    # the export: the base as warm-started, the adapters beside it
+    args = train_gpt.parse_args(argv(whole, 4))
+    _, base = train_gpt.build_models(args, torch.device("cpu"))
+    tf_dir = whole / "transformer"
+    exported = safetensors.load_file(str(tf_dir / ckpt.TRANSFORMER_FILE))
+    assert sorted(exported) == sorted(base.state_dict())
+    for k, v in base.state_dict().items():
+        assert torch.equal(exported[k], v), k
+    assert sorted(ckpt.load_action_model_safetensors(str(tf_dir))) == \
+        sorted(exported)
+    flat = safetensors.load_file(str(tf_dir / ckpt.LORA_FILE))
+    for k, v in live.model.flat().items():
+        assert torch.equal(flat[k], v), k
+
+    # the trainer's merged model: the base with the run's adapters
+    merged = lora.attach(base, live.model).eval()
+    _, folded = vp_interface._load_from_checkpoints(
+        str(root / "hub" / "tokenizer"), str(tf_dir), None, action_dim=4,
+        context_length=2, segment_length=4, lora=True, lora_r=4,
+        lora_alpha=8.0, device="cpu")
+    for name, p in folded.named_parameters():
+        module, _, attr = name.rpartition(".")
+        # the same fp32 product, transpose and add
+        assert torch.equal(p, getattr(merged.get_submodule(module), attr)), \
+            name
+    batch, logged = evals[0]
+    with torch.no_grad():
+        want = train_gpt.eval_step(merged, batch)["loss"]
+        assert float(want) == logged
+        lora.detach(base)
+        plain = float(train_gpt.eval_step(base, batch)["loss"])
+    assert abs(plain - logged) > 1e-4
+
+
+def _recipe_argv(hub, data, out, *extra):
+    """A pretrain recipe's GPT-stage flags (act-free, attention dropout
+    0.1, weight decay 0.01 with --embed_no_wd) at toy size for one step
+    (a constant schedule: the recipes' cosine takes more than one), fp32:
+    XLA's and torch's bf16 products round apart."""
+    return ["--pretrained_model_name_or_path", str(hub),
+            "--llm_config_json", str(data.parent / "lm.json"),
+            "--mixed_precision", "no", "--attention_dropout", "0.1",
+            "--embed_no_wd", "--weight_decay", "0.01",
+            "--dataset_name", "debug", "--dataset_path", str(data),
+            "--context_length", "2", "--batch_size", "2",
+            "--dataloader_num_workers", "1", "--learning_rate", "1e-4",
+            "--lr_scheduler_type", "constant", "--num_warmup_steps", "0",
+            "--max_train_steps", "1", "--validation_steps", "100000",
+            "--checkpointing_steps", "100000", "--log_steps", "1",
+            "--output_dir", str(out), "--seed", "3", "--device", "cpu",
+            *extra]
+
+
+def _record_first_step(monkeypatch):
+    """Record the CLI's first training step: the pixels it tokenized, the
+    batch, the model's weights before it and its metrics."""
+    rec = {}
+    real_tokenize, real_step = train_gpt.make_tokenize_fn, train_gpt.train_step
+
+    def make_tokenize_fn(tokenizer, ctx):
+        tokenize = real_tokenize(tokenizer, ctx)
+
+        def recording(pixels):
+            rec.setdefault("pixels", pixels.clone())
+            return tokenize(pixels)
+        return recording
+
+    def step(state, batch, rng=None):
+        rec["before"] = {k: v.clone()
+                         for k, v in state.model.state_dict().items()}
+        rec["batch"], rec["rng"] = batch, rng
+        rec["metrics"] = real_step(state, batch, rng)
+        return rec["metrics"]
+    monkeypatch.setattr(train_gpt, "make_tokenize_fn", make_tokenize_fn)
+    monkeypatch.setattr(train_gpt, "train_step", step)
+    return rec
+
+
+def _adam_mu(opt_state):
+    import optax
+    found = [s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)]
+    assert len(found) == 1
+    return found[0].mu
+
+
+def _matches_the_jax_step(rec, state, hub, tmp_path, monkeypatch):
+    """The recorded step against the JAX package's: the tokenizer from the
+    same hub on the same pixels (ids equal), then ``make_train_step`` from
+    the same weights with the port's dropout masks: loss and gradient norm
+    within 1e-5, AdamW's first moments (0.1 of the clipped gradients)
+    within 1e-4 of each tensor's largest."""
+    model = state.model
+    tok_params, tok_cfg = jax_ckpt.load_tokenizer_for_context(
+        str(hub / "tokenizer"), 2)
+    tokenize = jtrain.make_tokenize_fn(JaxTokenizer(tok_cfg, use_pallas=False),
+                                       tok_params, 2)
+    ids, labels = tokenize(jnp.asarray(rec["pixels"].numpy()))
+    np.testing.assert_array_equal(np.asarray(ids),
+                                  rec["batch"]["input_ids"].numpy())
+    np.testing.assert_array_equal(np.asarray(labels),
+                                  rec["batch"]["labels"].numpy())
+    path = str(tmp_path / "before.safetensors")
+    safetensors.save_file(rec["before"], path)
+    params = jax_ckpt.load_action_model_safetensors(path)
+    lm_cfg = jax_configs.TransformerConfig.from_json(
+        model.llm_config.to_json())
+    head_cfg = jax_configs.ActionModelConfig.from_json(
+        model.head_config.to_json())
+    jmodel = JaxHead(lm_cfg, head_cfg, dtype=jnp.float32)
+    B, S = ids.shape
+    seed, step = rec["rng"]
+    _patched_bernoulli(monkeypatch,
+                       _port_masks(model.llm_config, B, S, seed, step), [])
+    tx, _ = joptim.make_optimizer(
+        params, learning_rate=1e-4, lr_scheduler="constant", warmup_steps=0,
+        total_steps=1, weight_decay=0.01, embed_no_wd=True,
+        max_grad_norm=1.0)
+    jstate, jm = jtrain.make_train_step(jmodel, action_conditioned=False)(
+        joptim.TrainState.create(params, tx),
+        {"input_ids": ids, "labels": labels}, jax.random.key(0))
+    for key in ("loss", "grad_norm", "perplexity"):
+        np.testing.assert_allclose(float(rec["metrics"][key]), float(jm[key]),
+                                   rtol=1e-5, err_msg=key)
+    want = ckpt.action_model_state_dict(
+        jax.tree_util.tree_map(np.asarray, _adam_mu(jstate.opt_state)))
+    for name, p in model.named_parameters():
+        got = state.optimizer.state[p]["exp_avg"].numpy()
+        ref = want[name].numpy()
+        np.testing.assert_allclose(
+            got, ref, rtol=0, atol=1e-4 * float(np.abs(ref).max()) + 1e-12,
+            err_msg=name)
+    return S
+
+
+NARROW_256 = CompressiveVQConfig(
+    block_out_channels=(8, 16, 16, 16, 24), layers_per_block=1,
+    latent_channels=8, num_vq_embeddings=32, num_dyn_embeddings=32,
+    norm_num_groups=4, mid_block_add_attention=False, context_length=2,
+    resolution=256, max_att_resolution=8, patch_size=4,
+    cross_attn_dropout=0.0, remat=True)
+
+
+def test_oxe_256_gpt_stage_matches_the_jax_step(tmp_path, monkeypatch):
+    """``oxe-256-act-free.sh``'s GPT stage: ``--resolution 256`` over a
+    frozen five-level tokenizer (TOKENIZER_256's 16 x 16 latent at toy
+    widths), B=2 here (4 in the recipe)."""
+    torch.manual_seed(5)
+    hub = tmp_path / "hub"
+    tok_dir = hub / "tokenizer"
+    tok_dir.mkdir(parents=True)
+    (tok_dir / "config.json").write_text(
+        json.dumps(ckpt.tokenizer_hub_config(NARROW_256)))
+    ckpt.export_tokenizer_safetensors(CompressiveVQModel(NARROW_256),
+                                      str(tok_dir / ckpt.TOKENIZER_FILE))
+    data = tmp_path / "data"
+    (data / "cmu_stretch").mkdir(parents=True)
+    rng = np.random.default_rng(6)
+    for e in range(2):
+        np.savez(data / "cmu_stretch" / f"episode_{e}.npz",
+                 image=rng.integers(0, 256, (6, 256, 256, 3),
+                                    dtype=np.uint8))
+    (tmp_path / "lm.json").write_text(
+        LM.replace(vocab_size=NARROW_256.vocab_size).to_json())
+    rec = _record_first_step(monkeypatch)
+    state = train_gpt.main(_recipe_argv(
+        hub, data, tmp_path / "run", "--resolution", "256",
+        "--segment_length", "4", "--video_stepsize", "1"))
+    assert rec["pixels"].shape == (2, 4, 256, 256, 3)
+    assert state.model.head_config.tokens_per_context == 256
+    assert _matches_the_jax_step(rec, state, hub, tmp_path,
+                                 monkeypatch) == 547
+
+
+def test_goal_conditioned_recipe_matches_the_jax_step(root, tmp_path,
+                                                      monkeypatch):
+    """``oxe-64-goal-cond.sh``'s GPT stage: ``--goal_conditioned
+    --segment_length 17`` (the goal frame first, then 16), S = 768."""
+    rec = _record_first_step(monkeypatch)
+    state = train_gpt.main(_recipe_argv(
+        root / "hub", root / "data", tmp_path / "run", "--resolution", "64",
+        "--goal_conditioned", "--segment_length", "17"))
+    px = rec["pixels"]
+    assert px.shape == (2, 17, 64, 64, 3)
+    # the goal (slot 0) is a frame of the segment: the episodes' frames
+    # are random noise, so a match means the same frame
+    assert all(any(torch.equal(px[b, 0], px[b, t]) for t in range(1, 17))
+               for b in range(2))
+    assert _matches_the_jax_step(rec, state, root / "hub", tmp_path,
+                                 monkeypatch) == 768
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
