@@ -9,9 +9,19 @@ against their plain PyTorch versions.
                                     # detokenize chunk's 23 conv shapes)
     python3 chip_smoke.py --vq-routing   # K1 against K2, see vq_routing
     python3 chip_smoke.py --k3-splits    # K3's split counts, see k3_splits
+    python3 chip_smoke.py --dist         # the multi-process phases alone
+                                         # (with a probe of gloo on CUDA)
 
 Phases, each printed on its own lines; any failure exits non-zero without
-the final result line:
+the final result line. Phases 1-5 run alone; from 6 on two lanes run side
+by side on the card (run_lanes): this process runs 6-16 and train_gpt
+check, a child process (``--lane``, its log printed after this process's
+lane and kept in outputs/lane-hub.log) the hub's phases 17-25 but
+dist_train, dist_serve and dist_cli (in the order hub, predict, train_gpt,
+train_gpt_lora, train_tokenizer, eval_gpt, train_tokenizer_256,
+train_gpt_256, train_gpt_goal, rollout_ctx1, vp2, vp2_int8, train_medium,
+train_medium_dots, so that the two lanes' memory peaks fall apart); the
+multi-process phases follow alone, on the child's hub:
   1. card      the nvidia-smi name and power limit
   2. build     nvcc for sm_90a of every csrc/*.cu, all at once (-Xptxas -v)
   3. K1        VQ argmin at every shape of the main paths (N=131072, 8192,
@@ -82,6 +92,12 @@ the final result line:
                call a causal group, its SASS instructions counted in a probe
                built here, over INT32_RATE), the SASS of K4, K5 and K6
                (bf16 and fp32) by opcode, HGMMA counted
+     dist_kernels  K4, K5 and K6 with dropout 0.1, bf16 and fp32, at B=16,
+               S=751, H=12 launched whole and as a rank's shards (batch
+               halves b0 = 0, 8; head halves h0 = 0, 6 of Hg = 12): the
+               concatenated O, lse, dQ, dK, dV bit-equal to the whole
+               launch's; one shard's masks read back equal to the slice of
+               keep_mask over the whole batch
   6. main      the rollout (TOKENIZER_64 + LLAMA_BASE + action head, bf16
                under the cast rules, int8 KV cache, ctx=2, T=16, B=256) with
                random weights from a seed: shapes, token ranges, launch
@@ -217,6 +233,23 @@ the final result line:
                trainer's merged model (weights, teacher-forced logits in
                fp32 and bf16); ms/step, peak memory and AdamW bytes of a
                LoRA step beside a full step on one batch
+     dist_train, dist_serve, dist_cli  started together: two ranks on the
+               card over gloo (spawned as --dist-rank processes, LOCAL_RANK
+               0 both) and an NCCL world of one, one process's references
+               beside them on the same card and batch: 3 GPT steps (bf16,
+               dropout 0.1, global B=16) at DP=2 and at TP=2, 2 fp32
+               tokenizer G+D pairs at DP=2 (losses and norms within
+               DIST_LOSS_RTOL and DIST_NORM_RTOL; DP parameters and
+               spectral-norm buffers bit-identical; ms a step and its
+               share in the collectives); sharded_rollout at DP=2 over
+               B=256 and TP=2 over B=32, T=4 (the token contract, replays
+               against one process's: DP bit-equal, TP within
+               DIST_LOGIT_ATOL and the top-100 overlap; frames/s and K1,
+               K3, K4 launches a rank); the GPT trainer CLI through
+               --coordinator_address --num_processes --process_id: NCCL as
+               a world of one (4 steps, a checkpoint, a resume bit-equal)
+               and the two ranks over --dist_backend gloo (4 steps at B=8 a
+               rank, parameters bit-identical, rank 0 alone writing)
  23. train_tokenizer  the tokenizer trainer CLI
                (ivideogpt_tpu_torch/train_tokenizer.py) in-process with the
                BAIR finetune recipe's tokenizer flags (bf16, B=16, ctx 1, seg
@@ -252,7 +285,8 @@ the final result line:
                peak memory of each beside no remat's
  26. train_gpt check  the train check's fp32 step at B=2, 2 layers, with
                attention dropout keyed alike on the card and the CPU
-Each phase's seconds follow it ("[time]" lines). Then the launches by path,
+Each phase's seconds follow it ("[time]" lines; a lane's phases are timed
+beside the other lane's). Then the launches by path,
 the kernels' JSON line, the card line again, and the result line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -1606,6 +1640,33 @@ def phase_flash(torch):
     return rows
 
 
+def kernel_masks(torch, drop, b, H, s, hd=64):
+    """The masks K4, K5 and K6 draw for ``drop`` (a shard's too) over b
+    rows and H heads of an S x S attention, read back exactly: [3, b, H,
+    s, s] bool, causal. q = 0 makes P uniform over a row; one-hot V, dO or
+    K blocks expose P Z / keep key by key."""
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    zero = torch.zeros(b, s, H, hd, device="cuda", dtype=torch.bfloat16)
+    e0 = zero.clone()
+    e0[..., 0] = 1
+    lse_u = torch.log(torch.arange(1, s + 1, device="cuda").float()) \
+        .expand(b, H, s).contiguous()
+    di0 = torch.zeros(b, H, s, device="cuda")
+    got = torch.zeros(3, b, H, s, s, device="cuda", dtype=torch.bool)
+    for c0 in range(0, s, 64):
+        n = min(64, s - c0)
+        hot = torch.zeros(b, s, H, hd, device="cuda")
+        hot[:, c0:c0 + n] = torch.eye(hd, device="cuda")[:n, None, :]
+        hot = hot.bfloat16()
+        o, _ = fa.flash_fwd(zero, zero, hot, drop)
+        got[0, ..., c0:c0 + n] = o[..., :n].permute(0, 2, 1, 3) != 0
+        _, dv = fa.flash_bwd_dkv(zero, zero, zero, hot, lse_u, di0, drop)
+        got[1, :, :, c0:c0 + n, :] = dv[..., :n].permute(0, 2, 3, 1) != 0
+        dq = fa.flash_bwd_dq(zero, hot, e0, e0, lse_u, di0, drop)
+        got[2, ..., c0:c0 + n] = dq[..., :n].permute(0, 2, 1, 3) != 0
+    return got
+
+
 def phase_flash_dropout(torch):
     """Attention dropout inside K4, K5 and K6 (p = DROP_P) against the plain
     versions with the same (seed, offset):
@@ -1675,24 +1736,7 @@ def phase_flash_dropout(torch):
               f"plain mask keeps {kept:.6f}, more than 5 sigma from "
               f"{1 - DROP_P}")
         want &= torch.ones(s, s, device="cuda", dtype=torch.bool).tril()
-        zero = torch.zeros(b, s, H, hd, device="cuda", dtype=torch.bfloat16)
-        e0 = zero.clone()
-        e0[..., 0] = 1
-        lse_u = torch.log(torch.arange(1, s + 1, device="cuda").float()) \
-            .expand(b, H, s).contiguous()
-        di0 = torch.zeros(b, H, s, device="cuda")
-        got = torch.zeros(3, b, H, s, s, device="cuda", dtype=torch.bool)
-        for c0 in range(0, s, 64):
-            n = min(64, s - c0)
-            hot = torch.zeros(b, s, H, hd, device="cuda")
-            hot[:, c0:c0 + n] = torch.eye(hd, device="cuda")[:n, None, :]
-            hot = hot.bfloat16()
-            o, _ = fa.flash_fwd(zero, zero, hot, drop)
-            got[0, ..., c0:c0 + n] = o[..., :n].permute(0, 2, 1, 3) != 0
-            _, dv = fa.flash_bwd_dkv(zero, zero, zero, hot, lse_u, di0, drop)
-            got[1, :, :, c0:c0 + n, :] = dv[..., :n].permute(0, 2, 3, 1) != 0
-            dq = fa.flash_bwd_dq(zero, hot, e0, e0, lse_u, di0, drop)
-            got[2, ..., c0:c0 + n] = dq[..., :n].permute(0, 2, 1, 3) != 0
+        got = kernel_masks(torch, drop, b, H, s)
         for i, k in enumerate(("K4", "K5", "K6")):
             check(torch.equal(got[i], want), f"flash_dropout: {k}'s mask at "
                   f"B={b} S={s} H={H} differs from the plain mask")
@@ -1998,7 +2042,7 @@ def phase_flash_dropout(torch):
     return rows
 
 
-def check_stream(torch, tokens_mod, cfg, toks, batch, ctx=CTX):
+def check_stream(torch, tokens_mod, cfg, toks, batch, ctx=CTX, T=T):
     L = tokens_mod.seq_len(ctx, T)
     check(tuple(toks.shape) == (batch, L), f"tokens {tuple(toks.shape)}")
     c, d = tokens_mod.disassemble(toks, ctx, cfg.num_vq_embeddings,
@@ -2394,7 +2438,7 @@ def phase_rollout_variants(torch, convs):
         finally:
             qconv.int8_conv = inner
     check(len(held) == convs, f"rollout_int8 check: {len(held)} convs held")
-    torch.set_num_threads(os.cpu_count() or 1)
+    torch.set_num_threads(cpu_threads())
     tok_cpu = copy.deepcopy(tokenizer).cpu()
     t0 = time.time()
     with torch.inference_mode(), qconv.int8_convs():
@@ -2531,7 +2575,7 @@ def phase_check(torch):
         logits = generation.replay_logits(
             lm, res.tokens, segment_length=T, context_length=CTX,
             action=action, cache_dtype=torch.int8).cpu()
-    torch.set_num_threads(os.cpu_count() or 1)
+    torch.set_num_threads(cpu_threads())
     tok_cpu = copy.deepcopy(tokenizer).cpu()
     lm_cpu = copy.deepcopy(lm).cpu()
     toks = res.tokens.cpu()
@@ -3047,7 +3091,7 @@ def phase_mbrl_check(torch):
         logits = generation.replay_logits(
             vp.model, stream, segment_length=MB_SEG, context_length=CTX,
             action=action.cuda(), cache_dtype=torch.int8).cpu()
-    torch.set_num_threads(os.cpu_count() or 1)
+    torch.set_num_threads(cpu_threads())
     tok_cpu = copy.deepcopy(vp.tokenizer).cpu()
     lm_cpu = copy.deepcopy(vp.model).cpu()
     hidden = []   # the replay's hidden states, the reward head's input
@@ -3126,7 +3170,7 @@ def phase_mbrl_train_check(torch):
               for n, p in m.named_parameters()}
     batch = mbrl_batch(torch, 2, 68)
     batch_cpu = tuple(t.cpu() for t in batch)
-    torch.set_num_threads(os.cpu_count() or 1)
+    torch.set_num_threads(cpu_threads())
     reset_counts()
     m_card = card.train(batch, update_model=False)
     m_cpu = host.train(batch_cpu, update_model=False)
@@ -3278,7 +3322,7 @@ def phase_drq_update(torch):
     stddev = schedule("linear(1.0,0.1,100000)", 2000)
     on_card = tuple(to_device(x, torch.device("cuda")) for x in batch)
     draws_card = type(draws)(*(d.cuda() for d in draws))
-    torch.set_num_threads(os.cpu_count() or 1)
+    torch.set_num_threads(cpu_threads())
     t0 = time.time()
     m_cpu = host.update_step(tuple(torch.from_numpy(x) for x in batch),
                              stddev, draws, True)
@@ -3761,7 +3805,7 @@ def phase_tok_train_check(torch):
     check(counts["vq_argmin"] == 4 and counts["vq_argmin_tiled"] == 0,
           f"tok_train check: VQ launches {counts}, not K1 4 and K2 0")
 
-    threads = os.cpu_count() or 1
+    threads = cpu_threads()
     torch.set_num_threads(threads)
     queue = list(card_ids)
 
@@ -3873,7 +3917,7 @@ def phase_train_check(torch, dropout=False):
     gnorm = float(global_norm(p.grad for p in model.parameters()
                               if p.grad is not None))
 
-    torch.set_num_threads(os.cpu_count() or 1)
+    torch.set_num_threads(cpu_threads())
     ids_cpu, _ = gt.make_tokenize_fn(tok_cpu, CTX)(px.cpu())
     same = float((ids.cpu() == ids_cpu).float().mean())
     loss_cpu = model_cpu(ids.cpu(), labels.cpu(), dropout_key=key)["loss"]
@@ -4117,9 +4161,9 @@ def phase_train_gpt(torch, root, hub, free):
         per_step.append({k: after[k] - before[k] for k in after})
         return m
 
-    def drop_recording(dropout):
+    def drop_recording(dropout, B, H):
         drops.append(dropout)
-        return real_drop(dropout)
+        return real_drop(dropout, B, H)
 
     train_gpt.train_step, fa._drop_args = step_recording, drop_recording
     try:
@@ -4806,9 +4850,9 @@ def phase_train_gpt_lora(torch, root, hub, free):
     restore = recording_steps(train_gpt, "lora_train_step", keys, per_step)
     real_drop = fa._drop_args
 
-    def drop_recording(dropout):
+    def drop_recording(dropout, B, H):
         drops.append(dropout)
-        return real_drop(dropout)
+        return real_drop(dropout, B, H)
     fa._drop_args = drop_recording
     try:
         torch.cuda.synchronize()
@@ -5922,6 +5966,710 @@ def phase_vp2_int8(torch, hub, root, exact, convs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# multi-process phases: two ranks on the one card over gloo (NCCL refuses
+# two ranks on one card), and the NCCL path as a world of one
+
+# dist_train's GPT steps and tokenizer G+D pairs, its global batch; the
+# sharded rollouts' batches; a spawn's time limit (its ranks, its group)
+DIST_STEPS, DIST_PAIRS, DIST_B = 3, 2, TRAIN_B
+DIST_SERVE_DP_B, DIST_SERVE_TP_B = B, 32
+# the TP rollout's segment: its 2 generated frames are 34 decode steps,
+# each with 24 all-reduces through gloo (~5 ms each on one card)
+DIST_TP_T = 4
+# each rank's detokenize chunk: two ranks and the parent share the card
+DIST_DETOK_CHUNK = 64
+DIST_TIMEOUT = 300
+# dist_train against one process on the same batch, bf16: the ranks'
+# cuBLAS products run at other row counts (DP) or sum the projections'
+# halves (TP), so each loss and gradient norm moves by bf16 rounding;
+# the gates, relative: the loss within 2e-3, the gradient norm within
+# 2e-2, the adaptive weight within 2e-2
+DIST_LOSS_RTOL, DIST_NORM_RTOL = 2e-3, 2e-2
+# dist_serve's TP replay against one process (bf16 LM, int8 cache): the
+# largest |logit difference| and the mean top-100 set overlap (Jaccard)
+DIST_LOGIT_ATOL, DIST_TOPK_MIN = 0.25, 0.9
+DIST_REPLAY_ROWS, DIST_TOPK = 2, 100
+# dist_cli: the GPT CLI's steps, a checkpoint at the last
+DIST_CLI_STEPS = 4
+
+
+def phase_dist_kernels(torch):
+    """K4, K5 and K6 with dropout DROP_P, bf16 and fp32, at the training
+    shape (B=16, S=751, H=12), launched whole and as the shards a data- or
+    tensor-parallel rank launches: batch halves (b0 = 0, 8) and head
+    halves (h0 = 0, 6 of Hg = 12), q/k/v read as views of the whole
+    tensors, K5 and K6 fed the whole launch's lse and di rows. Gates: the
+    concatenated O, lse, dQ, dK and dV equal the whole launch's bit for
+    bit; the three kernels' masks of one shard (rows 8-9, heads 6-11),
+    read back, equal the slice of ``philox.keep_mask`` over the whole
+    batch, and its shard form."""
+    from ivideogpt_tpu_torch.ops import flash_attention as fa
+    from ivideogpt_tpu_torch.ops import philox
+    b, s, H, hd = TRAIN_B, 751, 12, 64
+    drop = (DROP_P, DROP_SEED, philox.offset_of(5, 1))
+    cuts = {"batch": ((0, b // 2, 0, H), (b // 2, b // 2, 0, H)),
+            "head": ((0, b, 0, H // 2), (0, b, H // 2, H // 2))}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device="cuda").manual_seed(61)
+        q, k, v, do = (torch.randn(b, s, H, hd, device="cuda", generator=g)
+                       .to(dtype) for _ in range(4))
+        o, lse = fa.flash_fwd(q, k, v, drop)
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, drop)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, di, drop)
+        whole = {"O": o, "lse": lse, "dQ": dq, "dK": dk, "dV": dv}
+        for axis, shards in cuts.items():
+            parts = []
+            for b0, nb, h0, nh in shards:
+                shard = drop + (b0, h0, H)
+                qs, ks, vs = (t[b0:b0 + nb, :, h0:h0 + nh] for t in (q, k, v))
+                dos = do[b0:b0 + nb, :, h0:h0 + nh].contiguous()
+                lse_s = lse[b0:b0 + nb, h0:h0 + nh].contiguous()
+                di_s = di[b0:b0 + nb, h0:h0 + nh].contiguous()
+                o_s, l_s = fa.flash_fwd(qs, ks, vs, shard)
+                dk_s, dv_s = fa.flash_bwd_dkv(qs, ks, vs, dos, lse_s, di_s,
+                                              shard)
+                dq_s = fa.flash_bwd_dq(qs, ks, vs, dos, lse_s, di_s, shard)
+                parts.append({"O": o_s, "lse": l_s, "dQ": dq_s, "dK": dk_s,
+                              "dV": dv_s})
+            for name, t in whole.items():
+                dim = 0 if axis == "batch" else (1 if name == "lse" else 2)
+                got = torch.cat([p[name] for p in parts], dim=dim)
+                check(torch.equal(got, t), f"dist_kernels: {dtype} {name} "
+                      f"of the {axis} halves differs from the whole launch")
+        print(f"dist_kernels: {dtype} K4, K5 and K6 with dropout {DROP_P} "
+              f"at B={b}, S={s}, H={H}: the batch halves (b0 = 0, {b // 2}) "
+              f"and the head halves (h0 = 0, {H // 2} of Hg = {H}) "
+              f"concatenate to the whole launch's O, lse, dQ, dK and dV bit "
+              f"for bit")
+        del q, k, v, do, o, lse, di, dk, dv, dq, whole, parts
+    shard = drop + (8, 6, H)
+    want = philox.keep_mask(drop, b, H, s, 0, s, 0, s, device="cuda")
+    want = want[8:10, 6:12]
+    check(torch.equal(want, philox.keep_mask(shard, 2, 6, s, 0, s, 0, s,
+                                             device="cuda")),
+          "dist_kernels: keep_mask of the shard is not the slice")
+    want &= torch.ones(s, s, device="cuda", dtype=torch.bool).tril()
+    got = kernel_masks(torch, shard, 2, 6, s)
+    for i, name in enumerate(("K4", "K5", "K6")):
+        check(torch.equal(got[i], want), f"dist_kernels: {name}'s mask of "
+              f"the shard (rows 8-9, heads 6-11 of 16 x 12) differs from "
+              f"keep_mask's slice")
+    print(f"dist_kernels: the masks of K4, K5 and K6 launched on rows 8-9 "
+          f"and heads 6-11 (b0 = 8, h0 = 6, Hg = {H}) equal keep_mask's "
+          f"slice of the whole batch's bit for bit")
+
+
+def dist_gpt_steps(torch, mesh=None):
+    """DIST_STEPS GPT steps at full width (TOKENIZER_64 frozen fp32, K1;
+    LLAMA_BASE bf16 over fp32 masters, attention dropout DROP_P, K4-K6)
+    on a global batch of DIST_B clips from a seed, this rank's rows on a
+    ``mesh`` (the whole batch without). Returns each step's loss, gradient
+    norm and ms, the share of the steps' wall time inside collectives,
+    the launches of the steps and the parameters' sha256."""
+    import hashlib
+    from ivideogpt_tpu_torch.configs import LLAMA_BASE, GPTTrainConfig
+    from ivideogpt_tpu_torch.parallel import distributed as dist_lib
+    from ivideogpt_tpu_torch.parallel import mesh as mesh_lib
+    from ivideogpt_tpu_torch.train import gpt_trainer as gt
+    tokenizer, model = gt.build_train_models(
+        context_length=CTX, segment_length=T, seed=70,
+        lm_cfg=LLAMA_BASE.replace(attention_dropout=DROP_P))
+    cfg = GPTTrainConfig(learning_rate=1e-4, lr_scheduler="constant",
+                         lr_warmup_steps=0, max_grad_norm=1.0)
+    kw = {}
+    if mesh is not None:
+        mesh_lib.shard_params(model, mesh)
+        kw["mesh"] = mesh
+    state = gt.create_train_state(model, cfg)
+    if mesh is not None:
+        mesh_lib.place_state(state, mesh)
+    tokenize = gt.make_tokenize_fn(tokenizer, CTX)
+    g = torch.Generator(device="cuda").manual_seed(71)
+    px = torch.rand(DIST_B, T, 64, 64, 3, device="cuda", generator=g)
+    if mesh is not None:
+        px = px[mesh_lib.batch_rows(DIST_B, mesh)]
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    comm = [0.0]
+    real = dist_lib._all_reduce_sum_
+
+    def timed(t, group=None):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        r = real(t, group)
+        torch.cuda.synchronize()
+        comm[0] += time.time() - t0
+        return r
+    dist_lib._all_reduce_sum_ = timed
+    try:
+        reset_counts()
+        for i in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ids, labels = tokenize(px)
+            m = gt.train_step(state, {"input_ids": ids, "labels": labels},
+                              (DROP_SEED, i), **kw)
+            out["loss"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+            out["ms"].append((time.time() - t0) * 1e3)
+        out["launches"] = read_counts()
+    finally:
+        dist_lib._all_reduce_sum_ = real
+    out["comm_share"] = comm[0] / (sum(out["ms"]) / 1e3)
+    h = hashlib.sha256()
+    for p in state.params:
+        h.update(p.detach().float().cpu().reshape(-1).numpy().tobytes())
+    out["digest"] = h.hexdigest()
+    del tokenizer, model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_tok_pairs(torch, mesh=None):
+    """DIST_PAIRS tokenizer G+D pairs at full width (TOKENIZER_64 without
+    cross-attention dropout, so that one process and the ranks draw no
+    masks; the CLI's depth-4 discriminator; LPIPS; fp32, the CLI's default
+    precision, TF32 off: in bf16 the hinge loss's kinks turn the ranks'
+    other rounding into a D gradient norm 3 % apart after one update, GAN
+    on) on a global batch of DIST_B clips of TOK_T frames,
+    this rank's rows on a ``mesh``. Returns each pair's losses, adaptive
+    weight and gradient norms, its ms, the launches and the sha256 of both
+    models' parameters and the discriminator's buffers."""
+    import hashlib
+    from ivideogpt_tpu_torch.configs import (TOKENIZER_64,
+                                             DiscriminatorConfig,
+                                             TokenizerTrainConfig)
+    from ivideogpt_tpu_torch.parallel import mesh as mesh_lib
+    from ivideogpt_tpu_torch.train import tokenizer_trainer as tt
+    tok, disc, lpips = tt.build_tokenizer_train_models(
+        TOKENIZER_64.replace(cross_attn_dropout=0.0),
+        DiscriminatorConfig(depth=4), compute_dtype=torch.float32, seed=72)
+    cfg = TokenizerTrainConfig(batch_size=DIST_B, segment_length=TOK_T,
+                               context_length=TOK_CTX, lr_warmup_steps=0)
+    kw = {} if mesh is None else {"mesh": mesh}
+    state, disc_state = tt.create_train_states(tok, disc, cfg)
+    g_step = tt.make_generator_step(tok, disc, lpips, cfg, use_gan=True,
+                                    **kw)
+    d_step = tt.make_discriminator_step(tok, disc, cfg, **kw)
+    g = torch.Generator(device="cuda").manual_seed(73)
+    px = torch.rand(DIST_B, TOK_T, 64, 64, 3, device="cuda", generator=g)
+    if mesh is not None:
+        px = px[mesh_lib.batch_rows(DIST_B, mesh)]
+    keys = ("gen_loss", "adaptive_weight", "grad_norm", "discr_loss",
+            "disc_grad_norm")
+    out = {k: [] for k in (*keys, "ms")}
+    reset_counts()
+    for i in range(DIST_PAIRS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = g_step(state, px, torch.Generator(device="cuda").manual_seed(i))
+        m.update(d_step(disc_state, px,
+                        torch.Generator(device="cuda").manual_seed(i)))
+        for k in keys:
+            out[k].append(float(m[k]))
+        out["ms"].append((time.time() - t0) * 1e3)
+    out["launches"] = read_counts()
+    h = hashlib.sha256()
+    for t in [*tok.parameters(), *disc.parameters(), *disc.buffers()]:
+        h.update(t.detach().float().cpu().reshape(-1).numpy().tobytes())
+    out["digest"] = h.hexdigest()
+    del tok, disc, lpips, state, disc_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_rollout(torch, n_model, batch, seg=T):
+    """``parallel/serving.sharded_rollout`` on this rank (a mesh of
+    ``n_model``) over the main rollout's models and inputs (seeds 0 and 3)
+    cut to ``batch`` clips of ``seg`` frames: a warm-up rollout of one
+    frame on a few clips, then the timed one.
+    Returns its wall s, frames/s of the whole batch, the launches, and its
+    first DIST_REPLAY_ROWS rows' tokens, actions and teacher-forced
+    logits (``generation.replay_logits`` over an int8 cache, on the CPU)
+    for the parent to hold against one process."""
+    from ivideogpt_tpu_torch import generation
+    from ivideogpt_tpu_torch import rollout as ro
+    from ivideogpt_tpu_torch import tokens as tok
+    from ivideogpt_tpu_torch.parallel import mesh as mesh_lib
+    from ivideogpt_tpu_torch.parallel import serving
+    mesh = mesh_lib.make_global_mesh(n_model)
+    tokenizer, lm = ro.build_models(context_length=CTX, segment_length=T,
+                                    seed=0)
+    serving.place_inference_params(lm, mesh)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    px = torch.rand(B, CTX, 64, 64, 3, device="cuda", generator=g)[:batch]
+    action = torch.randn(B, T, 4, device="cuda", generator=g)[:batch, :seg]
+
+    def run(n, seed, frames=seg):
+        return serving.sharded_rollout(
+            tokenizer, lm, px[:n], mesh=mesh, action=action[:n, :frames],
+            generator=torch.Generator(device="cuda").manual_seed(seed),
+            segment_length=frames, context_length=CTX,
+            cache_dtype=torch.int8, detok_chunk=DIST_DETOK_CHUNK)
+    run(2 * mesh.n_data, 1, CTX + 1)   # the warm-up: one frame
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    frames, res = run(batch, 4)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    rows = batch // mesh.n_data
+    check_stream(torch, tok, tokenizer.config, res.tokens, rows, T=seg)
+    check(tuple(frames.shape) == (rows, seg, 64, 64, 3)
+          and bool(torch.isfinite(frames).all()),
+          f"dist_serve: frames {tuple(frames.shape)} not finite or not "
+          f"the rank's rows")
+    mine = mesh_lib.batch_rows(batch, mesh)
+    r = DIST_REPLAY_ROWS
+    logits = generation.replay_logits(
+        lm, res.tokens[:r], segment_length=seg, context_length=CTX,
+        action=action[mine][:r], cache_dtype=torch.int8)
+    out = {"wall": wall, "fps": batch * (seg - CTX) / wall, "seg": seg,
+           "launches": launches, "tokens": res.tokens[:r].cpu(),
+           "action": action[mine][:r].cpu(), "logits": logits.cpu(),
+           "mesh": mesh.shape}
+    del tokenizer, lm, frames, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def gloo_cuda_probe(torch):
+    """Which collectives a gloo group takes on CUDA tensors (the port's
+    collectives never ask: over gloo they run on CPU copies), in a group
+    of its own with a short timeout."""
+    import datetime
+    import torch.distributed as dist
+    group = dist.new_group(timeout=datetime.timedelta(seconds=30))
+    x = torch.ones(4, device="cuda")
+    ops = {"all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
+           "broadcast": lambda: dist.broadcast(x.clone(), 0, group=group),
+           "all_gather (list)": lambda: dist.all_gather(
+               [torch.empty_like(x) for _ in range(2)], x, group=group),
+           "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+               torch.empty(8, device="cuda"), x, group=group),
+           "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+               torch.empty(2, device="cuda"), x, group=group)}
+    out = {}
+    for name, fn in ops.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 -- the probe's answer
+            out[name] = f"{type(e).__name__}: {str(e)[:120]}"
+    return out
+
+
+def dist_job_train(torch, rank, probe=False):
+    """dist_train's and dist_serve's work on one rank: GPT steps at DP=2
+    and at TP=2, tokenizer pairs at DP=2, the sharded rollouts at DP=2
+    over DIST_SERVE_DP_B and TP=2 over DIST_SERVE_TP_B (with ``probe``,
+    first :func:`gloo_cuda_probe`)."""
+    from ivideogpt_tpu_torch.parallel import mesh as mesh_lib
+    t0 = time.time()
+
+    def done(what):
+        print(f"dist: rank {rank} {what} at {time.time() - t0:.1f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        torch.cuda.reset_peak_memory_stats()
+    out = {"probe": gloo_cuda_probe(torch)} if probe else {}
+    for n_model in (1, 2):
+        out[f"gpt_{n_model}"] = dist_gpt_steps(
+            torch, mesh_lib.make_global_mesh(n_model))
+        done(f"GPT steps (n_model {n_model})")
+    out["tok"] = dist_tok_pairs(torch, mesh_lib.make_global_mesh(1))
+    done("tokenizer pairs")
+    out["serve_dp"] = dist_rollout(torch, 1, DIST_SERVE_DP_B)
+    done("DP rollout")
+    out["serve_tp"] = dist_rollout(torch, 2, DIST_SERVE_TP_B, DIST_TP_T)
+    done("TP rollout")
+    return out
+
+
+def dist_job_cli(torch, rank, argv_runs):
+    """Each argv of ``argv_runs`` through ``train_gpt.main`` on this rank:
+    the files it opens for writing, and per run its step, its trained
+    parameters' sha256 and the steady ms/step its metrics log."""
+    import builtins
+    import hashlib
+    from ivideogpt_tpu_torch import train_gpt
+    writes, runs = [], []
+    real_open = builtins.open
+
+    def recording(file, mode="r", *args, **kw):
+        if any(c in mode for c in "wax+"):
+            writes.append(os.path.abspath(str(file)))
+        return real_open(file, mode, *args, **kw)
+    builtins.open = recording
+    try:
+        for argv in argv_runs:
+            reset_counts()
+            t0 = time.time()
+            state = train_gpt.main(argv)
+            h = hashlib.sha256()
+            for p in state.params:
+                h.update(p.detach().float().cpu().reshape(-1).numpy()
+                         .tobytes())
+            runs.append({"step": state.step, "digest": h.hexdigest(),
+                         "s": time.time() - t0, "launches": read_counts()})
+    finally:
+        builtins.open = real_open
+    return {"writes": writes, "runs": runs}
+
+
+def dist_rank_main(argv):
+    """A rank of a multi-process phase: ``--dist-rank <job> <host:port>
+    <world> <rank> <dir> <backend>``, on cuda:0 (LOCAL_RANK 0 for every
+    rank): job "cli" runs the trainer CLI's runs of ``<dir>/job.json``,
+    which join the group from their flags; job "train" joins the group,
+    runs :func:`dist_job_train`, leaves the group and runs the CLI's
+    runs, which join one at ``cli_coord``. Writes the result to
+    ``<dir>/rank<rank>.pt``."""
+    import datetime
+    import torch
+    job, coord, world, rank, out_dir, backend = argv
+    world, rank = int(world), int(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(os.path.join(out_dir, "job.json")) as f:
+        spec = json.load(f)
+    if job == "cli":
+        res = dist_job_cli(torch, rank, [
+            a + ["--coordinator_address", coord, "--num_processes",
+                 str(world), "--process_id", str(rank), "--dist_backend",
+                 backend] for a in spec["argv"]])
+    else:
+        from ivideogpt_tpu_torch.parallel import distributed as dist_lib
+        dist_lib.maybe_initialize(
+            coord, world, rank, device="cuda", backend=backend,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+        res = dist_job_train(torch, rank, spec.get("probe", False))
+        # the trainer CLI then joins a group of its own from its flags
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+        res["cli"] = dist_job_cli(torch, rank, [
+            a + ["--coordinator_address", spec["cli_coord"],
+                 "--num_processes", str(world), "--process_id", str(rank),
+                 "--dist_backend", backend] for a in spec["cli_argv"]])
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(torch, job, world, out_dir, backend, spec=None,
+                timeout=DIST_TIMEOUT):
+    """Start ``world`` ranks of ``job`` (``--dist-rank``), all on cuda:0;
+    returns a function that waits for them (killing every rank when one
+    fails or the time runs out) and returns their results in rank
+    order."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "job.json"), "w") as f:
+        json.dump(spec or {}, f)
+    coord = f"127.0.0.1:{free_port()}"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    env["LOCAL_RANK"] = "0"
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-rank", job,
+         coord, str(world), str(r), out_dir, backend],
+        stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=os.getcwd())
+        for r in range(world)]
+    deadline = time.time() + timeout
+
+    def wait():
+        # every rank is killed as soon as one fails: its peers would wait
+        # in a collective until the group's timeout
+        try:
+            while time.time() < deadline:
+                codes = [p.poll() for p in procs]
+                if all(c is not None for c in codes) or any(codes):
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                text = f.read()
+            if r in bad:
+                print(f"{job} rank {r} (exit {procs[r].returncode}):\n"
+                      f"{text[-4000:]}")
+            for line in text.splitlines():
+                if line.startswith("dist: "):
+                    print(f"{job}: {line[6:]}")
+        check(not bad, f"{job}: ranks {bad} failed or outlasted {timeout} s")
+        results = []
+        for r in range(world):
+            path = os.path.join(out_dir, f"rank{r}.pt")
+            results.append(torch.load(path, weights_only=False))
+            os.remove(path)
+        return results
+    return wait
+
+
+def rel_gap(a, b):
+    return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+
+
+def dist_cli_argv(root, hub, free, out, b):
+    """The GPT CLI's flags for dist_cli: the recipe's LM flags (bf16,
+    dropout DROP_P, warm start from the hub), B=``b`` a rank, on the
+    synthetic BAIR episodes, DIST_CLI_STEPS steps with a checkpoint at the
+    last, no validation."""
+    return ["--pretrained_model_name_or_path", hub,
+            "--pretrained_transformer_path", free, "--load_internal_llm",
+            "--llm_config", "base", "--action_conditioned",
+            "--action_dim", "4", "--mixed_precision", "bf16",
+            "--attention_dropout", str(DROP_P), "--batch_size", str(b),
+            "--learning_rate", "1e-4", "--num_warmup_steps", "0",
+            "--dataset_name", "bair", "--dataset_path", root,
+            "--resolution", "64", "--dataloader_num_workers", "2",
+            "--segment_length", str(T), "--context_length", str(CTX),
+            "--max_train_steps", str(DIST_CLI_STEPS),
+            "--checkpointing_steps", str(DIST_CLI_STEPS),
+            "--validation_steps", "100000", "--log_steps", "1",
+            "--no_validation_generation", "--seed", "0",
+            "--output_dir", out, "--device", "cuda"]
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(torch, root, hub, free, logs, probe=False):
+    """dist_train, dist_serve and dist_cli, started together (in the hub's
+    directory, on its synthetic BAIR episodes): two ranks on cuda:0 over
+    gloo (``--dist-rank``), an NCCL world of one beside them, and one
+    process's references on the same card and batch in this process.
+
+    dist_train: DIST_STEPS GPT steps (bf16, dropout DROP_P, global
+    B=DIST_B) at DP=2, then at TP=2 (LLAMA_BASE's 12 heads 6 a rank, the
+    MLP's 3072 columns 1536), DIST_PAIRS fp32 tokenizer G+D pairs at DP=2;
+    the losses within DIST_LOSS_RTOL and the gradient norms (and the
+    adaptive weight) within DIST_NORM_RTOL of one process's, parameters
+    (and the discriminator's buffers) bit-identical across the DP ranks,
+    each kernel of the path launched on every rank; each step's ms and
+    the share of it inside the collectives (gloo through the host)
+    printed, not claimed. dist_serve: ``sharded_rollout`` at DP=2 over
+    B=256 and at TP=2 over B=32 and DIST_TP_T frames (main's models, int8
+    cache): the token contract and finite frames on every rank; replays,
+    teacher-forced, against one process's replay of the same rows: DP
+    rank 0's bit-equal (the same model; rank 1 runs it on other rows),
+    both TP ranks' |logit difference| within DIST_LOGIT_ATOL and top-100
+    sets' mean Jaccard at least DIST_TOPK_MIN; frames/s and the launches
+    of K1, K3 and K4 a rank. dist_cli: ``train_gpt`` through the
+    JAX-spelled flags (``--coordinator_address 127.0.0.1:<port>
+    --num_processes N --process_id i``, ``dist_cli_argv``): (1) NCCL as a
+    world of one, B=16, DIST_CLI_STEPS steps with a checkpoint, then a
+    resume from it bit-equal to the live state; (2) the two gloo ranks,
+    after their own work, leave their group and run the CLI at B=8 a rank
+    over ``--dist_backend gloo``: parameters bit-identical, every file
+    written by rank 0 alone (rank 1 opens none under the run's
+    directory), one log line a step. Rank logs go to ``logs``. Returns
+    rank 0's launches: {"dist_train": its GPT and tokenizer steps,
+    "dist_serve": its two rollouts, "dist_cli": its CLI run and the NCCL
+    runs}."""
+    from ivideogpt_tpu_torch import generation
+    from ivideogpt_tpu_torch import rollout as ro
+    one_out, two_out = (os.path.join(root, f"dist_cli_{w}") for w in (1, 2))
+    one = dist_cli_argv(root, hub, free, one_out, TRAIN_B)
+    t0 = time.time()
+    wait_nccl = spawn_ranks(torch, "cli", 1, os.path.join(logs, "cli"),
+                            "nccl", {"argv": [one, one + [
+                                "--resume_from_checkpoint", "latest"]]})
+    wait = spawn_ranks(torch, "train", 2, os.path.join(logs, "train"),
+                       "gloo", {"probe": probe,
+                                "cli_coord": f"127.0.0.1:{free_port()}",
+                                "cli_argv": [dist_cli_argv(
+                                    root, hub, free, two_out,
+                                    TRAIN_B // 2)]})
+    one_gpt = dist_gpt_steps(torch)
+    one_tok = dist_tok_pairs(torch)
+    t_one = time.time() - t0
+    (nccl,) = wait_nccl()
+    t_nccl = time.time() - t0
+    ranks = wait()
+    print(f"dist: the ranks ran {time.time() - t0:.1f} s, the NCCL world of "
+          f"one {t_nccl:.1f} s beside them (one process's reference steps "
+          f"{t_one:.1f} s, beside both)")
+    if probe:
+        print(f"dist_train: gloo on CUDA tensors (torch {torch.__version__})"
+              f": {json.dumps(ranks[0]['probe'])}")
+    for n_model, tag in ((1, "DP=2"), (2, "TP=2")):
+        for r, res in enumerate(ranks):
+            got = res[f"gpt_{n_model}"]
+            lg = rel_gap(got["loss"], one_gpt["loss"])
+            ng = rel_gap(got["grad_norm"], one_gpt["grad_norm"])
+            check(lg < DIST_LOSS_RTOL and ng < DIST_NORM_RTOL,
+                  f"dist_train: GPT {tag} rank {r}: losses {got['loss']} "
+                  f"(gap {lg:.3e}) / norms {got['grad_norm']} (gap "
+                  f"{ng:.3e}) against one process's {one_gpt['loss']} / "
+                  f"{one_gpt['grad_norm']}")
+            for k in ("vq_argmin", "flash_attention_fwd",
+                      "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+                check(got["launches"][k] > 0, f"dist_train: {k} never ran "
+                      f"in GPT {tag} rank {r}")
+            print(f"dist_train: GPT {tag} rank {r}: losses "
+                  f"{got['loss']}, gradient norms {got['grad_norm']}; "
+                  f"largest relative gap to one process {lg:.3e} (loss), "
+                  f"{ng:.3e} (norm); ms a step {got['ms']}, "
+                  f"{got['comm_share']:.3f} of them in collectives; "
+                  f"launches {json.dumps(got['launches'])}")
+    check(ranks[0]["gpt_1"]["digest"] == ranks[1]["gpt_1"]["digest"],
+          "dist_train: the DP ranks' GPT parameters differ")
+    print(f"dist_train: one process: GPT losses {one_gpt['loss']}, norms "
+          f"{one_gpt['grad_norm']}, ms a step {one_gpt['ms']}; the DP "
+          f"ranks' parameters bit-identical (sha256 "
+          f"{ranks[0]['gpt_1']['digest'][:16]})")
+    for r, res in enumerate(ranks):
+        got = res["tok"]
+        gaps = {k: rel_gap(got[k], one_tok[k]) for k in
+                ("gen_loss", "discr_loss", "adaptive_weight", "grad_norm",
+                 "disc_grad_norm")}
+        check(gaps["gen_loss"] < DIST_LOSS_RTOL
+              and gaps["discr_loss"] < DIST_LOSS_RTOL
+              and max(gaps["adaptive_weight"], gaps["grad_norm"],
+                      gaps["disc_grad_norm"]) < DIST_NORM_RTOL,
+              f"dist_train: tokenizer DP=2 rank {r}: {got} against one "
+              f"process's {one_tok} (gaps {gaps})")
+        check(got["launches"]["vq_argmin"] > 0, "dist_train: K1 never ran "
+              f"in the tokenizer pairs of rank {r}")
+        print(f"dist_train: tokenizer DP=2 rank {r}: G losses "
+              f"{got['gen_loss']}, adaptive weight {got['adaptive_weight']}, "
+              f"D losses {got['discr_loss']}; gaps "
+              f"{json.dumps({k: float(f'{v:.3e}') for k, v in gaps.items()})}"
+              f"; ms a pair {got['ms']}")
+    check(ranks[0]["tok"]["digest"] == ranks[1]["tok"]["digest"],
+          "dist_train: the DP ranks' tokenizer, discriminator or "
+          "spectral-norm buffers differ")
+    print(f"dist_train: one process's tokenizer pairs: G {one_tok['gen_loss']}"
+          f", adaptive weight {one_tok['adaptive_weight']}, D "
+          f"{one_tok['discr_loss']}, ms a pair {one_tok['ms']}; the DP "
+          f"ranks' models and spectral-norm buffers bit-identical")
+
+    tokenizer, lm = ro.build_models(context_length=CTX, segment_length=T,
+                                    seed=0)
+    for key, tag, batch in (("serve_dp", "DP=2", DIST_SERVE_DP_B),
+                            ("serve_tp", "TP=2", DIST_SERVE_TP_B)):
+        for r, res in enumerate(ranks):
+            got = res[key]
+            la = got["launches"]
+            for k in ("vq_argmin", "decode_attention", "flash_attention_fwd"):
+                check(la[k] > 0, f"dist_serve: {k} never ran on {tag} rank "
+                      f"{r}")
+            replay = ""
+            if key == "serve_tp" or r == 0:
+                want = generation.replay_logits(
+                    lm, got["tokens"].cuda(), segment_length=got["seg"],
+                    context_length=CTX, action=got["action"].cuda(),
+                    cache_dtype=torch.int8).cpu()
+                err = float((got["logits"] - want).abs().max())
+                top_got = got["logits"].topk(DIST_TOPK, dim=-1).indices
+                top_want = want.topk(DIST_TOPK, dim=-1).indices
+                jac = []
+                for a, b_ in zip(top_got.reshape(-1, DIST_TOPK).tolist(),
+                                 top_want.reshape(-1, DIST_TOPK).tolist()):
+                    a, b_ = set(a), set(b_)
+                    jac.append(len(a & b_) / len(a | b_))
+                jac = sum(jac) / len(jac)
+                if key == "serve_dp":
+                    check(torch.equal(got["logits"], want), f"dist_serve: DP "
+                          f"rank {r}'s replay differs from one process's")
+                else:
+                    check(err <= DIST_LOGIT_ATOL and jac >= DIST_TOPK_MIN,
+                          f"dist_serve: TP rank {r}: logits {err:.3e} from "
+                          f"one process's, top-{DIST_TOPK} overlap {jac:.4f}")
+                replay = (f"; replay of its first {DIST_REPLAY_ROWS} rows "
+                          f"against one process: max |logit difference| "
+                          f"{err:.4e}, top-{DIST_TOPK} mean Jaccard {jac:.4f}")
+            print(f"dist_serve: {tag} B={batch} T={got['seg']} rank {r}: "
+                  f"{got['wall']:.3f} s, {got['fps']:.2f} frames/s of the "
+                  f"whole batch; launches K1 {la['vq_argmin']}, K3 "
+                  f"{la['decode_attention']}, K4 {la['flash_attention_fwd']}"
+                  f"{replay}")
+    del tokenizer, lm
+    torch.cuda.empty_cache()
+
+    live, resumed = nccl["runs"]
+    check(live["step"] == resumed["step"] == DIST_CLI_STEPS
+          and live["digest"] == resumed["digest"],
+          "dist_cli: the NCCL world of one's resumed state differs from the "
+          "live one")
+    check(os.path.isdir(os.path.join(one_out, f"checkpoint-{DIST_CLI_STEPS}")),
+          "dist_cli: the NCCL run wrote no checkpoint")
+    gloo = [res["cli"] for res in ranks]
+    check(gloo[0]["runs"][0]["digest"] == gloo[1]["runs"][0]["digest"],
+          "dist_cli: the gloo ranks' parameters differ")
+    under = os.path.abspath(two_out)
+    check(not [p for p in gloo[1]["writes"] if p.startswith(under)],
+          "dist_cli: rank 1 wrote under the run's directory")
+    check(any(f"checkpoint-{DIST_CLI_STEPS}" in p
+              for p in gloo[0]["writes"] if p.startswith(under)),
+          "dist_cli: rank 0 wrote no checkpoint")
+    for name, out in (("NCCL world of one", one_out), ("gloo, 2 ranks",
+                                                         two_out)):
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        steps = [m for m in logged if "loss" in m]
+        check([m["step"] for m in steps] == list(range(1, DIST_CLI_STEPS + 1)),
+              f"dist_cli: {name} logged steps {[m['step'] for m in steps]}")
+        check(all(math.isfinite(m["loss"]) for m in steps),
+              f"dist_cli: {name} logged a non-finite loss")
+        print(f"dist_cli: {name}: losses {[m['loss'] for m in steps]}, "
+              f"ms/step {[round(m['step_ms'], 2) for m in steps]}")
+    print(f"dist_cli: NCCL world of one: {live['s']:.1f} s to "
+          f"{DIST_CLI_STEPS} steps and a checkpoint, resume bit-equal "
+          f"({resumed['s']:.1f} s); gloo 2 ranks: "
+          f"{gloo[0]['runs'][0]['s']:.1f} s, parameters bit-identical, "
+          f"rank 1 wrote no file under the run")
+    r0 = ranks[0]
+    keys = r0["tok"]["launches"]
+    return {"dist_train": {k: r0["gpt_1"]["launches"][k]
+                           + r0["gpt_2"]["launches"][k]
+                           + r0["tok"]["launches"][k] for k in keys},
+            "dist_serve": {k: r0["serve_dp"]["launches"][k]
+                           + r0["serve_tp"]["launches"][k] for k in keys},
+            "dist_cli": {k: live["launches"][k] + resumed["launches"][k]
+                         + gloo[0]["runs"][0]["launches"][k] for k in keys}}
+
+
+def dist_phases(torch):
+    """``--dist``: the multi-process phases alone (dist_kernels, then
+    dist_train, dist_serve and dist_cli on a hub and synthetic BAIR
+    episodes of their own, with :func:`gloo_cuda_probe`), for rehearsing
+    them on the card; the ranks' logs stay in ``outputs/dist``."""
+    scratch = os.path.join(REPO, "outputs")
+    os.makedirs(scratch, exist_ok=True)
+    t0 = time.time()
+    phase_dist_kernels(torch)
+    print(f"[time] dist_kernels: {time.time() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="hub-", dir=scratch) as root:
+        hub, _, _ = phase_hub(torch, root)
+        write_bair(root, GPT_EPISODES, EVAL_BATCHES * EVAL_B, GPT_FRAMES,
+                   seed=93)
+        with contextlib.chdir(root):
+            t0 = time.time()
+            print(json.dumps(phase_dist(
+                torch, root, hub, os.path.join(root, "free", "transformer"),
+                os.path.join(scratch, "dist"), probe=True)))
+            print(f"[time] dist_train + dist_serve + dist_cli: "
+                  f"{time.time() - t0:.1f} s")
+
+
 def ab_kernel_times(torch):
     """K1 at K1_SHAPES, K2 at the wide shapes of K2_SHAPES, K3 at the six
     shapes of K3_SHAPES (the host-int valid, over phase_k3's cold-L2
@@ -6138,6 +6886,206 @@ def ab_turn(torch):
     phase_mbrl(torch, vp)
 
 
+# After the kernels' phases the paths run in two lanes that share the card
+# and the host: this process drives the rollouts, the in-process training
+# steps and the MBRL world model (lane_main), a child process (``--lane``)
+# the hub's paths: the trainer CLIs, the inference entry points and the
+# medium LM (lane_hub). Each lane orders its phases so that the two never
+# hold their memory peaks together: lane_main's above 20 GiB (main, the
+# rollout variants) come first, lane_hub's (eval_gpt, the 256 px tokenizer,
+# the ctx=1 rollout, VP2, the medium LM) last. The multi-process phases,
+# which spawn processes of their own, run after both, alone. While the
+# lanes run, lane_main's CPU references (the rollout, tokenizer and MBRL
+# checks) take all cores but LANE_HUB_THREADS, lane_hub's (predict's) those;
+# the times of the lanes' phases are taken beside the other lane (--ab-turn
+# times the paths alone)
+LANE_TIMEOUT = 900
+LANE_HUB_THREADS = 2
+CPU_THREADS = 0
+
+
+def cpu_threads():
+    """The threads of a phase's CPU reference: every core, or the lane's
+    share of them while the lanes run."""
+    return CPU_THREADS or os.cpu_count() or 1
+
+
+def lane_threads(hub):
+    """A lane's CPU threads: LANE_HUB_THREADS for lane_hub, the rest of the
+    cores for lane_main."""
+    cores = os.cpu_count() or 1
+    return max(1, LANE_HUB_THREADS if hub else cores - LANE_HUB_THREADS)
+
+
+def marker(since):
+    """A function that prints a phase's seconds and those since this
+    call ("[time]" lines)."""
+    started = [time.time()] * 2
+
+    def mark(phase):
+        now = time.time()
+        print(f"[time] {phase}: {now - started[1]:.1f} s, "
+              f"{now - started[0]:.1f} s since {since}", flush=True)
+        started[1] = now
+    return mark
+
+
+def lane_main(torch, convs, mark):
+    """The rollouts, the in-process training steps, the tokenizer steps and
+    MBRL, in this process; returns their launches by path."""
+    by_path = {"rollout": phase_main(torch)}
+    mark("main")
+    by_path.update(phase_rollout_variants(torch, convs))
+    mark("rollout variants")
+    phase_check(torch)
+    mark("check")
+    by_path["train"] = phase_train(torch)
+    mark("train")
+    by_path["train_fp32"] = phase_train(torch, fp32=True)
+    mark("train_fp32")
+    phase_train_check(torch)
+    mark("train check")
+    by_path["tokenizer_train"] = phase_tok_train(torch, wide=False)
+    mark("tok_train")
+    by_path["tokenizer_train_wide"] = phase_tok_train(torch, wide=True)
+    mark("tok_train_wide")
+    phase_tok_train_check(torch)
+    mark("tok_train check")
+    vp = mbrl_models(torch, torch.bfloat16, seed=59)
+    by_path["mbrl_rollout"] = phase_mbrl(torch, vp)
+    mark("mbrl")
+    phase_mbrl_check(torch)
+    mark("mbrl check")
+    by_path["mbrl_train"] = phase_mbrl_train(torch, vp)
+    mark("mbrl train")
+    del vp
+    torch.cuda.empty_cache()
+    phase_mbrl_train_check(torch)
+    mark("mbrl train check")
+    phase_drq_update(torch)
+    mark("drq_update")
+    scratch = os.path.join(REPO, "outputs")
+    with tempfile.TemporaryDirectory(prefix="mbrl-", dir=scratch) as root:
+        by_path["mbpo"] = phase_mbpo(torch, root)
+        mark("mbpo")
+        by_path["drq"] = phase_drq(torch, root)
+        mark("drq")
+    by_path["train_gpt_check"] = phase_train_check(torch, dropout=True)
+    mark("train_gpt check")
+    return by_path
+
+
+def lane_hub(torch, root, convs, mark):
+    """The hub under ``root`` (with the synthetic BAIR episodes the
+    multi-process phases read after the lanes), the trainer CLIs, the
+    inference entry points and the medium LM; returns their launches by
+    path."""
+    by_path = {}
+    hub, tok_cpu, lm_cpu = phase_hub(torch, root)
+    mark("hub")
+    free = os.path.join(root, "free", "transformer")
+    by_path["predict"] = phase_predict(torch, hub, tok_cpu, lm_cpu)
+    mark("predict")
+    del tok_cpu, lm_cpu
+    write_bair(root, GPT_EPISODES, EVAL_BATCHES * EVAL_B, GPT_FRAMES, seed=93)
+    with contextlib.chdir(root):
+        by_path["train_gpt"] = phase_train_gpt(torch, root, hub, free)
+        mark("train_gpt")
+        by_path["train_gpt_lora"] = phase_train_gpt_lora(torch, root, hub,
+                                                         free)
+        mark("train_gpt_lora")
+    by_path["train_tokenizer"] = phase_train_tokenizer(torch, root, hub)
+    mark("train_tokenizer")
+    with contextlib.chdir(root):
+        by_path["eval_gpt"] = phase_eval_gpt(torch, root, hub)
+        mark("eval_gpt")
+    by_path["train_tokenizer_256"] = phase_train_tokenizer_256(torch, root)
+    mark("train_tokenizer_256")
+    for which in ("256", "goal"):
+        by_path[f"train_gpt_{which}"] = phase_train_gpt_recipe(
+            torch, root, hub, which)
+        mark(f"train_gpt_{which}")
+    by_path["rollout_ctx1"] = phase_rollout_ctx1(torch, hub)
+    mark("rollout_ctx1")
+    by_path["vp2"], vp2_rgb = phase_vp2(torch, hub, root)
+    mark("vp2")
+    by_path["vp2_int8"] = phase_vp2_int8(torch, hub, root, vp2_rgb, convs)
+    del vp2_rgb
+    mark("vp2_int8")
+    by_path["train_medium"], medium = phase_train_medium(torch)
+    mark("train_medium")
+    by_path["train_medium_dots"] = phase_train_medium_dots(torch, medium)
+    mark("train_medium_dots")
+    return by_path
+
+
+def lane_child(torch, root, convs, out):
+    """``--lane <root> <convs> <out>``: lane_hub in this process, its
+    launches by path written to ``out`` as JSON."""
+    global CPU_THREADS
+    CPU_THREADS = lane_threads(hub=True)
+    torch.set_num_threads(CPU_THREADS)
+    from ivideogpt_tpu_torch import _build
+    _build.build_all()
+    by_path = lane_hub(torch, root, int(convs), marker("the lane's start"))
+    with open(out, "w") as f:
+        json.dump(by_path, f)
+    return 0
+
+
+def run_lanes(torch, convs, mark):
+    """lane_main here and lane_hub in a child process, side by side, then
+    the multi-process phases alone on the child's hub; the child is killed
+    if this lane fails or it outlasts LANE_TIMEOUT, and its log (also in
+    outputs/lane-hub.log) is printed after this lane's. Returns the
+    launches by path of every phase."""
+    global CPU_THREADS
+    import signal
+    scratch = os.path.join(REPO, "outputs")
+    os.makedirs(scratch, exist_ok=True)
+    log_path = os.path.join(scratch, "lane-hub.log")
+    with tempfile.TemporaryDirectory(prefix="hub-", dir=scratch) as root:
+        out = os.path.join(root, "lane.json")
+        with open(log_path, "w") as log:
+            child = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--lane", root,
+                 str(convs), out], stdout=log, stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONUNBUFFERED="1"), cwd=os.getcwd(),
+                start_new_session=True)
+        deadline = time.time() + LANE_TIMEOUT
+        CPU_THREADS = lane_threads(hub=False)
+        torch.set_num_threads(CPU_THREADS)
+        try:
+            by_path = lane_main(torch, convs, mark)
+            torch.cuda.empty_cache()
+            try:
+                child.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+        finally:
+            if child.poll() is None:
+                os.killpg(child.pid, signal.SIGKILL)
+                child.wait()
+            CPU_THREADS = 0
+            torch.set_num_threads(cpu_threads())
+            with open(log_path) as f:
+                print(f"--- the hub lane (exit {child.returncode}):\n"
+                      f"{f.read()}--- end of the hub lane", flush=True)
+        check(child.returncode == 0 and os.path.exists(out),
+              f"the hub lane failed (exit {child.returncode}) or outlasted "
+              f"{LANE_TIMEOUT} s")
+        with open(out) as f:
+            by_path.update(json.load(f))
+        mark("the lanes")
+        with contextlib.chdir(root):
+            by_path.update(phase_dist(
+                torch, root, os.path.join(root, "cond"),
+                os.path.join(root, "free", "transformer"),
+                os.path.join(root, "dist")))
+        mark("dist_train + dist_serve + dist_cli")
+    return by_path
+
+
 def main():
     try:
         import torch
@@ -6150,10 +7098,12 @@ def main():
         return 1
     mode = sys.argv[1:]
     ab = mode in (["--ab-turn"], ["--ab-kernels"])
+    rank = mode[:1] == ["--dist-rank"] and len(mode) == 7
+    lane = mode[:1] == ["--lane"] and len(mode) == 4
     if mode not in ([], ["--ab-turn"], ["--ab-kernels"], ["--vq-routing"],
-                    ["--k3-splits"]):
+                    ["--k3-splits"], ["--dist"]) and not (rank or lane):
         print(f"FAIL: usage: {sys.argv[0]} [--ab-turn | --ab-kernels | "
-              f"--vq-routing | --k3-splits]", file=sys.stderr)
+              f"--vq-routing | --k3-splits | --dist]", file=sys.stderr)
         return 1
     tree = os.getcwd() if ab else REPO
     if not os.path.isdir(os.path.join(tree, "ivideogpt_tpu_torch")):
@@ -6162,6 +7112,14 @@ def main():
         return 1
     sys.path.insert(0, tree)
     torch.backends.cuda.matmul.allow_tf32 = False
+    if rank or lane:
+        try:
+            if lane:
+                return lane_child(torch, *mode[1:])
+            return dist_rank_main(mode[1:])
+        except PhaseError as e:
+            print(f"FAIL: {e}", file=sys.stderr)
+            return 1
 
     try:
         card = card_line()
@@ -6186,13 +7144,10 @@ def main():
         if mode == ["--k3-splits"]:
             k3_splits(torch)
             return 0
-        started = [time.time()] * 2
-
-        def mark(phase):
-            now = time.time()
-            print(f"[time] {phase}: {now - started[1]:.1f} s, "
-                  f"{now - started[0]:.1f} s since the build")
-            started[1] = now
+        if mode == ["--dist"]:
+            dist_phases(torch)
+            return 0
+        mark = marker("the build")
         k1 = phase_k1(torch)
         mark("K1")
         k2 = phase_k2(torch, k1)
@@ -6207,87 +7162,9 @@ def main():
         mark("flash")
         flash.update(phase_flash_dropout(torch))
         mark("flash_dropout")
-        by_path = {"rollout": phase_main(torch)}
-        mark("main")
-        by_path.update(phase_rollout_variants(torch, convs))
-        mark("rollout variants")
-        phase_check(torch)
-        mark("check")
-        by_path["train"] = phase_train(torch)
-        mark("train")
-        by_path["train_fp32"] = phase_train(torch, fp32=True)
-        mark("train_fp32")
-        phase_train_check(torch)
-        mark("train check")
-        by_path["tokenizer_train"] = phase_tok_train(torch, wide=False)
-        mark("tok_train")
-        by_path["tokenizer_train_wide"] = phase_tok_train(torch, wide=True)
-        mark("tok_train_wide")
-        phase_tok_train_check(torch)
-        mark("tok_train check")
-        vp = mbrl_models(torch, torch.bfloat16, seed=59)
-        by_path["mbrl_rollout"] = phase_mbrl(torch, vp)
-        mark("mbrl")
-        phase_mbrl_check(torch)
-        mark("mbrl check")
-        by_path["mbrl_train"] = phase_mbrl_train(torch, vp)
-        mark("mbrl train")
-        del vp
-        torch.cuda.empty_cache()
-        phase_mbrl_train_check(torch)
-        mark("mbrl train check")
-        scratch = os.path.join(REPO, "outputs")
-        os.makedirs(scratch, exist_ok=True)
-        phase_drq_update(torch)
-        mark("drq_update")
-        with tempfile.TemporaryDirectory(prefix="mbrl-", dir=scratch) as root:
-            by_path["mbpo"] = phase_mbpo(torch, root)
-            mark("mbpo")
-            by_path["drq"] = phase_drq(torch, root)
-            mark("drq")
-        with tempfile.TemporaryDirectory(prefix="hub-", dir=scratch) as root:
-            hub, tok_cpu, lm_cpu = phase_hub(torch, root)
-            mark("hub")
-            by_path["predict"] = phase_predict(torch, hub, tok_cpu, lm_cpu)
-            mark("predict")
-            del tok_cpu, lm_cpu
-            by_path["rollout_ctx1"] = phase_rollout_ctx1(torch, hub)
-            mark("rollout_ctx1")
-            by_path["vp2"], vp2_rgb = phase_vp2(torch, hub, root)
-            mark("vp2")
-            by_path["vp2_int8"] = phase_vp2_int8(torch, hub, root, vp2_rgb,
-                                                 convs)
-            del vp2_rgb
-            mark("vp2_int8")
-            write_bair(root, GPT_EPISODES, EVAL_BATCHES * EVAL_B, GPT_FRAMES,
-                       seed=93)
-            with contextlib.chdir(root):
-                by_path["train_gpt"] = phase_train_gpt(
-                    torch, root, hub, os.path.join(root, "free",
-                                                   "transformer"))
-                mark("train_gpt")
-                by_path["eval_gpt"] = phase_eval_gpt(torch, root, hub)
-                mark("eval_gpt")
-                by_path["train_gpt_lora"] = phase_train_gpt_lora(
-                    torch, root, hub, os.path.join(root, "free",
-                                                   "transformer"))
-                mark("train_gpt_lora")
-            by_path["train_tokenizer"] = phase_train_tokenizer(torch, root,
-                                                               hub)
-            mark("train_tokenizer")
-            by_path["train_tokenizer_256"] = phase_train_tokenizer_256(
-                torch, root)
-            mark("train_tokenizer_256")
-            for which in ("256", "goal"):
-                by_path[f"train_gpt_{which}"] = phase_train_gpt_recipe(
-                    torch, root, hub, which)
-                mark(f"train_gpt_{which}")
-        by_path["train_medium"], medium = phase_train_medium(torch)
-        mark("train_medium")
-        by_path["train_medium_dots"] = phase_train_medium_dots(torch, medium)
-        mark("train_medium_dots")
-        by_path["train_gpt_check"] = phase_train_check(torch, dropout=True)
-        mark("train_gpt check")
+        phase_dist_kernels(torch)
+        mark("dist_kernels")
+        by_path = run_lanes(torch, convs, mark)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -6313,7 +7190,10 @@ def main():
           f"one step; mbpo: the MBPO CLI's run; drq: the DrQ-v2 run; "
           f"rollout_int8_detok, rollout_int8_static, rollout_mixed, "
           f"rollout_grouped: the first B={B} rollout of each; vp2_int8: "
-          f"the first int8-render query): "
+          f"the first int8-render query; dist_cli: rank 0's CLI runs, NCCL "
+          f"and gloo; dist_train: rank 0's {DIST_STEPS} GPT steps at DP=2 "
+          f"and at TP=2 and its {DIST_PAIRS} tokenizer pairs; dist_serve: "
+          f"rank 0's DP and TP rollouts): "
           + json.dumps(by_path))
     per_run = {"rollout": ("rollout", 1), "train_step": ("train", TRAIN_TIMED),
                "train_fp32_step": ("train_fp32", TRAIN_TIMED),

@@ -257,6 +257,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int bh = blockIdx.x / nt;
   const int qt = nt - 1 - static_cast<int>(blockIdx.x % nt);
   const int b = bh / H, h = bh % H;
+  // the Philox counter of this head's row 0 in the global [B, Hg] batch of
+  // heads whose mask this shard draws (philox.cuh)
+  const uint64_t head_ctr = ivg::head_counter(drop, b, h, S);
   const int q0 = qt * kTile;
   const int g = (threadIdx.x & 31) >> 2;
   const int row = q0 + 16 * (threadIdx.x >> 5) + g;  // and row + 8
@@ -272,7 +275,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     tma_load(k_s(0), &k_map, bar_kv(0), 0, h, 0, b);
     tma_load(v_s(0), &v_map, bar_kv(0), 0, h, 0, b);
   }
-  if constexpr (kDrop) ivg::draw_keep_tile(drop, bh, S, q0, 0, keep_s(0));
+  if constexpr (kDrop) ivg::draw_keep_tile(drop, head_ctr, S, q0, 0, keep_s(0));
   __syncthreads();
 
   float acc[32], m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
@@ -306,7 +309,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     // while the product runs, the next tile's keep bits into the other stage
     if constexpr (kDrop)
       if (kt < qt)
-        ivg::draw_keep_tile(drop, bh, S, q0, (kt + 1) * kTile, keep_s(st ^ 1));
+        ivg::draw_keep_tile(drop, head_ctr, S, q0, (kt + 1) * kTile,
+                            keep_s(st ^ 1));
     wg_wait_all();
     reg_fence(s);
 
@@ -333,8 +337,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // K5 ----------------------------------------------------------------------
+// 3 CTAs an SM, so at most 168 registers a thread: left to itself, ptxas
+// gave the dropout instance 172 with the shard's head carried through the
+// loop (philox.cuh), which fits 2 CTAs an SM and was ~13 % slower
 template <bool kDrop>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
@@ -367,6 +374,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int bh = blockIdx.x / nt;
   const int kt = blockIdx.x % nt;  // key tile 0 meets the most query tiles
   const int b = bh / H, h = bh % H;
+  // the Philox counter of this head's row 0 in the global [B, Hg] batch of
+  // heads whose mask this shard draws (philox.cuh)
+  const uint64_t head_ctr = ivg::head_counter(drop, b, h, S);
   const int k0 = kt * kTile;
   const int g = (threadIdx.x & 31) >> 2;
   const int key = k0 + 16 * (threadIdx.x >> 5) + g;  // and key + 8
@@ -392,7 +402,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     return q0 + qi < S ? src[q0 + qi] * mul : 0.f;
   };
   (is_lse ? lse_s(0) : di_s(0))[qi] = fetch(k0);
-  if constexpr (kDrop) ivg::draw_keep_tile(drop, bh, S, k0, k0, keep_s(0));
+  if constexpr (kDrop)
+    ivg::draw_keep_tile(drop, head_ctr, S, k0, k0, keep_s(0));
   __syncthreads();
 
   float dk_acc[32], dv_acc[32];
@@ -435,7 +446,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     // stage (read by every thread in tile qt - 1, before the barrier above)
     if constexpr (kDrop)
       if (more)
-        ivg::draw_keep_tile(drop, bh, S, q0 + kTile, k0, keep_s(st ^ 1));
+        ivg::draw_keep_tile(drop, head_ctr, S, q0 + kTile, k0, keep_s(st ^ 1));
     wg_wait_all();
     reg_fence(sT);
     reg_fence(dpT);
@@ -497,6 +508,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int bh = blockIdx.x / nt;
   const int qt = nt - 1 - static_cast<int>(blockIdx.x % nt);
   const int b = bh / H, h = bh % H;
+  // the Philox counter of this head's row 0 in the global [B, Hg] batch of
+  // heads whose mask this shard draws (philox.cuh)
+  const uint64_t head_ctr = ivg::head_counter(drop, b, h, S);
   const int q0 = qt * kTile;
   const int g = (threadIdx.x & 31) >> 2;
   const int row = q0 + 16 * (threadIdx.x >> 5) + g;  // and row + 8
@@ -523,7 +537,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     lse_r[r] = live ? lse[at] * kLog2e : 0.f;
     di_r[r] = live ? di[at] : 0.f;
   }
-  if constexpr (kDrop) ivg::draw_keep_tile(drop, bh, S, q0, 0, keep_s(0));
+  if constexpr (kDrop) ivg::draw_keep_tile(drop, head_ctr, S, q0, 0, keep_s(0));
   __syncthreads();
 
   float dq_acc[32];
@@ -560,7 +574,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     // stage (read by every thread in tile kt - 1, before the barrier above)
     if constexpr (kDrop)
       if (kt < qt)
-        ivg::draw_keep_tile(drop, bh, S, q0, (kt + 1) * kTile, keep_s(st ^ 1));
+        ivg::draw_keep_tile(drop, head_ctr, S, q0, (kt + 1) * kTile,
+                            keep_s(st ^ 1));
     wg_wait_all();
     reg_fence(s);
     reg_fence(dp);
@@ -630,7 +645,9 @@ bool bad_dropout(double p_drop) { return !(p_drop >= 0.0 && p_drop < 1.0); }
 // strides multiples of 8 (TMA's rule). Outputs are contiguous: o, dk, dv,
 // dq [B, S, H, 64] bf16, lse [B, H, S] fp32 (natural log). dout is contiguous
 // [B, S, H, 64] bf16; di is fp32 [B, H, S]. p_drop in [0, 1) is the
-// attention dropout, its mask drawn from (seed, offset) as philox.cuh says;
+// attention dropout, its mask drawn from (seed, offset) as philox.cuh says,
+// at the rows of a shard whose first batch row is b0 and first head h0 of
+// Hg heads in all (0, 0, H for a call that holds the whole batch);
 // 0 launches the kernels without dropout. The same arguments as the fp32
 // entry points (flash_attention_tf32.cu). Each function encodes its tensor
 // maps, launches one kernel on `stream` and returns the first cudaError_t
@@ -641,8 +658,10 @@ extern "C" int ivg_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                   int64_t q_sh, int64_t k_sb, int64_t k_ss,
                                   int64_t k_sh, int64_t v_sb, int64_t v_ss,
                                   int64_t v_sh, double p_drop, uint64_t seed,
-                                  uint64_t offset, void* stream) {
-  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+                                  uint64_t offset, int b0, int h0, int Hg,
+                                  void* stream) {
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop) ||
+      ivg::bad_shard(B, H, b0, h0, Hg))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t sts[3][3] = {
       {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}};
@@ -653,7 +672,8 @@ extern "C" int ivg_flash_fwd_bf16(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(B * H * ((S + kTile - 1) / kTile));
-  const ivg::Dropout drop = ivg::make_dropout(p_drop, seed, offset, S);
+  const ivg::Dropout drop =
+      ivg::make_dropout(p_drop, seed, offset, S, b0, h0, Hg);
   const auto kernel = p_drop > 0.0 ? flash_fwd_sm90_kernel<true>
                                    : flash_fwd_sm90_kernel<false>;
   const int smem = kFwdSmem + (p_drop > 0.0 ? kKeepRing : 0);
@@ -672,8 +692,10 @@ extern "C" int ivg_flash_bwd_dkv_bf16(const void* q, const void* k,
                                       int64_t k_sh, int64_t v_sb, int64_t v_ss,
                                       int64_t v_sh, double p_drop,
                                       uint64_t seed, uint64_t offset,
+                                      int b0, int h0, int Hg,
                                       void* stream) {
-  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop) ||
+      ivg::bad_shard(B, H, b0, h0, Hg))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t sts[4][3] = {{q_sb, q_ss, q_sh},
                              {k_sb, k_ss, k_sh},
@@ -696,7 +718,7 @@ extern "C" int ivg_flash_bwd_dkv_bf16(const void* q, const void* k,
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), S, H, kScale, kScale * kLog2e,
-      ivg::make_dropout(p_drop, seed, offset, S));
+      ivg::make_dropout(p_drop, seed, offset, S, b0, h0, Hg));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -708,8 +730,10 @@ extern "C" int ivg_flash_bwd_dq_bf16(const void* q, const void* k,
                                      int64_t k_sb, int64_t k_ss, int64_t k_sh,
                                      int64_t v_sb, int64_t v_ss, int64_t v_sh,
                                      double p_drop, uint64_t seed,
-                                     uint64_t offset, void* stream) {
-  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+                                     uint64_t offset, int b0, int h0, int Hg,
+                                     void* stream) {
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop) ||
+      ivg::bad_shard(B, H, b0, h0, Hg))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t sts[4][3] = {{q_sb, q_ss, q_sh},
                              {k_sb, k_ss, k_sh},
@@ -731,6 +755,7 @@ extern "C" int ivg_flash_bwd_dq_bf16(const void* q, const void* k,
   const dim3 grid(B * H * ((S + kTile - 1) / kTile));
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<bf16*>(dq), S,
-      H, kScale, kScale * kLog2e, ivg::make_dropout(p_drop, seed, offset, S));
+      H, kScale, kScale * kLog2e,
+      ivg::make_dropout(p_drop, seed, offset, S, b0, h0, Hg));
   return static_cast<int>(cudaGetLastError());
 }

@@ -380,6 +380,9 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
   const int bh = blockIdx.x / nt;
   const int qt = nt - 1 - static_cast<int>(blockIdx.x % nt);
   const int b = bh / H, h = bh % H;
+  // the Philox counter of this head's row 0 in the global [B, Hg] batch of
+  // heads whose mask this shard draws (philox.cuh)
+  const uint64_t head_ctr = ivg::head_counter(drop, b, h, S);
   const int q0 = qt * kTile;
   const int g = (threadIdx.x & 31) >> 2;
   const int row = q0 + 16 * (threadIdx.x >> 5) + g;  // and row + 8
@@ -397,7 +400,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
       load_tile(at(v_st(n)), &v_map, bar_kv(n), h, n * kTile, b);
     }
   }
-  if constexpr (kDrop) ivg::draw_keep_tile(drop, bh, S, q0, 0, keep_s(0));
+  if constexpr (kDrop) ivg::draw_keep_tile(drop, head_ctr, S, q0, 0, keep_s(0));
   __syncthreads();
   mbar_wait(bar_q, 0);
   convert_tile<false>(tile(Q), tile(Q_LO), nullptr, nullptr);
@@ -426,7 +429,8 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
     // stage (read by every thread in tile kt - 1, before the barrier above)
     if constexpr (kDrop)
       if (kt < qt)
-        ivg::draw_keep_tile(drop, bh, S, q0, (kt + 1) * kTile, keep_s(st ^ 1));
+        ivg::draw_keep_tile(drop, head_ctr, S, q0, (kt + 1) * kTile,
+                            keep_s(st ^ 1));
     wg_wait_all();
     reg_fence(s);
     // every warp is past it: stage st's landed tiles take tile kt + 2 (its
@@ -504,6 +508,9 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
   const int bh = blockIdx.x / nt;
   const int kt = blockIdx.x % nt;  // key tile 0 meets the most query tiles
   const int b = bh / H, h = bh % H;
+  // the Philox counter of this head's row 0 in the global [B, Hg] batch of
+  // heads whose mask this shard draws (philox.cuh)
+  const uint64_t head_ctr = ivg::head_counter(drop, b, h, S);
   const int k0 = kt * kTile;
   const int g = (threadIdx.x & 31) >> 2;
   const int key = k0 + 16 * (threadIdx.x >> 5) + g;  // and key + 8
@@ -537,7 +544,8 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
     return q0 + qi < S ? src[q0 + qi] * mul : 0.f;
   };
   float cur = fetch(last);
-  if constexpr (kDrop) ivg::draw_keep_tile(drop, bh, S, last, k0, keep_s(0));
+  if constexpr (kDrop)
+    ivg::draw_keep_tile(drop, head_ctr, S, last, k0, keep_s(0));
   __syncthreads();
   mbar_wait(bar_kv, 0);
   convert_tile<false>(tile(K), tile(K_LO), nullptr, nullptr);
@@ -583,7 +591,7 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
     // stage (read by every thread in tile qt + 1, before the barrier above)
     if constexpr (kDrop)
       if (more)
-        ivg::draw_keep_tile(drop, bh, S, q0 - kTile, k0, keep_s(st ^ 1));
+        ivg::draw_keep_tile(drop, head_ctr, S, q0 - kTile, k0, keep_s(st ^ 1));
     wg_wait_all();
     reg_fence(sT);
     reg_fence(dpT);
@@ -654,6 +662,9 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
   const int bh = blockIdx.x / nt;
   const int qt = nt - 1 - static_cast<int>(blockIdx.x % nt);
   const int b = bh / H, h = bh % H;
+  // the Philox counter of this head's row 0 in the global [B, Hg] batch of
+  // heads whose mask this shard draws (philox.cuh)
+  const uint64_t head_ctr = ivg::head_counter(drop, b, h, S);
   const int q0 = qt * kTile;
   const int g = (threadIdx.x & 31) >> 2;
   const int row = q0 + 16 * (threadIdx.x >> 5) + g;  // and row + 8
@@ -682,7 +693,7 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
     lse_r[r] = live ? lse[idx] * kLog2e : 0.f;
     di_r[r] = live ? di[idx] : 0.f;
   }
-  if constexpr (kDrop) ivg::draw_keep_tile(drop, bh, S, q0, 0, keep_s(0));
+  if constexpr (kDrop) ivg::draw_keep_tile(drop, head_ctr, S, q0, 0, keep_s(0));
   __syncthreads();
   mbar_wait(bar_q, 0);
   convert_tile<false>(tile(Q), tile(Q_LO), nullptr, nullptr);
@@ -713,7 +724,8 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
     // stage (read by every thread in tile kt - 1, before the barrier above)
     if constexpr (kDrop)
       if (kt < qt)
-        ivg::draw_keep_tile(drop, bh, S, q0, (kt + 1) * kTile, keep_s(st ^ 1));
+        ivg::draw_keep_tile(drop, head_ctr, S, q0, (kt + 1) * kTile,
+                            keep_s(st ^ 1));
     wg_wait_all();
     reg_fence(s);
     reg_fence(dp);
@@ -814,7 +826,9 @@ cudaError_t make_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
 // strides multiples of 4 (TMA's rule). dout is contiguous fp32 [B, S, H, 64];
 // lse (natural log) and di are fp32 [B, H, S]. Outputs are contiguous fp32
 // [B, S, H, 64]: o, dk, dv, dq (K4 also writes lse). p_drop in [0, 1) is the
-// attention dropout, its mask drawn from (seed, offset) as philox.cuh says;
+// attention dropout, its mask drawn from (seed, offset) as philox.cuh says,
+// at the rows of a shard whose first batch row is b0 and first head h0 of
+// Hg heads in all (0, 0, H for a call that holds the whole batch);
 // 0 launches the kernels without dropout. Each function encodes its tensor
 // maps, launches one kernel on `stream` and returns the first cudaError_t (0
 // on success).
@@ -824,8 +838,10 @@ extern "C" int ivg_flash_fwd_fp32(const void* q, const void* k, const void* v,
                                   int64_t q_sh, int64_t k_sb, int64_t k_ss,
                                   int64_t k_sh, int64_t v_sb, int64_t v_ss,
                                   int64_t v_sh, double p_drop, uint64_t seed,
-                                  uint64_t offset, void* stream) {
-  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+                                  uint64_t offset, int b0, int h0, int Hg,
+                                  void* stream) {
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop) ||
+      ivg::bad_shard(B, H, b0, h0, Hg))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t sts[3][3] = {
       {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}};
@@ -844,7 +860,7 @@ extern "C" int ivg_flash_fwd_fp32(const void* q, const void* k, const void* v,
   const dim3 grid(B * H * ((S + kTile - 1) / kTile));
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], static_cast<float*>(o), lse, S, H,
-      kScale * kLog2e, ivg::make_dropout(p_drop, seed, offset, S));
+      kScale * kLog2e, ivg::make_dropout(p_drop, seed, offset, S, b0, h0, Hg));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -857,8 +873,10 @@ extern "C" int ivg_flash_bwd_dkv_fp32(const void* q, const void* k,
                                       int64_t k_sh, int64_t v_sb, int64_t v_ss,
                                       int64_t v_sh, double p_drop,
                                       uint64_t seed, uint64_t offset,
+                                      int b0, int h0, int Hg,
                                       void* stream) {
-  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop) ||
+      ivg::bad_shard(B, H, b0, h0, Hg))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t sts[3][3] = {
       {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}};
@@ -875,7 +893,7 @@ extern "C" int ivg_flash_bwd_dkv_fp32(const void* q, const void* k,
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<float*>(dk),
       static_cast<float*>(dv), S, H, kScale, kScale * kLog2e,
-      ivg::make_dropout(p_drop, seed, offset, S));
+      ivg::make_dropout(p_drop, seed, offset, S, b0, h0, Hg));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -887,8 +905,10 @@ extern "C" int ivg_flash_bwd_dq_fp32(const void* q, const void* k,
                                      int64_t k_sb, int64_t k_ss, int64_t k_sh,
                                      int64_t v_sb, int64_t v_ss, int64_t v_sh,
                                      double p_drop, uint64_t seed,
-                                     uint64_t offset, void* stream) {
-  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop))
+                                     uint64_t offset, int b0, int h0, int Hg,
+                                     void* stream) {
+  if (bad_shape(B, S, H, hd) || bad_dropout(p_drop) ||
+      ivg::bad_shard(B, H, b0, h0, Hg))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t sts[3][3] = {
       {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}};
@@ -904,6 +924,7 @@ extern "C" int ivg_flash_bwd_dq_fp32(const void* q, const void* k,
   const dim3 grid(B * H * ((S + kTile - 1) / kTile));
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<float*>(dq), S,
-      H, kScale, kScale * kLog2e, ivg::make_dropout(p_drop, seed, offset, S));
+      H, kScale, kScale * kLog2e,
+      ivg::make_dropout(p_drop, seed, offset, S, b0, h0, Hg));
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,6 +29,13 @@
 // layout, padding of the ragged tile). A kept element is scaled by
 // scale = 1 / keep.
 //
+// A shard. A data- or tensor-parallel rank holds a block of that global
+// [B, H] batch of heads: its B' rows from global row b0 on, its H' heads
+// from global head h0 on, of Hg heads in all. Its local (b', h') is the
+// global (b0 + b', h0 + h'), so it draws row ((b0 + b') Hg + h0 + h') S + i:
+// the bits that a launch over the whole batch draws there. A call that
+// holds the whole batch is the shard (0, 0, H).
+//
 // How a kernel draws it: K4, K5 and K6, bf16 (flash_attention_sm90.cu) and
 // fp32 (flash_attention_tf32.cu), draw a whole 64 x 64 tile's bits into
 // shared memory once, one call per group (draw_keep_tile), and read them
@@ -64,11 +71,15 @@ struct Dropout {
   uint32_t threshold;  // keep iff the word < threshold
   float scale;         // 1 / keep
   int n4;              // ceil(S / 4): Philox groups in a row
+  int b0, h0, Hg;      // the shard: first global batch row, first global
+                       // head, global head count
 };
 
-// The dropout of probability p (0 < p < 1) over rows of S keys; all zero
-// for p <= 0, which the kernels never read (they launch without dropout).
-inline Dropout make_dropout(double p, uint64_t seed, uint64_t offset, int S) {
+// The dropout of probability p (0 < p < 1) over rows of S keys, of the
+// shard (b0, h0, Hg); all zero for p <= 0, which the kernels never read
+// (they launch without dropout).
+inline Dropout make_dropout(double p, uint64_t seed, uint64_t offset, int S,
+                            int b0, int h0, int Hg) {
   Dropout d{};
   if (!(p > 0.0)) return d;
   d.seed = seed;
@@ -76,14 +87,28 @@ inline Dropout make_dropout(double p, uint64_t seed, uint64_t offset, int S) {
   d.threshold = static_cast<uint32_t>((1.0 - p) * 4294967296.0);
   d.scale = static_cast<float>(1.0 / (1.0 - p));
   d.n4 = (S + 3) / 4;
+  d.b0 = b0;
+  d.h0 = h0;
+  d.Hg = Hg;
   return d;
 }
 
-// The Philox counter of row `row` = (b * H + h) * S + i at its key 0.
-__device__ __forceinline__ uint64_t row_counter(const Dropout& d,
-                                                int64_t row) {
-  return static_cast<uint64_t>(row) * static_cast<uint64_t>(d.n4);
+// A shard that is not a block of a global batch of heads whose indices fit
+// an int: B rows from b0, H heads from h0, of Hg.
+inline bool bad_shard(int B, int H, int b0, int h0, int Hg) {
+  return b0 < 0 || h0 < 0 || Hg < 1 || static_cast<int64_t>(h0) + H > Hg ||
+         (static_cast<int64_t>(b0) + B) * Hg > 0x7fffffff;
 }
+
+// The Philox counter of query 0, key 0 of the local head (b, h): row
+// ((b0 + b) Hg + h0 + h) S of the global batch times ceil(S / 4). Computed
+// once a CTA, before its loop; a tile adds its query's and key's offset.
+__device__ __forceinline__ uint64_t head_counter(const Dropout& d, int b,
+                                                 int h, int S) {
+  return static_cast<uint64_t>((d.b0 + b) * d.Hg + d.h0 + h) *
+         static_cast<uint64_t>(S) * static_cast<uint64_t>(d.n4);
+}
+
 
 // The keep bits of a tile of 64 queries x 64 keys, drawn once by a
 // warpgroup into shared memory for the tile's elements to read: word
@@ -129,23 +154,26 @@ __device__ __forceinline__ uint32_t keep_word(const Dropout& d, uint64_t ctr) {
 }
 
 // Draws the keep tile of queries i0 .. i0 + 63 and keys j0 .. j0 + 63 (j0 a
-// multiple of 4, so the tile holds whole groups) of head bh = b * H + h
-// into `bits` (shared memory), with the 128 threads of a warpgroup: thread
-// x draws word 2 (x & 63) + (x >> 6), its row's 8 groups, one call each;
-// warps 0-1 take keys j0 .. j0 + 31, warps 2-3 the rest. So a tile costs
-// one call per group, at most 1024. A word that changes no output is not
-// drawn and keeps what it held: a query at or past S (K4 never stores its
-// O, K5 zeroes its P, K6 its dS and never stores its dQ), and 32 keys that
-// all lie past their query (on the diagonal tile; there warp 2 skips as a
-// whole), whose P is 0. The caller publishes the words with a barrier.
-__device__ __forceinline__ void draw_keep_tile(const Dropout& d, int64_t bh,
-                                               int S, int i0, int j0,
+// multiple of 4, so the tile holds whole groups) of the head whose counter
+// is `head_ctr` (head_counter) into `bits` (shared memory), with the 128
+// threads of a warpgroup: thread x draws word 2 (x & 63) + (x >> 6), its
+// row's 8 groups, one call each; warps 0-1 take keys j0 .. j0 + 31, warps
+// 2-3 the rest. So a tile costs one call per group, at most 1024. A word
+// that changes no output is not drawn and keeps what it held: a query at or
+// past S (K4 never stores its O, K5 zeroes its P, K6 its dS and never
+// stores its dQ), and 32 keys that all lie past their query (on the
+// diagonal tile; there warp 2 skips as a whole), whose P is 0. The caller
+// publishes the words with a barrier.
+__device__ __forceinline__ void draw_keep_tile(const Dropout& d,
+                                               uint64_t head_ctr, int S,
+                                               int i0, int j0,
                                                uint32_t* bits) {
   const int r = threadIdx.x & (kKeepRows - 1), half = threadIdx.x >> 6;
   const int i = i0 + r, j = j0 + 32 * half;
   if (i < S && j <= i)
     bits[2 * r + half] = keep_word(
-        d, row_counter(d, bh * S + i) + static_cast<uint64_t>(j >> 2));
+        d, head_ctr + static_cast<uint64_t>(i) * static_cast<uint64_t>(d.n4) +
+               static_cast<uint64_t>(j >> 2));
   __syncwarp();  // converged again for the warpgroup's aligned instructions
 }
 

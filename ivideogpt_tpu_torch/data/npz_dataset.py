@@ -468,15 +468,23 @@ class EvalDataLoader:
         self.drop_last = drop_last
 
     def __iter__(self):
+        for _, batch in self.shard(0, 1):
+            yield batch
+
+    def shard(self, index: int, count: int):
+        """(n, batch) of the batches n with n mod ``count`` = ``index``, the
+        others not loaded: a data-parallel rank's share of the split."""
         n = len(self.dataset)
         end = n - n % self.batch_size if self.drop_last else n
-        for s in range(0, end, self.batch_size):
+        for k, s in enumerate(range(0, end, self.batch_size)):
+            if k % count != index:
+                continue
             items = [self.dataset[i]
                      for i in range(s, min(s + self.batch_size, n))]
             if isinstance(items[0], tuple):
-                yield tuple(np.stack(x) for x in zip(*items))
+                yield k, tuple(np.stack(x) for x in zip(*items))
             else:
-                yield np.stack(items)
+                yield k, np.stack(items)
 
     def __len__(self):
         n = len(self.dataset)

@@ -101,13 +101,25 @@ def top_k_keep_mask(logits: torch.Tensor, top_k: int,
 
 def sample_top_k(logits: torch.Tensor, generator: torch.Generator,
                  top_k: int = 100, temperature: float = 1.0,
-                 bf16_exact: bool = False) -> torch.Tensor:
+                 bf16_exact: bool = False,
+                 batch_rows: Optional[Tuple[int, int]] = None
+                 ) -> torch.Tensor:
     """Restrict to the top-k set (threshold search), then draw one token
-    per row from softmax(logits / T) by the Gumbel-max trick."""
+    per row from softmax(logits / T) by the Gumbel-max trick. With
+    ``batch_rows`` = (first row, global batch), ``logits`` are a data-
+    parallel rank's rows of a global batch: the generator draws the whole
+    batch's uniforms and the rank keeps its rows, so it samples what one
+    process over the whole batch samples from the same logits."""
     keep = top_k_keep_mask(logits, top_k, bf16_exact)
     masked = torch.where(keep, logits / temperature,
                          torch.full_like(logits, float("-inf")))
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    if batch_rows is None:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
+    else:
+        r0, total = batch_rows
+        u = torch.rand((total, logits.shape[1]), generator=generator,
+                       device=logits.device)[r0:r0 + logits.shape[0]]
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return (masked - torch.log(-torch.log(u))).argmax(dim=-1)
 
@@ -120,7 +132,8 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
              on_frame: Optional[Callable] = None,
              tokens_per_dyna: int = 16, top_k: int = 100,
              temperature: float = 1.0, reward_prediction: bool = False,
-             cache_dtype: Union[torch.dtype, str] = torch.bfloat16
+             cache_dtype: Union[torch.dtype, str] = torch.bfloat16,
+             batch_rows: Optional[Tuple[int, int]] = None
              ) -> GenerateResult:
     """Autoregressive rollout of (segment_length - context_length) frames.
 
@@ -137,7 +150,8 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
     ``generation.prefill`` and ``generation.decode``; the callbacks outside
     them. ``cache_dtype``: the KV cache's (``models.llama.init_cache``):
     a float dtype, ``torch.int8`` or ``"mixed"``, over the model's
-    ``num_key_value_heads``.
+    ``num_key_value_heads``. ``batch_rows`` = (first row, global batch)
+    makes the rows a data-parallel rank's (:func:`sample_top_k`).
     """
     B, P1 = prelude_tokens.shape
     F = segment_length - context_length
@@ -183,7 +197,8 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
                 hidden, _ = model.decode_cached(emb, cache, s0 - 1)
             for j in range(D):
                 token = sample_top_k(model.unembed(hidden[:, -1]), generator,
-                                     top_k, temperature, bf16_exact)
+                                     top_k, temperature, bf16_exact,
+                                     batch_rows)
                 buf[:, s0 + j] = token
                 if f == F - 1 and j == D - 1 and not reward_prediction:
                     break  # its logits would only feed the dropped final sdf

@@ -27,7 +27,17 @@ recipe) acts in the training forward only, inside the attention kernels:
 ``forward(..., dropout_key=(seed, step))`` gives layer ``i`` the Philox
 stream ``(seed, offset_of(step, i))`` (``ops/philox.py``), a pure function
 of (seed, step, layer), so a remat recompute and a resumed run draw the
-same masks. ``eval()`` never drops.
+same masks. ``eval()`` never drops. A data-parallel rank passes
+``dropout_key=(seed, step, b0)``, b0 the global index of its first row.
+Tensor parallelism (``parallel/mesh.shard_params``): an attention block
+holds ``heads`` query heads from global head ``head0`` on and
+``kv_heads`` KV heads, an MLP ``intermediate_size`` columns; the block's
+input is read whole (its gradient summed over the ``tp_group``) and its
+output summed over the group (Megatron's pair,
+``parallel/distributed.copy_to_group`` / ``reduce_from_group``). Either
+way the kernels draw the dropout bits of the global (row, head) they
+hold, so a sharded step drops as a one-process step over the whole batch
+does; the cache holds the local KV heads.
 Remat (``config.remat``) recomputes each layer in the backward through a
 non-reentrant ``torch.utils.checkpoint``: with ``remat_policy`` "none"
 the whole layer, with "dots" everything but the outputs of the matrix
@@ -60,8 +70,9 @@ from ivideogpt_tpu_torch.ops.philox import Dropout, offset_of
 from ivideogpt_tpu_torch.tokens import IGNORE_INDEX
 
 Cache = List[Dict[str, torch.Tensor]]
-# (seed, step) of one training step's attention dropout
-DropoutKey = Tuple[int, int]
+# (seed, step) of one training step's attention dropout, or (seed, step,
+# b0) for a data-parallel rank whose rows start at global row b0
+DropoutKey = Union[Tuple[int, int], Tuple[int, int, int]]
 
 
 # the "dots" policy's kept products: 2-D matrix products (with a bias)
@@ -137,6 +148,10 @@ class LlamaAttention(nn.Module):
                              f"group over {c.num_key_value_heads} KV heads")
         self.config = c
         self.dtype = dtype
+        # this rank's heads (all of them unless shard_params cut the block)
+        self.heads, self.kv_heads = c.num_attention_heads, c.num_key_value_heads
+        self.head0 = 0
+        self.tp_group = None
         width = c.num_attention_heads * c.head_dim
         kv_width = c.num_key_value_heads * c.head_dim
         self.q_proj = Dense(c.hidden_size, width, bias=False, dtype=dtype)
@@ -144,24 +159,45 @@ class LlamaAttention(nn.Module):
         self.v_proj = Dense(c.hidden_size, kv_width, bias=False, dtype=dtype)
         self.o_proj = Dense(width, c.hidden_size, bias=False, dtype=dtype)
 
+    def _dropout_shard(self, dropout: Optional[Dropout], b0: int
+                       ) -> Optional[Dropout]:
+        """``dropout`` (p, seed, offset) at this block's place in the
+        global batch of heads: rows from ``b0``, heads from ``head0`` of
+        the config's; the three-element form where that is (0, 0, H)."""
+        H = self.config.num_attention_heads
+        if dropout is None or (b0 == 0 and self.heads == H):
+            return dropout
+        return tuple(dropout[:3]) + (b0, self.head0, H)
+
+    def _reduce(self, out):
+        if self.tp_group is None:
+            return out
+        from ivideogpt_tpu_torch.parallel.distributed import reduce_from_group
+        return reduce_from_group(out, self.tp_group)
+
     def forward(self, x, cos, sin,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
-                cache_index: int = 0, dropout: Optional[Dropout] = None):
+                cache_index: int = 0, dropout: Optional[Dropout] = None,
+                batch_offset: int = 0):
         """Without a cache: causal attention over the whole sequence (the
         training forward), with ``dropout`` = (p, seed, offset) on its
-        probabilities. With one: S positions written at ``cache_index``
-        and attended as the module docstring says."""
+        probabilities, drawn at global row ``batch_offset`` on. With one: S
+        positions written at ``cache_index`` and attended as the module
+        docstring says."""
         c = self.config
         B, S, _ = x.shape
-        H, Hkv, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        H, Hkv, hd = self.heads, self.kv_heads, c.head_dim
         rep = H // Hkv
+        if self.tp_group is not None:
+            from ivideogpt_tpu_torch.parallel.distributed import copy_to_group
+            x = copy_to_group(x, self.tp_group)
         q = apply_rope(self.q_proj(x).view(B, S, H, hd), cos, sin)
         k = apply_rope(self.k_proj(x).view(B, S, Hkv, hd), cos, sin)
         v = self.v_proj(x).view(B, S, Hkv, hd)
         if cache is None:
-            return self.o_proj(causal_attention(
+            return self._reduce(self.o_proj(causal_attention(
                 q, _repeat_kv(k, rep), _repeat_kv(v, rep), self.dtype,
-                dropout))
+                self._dropout_shard(dropout, batch_offset))))
         if dropout is not None:
             raise ValueError("attention dropout acts in the training "
                              "forward only, never with a cache")
@@ -181,7 +217,7 @@ class LlamaAttention(nn.Module):
                                    end).reshape(B, 1, H * hd)
         else:
             out = self._cached_attention(q, cache, cache_index, end, rep)
-        return self.o_proj(out)
+        return self._reduce(self.o_proj(out))
 
     def _cached_attention(self, q, cache, cache_index: int, end: int,
                           rep: int):
@@ -221,6 +257,9 @@ class LlamaMLP(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         c = config
+        # this rank's columns and tensor-parallel group (shard_params)
+        self.intermediate_size = c.intermediate_size
+        self.tp_group = None
         self.gate_proj = Dense(c.hidden_size, c.intermediate_size, bias=False,
                                dtype=dtype)
         self.up_proj = Dense(c.hidden_size, c.intermediate_size, bias=False,
@@ -229,7 +268,14 @@ class LlamaMLP(nn.Module):
                                dtype=dtype)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.tp_group is None:
+            return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        from ivideogpt_tpu_torch.parallel.distributed import (
+            copy_to_group, reduce_from_group)
+        x = copy_to_group(x, self.tp_group)
+        return reduce_from_group(
+            self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)),
+            self.tp_group)
 
 
 class LlamaLayer(nn.Module):
@@ -243,9 +289,9 @@ class LlamaLayer(nn.Module):
         self.mlp = LlamaMLP(config, dtype)
 
     def forward(self, x, cos, sin, cache=None, cache_index: int = 0,
-                dropout: Optional[Dropout] = None):
+                dropout: Optional[Dropout] = None, batch_offset: int = 0):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, cache,
-                               cache_index, dropout)
+                               cache_index, dropout, batch_offset)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -295,8 +341,9 @@ class LlamaForCausalLM(nn.Module):
         ``config.remat`` each layer is recomputed in the backward, as its
         ``remat_policy`` says (the module docstring). In
         ``train()`` with ``config.attention_dropout > 0`` the step's
-        ``dropout_key`` (seed, step) is required: layer i drops with the
-        Philox stream (seed, offset_of(step, i))."""
+        ``dropout_key`` (seed, step[, b0]) is required: layer i drops with
+        the Philox stream (seed, offset_of(step, i)), at global rows from
+        b0 (0 where not given) on."""
         c = self.config
         remat = _remat_kwargs(c.remat_policy) if c.remat else None
         drop = self.training and c.attention_dropout > 0
@@ -311,14 +358,16 @@ class LlamaForCausalLM(nn.Module):
         cos, sin = rope_cos_sin(pos[None].expand(B, S), c.head_dim,
                                 c.rope_theta, dtype=self.dtype)
         x = inputs_embeds
+        b0 = dropout_key[2] if drop and len(dropout_key) > 2 else 0
         for i, layer in enumerate(self.model.layers):
             dropout = ((c.attention_dropout, dropout_key[0],
                         offset_of(dropout_key[1], i)) if drop else None)
             if remat and torch.is_grad_enabled():
                 # the recompute draws the same mask: it is (seed, step, i)'s
-                x = checkpoint(layer, x, cos, sin, None, 0, dropout, **remat)
+                x = checkpoint(layer, x, cos, sin, None, 0, dropout, b0,
+                               **remat)
             else:
-                x = layer(x, cos, sin, dropout=dropout)
+                x = layer(x, cos, sin, dropout=dropout, batch_offset=b0)
         hidden = self.model.norm(x)
         out = {"logits": self.unembed(hidden)}
         if output_hidden_states:
@@ -330,13 +379,15 @@ class LlamaForCausalLM(nn.Module):
     def init_cache(self, batch: int, max_len: int,
                    cache_dtype: Union[torch.dtype, str] = torch.bfloat16,
                    device=None) -> Cache:
-        """Zeroed ``bshd`` cache over the KV heads; ``cache_dtype=
-        torch.int8`` selects the quantised cache with bf16 scales,
-        ``"mixed"`` a bf16 K and an int8 V with its scales."""
+        """Zeroed ``bshd`` cache over the KV heads (this rank's, under
+        tensor parallelism); ``cache_dtype=torch.int8`` selects the
+        quantised cache with bf16 scales, ``"mixed"`` a bf16 K and an int8
+        V with its scales."""
         c = self.config
         if device is None:
             device = self.model.embed_tokens.weight.device
-        shape = (batch, max_len, c.num_key_value_heads, c.head_dim)
+        kv_heads = self.model.layers[0].self_attn.kv_heads
+        shape = (batch, max_len, kv_heads, c.head_dim)
         sshape = shape[:3]
 
         def zeros(shape, dtype):

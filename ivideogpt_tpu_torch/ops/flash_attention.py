@@ -47,6 +47,13 @@ kernel drawing a 64 x 64 tile's bits once. Every plain version draws
 its chunk's part of the mask by index, so its chunk size does not change
 the mask. p = 0 (or None) launches the kernels without dropout, bit-equal to
 a launch that never heard of it.
+
+A shard (``dropout=(p, seed, offset, b0, h0, Hg)``, ``ops/philox.py``): a
+data- or tensor-parallel rank's call over its B rows from global row b0
+and its H heads from global head h0 of Hg draws the global rows' bits, so
+the concatenated shards' outputs equal one launch over the whole batch.
+Each kernel maps its CTA's local head to the global one once, before its
+loop; the plain versions take the same shard.
 """
 
 from __future__ import annotations
@@ -178,7 +185,7 @@ def flash_bwd_dq_plain(q, k, v, do, lse, di,
 
 def causal_attention(q, k, v, dtype, dropout: Optional[Dropout] = None):
     """q/k/v [B, S, H, hd] -> [B, S, H*hd] in ``dtype``; ``dropout`` is
-    (p, seed, offset) or None.
+    (p, seed, offset[, b0, h0, Hg]) or None.
 
     On CPU tensors this is :func:`causal_attention_plain` with the Philox
     mask; otherwise it runs K4 forward and K5/K6 backward with the same
@@ -249,11 +256,13 @@ def _strides(*ts):
     return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
 
 
-def _drop_args(dropout):
-    """The kernels' (p_drop, seed, offset) arguments; p_drop 0 launches
-    the kernels without dropout."""
+def _drop_args(dropout, B, H):
+    """The kernels' (p_drop, seed, offset, b0, h0, Hg) arguments for a call
+    over B rows and H heads; p_drop 0 launches the kernels without
+    dropout."""
     dropout = philox.check_dropout(dropout)
-    return (0.0, 0, 0) if dropout is None else dropout
+    shard = philox.shard_of(dropout, B, H)
+    return ((0.0, 0, 0) if dropout is None else dropout[:3]) + shard
 
 
 def _launch(fn, name, *args):
@@ -269,7 +278,7 @@ def flash_fwd(q, k, v, dropout: Optional[Dropout] = None):
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _launch(_entry("fwd", q.dtype), "flash_fwd", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, H, HEAD_DIM,
-            *_strides(q, k, v), *_drop_args(dropout),
+            *_strides(q, k, v), *_drop_args(dropout, B, H),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_fwd.launches += 1
     return o, lse
@@ -297,7 +306,7 @@ def flash_bwd_dkv(q, k, v, do, lse, di, dropout: Optional[Dropout] = None):
     _launch(_entry("bwd_dkv", q.dtype), "flash_bwd_dkv", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, HEAD_DIM,
-            *_strides(q, k, v), *_drop_args(dropout),
+            *_strides(q, k, v), *_drop_args(dropout, B, H),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -310,7 +319,7 @@ def flash_bwd_dq(q, k, v, do, lse, di, dropout: Optional[Dropout] = None):
     _launch(_entry("bwd_dq", q.dtype), "flash_bwd_dq", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), dq.data_ptr(), B, S, H, HEAD_DIM,
-            *_strides(q, k, v), *_drop_args(dropout),
+            *_strides(q, k, v), *_drop_args(dropout, B, H),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_bwd_dq.launches += 1
     return dq
@@ -334,12 +343,14 @@ def _library(kernel, dtype):
 @functools.lru_cache(maxsize=None)
 def _entry(kernel, dtype):
     """The C entry point of :func:`_library`, its argument types set:
-    pointers, B, S, H, hd, 9 strides, p_drop, seed, offset, stream."""
+    pointers, B, S, H, hd, 9 strides, p_drop, seed, offset, the shard's
+    b0, h0 and Hg, stream."""
     lib, sym = _library(kernel, dtype)
     fn = getattr(_build.load(lib), sym)
     p, i = ctypes.c_void_p, ctypes.c_int
     n_ptrs = {"fwd": 5, "bwd_dkv": 8, "bwd_dq": 7}[kernel]
     fn.argtypes = ([p] * n_ptrs + [i] * 4 + [ctypes.c_int64] * 9
-                   + [ctypes.c_double, ctypes.c_uint64, ctypes.c_uint64, p])
+                   + [ctypes.c_double, ctypes.c_uint64, ctypes.c_uint64]
+                   + [i] * 3 + [p])
     fn.restype = ctypes.c_int
     return fn

@@ -26,11 +26,20 @@ multiple of 4 keys, divided by 4, the remainder choosing the word. The bit
 depends on (seed, offset, b, h, i, j, S) alone, so any chunk of rows and
 keys can be drawn on its own (:func:`keep_mask`) and equals the same part of
 the whole mask. A kept element is scaled by 1 / keep.
+
+A shard. A data- or tensor-parallel rank holds a block of the global
+[B, H] batch of heads: its rows from global row b0 on and its heads from
+global head h0 on, of Hg heads in all. Its local (b, h) draws the global
+row ((b0 + b) * Hg + h0 + h) * S + i, so a rank's mask is the slice of the
+mask a one-process run over the whole batch draws, whatever the layout. The
+dropout tuple carries the shard as ``(p, seed, offset, b0, h0, Hg)``; the
+three-element ``(p, seed, offset)`` is the shard (0, 0, H) of a call that
+holds the whole batch.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -39,8 +48,9 @@ W0, W1 = 0x9E3779B9, 0xBB67AE85
 _U32 = 0xFFFFFFFF
 _U16 = 0xFFFF
 
-# (p, seed, offset) of one attention call's dropout
-Dropout = Tuple[float, int, int]
+# (p, seed, offset) of one attention call's dropout, or (p, seed, offset, b0,
+# h0, Hg) with the shard's place in the global batch of heads
+Dropout = Union[Tuple[float, int, int], Tuple[float, int, int, int, int, int]]
 
 
 def _mulhilo(m: int, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,31 +85,54 @@ def threshold(p: float) -> int:
 
 
 def check_dropout(dropout: Optional[Dropout]) -> Optional[Dropout]:
-    """(p, seed, offset) with 0 <= p < 1 and seed, offset 64-bit unsigned,
-    as ints; None for no dropout."""
+    """(p, seed, offset[, b0, h0, Hg]) with 0 <= p < 1, seed and offset
+    64-bit unsigned and the shard's indices non-negative, as numbers of
+    their types; None for no dropout."""
     if dropout is None:
         return None
-    p, seed, offset = dropout
-    p, seed, offset = float(p), int(seed), int(offset)
+    if len(dropout) not in (3, 6):
+        raise ValueError(f"dropout {dropout}: (p, seed, offset) or (p, seed, "
+                         f"offset, b0, h0, Hg)")
+    p, seed, offset = float(dropout[0]), int(dropout[1]), int(dropout[2])
     if not 0.0 <= p < 1.0:
         raise ValueError(f"dropout probability {p} outside [0, 1)")
     for name, x in (("seed", seed), ("offset", offset)):
         if not 0 <= x < 2 ** 64:
             raise ValueError(f"dropout {name} {x} is not a 64-bit unsigned "
                              f"integer")
-    return p, seed, offset
+    shard = tuple(int(x) for x in dropout[3:])
+    if shard and (min(shard) < 0 or shard[2] < 1 or shard[1] >= shard[2]):
+        raise ValueError(f"dropout shard (b0, h0, Hg) = {shard}")
+    return (p, seed, offset) + shard
+
+
+def shard_of(dropout: Optional[Dropout], B: int, H: int
+             ) -> Tuple[int, int, int]:
+    """(b0, h0, Hg) of a call over B rows and H heads: the dropout's shard,
+    (0, 0, H) for the three-element form or none. Raises where the call's
+    heads do not fit the shard's Hg, or its head rows do not fit an int,
+    as the kernels refuse them."""
+    b0, h0, Hg = (0, 0, H) if dropout is None or len(dropout) == 3 \
+        else dropout[3:]
+    if h0 + H > Hg or (b0 + B) * Hg >= 2 ** 31:
+        raise ValueError(f"dropout shard (b0, h0, Hg) = {(b0, h0, Hg)} does "
+                         f"not hold {B} rows and {H} heads")
+    return b0, h0, Hg
 
 
 def keep_mask(dropout: Dropout, B: int, H: int, S: int, i0: int, ni: int,
               j0: int, nj: int, device=None) -> torch.Tensor:
     """The keep bits [B, H, ni, nj] of queries i0 .. i0+ni-1 and keys
-    j0 .. j0+nj-1 of an S x S attention, bool. One Philox call per group
-    of 4 keys, as the kernels make it."""
-    p, seed, offset = check_dropout(dropout)
+    j0 .. j0+nj-1 of an S x S attention over B rows and H heads of the
+    dropout's shard, bool. One Philox call per group of 4 keys, as the
+    kernels make it."""
+    dropout = check_dropout(dropout)
+    p, seed, offset = dropout[:3]
+    b0, h0, Hg = shard_of(dropout, B, H)
     n4 = (S + 3) // 4
     g0, g1 = j0 >> 2, (j0 + nj + 3) >> 2
-    row = ((torch.arange(B, device=device)[:, None, None] * H
-            + torch.arange(H, device=device)[None, :, None]) * S
+    row = (((b0 + torch.arange(B, device=device))[:, None, None] * Hg
+            + (h0 + torch.arange(H, device=device))[None, :, None]) * S
            + torch.arange(i0, i0 + ni, device=device)[None, None, :])
     ctr = row[..., None] * n4 + torch.arange(g0, g1, device=device)
     words = philox4x32_10(

@@ -18,6 +18,18 @@ The LoRA step (``lora_train_step``, the counterpart of
 ``ivideogpt_tpu/train/lora.py``'s ``make_lora_train_step``) trains only the
 adapters a model carries (``train/lora.attach``) through the merged
 weights; its state (``create_lora_train_state``) decays every adapter.
+
+On a mesh (``parallel/mesh``; ``mesh=`` of every step) each rank takes its
+rows of the global batch: after the backward the gradients are averaged
+over the data group (``parallel/distributed.all_reduce_mean``, the JAX
+step's psum), so every data rank applies the same update and the
+parameters stay bit-identical across them; the attention dropout is drawn
+at the rank's global rows; the clip's norm and the logged one sum a
+tensor-parallel model's shards (``mesh.place_state``); the returned loss
+is the data group's mean. The mean of the ranks' mean losses is the
+global batch's mean because every row of a token batch has the same
+number of labelled tokens. A LoRA run keeps its base whole on every rank
+and reduces the adapters' gradients.
 """
 
 from __future__ import annotations
@@ -33,8 +45,9 @@ from ivideogpt_tpu_torch.configs import (LLAMA_BASE, TOKENIZER_64,
 from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
 from ivideogpt_tpu_torch.models.llama import DropoutKey
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+from ivideogpt_tpu_torch.parallel.mesh import Mesh
 from ivideogpt_tpu_torch.train.lora import LoraAdapters
-from ivideogpt_tpu_torch.train.optim import TrainState, global_norm
+from ivideogpt_tpu_torch.train.optim import TrainState
 from ivideogpt_tpu_torch.utils.platform import full_fp32, resolve_device
 
 Batch = Dict[str, torch.Tensor]
@@ -107,47 +120,72 @@ def make_tokenize_fn(tokenizer: CompressiveVQModel, context_length: int
     return tokenize
 
 
+def _rank_key(rng: Optional[DropoutKey], batch: Batch,
+              mesh: Optional[Mesh]) -> Optional[DropoutKey]:
+    """The step's dropout key at this rank's first global row."""
+    if rng is None or mesh is None:
+        return rng
+    return (rng[0], rng[1], mesh.data_rank * batch["input_ids"].shape[0])
+
+
+def _reduce_grads(params, mesh: Optional[Mesh]):
+    if mesh is not None:
+        mesh.data_mean_([p.grad for p in params if p.grad is not None])
+
+
+def _data_mean(loss: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    return loss if mesh is None else mesh.data_mean([loss])[0]
+
+
 def train_step(state: TrainState, batch: Batch,
-               rng: Optional[DropoutKey] = None) -> Dict[str, torch.Tensor]:
+               rng: Optional[DropoutKey] = None, mesh: Optional[Mesh] = None
+               ) -> Dict[str, torch.Tensor]:
     """One micro-batch: forward, backward, then ``state.apply_gradients``.
-    batch: {"input_ids", "labels" [B, L][, "action" [B, T, A]]}; ``rng`` is
-    the step's attention-dropout key (seed, step), which a model with
-    ``attention_dropout > 0`` needs (the JAX step's ``rng``,
-    ``deterministic=False``). Returns 0-dim tensors (no host sync): loss,
-    the unclipped gradient norm and perplexity."""
+    batch: {"input_ids", "labels" [B, L][, "action" [B, T, A]]} (this
+    rank's rows on a ``mesh``); ``rng`` is the step's attention-dropout
+    key (seed, step), which a model with ``attention_dropout > 0`` needs
+    (the JAX step's ``rng``, ``deterministic=False``). Returns 0-dim
+    tensors (no host sync): loss, the unclipped gradient norm and
+    perplexity."""
     model = state.model
     model.train()
     out = model(batch["input_ids"], batch["labels"], batch.get("action"),
-                dropout_key=rng)
+                dropout_key=_rank_key(rng, batch, mesh))
     loss = out["loss"]
     loss.backward()
-    gnorm = global_norm(p.grad for p in state.params if p.grad is not None)
+    _reduce_grads(state.params, mesh)
+    gnorm = state.grad_norm([p.grad for p in state.params
+                             if p.grad is not None])
     state.apply_gradients()
-    loss = loss.detach()
+    loss = _data_mean(loss.detach(), mesh)
     return {"loss": loss, "grad_norm": gnorm, "perplexity": torch.exp(loss)}
 
 
 def lora_train_step(state: TrainState, model: HeadModelWithAction,
-                    batch: Batch, rng: Optional[DropoutKey] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    batch: Batch, rng: Optional[DropoutKey] = None,
+                    mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One micro-batch of a LoRA run: ``model`` carries the adapters that
     ``state`` trains (``train/lora.attach``), so its forward reads the
     merged weights and the backward reaches only the adapters; then
-    ``state.apply_gradients``. ``batch`` and ``rng`` as in
+    ``state.apply_gradients``. ``batch``, ``rng`` and ``mesh`` as in
     :func:`train_step`. Returns 0-dim tensors: loss and perplexity, the
     JAX step's metrics."""
     model.train()
     loss = model(batch["input_ids"], batch["labels"], batch.get("action"),
-                 dropout_key=rng)["loss"]
+                 dropout_key=_rank_key(rng, batch, mesh))["loss"]
     loss.backward()
+    _reduce_grads(state.params, mesh)
     state.apply_gradients()
-    loss = loss.detach()
+    loss = _data_mean(loss.detach(), mesh)
     return {"loss": loss, "perplexity": torch.exp(loss)}
 
 
 @torch.no_grad()
-def eval_step(model: HeadModelWithAction, batch: Batch
-              ) -> Dict[str, torch.Tensor]:
+def eval_step(model: HeadModelWithAction, batch: Batch,
+              mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+    """Loss and perplexity without dropout, the loss the data group's
+    mean on a ``mesh``."""
     model.eval()
-    out = model(batch["input_ids"], batch["labels"], batch.get("action"))
-    return {"loss": out["loss"], "perplexity": torch.exp(out["loss"])}
+    loss = _data_mean(model(batch["input_ids"], batch["labels"],
+                            batch.get("action"))["loss"], mesh)
+    return {"loss": loss, "perplexity": torch.exp(loss)}

@@ -100,10 +100,13 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm_fn: Callable[[List[torch.Tensor]],
+                                           torch.Tensor] = global_norm
                          ) -> torch.Tensor:
-    """optax.clip_by_global_norm in place; returns the norm before."""
-    norm = global_norm(grads)
+    """optax.clip_by_global_norm in place, the norm taken by ``norm_fn``;
+    returns the norm before."""
+    norm = norm_fn(grads)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
@@ -116,7 +119,9 @@ class TrainState:
     ``step`` counts :meth:`apply_gradients` calls (micro-batches);
     ``updates`` counts optimiser updates, which the schedule reads.
     Parameters named in ``frozen`` keep their gradients in the clip's global
-    norm but are never updated."""
+    norm but are never updated. ``grad_norm`` takes the clip's norm (a
+    tensor-parallel run's sums the shards' squares over its model group:
+    ``parallel/mesh.place_state``)."""
 
     def __init__(self, model: nn.Module, *, learning_rate: float,
                  lr_scheduler: str = "cosine", warmup_steps: int = 0,
@@ -150,6 +155,8 @@ class TrainState:
         self._acc: Optional[List[torch.Tensor]] = None
         self.step = 0
         self.updates = 0
+        self.grad_norm: Callable[[List[torch.Tensor]],
+                                 torch.Tensor] = global_norm
 
     @torch.no_grad()
     def apply_gradients(self):
@@ -173,7 +180,7 @@ class TrainState:
         else:
             self.step += 1
         if self.max_grad_norm is not None:
-            clip_by_global_norm_(grads, self.max_grad_norm)
+            clip_by_global_norm_(grads, self.max_grad_norm, self.grad_norm)
         for p, g, trained in zip(self.params, grads, self._trained):
             if trained:
                 p.grad = g

@@ -21,6 +21,19 @@ discriminator steps.
 - The discriminator: hinge loss on real against reconstructed frames; its
   spectral-norm stats advance one power iteration a step.
 
+On a mesh (``mesh=`` of the step factories; ``parallel/mesh``) each rank
+takes its rows of the global batch and the gradients, which both steps
+take with ``torch.autograd.grad`` (DDP's hooks never see them), are
+averaged over the data group before the norms and the update
+(``parallel/distributed.all_reduce_mean``): the JAX step's psum. The
+adaptive weight's two last-layer gradients are averaged the same way
+before their norms, so every rank weighs the GAN loss by the global
+batch's gradients, as the JAX step does. The reported losses are the data
+group's means. Parameters, AdamW and the spectral-norm ``u`` buffers
+(computed from the same weights) stay bit-identical across the data
+ranks. The tokenizer is never cut over "model": the ranks of a model
+group repeat the same step.
+
 Compute is bf16 over fp32 master parameters by default, as
 ``train_tokenizer.py`` builds it; VQ distances, the reconstruction losses
 and LPIPS' mean are fp32. Each step runs under ``full_fp32``, so an fp32
@@ -42,6 +55,7 @@ from ivideogpt_tpu_torch.models.discriminator import (Discriminator,
                                                       gen_loss, hinge_d_loss)
 from ivideogpt_tpu_torch.models.lpips import LPIPS
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+from ivideogpt_tpu_torch.parallel.mesh import Mesh
 from ivideogpt_tpu_torch.train.optim import (TrainState, global_norm,
                                              per_module_grad_norms)
 from ivideogpt_tpu_torch.utils.checkpoint import tokenizer_flax_tree
@@ -113,14 +127,31 @@ def _perceptual(lpips_model: LPIPS
     return perc
 
 
+def _reduce(grads, mesh: Optional[Mesh]):
+    if mesh is not None:
+        mesh.data_mean_(grads)
+    return grads
+
+
+def _mean_metrics(metrics: Metrics, mesh: Optional[Mesh]) -> Metrics:
+    """The 0-dim metrics' data-group means (one all-reduce)."""
+    if mesh is None:
+        return metrics
+    keys = list(metrics)
+    return dict(zip(keys, mesh.data_mean([metrics[k] for k in keys])))
+
+
 def adaptive_weight(conv_out: torch.nn.Module, pre_out: torch.Tensor,
                     target: torch.Tensor, perc: Callable,
-                    disc_model: Discriminator, n_total: int) -> torch.Tensor:
+                    disc_model: Discriminator, n_total: int,
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
     """||d perc / d W|| / max(||d gan / d W||, 1e-8), clipped at 1e4 and
     detached: W is conv_out's kernel, both losses recomputed from the
     detached pre_out [N, H, W, C0] through conv_out alone (fp32, from the
     master kernel). gan is the reconstructions' share of the generator
-    loss over the ``n_total`` frames of the context + future batch."""
+    loss over the ``n_total`` frames of the context + future batch. On a
+    ``mesh`` both gradients are the data group's means before their
+    norms: the global batch's gradients."""
     kernel = conv_out.weight.detach().requires_grad_()
     act = pre_out.detach().permute(0, 3, 1, 2).to(kernel.dtype)
     dec = F.conv2d(act, kernel, conv_out.bias.detach(), padding=1)
@@ -130,6 +161,7 @@ def adaptive_weight(conv_out: torch.nn.Module, pre_out: torch.Tensor,
     g_perc, = torch.autograd.grad(perc(target, dec), kernel,
                                   retain_graph=True)
     g_gan, = torch.autograd.grad(gan, kernel)
+    _reduce([g_perc, g_gan], mesh)
     weight = (torch.linalg.vector_norm(g_perc)
               / torch.linalg.vector_norm(g_gan).clamp_min(1e-8))
     return weight.clamp(max=1e4).detach()
@@ -137,11 +169,12 @@ def adaptive_weight(conv_out: torch.nn.Module, pre_out: torch.Tensor,
 
 def make_generator_step(model: CompressiveVQModel, disc_model: Discriminator,
                         lpips_model: LPIPS, cfg: TokenizerTrainConfig, *,
-                        use_gan: bool):
+                        use_gan: bool, mesh: Optional[Mesh] = None):
     """Returns step(state, pixels, generator) -> metrics: one generator
     update of ``state`` (built on ``model``), the discriminator read with
-    its stats unchanged. Metrics are 0-dim tensors (no host sync), with
-    ``grad_norm`` and ``grad_norm/<a>/<b>`` under the Flax paths."""
+    its stats unchanged; ``pixels`` this rank's rows on a ``mesh``.
+    Metrics are 0-dim tensors (no host sync), with ``grad_norm`` and
+    ``grad_norm/<a>/<b>`` under the Flax paths."""
     T, ctx = cfg.segment_length, cfg.context_length
     F_ = T - ctx
     w_fut = F_ / T if cfg.balanced_loss else 1.0
@@ -173,15 +206,16 @@ def make_generator_step(model: CompressiveVQModel, disc_model: Discriminator,
                 g_loss = gen_loss(disc_model(fake, update_stats=False).float())
                 weight = adaptive_weight(model.cond_decoder.conv_out, pre_out,
                                          target, perc, disc_model,
-                                         fake.shape[0])
+                                         fake.shape[0], mesh)
                 loss = loss + cfg.disc_weight * weight * g_loss
                 metrics["gan_loss"] = g_loss
                 metrics["adaptive_weight"] = weight
             metrics["gen_loss"] = loss
             grads = torch.autograd.grad(loss, state.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(state.params, grads)]
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        grads = _reduce([torch.zeros_like(p) if g is None else g
+                         for p, g in zip(state.params, grads)], mesh)
+        metrics = _mean_metrics({k: v.detach() for k, v in metrics.items()},
+                                mesh)
         metrics["grad_norm"] = global_norm(grads)
         metrics.update(per_module_grad_norms(
             tokenizer_flax_tree(dict(zip(names, grads)))))
@@ -195,13 +229,14 @@ def make_generator_step(model: CompressiveVQModel, disc_model: Discriminator,
 
 def make_discriminator_step(model: CompressiveVQModel,
                             disc_model: Discriminator,
-                            cfg: TokenizerTrainConfig):
+                            cfg: TokenizerTrainConfig,
+                            mesh: Optional[Mesh] = None):
     """Returns step(disc_state, pixels, generator) -> metrics: one hinge
     update of the discriminator against the tokenizer's reconstructions
     (no gradient into the tokenizer). Both calls start from the same
     spectral-norm ``u`` and the second stores its stats, as the JAX step
     keeps its second call's ``batch_stats``: ``u`` advances one power
-    iteration a step."""
+    iteration a step. ``pixels`` are this rank's rows on a ``mesh``."""
     T, ctx = cfg.segment_length, cfg.context_length
     F_ = T - ctx
 
@@ -218,13 +253,16 @@ def make_discriminator_step(model: CompressiveVQModel,
             fake_logits = disc_model(torch.cat([ref_dec, dec]),
                                      update_stats=True)
             loss = hinge_d_loss(real_logits.float(), fake_logits.float())
-            grads = torch.autograd.grad(loss, disc_state.params)
+            grads = _reduce(list(torch.autograd.grad(loss,
+                                                     disc_state.params)),
+                            mesh)
         for p, g in zip(disc_state.params, grads):
             p.grad = g
-        metrics = {"discr_loss": loss.detach(),
-                   "real_logits": real_logits.detach().mean(),
-                   "fake_logits": fake_logits.detach().mean(),
-                   "disc_grad_norm": global_norm(grads)}
+        metrics = _mean_metrics({"discr_loss": loss.detach(),
+                                 "real_logits": real_logits.detach().mean(),
+                                 "fake_logits": fake_logits.detach().mean()},
+                                mesh)
+        metrics["disc_grad_norm"] = global_norm(grads)
         disc_state.apply_gradients()
         return metrics
 

@@ -18,7 +18,22 @@ hub layout.
 
 The flags are ``train_gpt.py``'s, with its spellings and compatibility
 shims, plus ``--device`` (CUDA unless it names another device; raises when
-CUDA is absent).
+CUDA is absent) and ``--dist_backend``.
+
+On N cards: ``python -m torch.distributed.run --nproc_per_node N -m
+ivideogpt_tpu_torch.train_gpt ...``, or the JAX-spelled
+``--coordinator_address host:port --num_processes N --process_id i`` in
+each process; ``--n_model`` ranks in a row form a tensor-parallel group
+(``parallel/mesh``), the groups split the batch: ``--batch_size`` is per
+data-parallel rank, the global batch ``batch_size * N / n_model``. Rank
+r's loader is seeded ``seed + data_rank * 9973`` (the JAX driver's
+``process_index * 9973`` at n_model 1); a tensor-parallel group takes its
+first rank's batches. The logger, the provenance, the checkpoints and the
+export are written by rank 0 alone, from the full state
+(``mesh.HostState``: the split weights and their AdamW moments gathered),
+so a checkpoint resumes at any layout. ``--dist_backend`` is "nccl" on
+CUDA and "gloo" on the CPU unless it says otherwise (two ranks on one card
+need gloo: NCCL refuses them); it is never swapped on a failure.
 
 Differences from the JAX driver, each on purpose:
 
@@ -46,8 +61,12 @@ Differences from the JAX driver, each on purpose:
   counters, so a resume continues the run; the export writes
   ``transformer/lora.safetensors`` (the file ``vp/interface`` folds)
   beside the base's unchanged ``model.safetensors``.
-- Not ported, and refused with the ROADMAP item that holds them: more
-  than one process or ``--n_model > 1`` (Queue 1 item 10), the
+- ``--eval_only`` and the validation's generation on several data ranks
+  split the evaluation's batches among them (batch n on data rank n mod
+  n_data) and gather the losses, frame metrics and I3D features once, in
+  batch order, so N ranks compute the one-process numbers; the JAX driver
+  reads the whole split on every process and gathers N copies.
+- Not ported, and refused with the ROADMAP item that holds it: the
   Something-Something mixes (raised by the loader).
 - Metrics go to ``{output_dir}/metrics.jsonl`` (no TensorBoard), with
   ``step_ms`` and ``loader_wait_ms`` (the loop's wait on the loader a step)
@@ -57,11 +76,13 @@ Differences from the JAX driver, each on purpose:
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
 import time
-from typing import List, Optional
+from types import SimpleNamespace
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +102,9 @@ from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
 from ivideogpt_tpu_torch.models.i3d import I3D, load_torch_i3d
 from ivideogpt_tpu_torch.models.lpips import LPIPS, load_torch_lpips
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+from ivideogpt_tpu_torch.parallel import distributed as dist_lib
+from ivideogpt_tpu_torch.parallel import mesh as mesh_lib
+from ivideogpt_tpu_torch.parallel.mesh import Mesh
 from ivideogpt_tpu_torch.train import lora
 from ivideogpt_tpu_torch.train.gpt_trainer import (eval_step,
                                                    lora_train_step,
@@ -90,8 +114,7 @@ from ivideogpt_tpu_torch.train.optim import TrainState
 from ivideogpt_tpu_torch.utils import checkpoint as ckpt
 from ivideogpt_tpu_torch.utils import safetensors
 from ivideogpt_tpu_torch.utils.loggers import TrainLogger
-from ivideogpt_tpu_torch.utils.platform import (full_fp32, resolve_device,
-                                                to_device)
+from ivideogpt_tpu_torch.utils.platform import full_fp32, to_device
 from ivideogpt_tpu_torch.utils.provenance import write_provenance
 from ivideogpt_tpu_torch.utils.video_metric import (Evaluator, FeatureStats,
                                                     frechet_distance)
@@ -188,12 +211,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--log_steps", type=int, default=50)
     p.add_argument("--resume_from_checkpoint", type=str, default=None)
     p.add_argument("--seed", type=int, default=42)
-    # distribution: one process on one device here
+    # distribution: one process a device (parallel/mesh)
     p.add_argument("--n_model", type=int, default=1,
-                   help="tensor-parallel size: only 1 is ported")
+                   help="tensor-parallel size (ranks a model group)")
     p.add_argument("--coordinator_address", type=str, default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="process-group backend: nccl on CUDA, gloo on the "
+                   "CPU by default")
     # reference-script aliases
     p.add_argument("--exp_name", type=str, default=None)
     p.add_argument("--oxe_data_mixes_type", dest="dataset_name",
@@ -204,15 +231,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    default=argparse.SUPPRESS)
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
-
-
-def refuse_unported(args):
-    """Raise on the flags whose paths the port does not have."""
-    if (args.n_model != 1 or (args.num_processes or 1) > 1
-            or args.coordinator_address or args.process_id):
-        raise NotImplementedError(
-            "multi-process training and --n_model > 1 are not ported "
-            "(ROADMAP Queue 1 item 10)")
 
 
 def build_models(args, dev: torch.device):
@@ -315,20 +333,55 @@ def build_evaluator(args, dev: torch.device) -> Optional[Evaluator]:
     return Evaluator(lpips, i3d, max_batchsize=args.eval_max_batchsize)
 
 
+def _batches(loader, limit: int, mesh: Optional[Mesh]):
+    """(n, batch) of this data rank's batches among the first ``limit``:
+    batch n belongs to data rank n mod n_data (an ``EvalDataLoader``
+    loads only those)."""
+    count, index = (1, 0) if mesh is None else (mesh.n_data, mesh.data_rank)
+    batches = (loader.shard(index, count) if isinstance(loader, EvalDataLoader)
+               else ((n, b) for n, b in enumerate(loader)
+                     if n % count == index))
+    for n, batch in batches:
+        if n >= limit:
+            return
+        yield n, batch
+
+
+def _in_batch_order(items: List[Tuple[int, np.ndarray]], width: int,
+                    dtype, mesh: Optional[Mesh]) -> List[np.ndarray]:
+    """Every data rank's (batch n, rows [k, width]), gathered once, as the
+    rows of each batch in batch order: what one process holds."""
+    parts = [(n, np.asarray(a, dtype).reshape(-1, width)) for n, a in items]
+    idx = np.concatenate([np.full(len(a), n, np.int64) for n, a in parts]
+                         + [np.zeros(0, np.int64)])
+    rows = np.concatenate([a for _, a in parts]
+                          + [np.zeros((0, width), dtype)])
+    if mesh is not None and mesh.n_data > 1:
+        idx = dist_lib.gather_across_processes(idx, mesh.data_group)
+        rows = dist_lib.gather_across_processes(rows, mesh.data_group)
+    return [rows[idx == n] for n in np.unique(idx)]
+
+
+I3D_FEATURES = 400  # I3D's logits: the FVD features
+
+
 @torch.no_grad()
 def evaluate(args, tokenizer: CompressiveVQModel, model: HeadModelWithAction,
              loader, evaluator: Optional[Evaluator] = None,
              max_batches: Optional[int] = None, gif_dir: Optional[str] = None,
-             step: int = 0) -> dict:
+             step: int = 0, mesh: Optional[Mesh] = None) -> dict:
     """Mean loss and perplexity over the loader's batches. With
     --use_fvd, --use_frame_metrics or a ``gif_dir``, each batch's futures
     are also sampled ``--eval_generate_times`` times from its context over
     a bf16 KV cache and detokenized in fp32; the first batch's are written
     as GIF strips into ``gif_dir`` where one is given, the frame metrics
     are best-of-t, and FVD compares the I3D features of the ground truth
-    with those of every sample (``train_gpt.py:274-381``). Returns
-    {"eval_loss", "perplexity"[, "mse", "psnr", "ssim"[, "lpips"]][,
-    "fvd"], "generated": clips generated}."""
+    with those of every sample (``train_gpt.py:274-381``). On a ``mesh``
+    the data ranks split the batches (batch n on rank n mod n_data; the
+    ranks of a model group run it together) and gather the per-batch
+    losses, metrics and features in batch order, so the result is one
+    process's. Returns {"eval_loss", "perplexity"[, "mse", "psnr",
+    "ssim"[, "lpips"]][, "fvd"], "generated": clips generated}."""
     dev = next(model.parameters()).device
     ctx, T = args.context_length, args.segment_length
     cfg = tokenizer.config
@@ -336,11 +389,11 @@ def evaluate(args, tokenizer: CompressiveVQModel, model: HeadModelWithAction,
     tokenize = make_tokenize_fn(tokenizer, ctx)
     limit = args.max_eval_batches if max_batches is None else max_batches
     generate = args.use_fvd or args.use_frame_metrics or gif_dir is not None
-    real_stats, gen_stats = FeatureStats(), FeatureStats()
-    losses, frame_metrics, generated = [], [], 0
-    for n, batch in enumerate(loader):
-        if n >= limit:
-            break
+    keys = ["mse", "psnr", "ssim"] + (
+        ["lpips"] if evaluator is not None and evaluator.lpips_fn else [])
+    losses, frame_metrics, real_feats, gen_feats = [], [], [], []
+    generated = 0
+    for n, batch in _batches(loader, limit, mesh):
         pixels, actions = _split(batch, args.action_conditioned)
         px = to_device(pixels, dev)
         act = None if actions is None else to_device(actions, dev)
@@ -348,7 +401,7 @@ def evaluate(args, tokenizer: CompressiveVQModel, model: HeadModelWithAction,
         b = {"input_ids": ids, "labels": labels}
         if act is not None:
             b["action"] = act
-        losses.append(float(eval_step(model, b)["loss"]))
+        losses.append((n, [float(eval_step(model, b)["loss"])]))
         if not generate:
             continue
         reps = args.eval_generate_times
@@ -369,35 +422,51 @@ def evaluate(args, tokenizer: CompressiveVQModel, model: HeadModelWithAction,
         if not bool(torch.isfinite(gen_videos).all()):
             raise FloatingPointError("validation generated non-finite frames")
         generated += gen_videos.shape[0]
-        if gif_dir is not None and n == 0:
+        if (gif_dir is not None and n == 0
+                and dist_lib.is_main_process()):
             dump_prediction_gifs(gif_dir, step, np.asarray(pixels),
                                  gen_videos[:px.shape[0]].cpu().numpy())
         if args.use_frame_metrics:
-            frame_metrics.append(evaluator.frame_metrics(px, gen_videos))
+            m = evaluator.frame_metrics(px, gen_videos)
+            frame_metrics.append((n, [m[k] for k in keys]))
         if args.use_fvd:
-            real_stats.append(evaluator.i3d_features(px))
-            gen_stats.append(evaluator.i3d_features(gen_videos))
-    mean_loss = float(np.mean(losses))
+            real_feats.append((n, evaluator.i3d_features(px)))
+            gen_feats.append((n, evaluator.i3d_features(gen_videos)))
+    losses = _in_batch_order(losses, 1, np.float64, mesh)
+    mean_loss = float(np.mean(np.concatenate(losses)))
     result = {"eval_loss": mean_loss, "perplexity": math.exp(mean_loss)}
-    for k in (frame_metrics[0] if frame_metrics else ()):
-        result[k] = float(np.mean([m[k] for m in frame_metrics]))
-    if args.use_fvd and real_stats.num_items:
-        result["fvd"] = frechet_distance(real_stats, gen_stats)
+    if args.use_frame_metrics:
+        per = np.concatenate(_in_batch_order(frame_metrics, len(keys),
+                                             np.float64, mesh))
+        for i, k in enumerate(keys if len(per) else ()):
+            result[k] = float(np.mean(per[:, i]))
+    if args.use_fvd:
+        real_stats, gen_stats = FeatureStats(), FeatureStats()
+        width = I3D_FEATURES
+        for r, g in zip(_in_batch_order(real_feats, width, np.float32, mesh),
+                        _in_batch_order(gen_feats, width, np.float32, mesh)):
+            real_stats.append(r)
+            gen_stats.append(g)
+        if real_stats.num_items:
+            result["fvd"] = frechet_distance(real_stats, gen_stats)
+    if mesh is not None and mesh.n_data > 1:
+        generated = int(dist_lib.gather_across_processes(
+            np.array([generated]), mesh.data_group).sum())
     result["generated"] = generated
     return result
 
 
-def export_transformer(output_dir: str, model: HeadModelWithAction,
+def export_transformer(output_dir: str, weights: Dict[str, torch.Tensor],
                        lm_cfg: TransformerConfig,
                        adapters: Optional[lora.LoraAdapters] = None):
-    """``{output_dir}/transformer/model.safetensors`` (the whole
-    HeadModelWithAction, fp32 masters; with LoRA the frozen base) and
-    ``config.json`` (the LLaMA's config), as ``train_gpt.py:626-636``
-    writes them; with ``adapters``, also ``lora.safetensors`` beside them
-    (an older one is removed otherwise)."""
+    """``{output_dir}/transformer/model.safetensors`` (``weights``: the
+    whole HeadModelWithAction's, fp32 masters, with LoRA the frozen base:
+    ``lora.base_state_dict`` on the CPU) and ``config.json`` (the LLaMA's
+    config), as ``train_gpt.py:626-636`` writes them; with ``adapters``,
+    also ``lora.safetensors`` beside them (an older one is removed
+    otherwise)."""
     tf_dir = os.path.join(output_dir, "transformer")
-    safetensors.save_file(lora.base_state_dict(model),
-                          os.path.join(tf_dir, ckpt.TRANSFORMER_FILE))
+    safetensors.save_file(weights, os.path.join(tf_dir, ckpt.TRANSFORMER_FILE))
     with open(os.path.join(tf_dir, "config.json"), "w") as f:
         f.write(lm_cfg.to_json())
     lora_path = os.path.join(tf_dir, ckpt.LORA_FILE)
@@ -431,61 +500,84 @@ def make_train_state(args, trained) -> TrainState:
         gradient_accumulation_steps=args.gradient_accumulation_steps)
 
 
+def _frozen(sd: dict):
+    """A state dict as the checkpoint writer reads a TrainState."""
+    return SimpleNamespace(state_dict=lambda: sd)
+
+
 def main(argv: Optional[List[str]] = None):
     """Train (or, with --eval_only, evaluate). Returns the TrainState at
     the end of training (with --lora, over the adapters), or the
     evaluation's result."""
     args = parse_args(argv)
-    refuse_unported(args)
-    dev = resolve_device(args.device)
+    dev, mesh = mesh_lib.bootstrap(
+        args.coordinator_address, args.num_processes, args.process_id,
+        args.n_model, args.device, args.dist_backend)
+    main = dist_lib.is_main_process()
     if args.exp_name:
         args.output_dir = os.path.join(
-            args.output_dir, time.strftime("%Y-%m-%d-%H-%M-%S", time.gmtime())
+            args.output_dir, time.strftime(
+                "%Y-%m-%d-%H-%M-%S", time.gmtime(dist_lib.agreed_timestamp()))
             + f"-{args.exp_name}")
-    os.makedirs(args.output_dir, exist_ok=True)
-    write_provenance(args.output_dir, args)
+    if main:
+        os.makedirs(args.output_dir, exist_ok=True)
+        write_provenance(args.output_dir, args)
     tokenizer, model = build_models(args, dev)
     lm_cfg = model.llm_config
 
     if args.eval_only:
+        mesh_lib.shard_params(model, mesh)
         loader = EvalDataLoader(resolve_eval_dataset_name(args.dataset_name),
                                 args.segment_length, args.resolution,
                                 batch_size=(args.per_device_eval_batch_size
                                             or args.eval_max_batchsize),
                                 load_action=args.action_conditioned)
         result = evaluate(args, tokenizer, model, loader,
-                          build_evaluator(args, dev))
-        print(json.dumps(result))
+                          build_evaluator(args, dev), mesh=mesh)
+        if main:
+            print(json.dumps(result))
         return result
 
     adapters = None
     if args.lora:
+        # the base stays whole on every rank (the JAX driver skips
+        # shard_params under --lora); the adapters' gradients are reduced
         adapters = build_lora(args, model)
-    state = make_train_state(args, adapters if args.lora else model)
+    else:
+        mesh_lib.shard_params(model, mesh)
+    state = mesh_lib.place_state(
+        make_train_state(args, adapters if args.lora else model), mesh)
+    host_state = mesh_lib.HostState(state, mesh)
     global_step = 0
     if args.resume_from_checkpoint:
         path = (ckpt.latest_checkpoint(args.output_dir)
                 if args.resume_from_checkpoint == "latest"
                 else args.resume_from_checkpoint)
         if path:
-            ckpt.restore_train_state(path, state)
+            ckpt.restore_train_state(path, host_state)
             global_step = state.step
-            print(f"resumed from {path} at step {global_step}")
+            if main:
+                print(f"resumed from {path} at step {global_step}")
 
-    bs = args.batch_size
+    bs = args.batch_size          # per data-parallel rank
+    global_bs = bs * mesh.n_data
     mix = resolve_mix(args.dataset_name, args.dataset_path)
-    loader = InfiniteDataLoader(
-        args.dataset_path, mix, batch_size=bs,
-        num_workers=args.dataloader_num_workers, stepsize=args.video_stepsize,
-        segment_length=args.segment_length,
-        context_length=args.context_length,
-        segment_horizon=args.segment_horizon,
-        random_selection=args.random_selection,
-        goal_conditioned=args.goal_conditioned,
-        random_resized_crop_scale=(0.8, 1.0),
-        random_resized_crop_ratio=(0.9, 1.1),
-        no_aug=args.no_aug, image_size=args.resolution,
-        load_action=args.action_conditioned, seed=args.seed)
+    loader = None
+    if mesh.model_rank == 0:
+        loader = InfiniteDataLoader(
+            args.dataset_path, mix, batch_size=bs,
+            num_workers=args.dataloader_num_workers,
+            stepsize=args.video_stepsize,
+            segment_length=args.segment_length,
+            context_length=args.context_length,
+            segment_horizon=args.segment_horizon,
+            random_selection=args.random_selection,
+            goal_conditioned=args.goal_conditioned,
+            random_resized_crop_scale=(0.8, 1.0),
+            random_resized_crop_ratio=(0.9, 1.1),
+            no_aug=args.no_aug, image_size=args.resolution,
+            load_action=args.action_conditioned,
+            seed=args.seed + mesh.data_rank * 9973)
     if args.use_eval_dataset:
         val_loader = EvalDataLoader(
             resolve_eval_dataset_name(args.dataset_name),
@@ -507,7 +599,8 @@ def main(argv: Optional[List[str]] = None):
             seed=args.seed + 99)
         val_iter = val_loader
 
-    logger = TrainLogger(args.output_dir)
+    logger = TrainLogger(args.output_dir) if main else None
+    on_mesh = {} if mesh.size == 1 else {"mesh": mesh}
     tokenize = make_tokenize_fn(tokenizer, args.context_length)
     evaluator = (build_evaluator(args, dev) if args.validation_generation
                  else None)
@@ -520,6 +613,21 @@ def main(argv: Optional[List[str]] = None):
             out["action"] = to_device(actions, dev)
         return out
 
+    def train_batch(batch):
+        """This rank's batch on the device: a tensor-parallel group's
+        first rank tokenizes its loader's batch and sends it to the
+        group."""
+        if mesh.n_model == 1:
+            return device_batch(batch)
+        got = mesh.model_broadcast(
+            None if batch is None else
+            {k: v.cpu() for k, v in device_batch(batch).items()})
+        return {k: v.to(dev) for k, v in got.items()}
+
+    def log(metrics, step):
+        if logger is not None:
+            logger.log(metrics, step)
+
     def run_validation(step):
         """Held-out loss and perplexity on 4 batches, then generation with
         the metrics asked for, logged as ``gen_*`` (``train_gpt.py:546-576``).
@@ -527,43 +635,50 @@ def main(argv: Optional[List[str]] = None):
         t0 = time.perf_counter()
         agg = {}
         for _ in range(4):
-            m = eval_step(model, device_batch(next(val_iter)))
+            m = eval_step(model, device_batch(next(val_iter)), **on_mesh)
             for k, v in m.items():
                 agg[f"eval_{k}"] = agg.get(f"eval_{k}", 0.0) + float(v) / 4
         if args.validation_generation:
             gen = evaluate(
                 args, tokenizer, model, val_loader, evaluator,
                 max_batches=args.validation_eval_batches,
-                gif_dir=os.path.join(args.output_dir, "samples"), step=step)
+                gif_dir=os.path.join(args.output_dir, "samples"), step=step,
+                mesh=mesh)
             agg.update({f"gen_{k}": v for k, v in gen.items()})
         agg["validation_seconds"] = time.perf_counter() - t0
-        logger.log(agg, step)
+        log(agg, step)
 
     n_params = sum(p.numel() for p in state.params)
-    print(f"training on {dev}; LM params "
-          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M, "
-          f"trained {n_params / 1e6:.3f}M")
-    t_end, wait_end = time.time(), loader.wait_s
-    for batch in loader:
+    if main:
+        print(f"training on {dev}; LM params "
+              f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M, "
+              f"trained {n_params / 1e6:.3f}M; mesh {mesh.shape}")
+    t_end = time.time()
+    wait_end = loader.wait_s if loader is not None else 0.0
+    batches = loader if loader is not None else itertools.repeat(None)
+    for batch in batches:
         if global_step >= args.max_train_steps:
             break
         if args.lora:
-            metrics = lora_train_step(state, model, device_batch(batch),
-                                      rng=(args.seed, global_step))
+            metrics = lora_train_step(state, model, train_batch(batch),
+                                      rng=(args.seed, global_step), **on_mesh)
         else:
-            metrics = train_step(state, device_batch(batch),
-                                 rng=(args.seed, global_step))
+            metrics = train_step(state, train_batch(batch),
+                                 rng=(args.seed, global_step), **on_mesh)
         global_step += 1
 
         if global_step % args.log_steps == 0:
             dt = time.time() - t_end
             t_end = time.time()
-            waited, wait_end = loader.wait_s - wait_end, loader.wait_s
+            waited = 0.0
+            if loader is not None:
+                waited, wait_end = loader.wait_s - wait_end, loader.wait_s
             metrics = dict(metrics)
-            metrics["samples_per_sec"] = args.log_steps * bs / max(dt, 1e-9)
+            metrics["samples_per_sec"] = (args.log_steps * global_bs
+                                          / max(dt, 1e-9))
             metrics["step_ms"] = dt / args.log_steps * 1e3
             metrics["loader_wait_ms"] = waited / args.log_steps * 1e3
-            logger.log(metrics, global_step)
+            log(metrics, global_step)
 
         if global_step % args.validation_steps == 0:
             # with --lora on the merged weights, each merged once
@@ -571,18 +686,30 @@ def main(argv: Optional[List[str]] = None):
                 run_validation(global_step)
 
         if global_step % args.checkpointing_steps == 0:
-            # only on a sane loss (train_gpt.py:622)
+            # only on a sane loss (train_gpt.py:622); the loss is the data
+            # group's mean, so every rank takes the same branch
             if (float(metrics["loss"]) < 4.0
                     or global_step <= args.checkpointing_steps):
-                ckpt.save_train_state(args.output_dir, global_step, state,
-                                      keep=args.checkpoints_total_limit)
-                export_transformer(args.output_dir, model, lm_cfg, adapters)
+                # collectives: every rank gathers, rank 0 writes
+                full = host_state.state_dict()
+                weights = mesh.host(lora.base_state_dict(model),
+                                    mesh_lib.split_dims(model))
+                if main:
+                    ckpt.save_train_state(args.output_dir, global_step,
+                                          _frozen(full),
+                                          keep=args.checkpoints_total_limit)
+                    export_transformer(args.output_dir, weights, lm_cfg,
+                                       adapters)
+                dist_lib.barrier()
 
-    loader.close()
+    if loader is not None:
+        loader.close()
     if isinstance(val_loader, InfiniteDataLoader):
         val_loader.close()
-    logger.close()
-    print("done")
+    if logger is not None:
+        logger.close()
+    if main:
+        print("done")
     return state
 
 

@@ -11,8 +11,15 @@ resume, and the tokenizer exported in the hub layout.
 
 The flags are ``train_tokenizer.py``'s, with its spellings and
 compatibility shims, plus ``--device`` (CUDA unless it names another
-device; raises when CUDA is absent). The loop is the JAX driver's, step
-for step:
+device; raises when CUDA is absent) and ``--dist_backend``. On N cards it
+runs as ``train_gpt`` does (``python -m torch.distributed.run
+--nproc_per_node N -m ivideogpt_tpu_torch.train_tokenizer ...`` or the
+JAX-spelled flags): ``--batch_size`` per data-parallel rank, the loader of
+data rank d seeded ``seed + d * 9973``, the G and D gradients averaged
+over the data group (``train/tokenizer_trainer``), ``--scale_lr`` by the
+data-parallel size too, rank 0 alone writing. The tokenizer is not cut
+over ``--n_model``: the ranks of a model group repeat their first rank's
+step on its batch. The loop is the JAX driver's, step for step:
 
 - the loader's micro-batch ``i`` is a generator step when ``(i //
   accumulation) % 2 == 0`` and a discriminator step otherwise; before
@@ -21,7 +28,9 @@ for step:
   ``global_step`` counts every micro-batch; the EMA copy follows every
   generator micro-batch;
 - micro-batch ``i`` draws its dropout from a ``torch.Generator`` seeded
-  from (``--seed``, ``i``), the counterpart of ``fold_in(key(seed), i)``;
+  from (``--seed``, ``i``), the counterpart of ``fold_in(key(seed), i)``,
+  and on data rank d > 0 from (``--seed``, ``i``, d): every rank drops
+  its own rows with a stream of its own;
   a resumed run replays the loader to the checkpoint's ``data_iter``, so
   it draws the batches (with one loader worker) and masks of an
   uninterrupted run;
@@ -40,14 +49,14 @@ Differences, each on purpose:
 - Metrics go to ``{output_dir}/metrics.jsonl`` (no TensorBoard), with
   ``step_ms`` and ``loader_wait_ms`` beside ``samples/sec``; validation is
   logged there too, with ``validation_seconds``.
-- Not ported, and refused with the ROADMAP item that holds them: more than
-  one process or ``--n_model > 1`` (Queue 1 item 10) and the
+- Not ported, and refused with the ROADMAP item that holds it: the
   Something-Something mixes (Queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import time
@@ -66,6 +75,8 @@ from ivideogpt_tpu_torch.data.npz_dataset import InfiniteDataLoader
 from ivideogpt_tpu_torch.models.discriminator import Discriminator
 from ivideogpt_tpu_torch.models.lpips import LPIPS, load_torch_lpips
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
+from ivideogpt_tpu_torch.parallel import distributed as dist_lib
+from ivideogpt_tpu_torch.parallel import mesh as mesh_lib
 from ivideogpt_tpu_torch.train.optim import TrainState, ema_update
 from ivideogpt_tpu_torch.train.tokenizer_trainer import (
     create_train_states, make_discriminator_step, make_eval_step,
@@ -74,7 +85,7 @@ from ivideogpt_tpu_torch.utils import checkpoint as ckpt
 from ivideogpt_tpu_torch.utils import safetensors
 from ivideogpt_tpu_torch.utils.image_io import write_png
 from ivideogpt_tpu_torch.utils.loggers import TrainLogger
-from ivideogpt_tpu_torch.utils.platform import resolve_device, to_device
+from ivideogpt_tpu_torch.utils.platform import to_device
 from ivideogpt_tpu_torch.utils.provenance import write_provenance
 
 STATES = ("generator", "discriminator")
@@ -113,7 +124,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    "--lr_scheduler")
     p.add_argument("--lr_warmup_steps", type=int, default=1000)
     p.add_argument("--scale_lr", action="store_true",
-                   help="scale both lrs by batch * grad-accum (one device)")
+                   help="scale both lrs by batch * data-parallel ranks * "
+                   "grad-accum")
     p.add_argument("--max_train_steps", type=int, default=1_000_000)
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--max_grad_norm", type=float, default=1.0)
@@ -154,12 +166,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--lpips_weights", type=str, default=None,
                    help="torchvision vgg16 .pth for real LPIPS")
-    # distribution: one process on one device here
+    # distribution: one process a device (parallel/mesh)
     p.add_argument("--n_model", type=int, default=1,
-                   help="tensor-parallel size: only 1 is ported")
+                   help="ranks a model group (the tokenizer is not cut: "
+                   "they repeat one step)")
     p.add_argument("--coordinator_address", type=str, default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="process-group backend: nccl on CUDA, gloo on the "
+                   "CPU by default")
     # reference-script aliases and compatibility shims
     p.add_argument("--model_type", type=str, default="ctx_vqgan",
                    choices=["ctx_vqgan"])
@@ -189,11 +206,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def refuse_unported(args):
     """Raise on the flags whose paths the port does not have."""
-    if (args.n_model != 1 or (args.num_processes or 1) > 1
-            or args.coordinator_address or args.process_id):
-        raise NotImplementedError(
-            "multi-process training and --n_model > 1 are not ported "
-            "(ROADMAP Queue 1 item 10)")
     if any(name == "sthsth"
            for name, _ in DATASET_NAMED_MIXES.get(args.dataset_name, ())):
         raise NotImplementedError(
@@ -216,10 +228,11 @@ def tokenizer_config(args) -> CompressiveVQConfig:
     return cfg
 
 
-def train_config(args) -> TokenizerTrainConfig:
+def train_config(args, n_data: int = 1) -> TokenizerTrainConfig:
     """The loss and optimiser settings of the flags, both learning rates
-    scaled by batch x accumulation under --scale_lr."""
-    scale = (args.batch_size * args.gradient_accumulation_steps
+    scaled by batch x data-parallel ranks x accumulation under --scale_lr
+    (JAX ``train_tokenizer.py:225-230``)."""
+    scale = (args.batch_size * n_data * args.gradient_accumulation_steps
              if args.scale_lr else 1)
     return TokenizerTrainConfig(
         segment_length=args.segment_length,
@@ -266,9 +279,13 @@ def build_models(args, tok_cfg: CompressiveVQConfig, dev: torch.device):
             lpips.to(dev).eval())
 
 
-def step_generator(seed: int, i: int, dev: torch.device) -> torch.Generator:
-    """Micro-batch ``i``'s dropout generator, seeded from (seed, i)."""
-    s = np.random.SeedSequence((seed, i)).generate_state(1, np.uint64)[0]
+def step_generator(seed: int, i: int, dev: torch.device,
+                   data_rank: int = 0) -> torch.Generator:
+    """Micro-batch ``i``'s dropout generator, seeded from (seed, i), and
+    on data rank d > 0 from (seed, i, d): each data rank drops its rows
+    with a stream of its own."""
+    entropy = (seed, i) if data_rank == 0 else (seed, i, data_rank)
+    s = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=dev).manual_seed(int(s))
 
 
@@ -330,16 +347,21 @@ def main(argv: Optional[List[str]] = None):
     they are at the end."""
     args = parse_args(argv)
     refuse_unported(args)
-    dev = resolve_device(args.device)
+    dev, mesh = mesh_lib.bootstrap(
+        args.coordinator_address, args.num_processes, args.process_id,
+        args.n_model, args.device, args.dist_backend)
+    main = dist_lib.is_main_process()
     if args.exp_name:
         args.output_dir = os.path.join(
-            args.output_dir, time.strftime("%Y-%m-%d-%H-%M-%S", time.gmtime())
+            args.output_dir, time.strftime(
+                "%Y-%m-%d-%H-%M-%S", time.gmtime(dist_lib.agreed_timestamp()))
             + f"-{args.exp_name}")
-    os.makedirs(args.output_dir, exist_ok=True)
-    write_provenance(args.output_dir, args)
+    if main:
+        os.makedirs(args.output_dir, exist_ok=True)
+        write_provenance(args.output_dir, args)
 
     tok_cfg = tokenizer_config(args)
-    cfg = train_config(args)
+    cfg = train_config(args, mesh.n_data)
     tokenizer, disc, lpips = build_models(args, tok_cfg, dev)
     state, disc_state = create_train_states(
         tokenizer, disc, cfg, disc_lr_scheduler=args.discr_lr_scheduler)
@@ -352,12 +374,14 @@ def main(argv: Optional[List[str]] = None):
                 else args.resume_from_checkpoint)
         if path:
             progress = restore_checkpoint(args, path, state, disc_state)
-            print(f"resumed from {path} at step {progress.step}")
+            if main:
+                print(f"resumed from {path} at step {progress.step}")
     ema, global_step = progress.ema, progress.step
 
-    bs = args.batch_size
+    bs = args.batch_size          # per data-parallel rank
     mix = resolve_mix(args.dataset_name, args.dataset_path)
-    loader = InfiniteDataLoader(
+    # a model group takes its first rank's batches
+    loader = None if mesh.model_rank else InfiniteDataLoader(
         args.dataset_path, mix, batch_size=bs,
         num_workers=args.dataloader_num_workers, stepsize=args.video_stepsize,
         segment_length=args.segment_length,
@@ -368,19 +392,21 @@ def main(argv: Optional[List[str]] = None):
         goal_conditioned=args.goal_conditioned,
         random_resized_crop_scale=(0.8, 1.0),
         random_resized_crop_ratio=(0.9, 1.1),
-        no_aug=args.no_aug, image_size=args.resolution, seed=args.seed)
-    eval_loader = InfiniteDataLoader(
+        no_aug=args.no_aug, image_size=args.resolution,
+        seed=args.seed + mesh.data_rank * 9973)
+    eval_loader = None if not main else InfiniteDataLoader(
         args.dataset_path, mix, batch_size=bs, num_workers=1,
         stepsize=args.video_stepsize, segment_length=args.segment_length,
         context_length=args.context_length, train=False, no_aug=True,
         image_size=args.resolution, seed=args.seed + 99)
 
-    logger = TrainLogger(args.output_dir)
+    logger = TrainLogger(args.output_dir) if main else None
+    on_mesh = {} if mesh.size == 1 else {"mesh": mesh}
     gen_step_nogan = make_generator_step(tokenizer, disc, lpips, cfg,
-                                         use_gan=False)
+                                         use_gan=False, **on_mesh)
     gen_step_gan = make_generator_step(tokenizer, disc, lpips, cfg,
-                                       use_gan=True)
-    disc_step = make_discriminator_step(tokenizer, disc, cfg)
+                                       use_gan=True, **on_mesh)
+    disc_step = make_discriminator_step(tokenizer, disc, cfg, **on_mesh)
     eval_step = make_eval_step(tokenizer, lpips, cfg)
     ctx = args.context_length
 
@@ -399,14 +425,22 @@ def main(argv: Optional[List[str]] = None):
         agg["validation_seconds"] = time.perf_counter() - t0
         logger.log(agg, step)
 
+    def batch_on_device(batch):
+        if mesh.n_model == 1:
+            return to_device(batch, dev)
+        return to_device(mesh.model_broadcast(batch), dev)
+
     n_params = sum(p.numel() for p in tokenizer.parameters())
-    print(f"training on {dev}; params {n_params / 1e6:.1f}M")
+    if main:
+        print(f"training on {dev}; params {n_params / 1e6:.1f}M; mesh "
+              f"{mesh.shape}")
 
     log = {}
-    t_end, wait_end = time.time(), loader.wait_s
-    data_it = iter(loader)
+    t_end = time.time()
+    wait_end = loader.wait_s if loader is not None else 0.0
+    data_it = iter(loader) if loader is not None else itertools.repeat(None)
     if progress.data_iter:
-        if args.dataloader_num_workers > 1:
+        if args.dataloader_num_workers > 1 and main:
             print("[warn] exact-resume replay with dataloader_num_workers="
                   f"{args.dataloader_num_workers}: batch order is not "
                   "deterministic across workers; the resumed trajectory "
@@ -417,9 +451,9 @@ def main(argv: Optional[List[str]] = None):
     for i, batch in enumerate(data_it, start=progress.data_iter):
         if global_step >= args.max_train_steps:
             break
-        pixels = to_device(batch, dev)
+        pixels = batch_on_device(batch)
         generator_step = (i // args.gradient_accumulation_steps) % 2 == 0
-        gen = step_generator(args.seed, i, dev)
+        gen = step_generator(args.seed, i, dev, mesh.data_rank)
         if generator_step:
             fn = (gen_step_gan if global_step >= args.disc_start
                   else gen_step_nogan)
@@ -439,17 +473,19 @@ def main(argv: Optional[List[str]] = None):
         log.update({k: v for k, v in metrics.items()
                     if keep_gnorms or not k.startswith("grad_norm/")})
 
-        if (generator_step and args.log_image_steps
+        if (main and generator_step and args.log_image_steps
                 and (global_step - 1) % args.log_image_steps == 0):
             _, dec_img, _ = eval_step(pixels)
             dump_recon_grid(ctx, pixels, dec_img, os.path.join(
                 args.output_dir, "train_recon", f"step{global_step}.png"))
 
-        if not generator_step and global_step % args.log_steps == 0:
+        if (main and not generator_step
+                and global_step % args.log_steps == 0):
             dt = time.time() - t_end
             t_end = time.time()
             waited, wait_end = loader.wait_s - wait_end, loader.wait_s
-            log["samples/sec"] = args.log_steps * bs * 2 / max(dt, 1e-9)
+            log["samples/sec"] = (args.log_steps * bs * mesh.n_data * 2
+                                  / max(dt, 1e-9))
             log["step_ms"] = dt / args.log_steps * 1e3
             log["loader_wait_ms"] = waited / args.log_steps * 1e3
             logger.log(log, global_step)
@@ -457,22 +493,28 @@ def main(argv: Optional[List[str]] = None):
             for k in [k for k in log if k.startswith("grad_norm/")]:
                 del log[k]
 
-        if (not generator_step and global_step % args.validation_steps == 0
+        if (main and not generator_step
+                and global_step % args.validation_steps == 0
                 and global_step > 0):
             run_validation(global_step)
 
         if (not generator_step
                 and global_step % args.checkpointing_steps == 0
                 and global_step > 0):
-            save_checkpoint(args, global_step, state, disc_state,
-                            Progress(ema, global_step, i + 1))
-            export_tokenizer(args.output_dir, tokenizer,
-                             ema if args.use_ema else tokenizer.state_dict())
+            # the tokenizer is whole on every rank: rank 0 writes it
+            if main:
+                save_checkpoint(args, global_step, state, disc_state,
+                                Progress(ema, global_step, i + 1))
+                export_tokenizer(args.output_dir, tokenizer,
+                                 ema if args.use_ema
+                                 else tokenizer.state_dict())
+            dist_lib.barrier()
 
-    loader.close()
-    eval_loader.close()
-    logger.close()
-    print("done")
+    for closing in (loader, eval_loader, logger):
+        if closing is not None:
+            closing.close()
+    if main:
+        print("done")
     # batch i was drawn but not trained on
     return state, disc_state, Progress(ema, global_step, i)
 

@@ -323,13 +323,6 @@ def test_bair_eval_split_validates_and_evaluates(root, tmp_path, monkeypatch):
     assert result["perplexity"] == pytest.approx(np.exp(result["eval_loss"]))
 
 
-@pytest.mark.parametrize("extra", [["--n_model", "2"],
-                                   ["--num_processes", "2"]])
-def test_unported_flags_raise(root, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        train_gpt.main(_argv(root, tmp_path / "run", *extra))
-
-
 def test_sthsth_mix_raises(root, tmp_path):
     argv = _argv(root, tmp_path / "run", "--max_train_steps", "1")
     argv[argv.index("debug")] = "sthsth"

@@ -260,10 +260,7 @@ def test_lpips_loader_matches_jax_and_refuses_missing_files(work, tmp_path):
         load_torch_lpips(fresh, vgg, str(tmp_path / "missing_lin.pth"))
 
 
-@pytest.mark.parametrize("extra", [["--n_model", "2"],
-                                   ["--num_processes", "2"],
-                                   ["--coordinator_address", "h:1234"],
-                                   ["--oxe_data_mixes_type", "sthsth"],
+@pytest.mark.parametrize("extra", [["--oxe_data_mixes_type", "sthsth"],
                                    ["--dataset_name", "select_sthsth"]])
 def test_unported_flags_raise(work, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="Queue 1 item"):
