@@ -18,12 +18,14 @@ by side on the card (run_lanes): this process runs 6-16 and train_gpt
 check, a child process (``--lane``, its log printed after this process's
 lane and kept in outputs/lane-hub.log) the hub's phases 17-25 but
 dist_train, dist_serve and dist_cli (in the order hub, predict, train_gpt,
-train_gpt_lora, train_tokenizer, eval_gpt, train_tokenizer_256,
+train_gpt_lora, train_tokenizer, train_tokenizer_sthsth, eval_gpt,
+train_tokenizer_256,
 train_gpt_256, train_gpt_goal, rollout_ctx1, vp2, vp2_int8, train_medium,
 train_medium_dots, so that the two lanes' memory peaks fall apart); the
 multi-process phases follow alone, on the child's hub:
   1. card      the nvidia-smi name and power limit
-  2. build     nvcc for sm_90a of every csrc/*.cu, all at once (-Xptxas -v)
+  2. build     nvcc for sm_90a of every csrc/*.cu and the host C++ compiler
+               for csrc/jpeg_decode.cpp, all at once (-Xptxas -v)
   3. K1        VQ argmin at every shape of the main paths (N=131072, 8192,
                3584, 1536, 16384, 1280, 2560, the inference entry
                points' 512, 224 and 65536, the tokenizer CLI's 4096, 1792,
@@ -263,6 +265,20 @@ multi-process phases follow alone, on the child's hub:
                then 10 steps with the depth-4 discriminator on; ms/step,
                samples/s, the loader's wait, the validations' seconds, peak
                memory
+     train_tokenizer_sthsth  the Something-Something v2 reader: every
+               committed JPEG fixture (tests/data/sthsth) decoded by the
+               host library built here to PIL's SHA-256 digests, the
+               progressive one refused; frames/s of the 427 x 240 4:2:0
+               decode on 1 thread, the lane's and 16; then the tokenizer CLI
+               with the OXE pretrain recipe's flags (TOKENIZER_64 from a
+               seed, bf16, B=16, seg 8, ctx 2, 16 loader workers) over
+               --dataset_name select_sthsth --sthsth_root_path (a synthetic
+               SSv2 tree linked to the fixtures, two 64 px episodes of each
+               OXE_SELECT dataset): 20 micro-steps and a validation, then 10
+               over sthsth; K1 2 a G and eval step and nothing else, the
+               grid decoded, metrics finite, the SSv2 share of the draws
+               within 5 binomial deviations of 0.15, sthsth drawing SSv2
+               alone; ms/step, samples/s, loader_wait_ms, peak memory
  24. train_tokenizer_256  the oxe-256 recipe's TOKENIZER_256 (310M, remat)
                through the CLI: bf16, B=2, accumulation 4, ctx 2, 24
                micro-steps with the GAN from step 8 on 256 px episodes;
@@ -5430,6 +5446,283 @@ def phase_train_tokenizer(torch, root, hub):
     return launches
 
 
+# the SSv2 phase: the select_sthsth run's steps (a validation at the last)
+# and the sthsth run's, their log windows (a log falls on a discriminator
+# micro-step: an even one), and the synthetic SSv2 videos ((frames,
+# label): selected labels, two excluded, two shorter than the recipe's
+# 16-frame window)
+TTS_STEPS, TTS_LOG, TTS_SS_STEPS, TTS_SS_LOG = 20, 10, 6, 6
+TTS_VIDEOS = [(24, "86"), (31, "1"), (48, "13"), (37, "40"), (29, "93"),
+              (44, "104"), (26, "146"), (40, "173"), (35, "2"), (30, "7"),
+              (12, "86"), (15, "5")]
+TTS_Z = 5.0   # the SSv2 share's gate, in binomial standard deviations
+FIXTURES = os.path.join(REPO, "tests", "data", "sthsth")
+
+
+def decode_rate(jpeg, frames, threads, seconds=0.5):
+    """Frames/s of ``threads`` threads decoding the JPEG bytes ``frames``
+    round and round for about ``seconds``."""
+    import threading
+    done = [0] * threads
+    stop = time.perf_counter() + seconds
+
+    def work(k):
+        while time.perf_counter() < stop:
+            for data in frames:
+                jpeg.decode_jpeg(data)
+            done[k] += len(frames)
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=work, args=(k,)) for k in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    return sum(done) / (time.perf_counter() - t0)
+
+
+def write_ssv2(root, seq):
+    """A synthetic SSv2 tree under ``root``: ``frames/<id>/{:06d}.jpg``
+    linked to the committed 16-frame sequence (played forwards and back),
+    and the list files in ``datasets/somethingv2`` (the reader's default
+    ``list_dir``, relative to the working directory); the val split holds
+    every third video."""
+    frames = os.path.join(root, "frames")
+    lists = os.path.join(root, "datasets", "somethingv2")
+    os.makedirs(lists)
+    rows = []
+    for v, (n, label) in enumerate(TTS_VIDEOS):
+        d = os.path.join(frames, f"{50001 + v}")
+        os.makedirs(d)
+        for i in range(n):
+            k = i % (2 * len(seq) - 2)
+            src = seq[k if k < len(seq) else 2 * len(seq) - 2 - k]
+            os.symlink(src, os.path.join(d, f"{i + 1:06d}.jpg"))
+        rows.append(f"{50001 + v} {n} {label}")
+    with open(os.path.join(lists, "train_video_folder.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    with open(os.path.join(lists, "val_video_folder.txt"), "w") as f:
+        f.write("\n".join(rows[::3]) + "\n")
+    return frames
+
+
+def write_oxe_select(root, seed, size=64):
+    """Two episodes of each OXE_SELECT dataset under ``root/<name>``
+    (episode 0 is the eval split's), uint8 frames under the dataset's
+    display key, 16 frames at its stepsize at the recipe's
+    ``--video_stepsize 1``."""
+    import numpy as np
+    from ivideogpt_tpu_torch.data import npz_dataset as npz
+    from ivideogpt_tpu_torch.data.dataset_mixes import OXE_SELECT
+    rng = np.random.default_rng(seed)
+    for name, _ in OXE_SELECT:
+        step = max(round(npz.get_base_stepsize(name)
+                         / npz.MixRoboticDataset.FRAC_STEP_SIZE), 1)
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        for e in range(2):
+            np.savez(os.path.join(d, f"episode_{e:03d}.npz"), **{
+                npz.get_display_key(name): rng.integers(
+                    0, 256, (16 * step, size, size, 3), dtype=np.uint8)})
+    return root
+
+
+def counting_draws(classes):
+    """Count the calls of each class's ``sample`` from any thread: returns
+    (counts by class name, the perf_counter seconds at which each draw
+    returned, a function that restores the methods)."""
+    import threading
+    lock = threading.Lock()
+    counts = {c.__name__: 0 for c in classes}
+    returned = []
+    real = {c: c.sample for c in classes}
+
+    def wrap(cls):
+        def sample(self):
+            out = real[cls](self)
+            with lock:
+                counts[cls.__name__] += 1
+                returned.append(time.perf_counter())
+            return out
+        return sample
+    for c in classes:
+        c.sample = wrap(c)
+    return counts, returned, lambda: [setattr(c, "sample", f)
+                                      for c, f in real.items()]
+
+
+def phase_train_tokenizer_sthsth(torch, root):
+    """The Something-Something v2 reader on the card's machine, and the
+    tokenizer CLI over the SSv2 mixes at the OXE pretrain recipe's widths.
+
+    Decoder gate: every committed fixture of tests/data/sthsth decoded by
+    the library built here (``data/jpeg.py``, host C++) has the SHA-256 of
+    PIL's decode recorded in ``digests.json``; the progressive one is
+    refused. Decode rate: frames/s over the 16 427 x 240 4:2:0 frames on
+    one thread, on the lane's threads and on the recipe's 16 loader
+    workers. Data: a synthetic SSv2 tree (TTS_VIDEOS, frames linked to the
+    committed sequence, two excluded labels, two videos too short) and two
+    64 px episodes of each of OXE_SELECT's 38 datasets. Run: ``main`` of
+    ``python -m ivideogpt_tpu_torch.train_tokenizer`` with
+    ``scripts/pretrain/oxe-64-act-free.sh:7-13``'s flags (TOKENIZER_64
+    from a seed, bf16, B=16, seg 8, ctx 2, ``--random_selection
+    --segment_horizon 16``, 16 loader workers) and ``--dataset_name
+    select_sthsth --sthsth_root_path``: TTS_STEPS micro-steps with a
+    validation at the last; then TTS_SS_STEPS with ``--dataset_name
+    sthsth``. Gates: finite metrics; K1 launched twice by every G and eval
+    step and no other kernel; the validation grid decodes; the share of
+    the mixture's draws that went to SSv2 within TTS_Z binomial standard
+    deviations of its weight 0.15; the sthsth run drew from SSv2 alone.
+    Prints ms/step, samples/s and ``loader_wait_ms`` of both mixes' last
+    log window, the peak memory, and whether the loader or the card sets
+    the sthsth run's step: the samples/s its 16 workers delivered (draws
+    over the seconds between the first and the last) against the samples/s
+    the loop takes when it does not wait (B over step_ms less
+    loader_wait_ms). Returns the select_sthsth run's launches."""
+    import hashlib
+    import numpy as np
+    from ivideogpt_tpu_torch import train_tokenizer as cli
+    from ivideogpt_tpu_torch.data import jpeg
+    from ivideogpt_tpu_torch.data import npz_dataset as npz
+    from ivideogpt_tpu_torch.data import sthsth_dataset as ssv2
+    from ivideogpt_tpu_torch.data.dataset_mixes import OXE_SELECT_STHSTH
+
+    with open(os.path.join(FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    for rel, want in sorted(digests.items()):
+        path = os.path.join(FIXTURES, rel)
+        if rel == "progressive.jpg":
+            try:
+                jpeg.read_jpeg(path)
+            except jpeg.JpegError as e:
+                check("progressive" in str(e),
+                      f"train_tokenizer_sthsth: {rel} refused as {e}")
+            else:
+                check(False, f"train_tokenizer_sthsth: {rel} was decoded")
+            continue
+        rgb = jpeg.read_jpeg(path)
+        got = [list(rgb.shape), hashlib.sha256(rgb.tobytes()).hexdigest()]
+        check(got == [want["shape"], want["sha256"]],
+              f"train_tokenizer_sthsth: {rel} decodes to {got}, PIL's "
+              f"digest is {want}")
+    seq = sorted(os.path.join(FIXTURES, "seq", f)
+                 for f in os.listdir(os.path.join(FIXTURES, "seq")))
+    frames = [open(p, "rb").read() for p in seq]
+    rates = {n: decode_rate(jpeg, frames, n)
+             for n in (1, cpu_threads(), 16)}
+    print(f"train_tokenizer_sthsth: the decoder built here gives PIL's "
+          f"digests on all {len(digests) - 1} fixtures and refuses the "
+          f"progressive one; 427 x 240 4:2:0 frames/s on 1 / "
+          f"{cpu_threads()} (the lane's) / 16 (the loader's) threads "
+          f"{json.dumps({n: round(r, 1) for n, r in rates.items()})} on "
+          f"{os.cpu_count()} cores ({card_line()})")
+
+    base = os.path.join(root, "sthsth")
+    frames_root = write_ssv2(base, seq)
+    oxe = write_oxe_select(os.path.join(base, "oxe"), seed=101)
+    recipe = ["--seed", "0", "--mixed_precision", "bf16", "--learning_rate",
+              "5e-4", "--disc_learning_rate", "5e-4", "--batch_size",
+              str(TRAIN_B), "--gradient_accumulation_steps", "1",
+              "--disc_start", "1000005", "--resolution", "64",
+              "--dataloader_num_workers", "16", "--random_selection",
+              "--video_stepsize", "1", "--segment_horizon", "16",
+              "--segment_length", str(TOK_T), "--context_length",
+              str(TOK_CTX), "--dataset_path", oxe, "--sthsth_root_path",
+              frames_root, "--log_image_steps", "0",
+              "--checkpointing_steps", "100000"]
+    runs = {"select_sthsth": (TTS_STEPS, TTS_LOG, str(TTS_STEPS)),
+            "sthsth": (TTS_SS_STEPS, TTS_SS_LOG, "100000")}
+    steady, launches, drawn, delivered = {}, None, {}, {}
+    with contextlib.chdir(base):
+        for mix, (steps, log, val) in runs.items():
+            out = os.path.join(base, f"run_{mix}")
+            record = []
+            restore = counted_steps(cli, record)
+            counts, returned, uncount = counting_draws(
+                (ssv2.SomethingV2Dataset, npz.RoboticDataset))
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.time()
+                cli.main(recipe + ["--dataset_name", mix, "--output_dir",
+                                   out, "--max_train_steps", str(steps),
+                                   "--log_steps", str(log),
+                                   "--validation_steps", val])
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                got = read_counts()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+            finally:
+                restore()
+                uncount()
+            drawn[mix] = dict(counts)
+            delivered[mix] = ((len(returned) - 1)
+                              / (returned[-1] - returned[0]))
+            kinds = [k for k, _, _ in record]
+            n_eval = 4 if val == str(steps) else 0
+            check(kinds.count("G") == steps // 2 and "D" not in kinds
+                  and kinds.count("eval") == n_eval,
+                  f"train_tokenizer_sthsth ({mix}): step calls "
+                  f"{[kinds.count(k) for k in ('G', 'D', 'eval')]}")
+            k1_per_step(record, f"train_tokenizer_sthsth ({mix})")
+            check(got == dict(dict.fromkeys(got, 0),
+                              vq_argmin=2 * len(record)),
+                  f"train_tokenizer_sthsth ({mix}): launches {got}, the "
+                  f"steps' K1 {2 * len(record)}")
+            metrics = cli_metrics(out)
+            finite_metrics(metrics, f"train_tokenizer_sthsth ({mix})")
+            train = {m["step"]: m for m in metrics if "samples/sec" in m}
+            check(sorted(train) == list(range(log, steps + 1, log)),
+                  f"train_tokenizer_sthsth ({mix}): logged steps "
+                  f"{sorted(train)}")
+            last = train[steps]
+            steady[mix] = (last["step_ms"], last["samples/sec"],
+                           last["loader_wait_ms"], peak, wall)
+            if mix == "select_sthsth":
+                launches = got
+                val_m = [m for m in metrics if "validation_seconds" in m]
+                check([m["step"] for m in val_m] == [steps],
+                      f"train_tokenizer_sthsth: validations "
+                      f"{[m['step'] for m in val_m]}")
+                img = read_png(os.path.join(out, "recon", f"step{steps}.png"))
+                check(img.shape == (128, (TOK_T - TOK_CTX) * 64, 3),
+                      f"train_tokenizer_sthsth: the grid is {img.shape}")
+            print(f"train_tokenizer_sthsth ({mix}): {steps} micro-steps in "
+                  f"{wall:.1f} s (models and loaders included); gen_loss "
+                  f"{[train[s_]['gen_loss'] for s_ in sorted(train)]}; "
+                  f"draws {json.dumps(drawn[mix])}")
+
+    weights = dict(OXE_SELECT_STHSTH)
+    p = weights["sthsth"] / sum(weights.values())
+    k = drawn["select_sthsth"]["SomethingV2Dataset"]
+    n = k + drawn["select_sthsth"]["RoboticDataset"]
+    z = (k - n * p) / math.sqrt(n * p * (1 - p))
+    check(abs(z) <= TTS_Z, f"train_tokenizer_sthsth: {k} of {n} draws from "
+          f"SSv2 ({k / n:.4f}), {z:.2f} standard deviations off {p}")
+    check(drawn["sthsth"]["RoboticDataset"] == 0
+          and drawn["sthsth"]["SomethingV2Dataset"] > 0,
+          f"train_tokenizer_sthsth: the sthsth run drew {drawn['sthsth']}")
+    ms, sps, wait, _, _ = steady["sthsth"]
+    need = TRAIN_B / (ms - wait) * 1e3
+    verdict = ("the loader sets the step" if delivered["sthsth"] < need
+               else "the card sets the step")
+    print(f"train_tokenizer_sthsth: {k} of {n} of select_sthsth's draws "
+          f"from SSv2 ({k / n:.4f}; weight {p:.4f}, {z:.2f} standard "
+          f"deviations, gate {TTS_Z}); last log window (ms/step, samples/s, "
+          f"loader_wait_ms, peak GiB): "
+          + "; ".join(f"{m} {s[0]:.2f}, {s[1]:.2f}, {s[2]:.3f}, {s[3]:.2f}"
+                      for m, s in steady.items())
+          + f"; sthsth at the recipe's 16 workers: {verdict}: they "
+          f"delivered {delivered['sthsth']:.2f} samples/s (select_sthsth's "
+          f"{delivered['select_sthsth']:.2f}) where the loop takes "
+          f"{need:.2f} when it does not wait (the loop waited {wait:.3f} of "
+          f"{ms:.2f} ms a step over steps 1-{TTS_SS_STEPS}: the workers' "
+          f"first fill, each of the 16 building a whole batch before the "
+          f"first arrives) ({card_line()})")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def remat_pair(torch, dtype, b, seed):
     """One generator step (no GAN, LPIPS in the loss) of TOKENIZER_256 at
     batch b with remat and without, from the same weights, pixels and
@@ -6996,6 +7289,9 @@ def lane_hub(torch, root, convs, mark):
         mark("train_gpt_lora")
     by_path["train_tokenizer"] = phase_train_tokenizer(torch, root, hub)
     mark("train_tokenizer")
+    by_path["train_tokenizer_sthsth"] = phase_train_tokenizer_sthsth(torch,
+                                                                     root)
+    mark("train_tokenizer_sthsth")
     with contextlib.chdir(root):
         by_path["eval_gpt"] = phase_eval_gpt(torch, root, hub)
         mark("eval_gpt")
@@ -7178,6 +7474,8 @@ def main():
           f"the first B={VP2_B} query; train_gpt: the CLI's two runs, "
           f"{GPT_STEPS} steps and 2 validations; train_tokenizer: the "
           f"CLI's two runs, {TT_STEPS} micro-steps and 2 validations; "
+          f"train_tokenizer_sthsth: the select_sthsth run, {TTS_STEPS} "
+          f"micro-steps and a validation; "
           f"eval_gpt: the --eval_only run, {EVAL_BATCHES} batches of "
           f"{EVAL_B} x {EVAL_REPS} samples; "
           f"train_tokenizer_256: the CLI's {TT256_STEPS} micro-steps; "
@@ -7206,6 +7504,7 @@ def main():
                "vp2": ("vp2", 1), "train_gpt_run": ("train_gpt", 1),
                "eval_gpt": ("eval_gpt", 1),
                "train_tokenizer_run": ("train_tokenizer", 1),
+               "train_tokenizer_sthsth_run": ("train_tokenizer_sthsth", 1),
                "train_tokenizer_256_run": ("train_tokenizer_256", 1),
                "train_medium_step": ("train_medium", MEDIUM_TIMED),
                "train_medium_dots_step": ("train_medium_dots",

@@ -5,9 +5,8 @@ originate from the Octo project's ``octo/data/oxe/oxe_dataset_mixes.py``,
 select`` and the rest resolve to the same training distributions.
 
 The tables are data and stay whole, the Something-Something mixes
-(``select_sthsth``, ``sthsth``) included; the port's loader raises on their
-``sthsth`` entry (``npz_dataset.MixRoboticDataset``), whose dataset is not
-ported.
+(``select_sthsth``, ``sthsth``) included; the loader reads their ``sthsth``
+entry with ``data/sthsth_dataset.py`` (``npz_dataset.MixRoboticDataset``).
 """
 
 import os

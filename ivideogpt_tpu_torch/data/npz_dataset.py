@@ -11,8 +11,9 @@ segments, crops and jitter. Batches are numpy float32 NHWC in [0, 1]
 
 The registry is read by :func:`read_registry`, which takes the flat
 ``key: value`` form of the repository's ``DATASET.yaml`` and raises on
-anything else. The Something-Something dataset (``sthsth``) is not ported:
-a mix holding it raises.
+anything else. A mix's ``sthsth`` entry is the Something-Something v2
+reader of ``data/sthsth_dataset.py``, built from ``sthsth_root_path`` as the
+JAX mixture builds it; a root of None raises when the mixture is built.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ivideogpt_tpu_torch.data import augment
+from ivideogpt_tpu_torch.data.sthsth_dataset import SomethingV2Dataset
 
 # Per-dataset native control-frequency stepsize (reference
 # simple_dataloader.py:18-70).
@@ -305,20 +307,26 @@ class MixRoboticDataset:
     FRAC_STEP_SIZE = 3
 
     def __init__(self, parent_dir: str, datasets: Sequence[Tuple[str, float]],
-                 stepsize: int = 1, seed: int = 0, **dataset_args):
+                 stepsize: int = 1, seed: int = 0,
+                 sthsth_root_path: Optional[str] = None, **dataset_args):
         self.rng = np.random.default_rng(seed)
         self.datasets = []
         weights = []
         for k, (name, mix) in enumerate(datasets):
             if name == "sthsth":
-                raise NotImplementedError(
-                    "the Something-Something dataset (sthsth) is not ported "
-                    "(ivideogpt_tpu/data/sthsth_dataset.py)")
-            ds_step = max(round(stepsize * get_base_stepsize(name)
-                                / self.FRAC_STEP_SIZE), 1)
-            self.datasets.append(RoboticDataset(
-                parent_dir, name, stepsize=ds_step, seed=seed * 1000 + k,
-                **dataset_args))
+                ss_args = {k2: v for k2, v in dataset_args.items()
+                           if k2 in ("segment_length", "context_length",
+                                     "segment_horizon", "random_selection",
+                                     "train", "maxsize", "image_size")}
+                self.datasets.append(SomethingV2Dataset(
+                    sthsth_root_path, stepsize=1, seed=seed * 1000 + k,
+                    **ss_args))
+            else:
+                ds_step = max(round(stepsize * get_base_stepsize(name)
+                                    / self.FRAC_STEP_SIZE), 1)
+                self.datasets.append(RoboticDataset(
+                    parent_dir, name, stepsize=ds_step, seed=seed * 1000 + k,
+                    **dataset_args))
             weights.append(mix)
         self.weights = np.asarray(weights, np.float64)
         self.weights /= self.weights.sum()

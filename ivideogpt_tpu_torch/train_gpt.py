@@ -66,8 +66,10 @@ Differences from the JAX driver, each on purpose:
   n_data) and gather the losses, frame metrics and I3D features once, in
   batch order, so N ranks compute the one-process numbers; the JAX driver
   reads the whole split on every process and gathers N copies.
-- Not ported, and refused with the ROADMAP item that holds it: the
-  Something-Something mixes (raised by the loader).
+- The Something-Something mixes (``select_sthsth``, ``sthsth``) are
+  refused before anything is written: this CLI, like the JAX one, takes no
+  ``--sthsth_root_path``, and the JAX CLI would hand its reader a root of
+  None (``refuse_sthsth``).
 - Metrics go to ``{output_dir}/metrics.jsonl`` (no TensorBoard), with
   ``step_ms`` and ``loader_wait_ms`` (the loop's wait on the loader a step)
   beside ``samples_per_sec`` at each log, and ``validation_seconds``.
@@ -93,7 +95,8 @@ from ivideogpt_tpu_torch import tokens as token_lib
 from ivideogpt_tpu_torch.configs import (LLAMA_BASE, LLAMA_MEDIUM,
                                          TOKENIZER_64, TOKENIZER_256,
                                          ActionModelConfig, TransformerConfig)
-from ivideogpt_tpu_torch.data.dataset_mixes import (resolve_eval_dataset_name,
+from ivideogpt_tpu_torch.data.dataset_mixes import (DATASET_NAMED_MIXES,
+                                                    resolve_eval_dataset_name,
                                                     resolve_mix)
 from ivideogpt_tpu_torch.data.npz_dataset import (EvalDataLoader,
                                                   InfiniteDataLoader)
@@ -505,11 +508,25 @@ def _frozen(sd: dict):
     return SimpleNamespace(state_dict=lambda: sd)
 
 
+def refuse_sthsth(dataset_name: str):
+    """Raise NotImplementedError for a mix with a Something-Something
+    entry: the GPT CLI takes no SSv2 frame root."""
+    if not any(name == "sthsth" for name, _ in
+               DATASET_NAMED_MIXES.get(dataset_name, ())):
+        return
+    raise NotImplementedError(
+        f"--dataset_name {dataset_name}: the GPT CLI takes no "
+        f"--sthsth_root_path, so it cannot read the Something-Something "
+        f"(sthsth) frames; train the tokenizer on this mix with "
+        f"ivideogpt_tpu_torch.train_tokenizer")
+
+
 def main(argv: Optional[List[str]] = None):
     """Train (or, with --eval_only, evaluate). Returns the TrainState at
     the end of training (with --lora, over the adapters), or the
     evaluation's result."""
     args = parse_args(argv)
+    refuse_sthsth(args.dataset_name)
     dev, mesh = mesh_lib.bootstrap(
         args.coordinator_address, args.num_processes, args.process_id,
         args.n_model, args.device, args.dist_backend)

@@ -49,8 +49,9 @@ Differences, each on purpose:
 - Metrics go to ``{output_dir}/metrics.jsonl`` (no TensorBoard), with
   ``step_ms`` and ``loader_wait_ms`` beside ``samples/sec``; validation is
   logged there too, with ``validation_seconds``.
-- Not ported, and refused with the ROADMAP item that holds it: the
-  Something-Something mixes (Queue 1 item 5).
+- The Something-Something mixes (``select_sthsth``, ``sthsth``) read their
+  frames from ``--sthsth_root_path`` (``data/sthsth_dataset.py``, frames
+  decoded without PIL) and raise when it is not given.
 """
 
 from __future__ import annotations
@@ -69,8 +70,7 @@ from ivideogpt_tpu_torch.configs import (TOKENIZER_64, TOKENIZER_256,
                                          CompressiveVQConfig,
                                          DiscriminatorConfig,
                                          TokenizerTrainConfig)
-from ivideogpt_tpu_torch.data.dataset_mixes import (DATASET_NAMED_MIXES,
-                                                    resolve_mix)
+from ivideogpt_tpu_torch.data.dataset_mixes import resolve_mix
 from ivideogpt_tpu_torch.data.npz_dataset import InfiniteDataLoader
 from ivideogpt_tpu_torch.models.discriminator import Discriminator
 from ivideogpt_tpu_torch.models.lpips import LPIPS, load_torch_lpips
@@ -202,15 +202,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.add_argument(flag, default=None, help="compat shim: ignored", **kw)
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
-
-
-def refuse_unported(args):
-    """Raise on the flags whose paths the port does not have."""
-    if any(name == "sthsth"
-           for name, _ in DATASET_NAMED_MIXES.get(args.dataset_name, ())):
-        raise NotImplementedError(
-            f"--dataset_name {args.dataset_name}: the Something-Something "
-            f"dataset is not ported (ROADMAP Queue 1 item 5)")
 
 
 def tokenizer_config(args) -> CompressiveVQConfig:
@@ -346,7 +337,6 @@ def main(argv: Optional[List[str]] = None):
     """Train. Returns (generator state, discriminator state, Progress) as
     they are at the end."""
     args = parse_args(argv)
-    refuse_unported(args)
     dev, mesh = mesh_lib.bootstrap(
         args.coordinator_address, args.num_processes, args.process_id,
         args.n_model, args.device, args.dist_backend)
@@ -393,12 +383,14 @@ def main(argv: Optional[List[str]] = None):
         random_resized_crop_scale=(0.8, 1.0),
         random_resized_crop_ratio=(0.9, 1.1),
         no_aug=args.no_aug, image_size=args.resolution,
+        sthsth_root_path=args.sthsth_root_path,
         seed=args.seed + mesh.data_rank * 9973)
     eval_loader = None if not main else InfiniteDataLoader(
         args.dataset_path, mix, batch_size=bs, num_workers=1,
         stepsize=args.video_stepsize, segment_length=args.segment_length,
         context_length=args.context_length, train=False, no_aug=True,
-        image_size=args.resolution, seed=args.seed + 99)
+        image_size=args.resolution, sthsth_root_path=args.sthsth_root_path,
+        seed=args.seed + 99)
 
     logger = TrainLogger(args.output_dir) if main else None
     on_mesh = {} if mesh.size == 1 else {"mesh": mesh}

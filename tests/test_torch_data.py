@@ -220,12 +220,6 @@ def test_mix_dataset_samples_match(data_root):
         _same_sample(ours.sample(), theirs.sample())
 
 
-def test_mix_with_sthsth_raises(data_root):
-    with pytest.raises(NotImplementedError, match="sthsth"):
-        tnpz.MixRoboticDataset(str(data_root), tmix.resolve_mix("sthsth"),
-                               segment_length=4)
-
-
 def test_infinite_loader_batches_match(data_root):
     kw = dict(batch_size=3, num_workers=1, stepsize=1, seed=42,
               segment_length=8, context_length=2,

@@ -2,9 +2,9 @@
 - the package and ``chip_smoke.py`` import no ``jax``, ``flax`` or
   ``ivideogpt_tpu`` (AST scan), and nothing the card's machine lacks
   (``cv2``, ``yaml``, ``safetensors``, ``transformers``, ``imageio``,
-  ``scipy``, ``dm_env``, ``termcolor``, ``tensorboard``) anywhere: image
-  files are written by ``utils/image_io.py``, FVD's matrix root is taken
-  with numpy; ``metaworld`` and ``mujoco`` only inside
+  ``scipy``, ``dm_env``, ``termcolor``, ``tensorboard``, ``PIL``)
+  anywhere: image files are written by ``utils/image_io.py``, JPEG frames
+  read by ``data/jpeg.py``, FVD's matrix root is taken with numpy; ``metaworld`` and ``mujoco`` only inside
   ``mbrl/metaworld_env.make``;
 - entry points run on CUDA unless asked for the CPU, and raise when CUDA is
   absent;
@@ -22,7 +22,7 @@ PKG = os.path.join(REPO, "ivideogpt_tpu_torch")
 FORBIDDEN = ("jax", "flax", "ivideogpt_tpu")
 # not on the card's machine, so imported nowhere
 ABSENT = ("cv2", "yaml", "safetensors", "transformers", "imageio", "scipy",
-          "dm_env", "termcolor", "tensorboard")
+          "dm_env", "termcolor", "tensorboard", "PIL")
 
 
 def _port_files():

@@ -19,8 +19,8 @@ synthetic episodes:
   ``load_tokenizer_for_context``: its ids equal the port's;
 - ``load_torch_lpips`` against the JAX loader on the test-written files;
   a missing file raises;
-- the unported flags raise naming their ROADMAP item; the reference's
-  flag spellings parse; validation and training grids are PNGs.
+- the reference's flag spellings parse; validation and training grids
+  are PNGs (the Something-Something mixes: tests/test_torch_sthsth.py).
 """
 
 import json
@@ -258,14 +258,6 @@ def test_lpips_loader_matches_jax_and_refuses_missing_files(work, tmp_path):
         load_torch_lpips(fresh, str(tmp_path / "missing.pth"))
     with pytest.raises(FileNotFoundError):
         load_torch_lpips(fresh, vgg, str(tmp_path / "missing_lin.pth"))
-
-
-@pytest.mark.parametrize("extra", [["--oxe_data_mixes_type", "sthsth"],
-                                   ["--dataset_name", "select_sthsth"]])
-def test_unported_flags_raise(work, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        tt.main(_argv(work, tmp_path / "run", 2, "--device", "cpu", *extra))
-    assert not (tmp_path / "run").exists()
 
 
 def test_reference_flag_spellings_parse():
