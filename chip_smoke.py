@@ -14,8 +14,8 @@ against their plain PyTorch versions.
 
 Phases, each printed on its own lines; any failure exits non-zero without
 the final result line. Phases 1-5 run alone; from 6 on two lanes run side
-by side on the card (run_lanes): this process runs 6-16 and train_gpt
-check, a child process (``--lane``, its log printed after this process's
+by side on the card (run_lanes): this process runs 6-16, train_gpt
+check and native_preproc, a child process (``--lane``, its log printed after this process's
 lane and kept in outputs/lane-hub.log) the hub's phases 17-25 but
 dist_train, dist_serve and dist_cli (in the order hub, predict, train_gpt,
 train_gpt_lora, train_tokenizer, train_tokenizer_sthsth, eval_gpt,
@@ -25,7 +25,8 @@ train_medium_dots, so that the two lanes' memory peaks fall apart); the
 multi-process phases follow alone, on the child's hub:
   1. card      the nvidia-smi name and power limit
   2. build     nvcc for sm_90a of every csrc/*.cu and the host C++ compiler
-               for csrc/jpeg_decode.cpp, all at once (-Xptxas -v)
+               for csrc/jpeg_decode.cpp and csrc/segment_ops.cpp, all at
+               once (-Xptxas -v)
   3. K1        VQ argmin at every shape of the main paths (N=131072, 8192,
                3584, 1536, 16384, 1280, 2560, the inference entry
                points' 512, 224 and 65536, the tokenizer CLI's 4096, 1792,
@@ -301,6 +302,23 @@ multi-process phases follow alone, on the child's hub:
                peak memory of each beside no remat's
  26. train_gpt check  the train check's fp32 step at B=2, 2 layers, with
                attention dropout keyed alike on the card and the CPU
+ 27. native_preproc  the loaders' fused host crop-resize-normalize
+               (augment_segment through data/native.py over
+               csrc/segment_ops.cpp, built here): at the BAIR tokenizer
+               recipe's 8 and the GPT CLI's 16 frames of 64 px to 64 and
+               oxe-256's 8 of 256 px to 256, 3 crop draws each, the fused
+               resize within 2e-6 of the numpy one and augment_segment
+               (colour jitter on) within 3e-5 of its plain numpy version,
+               the Generator left in the same state; the segments/s of
+               each on 1 and 16 threads; then the tokenizer CLI with the
+               BAIR recipe's flags (TOKENIZER_64 from a seed, 16 loader
+               workers) on the train_tokenizer phase's episodes, 6
+               micro-steps a run, in turns numpy, fused, fused, numpy (the
+               plain version patched into the loader for numpy): metrics
+               finite, K1 2 a G step and nothing else, every augmented
+               sample through the fused call in a fused run and none in a
+               numpy one; ms/step, loader_wait_ms, the workers' delivered
+               samples/s (a smoke reading, not a verdict on the step)
 Each phase's seconds follow it ("[time]" lines; a lane's phases are timed
 beside the other lane's). Then the launches by path,
 the kernels' JSON line, the card line again, and the result line.
@@ -5723,6 +5741,223 @@ def phase_train_tokenizer_sthsth(torch, root):
     return launches
 
 
+# the native_preproc phase: the CLIs' segments (the BAIR tokenizer recipe's
+# 8 frames and the GPT CLI's 16 of 64 px frames to 64, oxe-256's 8 of 256 px
+# to 256) with the loaders' crop draws (scale 0.8-1, ratio 0.9-1.1; the
+# CLIs pass no colour jitter, the gate adds one); the tokenizer CLI's runs
+# of NP_STEPS micro-steps, logged every NP_LOG, in NP_ORDER: the plain
+# numpy resize swapped in for "numpy", the port's loader for "fused"
+NP_SHAPES = (("BAIR tokenizer", TOK_T, 64, 64), ("GPT CLI", T, 64, 64),
+             ("oxe-256", TOK_T, 256, 256))
+NP_JITTER = ((0.6, 1.4), (0.7, 1.3), (0.5, 1.5), (-0.1, 0.1))
+NP_RESIZE_ATOL, NP_JITTER_ATOL = 2e-6, 3e-5
+NP_STEPS, NP_LOG = 6, 2
+NP_ORDER = ("numpy", "fused", "fused", "numpy")
+
+
+def plain_augment_segment(augment, images, size, crop_scale, crop_ratio,
+                          brightness, contrast, saturation, hue, rng):
+    """``augment_segment``'s plain version: the same draws, then numpy's
+    ``resized_crop`` on each frame over 255 (what the JAX package's default
+    path computes with cv2), then the jitter."""
+    import numpy as np
+    t, hh, ww, _ = images.shape
+    i, j, h, w = augment.get_crop_params(hh, ww, crop_scale or (1.0, 1.0),
+                                         crop_ratio or (1.0, 1.0), rng)
+    params = augment.jitter_params(brightness, contrast, saturation, hue, rng)
+    return np.stack([augment.apply_jitter(augment.resized_crop(
+        f.astype(np.float32) / 255.0, i, j, h, w, size), *params)
+        for f in images])
+
+
+def augment_rate(fn, images, size, threads, seconds=0.5):
+    """Segments/s of ``threads`` threads calling ``fn`` (``augment_segment``
+    or its plain version) on ``images`` round and round for about
+    ``seconds``; each thread draws from its own Generator."""
+    import threading
+    import numpy as np
+    done = [0] * threads
+    stop = time.perf_counter() + seconds
+
+    def work(k):
+        rng = np.random.default_rng(k)
+        while time.perf_counter() < stop:
+            fn(images, size, (0.8, 1.0), (0.9, 1.1), None, None, None, None,
+               rng)
+            done[k] += 1
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=work, args=(k,)) for k in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    return sum(done) / (time.perf_counter() - t0)
+
+
+def phase_native_preproc(torch, root):
+    """The loaders' fused host crop-resize-normalize (``augment_segment``
+    through ``data/native.py`` over ``csrc/segment_ops.cpp``, built here by
+    ``_build`` with the host C++ compiler) on the card's host.
+
+    Gate: at each of NP_SHAPES' segments, the fused resize against the
+    numpy ``resized_crop`` of every frame within NP_RESIZE_ATOL, and
+    ``augment_segment`` against its plain version (the loaders' crop draws
+    and NP_JITTER's colour jitter) within NP_JITTER_ATOL, the Generator
+    left in the same state. Rate: the segments/s of each on 1 thread and on
+    the loaders' 16. Run: ``main`` of ``python -m
+    ivideogpt_tpu_torch.train_tokenizer`` with the BAIR finetune recipe's
+    tokenizer flags (``phase_train_tokenizer``'s, without the hub's
+    weights: TOKENIZER_64 from a seed, bf16, B=16, seg 8, ctx 1, 16 loader
+    workers) on ``phase_train_tokenizer``'s synthetic episodes, NP_STEPS
+    micro-steps a run in NP_ORDER, "numpy" with the plain version patched
+    in for the loader's ``augment_segment``; gates: finite metrics, K1
+    launched twice by every G step and no other kernel, every drawn sample
+    through the fused call in a "fused" run and none in a "numpy" one.
+    Prints each run's ms/step and ``loader_wait_ms`` (the first window, the
+    16 workers' first fill, apart from the rest) and the samples/s the
+    workers delivered: a smoke reading of a few steps beside the other
+    lane, not a verdict on the step. Returns the launches of the first
+    "fused" run."""
+    import functools
+    import threading
+    import numpy as np
+    from ivideogpt_tpu_torch import train_tokenizer as cli
+    from ivideogpt_tpu_torch.data import augment, native
+    from ivideogpt_tpu_torch.data import npz_dataset as npz
+
+    plain = functools.partial(plain_augment_segment, augment)
+    rng = np.random.default_rng(103)
+    rates = {}
+    for name, t, hw, size in NP_SHAPES:
+        images = rng.integers(0, 256, (t, hw, hw, 3), dtype=np.uint8)
+        for seed in range(3):
+            i, j, h, w = augment.get_crop_params(
+                hw, hw, (0.8, 1.0), (0.9, 1.1), np.random.default_rng(seed))
+            fused = native.segment_crop_resize(images, i, j, h, w, size)
+            ref = np.stack([augment.resized_crop(
+                f.astype(np.float32) / 255.0, i, j, h, w, size)
+                for f in images])
+            err = float(np.abs(fused - ref).max())
+            check(fused.shape == ref.shape and err <= NP_RESIZE_ATOL,
+                  f"native_preproc ({name}): the fused resize of crop "
+                  f"{(i, j, h, w)} is {err} off the numpy one (limit "
+                  f"{NP_RESIZE_ATOL})")
+            outs, states = [], []
+            for fn in (augment.augment_segment, plain):
+                g = np.random.default_rng(seed)
+                outs.append(fn(images, size, (0.8, 1.0), (0.9, 1.1),
+                               *NP_JITTER, g))
+                states.append(g.bit_generator.state)
+            err = float(np.abs(outs[0] - outs[1]).max())
+            check(states[0] == states[1] and err <= NP_JITTER_ATOL,
+                  f"native_preproc ({name}): augment_segment is {err} off "
+                  f"its plain version (limit {NP_JITTER_ATOL}), Generator "
+                  f"states equal: {states[0] == states[1]}")
+        rates[name] = {f"{tag} x{n}": round(
+            augment_rate(fn, images, size, n), 1)
+            for tag, fn in (("numpy", plain),
+                            ("fused", augment.augment_segment))
+            for n in (1, 16)}
+    print(f"native_preproc: the fused resize within {NP_RESIZE_ATOL} of the "
+          f"numpy one and augment_segment within {NP_JITTER_ATOL} of its "
+          f"plain version (jitter on, equal Generator states) at 3 crops of "
+          f"each segment; segments/s of the plain version (numpy) and of "
+          f"augment_segment (fused) on 1 and 16 threads of {os.cpu_count()} "
+          f"cores: {json.dumps(rates)} ({card_line()})")
+
+    data = write_episodes(os.path.join(root, "np_data"), TT_EPISODES,
+                          GPT_FRAMES, seed=95)
+    recipe = ["--seed", "0", "--mixed_precision", "bf16", "--batch_size",
+              str(TRAIN_B), "--gradient_accumulation_steps", "1",
+              "--disc_start", "1000005", "--dataset_name", "debug",
+              "--resolution", "64", "--dataloader_num_workers", "16",
+              "--random_selection", "--video_stepsize", "1",
+              "--segment_horizon", "16", "--segment_length", str(TOK_T),
+              "--context_length", "1", "--dataset_path", data,
+              "--max_train_steps", str(NP_STEPS), "--log_steps", str(NP_LOG),
+              "--log_image_steps", "0", "--validation_steps", "100000",
+              "--checkpointing_steps", "100000"]
+    real_fused = native.segment_crop_resize
+    real_augment = augment.augment_segment
+    real_sample = npz.RoboticDataset.sample
+    runs, launches = [], None
+    for k, tag in enumerate(NP_ORDER):
+        out = os.path.join(root, f"np_run_{k}_{tag}")
+        record, lock = [], threading.Lock()
+        fused_calls, returned = [0], []
+
+        def fused_counted(*a, **kw):
+            with lock:
+                fused_calls[0] += 1
+            return real_fused(*a, **kw)
+
+        def sample_counted(self):
+            # the training loader's draws (the eval loader's are no_aug)
+            got = real_sample(self)
+            if not self.no_aug:
+                with lock:
+                    returned.append(time.perf_counter())
+            return got
+        restore = counted_steps(cli, record)
+        native.segment_crop_resize = fused_counted
+        npz.RoboticDataset.sample = sample_counted
+        if tag == "numpy":
+            augment.augment_segment = plain
+        try:
+            reset_counts()
+            t0 = time.time()
+            cli.main(recipe + ["--output_dir", out])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            got = read_counts()
+        finally:
+            native.segment_crop_resize = real_fused
+            augment.augment_segment = real_augment
+            npz.RoboticDataset.sample = real_sample
+            restore()
+        kinds = [kind for kind, _, _ in record]
+        check(kinds == ["G"] * (NP_STEPS // 2),
+              f"native_preproc ({tag}): step calls {kinds}")
+        k1_per_step(record, f"native_preproc ({tag})")
+        check(got == dict(dict.fromkeys(got, 0), vq_argmin=2 * len(record)),
+              f"native_preproc ({tag}): launches {got}, the steps' K1 "
+              f"{2 * len(record)}")
+        drawn = len(returned)
+        check(fused_calls[0] == (drawn if tag == "fused" else 0)
+              and drawn >= NP_STEPS * TRAIN_B, f"native_preproc ({tag}): "
+              f"{fused_calls[0]} fused calls for {drawn} augmented samples")
+        metrics = cli_metrics(out)
+        finite_metrics(metrics, f"native_preproc ({tag})")
+        train = {m["step"]: m for m in metrics if "samples/sec" in m}
+        check(sorted(train) == list(range(NP_LOG, NP_STEPS + 1, NP_LOG)),
+              f"native_preproc ({tag}): logged steps {sorted(train)}")
+        rest = [train[s_] for s_ in sorted(train)[1:]]
+        runs.append(dict(
+            path=tag,
+            first_ms=round(train[NP_LOG]["step_ms"], 2),
+            first_wait_ms=round(train[NP_LOG]["loader_wait_ms"], 3),
+            ms=round(sum(m["step_ms"] for m in rest) / len(rest), 2),
+            wait_ms=round(sum(m["loader_wait_ms"] for m in rest)
+                          / len(rest), 3),
+            delivered=round((len(returned) - 1)
+                            / (returned[-1] - returned[0]), 2),
+            wall_s=round(wall, 1),
+            gen_loss=[train[s_]["gen_loss"] for s_ in sorted(train)]))
+        if tag == "fused" and launches is None:
+            launches = got
+    mean = {tag: round(sum(r["ms"] for r in runs if r["path"] == tag)
+                       / NP_ORDER.count(tag), 2) for tag in set(NP_ORDER)}
+    print(f"native_preproc: the tokenizer CLI, BAIR recipe, {NP_STEPS} "
+          f"micro-steps a run, in turns (ms/step and loader_wait_ms of steps "
+          f"{NP_LOG + 1}-{NP_STEPS}; first_*: steps 1-{NP_LOG}, the 16 "
+          f"workers' first fill; delivered: samples/s the workers' draws "
+          f"returned, first to last): {json.dumps(runs)}; mean ms/step "
+          f"{json.dumps(mean)}: a smoke reading beside the other lane, not "
+          f"a verdict ({card_line()})")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def remat_pair(torch, dtype, b, seed):
     """One generator step (no GAN, LPIPS in the loss) of TOKENIZER_256 at
     batch b with remat and without, from the same weights, pixels and
@@ -7265,6 +7500,9 @@ def lane_main(torch, convs, mark):
         mark("drq")
     by_path["train_gpt_check"] = phase_train_check(torch, dropout=True)
     mark("train_gpt check")
+    with tempfile.TemporaryDirectory(prefix="native-", dir=scratch) as root:
+        by_path["native_preproc"] = phase_native_preproc(torch, root)
+    mark("native_preproc")
     return by_path
 
 
@@ -7486,6 +7724,8 @@ def main():
           f"the {MEDIUM_TIMED} timed steps under remat 'none' and the "
           f"{MEDIUM_TIMED} under 'dots'; train_gpt_check: "
           f"one step; mbpo: the MBPO CLI's run; drq: the DrQ-v2 run; "
+          f"native_preproc: the first fused tokenizer CLI run, "
+          f"{NP_STEPS} micro-steps; "
           f"rollout_int8_detok, rollout_int8_static, rollout_mixed, "
           f"rollout_grouped: the first B={B} rollout of each; vp2_int8: "
           f"the first int8-render query; dist_cli: rank 0's CLI runs, NCCL "

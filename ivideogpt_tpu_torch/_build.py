@@ -28,9 +28,11 @@ SOURCES = ("vq_argmin", "vq_argmin_tiled", "decode_attention",
            "flash_attention_sm90", "flash_attention_tf32", "qconv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# host C++ with a plain C interface (the JPEG decoder of data/jpeg.py)
-HOST_SOURCES = ("jpeg_decode",)
-HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+# host C++ with a plain C interface (the JPEG decoder of data/jpeg.py, the
+# fused crop-resize of data/native.py); IEEE float arithmetic, no FMA
+# contraction, so a host source gives the same floats on every host
+HOST_SOURCES = ("jpeg_decode", "segment_ops")
+HOST_FLAGS = ("-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

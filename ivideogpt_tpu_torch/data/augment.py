@@ -10,8 +10,16 @@ taps at half-pixel centres, clamped at the borders, no antialias, the rows
 interpolated first and then the columns (an exact 2x downscale, which cv2
 sends to its area path, gives the same average of four). ``adjust_hue``
 goes through cv2's float RGB <-> HSV formulas (H in degrees, S and V in
-[0, 1]), written out in numpy. The JAX package's ``IVG_NATIVE_PREPROC``
-branch (a C crop-and-resize) is not ported: the numpy path is its default.
+[0, 1]), written out in numpy.
+
+``augment_segment`` crops, resizes and normalizes the whole uint8 segment
+in one C call (``data/native.py``) and then applies the jitter: the same
+draws as the JAX package's, within 2e-6 of ``resized_crop`` on
+``img / 255`` before the jitter and 3e-5 after it. The JAX package takes
+this fused pass only under ``IVG_NATIVE_PREPROC=1`` and otherwise, or when
+its library is not built, resizes with cv2; the port has no such switch:
+it builds the library or raises. ``resize`` stays for the unaugmented
+paths (``no_aug``, the SSv2 reader).
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ import math
 from typing import Tuple
 
 import numpy as np
+
+from ivideogpt_tpu_torch.data import native
 
 
 def center_crop_square(img: np.ndarray) -> np.ndarray:
@@ -199,9 +209,7 @@ def augment_segment(images: np.ndarray, image_size: int,
                                  crop_ratio or (1.0, 1.0), rng)
     order, b, c, s, hu = jitter_params(brightness, contrast, saturation, hue,
                                        rng)
-    out = np.empty((T, image_size, image_size, images.shape[-1]), np.float32)
+    out = native.segment_crop_resize(images, i, j, h, w, image_size)
     for t in range(T):
-        img = images[t].astype(np.float32) / 255.0
-        img = resized_crop(img, i, j, h, w, image_size)
-        out[t] = apply_jitter(img, order, b, c, s, hu)
+        out[t] = apply_jitter(out[t], order, b, c, s, hu)
     return out

@@ -6,6 +6,8 @@
   anywhere: image files are written by ``utils/image_io.py``, JPEG frames
   read by ``data/jpeg.py``, FVD's matrix root is taken with numpy; ``metaworld`` and ``mujoco`` only inside
   ``mbrl/metaworld_env.make``;
+- no port file names the JAX package's ``native/libsegment_ops.so``: the
+  fused crop-resize is built from ``csrc/segment_ops.cpp``;
 - entry points run on CUDA unless asked for the CPU, and raise when CUDA is
   absent;
 - nothing builds or imports a GPU toolchain at import time.
@@ -126,13 +128,30 @@ def test_scan_sees_the_whole_package():
                  "utils/video_metric.py", "mbrl_train.py", "mbrl/mbpo.py",
                  "mbrl/drq_workspace.py", "mbrl/replay_buffer.py",
                  "mbrl/metaworld_env.py", "mbrl/fake_env.py",
-                 "mbrl/logger.py", "mbrl/video.py"):
+                 "mbrl/logger.py", "mbrl/video.py", "data/native.py",
+                 "data/jpeg.py", "data/sthsth_dataset.py"):
         assert must in rels
     for src in ("vq_argmin", "vq_argmin_tiled", "decode_attention",
                 "flash_attention_sm90", "flash_attention_tf32"):
         assert os.path.exists(os.path.join(PKG, "csrc", f"{src}.cu"))
     for header in ("philox.cuh", "sm90.cuh"):
         assert os.path.exists(os.path.join(PKG, "csrc", header))
+    for src in ("jpeg_decode", "segment_ops"):
+        assert os.path.exists(os.path.join(PKG, "csrc", f"{src}.cpp"))
+
+
+def test_port_never_names_the_jax_packages_native_library():
+    """The fused crop-resize is built from ``csrc/segment_ops.cpp`` by
+    ``_build``; no file of the port or ``chip_smoke.py`` names the JAX
+    tests' build product ``native/libsegment_ops.so``."""
+    build = os.path.join(PKG, "csrc", "build")
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(root, f) for root, _, files in os.walk(PKG)
+        if not root.startswith(build) and "__pycache__" not in root
+        for f in files]
+    for path in paths:
+        with open(path, "rb") as f:
+            assert b"libsegment_ops" not in f.read(), path
 
 
 def test_trainer_cli_wants_cuda(tmp_path):
