@@ -30,6 +30,7 @@ import numpy as np
 
 from ivideogpt_tpu_torch.data import augment
 from ivideogpt_tpu_torch.data.sthsth_dataset import SomethingV2Dataset
+from ivideogpt_tpu_torch.utils import profiling
 
 # Per-dataset native control-frequency stepsize (reference
 # simple_dataloader.py:18-70).
@@ -340,7 +341,8 @@ class _PrefetchLoader:
     """Thread-pool prefetch: one worker thread a sample function (a numpy
     Generator is not thread-safe, so each worker draws from its own), a
     queue of ``prefetch`` batches. ``wait_s`` adds up the seconds
-    ``__next__`` waited for a batch."""
+    ``__next__`` waited for a batch, each wait the span
+    (``utils.profiling``) ``data.wait``."""
 
     def __init__(self, sample_fns: Sequence[Callable], batch_size: int,
                  prefetch: int = 4):
@@ -373,9 +375,10 @@ class _PrefetchLoader:
         return self
 
     def __next__(self):
-        t0 = time.perf_counter()
-        batch = self.queue.get()
-        self.wait_s += time.perf_counter() - t0
+        with profiling.span("data.wait"):
+            t0 = time.perf_counter()
+            batch = self.queue.get()
+            self.wait_s += time.perf_counter() - t0
         return batch
 
     def close(self):

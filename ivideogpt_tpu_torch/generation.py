@@ -19,7 +19,8 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
-from torch.profiler import record_function
+
+from ivideogpt_tpu_torch.utils import profiling
 
 
 class GenerateResult(NamedTuple):
@@ -146,12 +147,16 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
     [B, D], reward [B] or None)`` is called once frame f is sampled. The
     final sampled token is not decoded unless rewards are wanted; rewards
     are read after each frame's last dyn token. The prefill and each
-    frame's decode steps run inside the profiler ranges
-    ``generation.prefill`` and ``generation.decode``; the callbacks outside
-    them. ``cache_dtype``: the KV cache's (``models.llama.init_cache``):
-    a float dtype, ``torch.int8`` or ``"mixed"``, over the model's
-    ``num_key_value_heads``. ``batch_rows`` = (first row, global batch)
-    makes the rows a data-parallel rank's (:func:`sample_top_k`).
+    frame's decode steps run inside the spans (``utils.profiling``)
+    ``generation.prefill`` and ``generation.decode``, the callbacks outside
+    them; inside a frame's, each LM step (its embed, the action add and
+    ``decode_cached``) is a ``generation.lm_step`` and each draw (the
+    unembed, ``sample_top_k`` and the token's write) a
+    ``generation.sample``. ``cache_dtype``: the KV cache's
+    (``models.llama.init_cache``): a float dtype, ``torch.int8`` or
+    ``"mixed"``, over the model's ``num_key_value_heads``. ``batch_rows``
+    = (first row, global batch) makes the rows a data-parallel rank's
+    (:func:`sample_top_k`).
     """
     B, P1 = prelude_tokens.shape
     F = segment_length - context_length
@@ -164,7 +169,7 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
         raise ValueError("pass action or action_fn, not both")
 
     cache = model.init_cache(B, total, cache_dtype, prelude_tokens.device)
-    with record_function("generation.prefill"):
+    with profiling.span("generation.prefill"):
         if action_fn is None:
             embeds = model.embed_tokens(prelude_tokens)
         else:
@@ -184,26 +189,29 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
     for f in range(F):
         s0 = P1 + f * D1   # the frame's first token; its sdf just before
         act = action_fn(f) if action_fn is not None else None
-        with record_function("generation.decode"):
+        with profiling.span("generation.decode"):
             if f or action_fn is not None:
-                emb = sdf_emb
-                if act is not None:
-                    emb = emb + model.action_embeds(act)[:, None].to(
-                        emb.dtype)
-                elif action_embeds is not None:
-                    emb = emb + action_embeds[
-                        :, context_length - 1 + f, None].to(emb.dtype)
-                buf[:, s0 - 1] = sdf_token
-                hidden, _ = model.decode_cached(emb, cache, s0 - 1)
+                with profiling.span("generation.lm_step"):
+                    emb = sdf_emb
+                    if act is not None:
+                        emb = emb + model.action_embeds(act)[:, None].to(
+                            emb.dtype)
+                    elif action_embeds is not None:
+                        emb = emb + action_embeds[
+                            :, context_length - 1 + f, None].to(emb.dtype)
+                    buf[:, s0 - 1] = sdf_token
+                    hidden, _ = model.decode_cached(emb, cache, s0 - 1)
             for j in range(D):
-                token = sample_top_k(model.unembed(hidden[:, -1]), generator,
-                                     top_k, temperature, bf16_exact,
-                                     batch_rows)
-                buf[:, s0 + j] = token
+                with profiling.span("generation.sample"):
+                    token = sample_top_k(model.unembed(hidden[:, -1]),
+                                         generator, top_k, temperature,
+                                         bf16_exact, batch_rows)
+                    buf[:, s0 + j] = token
                 if f == F - 1 and j == D - 1 and not reward_prediction:
                     break  # its logits would only feed the dropped final sdf
-                hidden, _ = model.decode_cached(
-                    model.embed_tokens(token[:, None]), cache, s0 + j)
+                with profiling.span("generation.lm_step"):
+                    hidden, _ = model.decode_cached(
+                        model.embed_tokens(token[:, None]), cache, s0 + j)
             reward = (model.reward(hidden[:, -1]).float()
                       if reward_prediction else None)
         if reward is not None:

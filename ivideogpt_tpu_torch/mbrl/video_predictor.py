@@ -26,9 +26,9 @@ The frame loop is ``generation.generate``'s, with the policy as its
 dispatch waits for the card: the inputs reach it through pinned memory,
 and the card hands back one packed buffer (uint8 frames, fp32 actions and
 rewards); ``fetch`` rebuilds the stacked observations on the host. Each
-part runs inside a ``torch.profiler.record_function`` range named in
-``ROLLOUT_RANGES``, so a trace splits the rollout's host and device time by
-part.
+part runs inside a span (``utils.profiling``) named in ``ROLLOUT_RANGES``,
+a ``record_function`` range under a profiler, so a trace splits the
+rollout's host and device time by part.
 
 Compute is bf16 over fp32 masters by default: the rollout runs bf16 copies
 of the masters under the cast rules (the LM's matrices and the tokenizer's
@@ -67,6 +67,7 @@ from ivideogpt_tpu_torch.models.lpips import LPIPS
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
 from ivideogpt_tpu_torch.train.optim import TrainState, global_norm
 from ivideogpt_tpu_torch.train.tokenizer_trainer import recon_loss
+from ivideogpt_tpu_torch.utils import profiling
 from ivideogpt_tpu_torch.utils.checkpoint import (latest_checkpoint,
                                                   restore_train_state,
                                                   save_train_state)
@@ -339,7 +340,7 @@ class VideoPredictor:
         rewards = floats[n_act:].view(B, horizon + 1)
         frames = packed[n_float:].view(B, horizon, h, w, 3)
 
-        with torch.profiler.record_function("mbrl.encode_context"):
+        with profiling.span("mbrl.encode_context"):
             ctx_frames = stack.view(B, h, w, frame_stack, 3).movedim(3, 1)
             idx_c = tok.encode_context(ctx_frames[:, -ctx:].contiguous())
             _, dec_cache = tok.build_decode_cache(idx_c)
@@ -347,7 +348,7 @@ class VideoPredictor:
                                              tc.num_dyn_embeddings)
 
         def act(t):
-            with torch.profiler.record_function("mbrl.policy"):
+            with profiling.span("mbrl.policy"):
                 if replay_actions is not None:
                     action = replay_actions[:, t]
                 elif expl_uniform:
@@ -361,7 +362,7 @@ class VideoPredictor:
 
         def decode_frame(t, toks, _reward):
             nonlocal stack
-            with torch.profiler.record_function("mbrl.decode_dyn_frame"):
+            with profiling.span("mbrl.decode_dyn_frame"):
                 dyn_idx = (toks - tc.num_vq_embeddings).clamp(
                     0, tc.num_dyn_embeddings - 1)
                 frame = tok.decode_dyn_frame(dyn_idx, dec_cache).float()

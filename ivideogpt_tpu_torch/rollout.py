@@ -37,6 +37,7 @@ from ivideogpt_tpu_torch.models.action_model import HeadModelWithAction
 from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
 from ivideogpt_tpu_torch.ops import qconv
 from ivideogpt_tpu_torch.utils import checkpoint as ckpt
+from ivideogpt_tpu_torch.utils import profiling
 from ivideogpt_tpu_torch.utils.platform import resolve_device
 
 
@@ -119,22 +120,29 @@ def rollout(tokenizer: CompressiveVQModel, lm: HeadModelWithAction,
     stream [B, seq_len] and frames [B, T, H, W, C]. ``cache_dtype``: the
     KV cache's, ``"mixed"`` included. Detokenize runs in chunks of
     ``detok_chunk`` samples to cap its activation memory, rendered as
-    ``int8_detok`` says (:func:`detokenize`)."""
+    ``int8_detok`` says (:func:`detokenize`). The call is the span
+    (``utils.profiling``) ``rollout``, its stages ``rollout.tokenize``,
+    ``rollout.generate`` and ``rollout.detokenize``."""
     device = next(tokenizer.parameters()).device
     if context_frames.device != device:
         raise ValueError(f"context frames on {context_frames.device}, "
                          f"models on {device}")
     B, ctx = context_frames.shape[:2]
     cfg = tokenizer.config
-    prelude = tokens.make_prelude(tokenizer.encode_context(context_frames),
-                                  cfg.num_vq_embeddings, cfg.num_dyn_embeddings)
-    res = generation.generate(
-        lm, prelude, segment_length=segment_length, context_length=ctx,
-        generator=generator, action=action,
-        tokens_per_dyna=cfg.dyn_tokens_per_frame, top_k=top_k,
-        temperature=temperature, cache_dtype=cache_dtype)
-    frames = detokenize(tokenizer, res.tokens, ctx, detok_chunk, int8_detok,
-                        static_scales)
+    with profiling.span("rollout"):
+        with profiling.span("rollout.tokenize"):
+            prelude = tokens.make_prelude(
+                tokenizer.encode_context(context_frames),
+                cfg.num_vq_embeddings, cfg.num_dyn_embeddings)
+        with profiling.span("rollout.generate"):
+            res = generation.generate(
+                lm, prelude, segment_length=segment_length,
+                context_length=ctx, generator=generator, action=action,
+                tokens_per_dyna=cfg.dyn_tokens_per_frame, top_k=top_k,
+                temperature=temperature, cache_dtype=cache_dtype)
+        with profiling.span("rollout.detokenize"):
+            frames = detokenize(tokenizer, res.tokens, ctx, detok_chunk,
+                                int8_detok, static_scales)
     return RolloutResult(res.tokens, frames)
 
 

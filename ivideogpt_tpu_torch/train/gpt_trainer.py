@@ -48,6 +48,7 @@ from ivideogpt_tpu_torch.models.tokenizer import CompressiveVQModel
 from ivideogpt_tpu_torch.parallel.mesh import Mesh
 from ivideogpt_tpu_torch.train.lora import LoraAdapters
 from ivideogpt_tpu_torch.train.optim import TrainState
+from ivideogpt_tpu_torch.utils import profiling
 from ivideogpt_tpu_torch.utils.platform import full_fp32, resolve_device
 
 Batch = Dict[str, torch.Tensor]
@@ -113,9 +114,9 @@ def make_tokenize_fn(tokenizer: CompressiveVQModel, context_length: int
                      ) -> Callable[[torch.Tensor], Tuple[torch.Tensor,
                                                          torch.Tensor]]:
     """pixels [B, T, H, W, C] -> (input_ids, labels) [B, L] through the
-    frozen tokenizer: no gradient, TF32 off."""
+    frozen tokenizer: no gradient, TF32 off; the span ``train.tokenize``."""
     def tokenize(pixels):
-        with torch.no_grad(), full_fp32():
+        with profiling.span("train.tokenize"), torch.no_grad(), full_fp32():
             return tokenizer.tokenize(pixels, context_length)
     return tokenize
 
@@ -128,9 +129,13 @@ def _rank_key(rng: Optional[DropoutKey], batch: Batch,
     return (rng[0], rng[1], mesh.data_rank * batch["input_ids"].shape[0])
 
 
-def _reduce_grads(params, mesh: Optional[Mesh]):
-    if mesh is not None:
-        mesh.data_mean_([p.grad for p in params if p.grad is not None])
+def _backward(loss: torch.Tensor, state: TrainState, mesh: Optional[Mesh]):
+    """The backward, then the data group's gradient mean on a mesh."""
+    with profiling.span("train.backward"):
+        loss.backward()
+        if mesh is not None:
+            mesh.data_mean_([p.grad for p in state.params
+                             if p.grad is not None])
 
 
 def _data_mean(loss: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
@@ -146,19 +151,26 @@ def train_step(state: TrainState, batch: Batch,
     key (seed, step), which a model with ``attention_dropout > 0`` needs
     (the JAX step's ``rng``, ``deterministic=False``). Returns 0-dim
     tensors (no host sync): loss, the unclipped gradient norm and
-    perplexity."""
-    model = state.model
-    model.train()
-    out = model(batch["input_ids"], batch["labels"], batch.get("action"),
-                dropout_key=_rank_key(rng, batch, mesh))
-    loss = out["loss"]
-    loss.backward()
-    _reduce_grads(state.params, mesh)
-    gnorm = state.grad_norm([p.grad for p in state.params
-                             if p.grad is not None])
-    state.apply_gradients()
-    loss = _data_mean(loss.detach(), mesh)
-    return {"loss": loss, "grad_norm": gnorm, "perplexity": torch.exp(loss)}
+    perplexity. The step is the span (``utils.profiling``) ``train.step``,
+    its parts ``train.forward`` (the model and its loss),
+    ``train.backward`` (with the data group's gradient mean),
+    ``train.clip`` (the norm here and the clip in ``apply_gradients``) and
+    ``train.adamw``."""
+    with profiling.span("train.step"):
+        model = state.model
+        model.train()
+        with profiling.span("train.forward"):
+            loss = model(batch["input_ids"], batch["labels"],
+                         batch.get("action"),
+                         dropout_key=_rank_key(rng, batch, mesh))["loss"]
+        _backward(loss, state, mesh)
+        with profiling.span("train.clip"):
+            gnorm = state.grad_norm([p.grad for p in state.params
+                                     if p.grad is not None])
+        state.apply_gradients()
+        loss = _data_mean(loss.detach(), mesh)
+        return {"loss": loss, "grad_norm": gnorm,
+                "perplexity": torch.exp(loss)}
 
 
 def lora_train_step(state: TrainState, model: HeadModelWithAction,
@@ -169,15 +181,17 @@ def lora_train_step(state: TrainState, model: HeadModelWithAction,
     merged weights and the backward reaches only the adapters; then
     ``state.apply_gradients``. ``batch``, ``rng`` and ``mesh`` as in
     :func:`train_step`. Returns 0-dim tensors: loss and perplexity, the
-    JAX step's metrics."""
-    model.train()
-    loss = model(batch["input_ids"], batch["labels"], batch.get("action"),
-                 dropout_key=_rank_key(rng, batch, mesh))["loss"]
-    loss.backward()
-    _reduce_grads(state.params, mesh)
-    state.apply_gradients()
-    loss = _data_mean(loss.detach(), mesh)
-    return {"loss": loss, "perplexity": torch.exp(loss)}
+    JAX step's metrics. Its spans are :func:`train_step`'s."""
+    with profiling.span("train.step"):
+        model.train()
+        with profiling.span("train.forward"):
+            loss = model(batch["input_ids"], batch["labels"],
+                         batch.get("action"),
+                         dropout_key=_rank_key(rng, batch, mesh))["loss"]
+        _backward(loss, state, mesh)
+        state.apply_gradients()
+        loss = _data_mean(loss.detach(), mesh)
+        return {"loss": loss, "perplexity": torch.exp(loss)}
 
 
 @torch.no_grad()

@@ -31,6 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ivideogpt_tpu_torch.utils import profiling
+
 Schedule = Callable[[int], float]
 _f32 = np.float32
 
@@ -161,7 +163,9 @@ class TrainState:
     @torch.no_grad()
     def apply_gradients(self):
         """Take the gradients in ``.grad`` (None counts as zero), clear
-        them, and apply an update on every k-th call."""
+        them, and apply an update on every k-th call: the clip is the span
+        (``utils.profiling``) ``train.clip``, the schedule and AdamW
+        ``train.adamw``."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
         for p in self.params:
@@ -180,15 +184,18 @@ class TrainState:
         else:
             self.step += 1
         if self.max_grad_norm is not None:
-            clip_by_global_norm_(grads, self.max_grad_norm, self.grad_norm)
-        for p, g, trained in zip(self.params, grads, self._trained):
-            if trained:
-                p.grad = g
-        lr = float(self.schedule(self.updates))
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+            with profiling.span("train.clip"):
+                clip_by_global_norm_(grads, self.max_grad_norm,
+                                     self.grad_norm)
+        with profiling.span("train.adamw"):
+            for p, g, trained in zip(self.params, grads, self._trained):
+                if trained:
+                    p.grad = g
+            lr = float(self.schedule(self.updates))
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
         self.updates += 1
 
     def state_dict(self) -> Dict:
