@@ -14,15 +14,17 @@ against their plain PyTorch versions.
 
 Phases, each printed on its own lines; any failure exits non-zero without
 the final result line. Phases 1-5 run alone; from 6 on two lanes run side
-by side on the card (run_lanes): this process runs 6-16, train_gpt
-check and native_preproc, a child process (``--lane``, its log printed after this process's
-lane and kept in outputs/lane-hub.log) the hub's phases 17-25 but
+by side on the card (run_lanes): this process runs 6-16 and drq_update,
+a child process (``--lane``, its log printed after this
+process's lane and kept in outputs/lane-hub.log) the hub's phases 17-25 but
 dist_train, dist_serve and dist_cli (in the order hub, predict, train_gpt,
 train_gpt_lora, train_tokenizer, train_tokenizer_sthsth, eval_gpt,
 train_tokenizer_256,
 train_gpt_256, train_gpt_goal, rollout_ctx1, vp2, vp2_int8, train_medium,
-train_medium_dots, so that the two lanes' memory peaks fall apart); the
-multi-process phases follow alone, on the child's hub:
+train_medium_dots, so that the two lanes' memory peaks fall apart); when
+the child has ended this process runs mbpo, drq, train_gpt check and
+native_preproc alone, then the multi-process phases follow alone, on the
+child's hub:
   1. card      the nvidia-smi name and power limit
   2. build     nvcc for sm_90a of every csrc/*.cu and the host C++ compiler
                for csrc/jpeg_decode.cpp and csrc/segment_ops.cpp, all at
@@ -319,8 +321,9 @@ multi-process phases follow alone, on the child's hub:
                sample through the fused call in a fused run and none in a
                numpy one; ms/step, loader_wait_ms, the workers' delivered
                samples/s (a smoke reading, not a verdict on the step)
-Each phase's seconds follow it ("[time]" lines; a lane's phases are timed
-beside the other lane's). Then the launches by path,
+Each phase's seconds follow it ("[time]" lines, with the wall clock and
+the process's and the card's memory; a lane's phases are timed beside the
+other lane's). Then the launches by path,
 the kernels' JSON line, the card line again, and the result line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -7421,12 +7424,16 @@ def ab_turn(torch):
 # medium LM (lane_hub). Each lane orders its phases so that the two never
 # hold their memory peaks together: lane_main's above 20 GiB (main, the
 # rollout variants) come first, lane_hub's (eval_gpt, the 256 px tokenizer,
-# the ctx=1 rollout, VP2, the medium LM) last. The multi-process phases,
-# which spawn processes of their own, run after both, alone. While the
-# lanes run, lane_main's CPU references (the rollout, tokenizer and MBRL
-# checks) take all cores but LANE_HUB_THREADS, lane_hub's (predict's) those;
-# the times of the lanes' phases are taken beside the other lane (--ab-turn
-# times the paths alone)
+# the ctx=1 rollout, VP2, the medium LM) last. lane_main's tail (the MBPO
+# and DrQ-v2 CLIs, 16+ GiB, and the lighter checks after them) waits for
+# the hub lane to end, so the card's memory never rests on how fast each
+# lane runs: with the decode graphed, lane_main reached MBPO while the
+# hub's eval_gpt held ~60 GiB. Then lane_main's tail and the
+# multi-process phases, which spawn processes of their own, run alone.
+# While the lanes run, lane_main's CPU references (the rollout, tokenizer
+# and MBRL checks) take all cores but LANE_HUB_THREADS, lane_hub's
+# (predict's) those; the times of the lanes' phases are taken beside the
+# other lane (--ab-turn times the paths alone)
 LANE_TIMEOUT = 900
 LANE_HUB_THREADS = 2
 CPU_THREADS = 0
@@ -7445,22 +7452,39 @@ def lane_threads(hub):
     return max(1, LANE_HUB_THREADS if hub else cores - LANE_HUB_THREADS)
 
 
+def card_memory():
+    """This process's memory on the card and the card's free memory, in
+    GiB: allocated, reserved (cached included), the part of reserved in
+    CUDA graphs' private pools, and free on the card (every process)."""
+    import torch
+    pools = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+    free, total = torch.cuda.mem_get_info()
+    return (f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+            f"reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+            f"(graph pools {pools / 2**30:.2f}), card free "
+            f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB")
+
+
 def marker(since):
     """A function that prints a phase's seconds and those since this
-    call ("[time]" lines)."""
+    call, the wall clock (to line up the two lanes) and card_memory()
+    ("[time]" lines)."""
     started = [time.time()] * 2
 
     def mark(phase):
         now = time.time()
         print(f"[time] {phase}: {now - started[1]:.1f} s, "
-              f"{now - started[0]:.1f} s since {since}", flush=True)
+              f"{now - started[0]:.1f} s since {since}, at {now:.1f}; "
+              f"{card_memory()}", flush=True)
         started[1] = now
     return mark
 
 
 def lane_main(torch, convs, mark):
-    """The rollouts, the in-process training steps, the tokenizer steps and
-    MBRL, in this process; returns their launches by path."""
+    """The rollouts, the in-process training steps, the tokenizer steps,
+    MBRL and the DrQ-v2 update, in this process; returns their launches by
+    path."""
     by_path = {"rollout": phase_main(torch)}
     mark("main")
     by_path.update(phase_rollout_variants(torch, convs))
@@ -7492,6 +7516,14 @@ def lane_main(torch, convs, mark):
     mark("mbrl train check")
     phase_drq_update(torch)
     mark("drq_update")
+    return by_path
+
+
+def lane_main_tail(torch, mark):
+    """The RL trainer CLIs, the GPT step's dropout check and the fused
+    preprocessing, after the hub lane has ended; returns their launches by
+    path."""
+    by_path = {}
     scratch = os.path.join(REPO, "outputs")
     with tempfile.TemporaryDirectory(prefix="mbrl-", dir=scratch) as root:
         by_path["mbpo"] = phase_mbpo(torch, root)
@@ -7561,7 +7593,13 @@ def lane_child(torch, root, convs, out):
     torch.set_num_threads(CPU_THREADS)
     from ivideogpt_tpu_torch import _build
     _build.build_all()
-    by_path = lane_hub(torch, root, int(convs), marker("the lane's start"))
+    try:
+        by_path = lane_hub(torch, root, int(convs),
+                           marker("the lane's start"))
+    except BaseException:
+        print(f"[time] lane_hub failed at {time.time():.1f}; "
+              f"{card_memory()}", flush=True)
+        raise
     with open(out, "w") as f:
         json.dump(by_path, f)
     return 0
@@ -7569,7 +7607,8 @@ def lane_child(torch, root, convs, out):
 
 def run_lanes(torch, convs, mark):
     """lane_main here and lane_hub in a child process, side by side, then
-    the multi-process phases alone on the child's hub; the child is killed
+    lane_main_tail and the multi-process phases alone, the latter on the
+    child's hub; the child is killed
     if this lane fails or it outlasts LANE_TIMEOUT, and its log (also in
     outputs/lane-hub.log) is printed after this lane's. Returns the
     launches by path of every phase."""
@@ -7590,7 +7629,12 @@ def run_lanes(torch, convs, mark):
         CPU_THREADS = lane_threads(hub=False)
         torch.set_num_threads(CPU_THREADS)
         try:
-            by_path = lane_main(torch, convs, mark)
+            try:
+                by_path = lane_main(torch, convs, mark)
+            except BaseException:
+                print(f"[time] lane_main failed at {time.time():.1f}; "
+                      f"{card_memory()}", flush=True)
+                raise
             torch.cuda.empty_cache()
             try:
                 child.wait(timeout=max(1.0, deadline - time.time()))
@@ -7611,6 +7655,7 @@ def run_lanes(torch, convs, mark):
         with open(out) as f:
             by_path.update(json.load(f))
         mark("the lanes")
+        by_path.update(lane_main_tail(torch, mark))
         with contextlib.chdir(root):
             by_path.update(phase_dist(
                 torch, root, os.path.join(root, "cond"),

@@ -7,19 +7,25 @@ Sequence bookkeeping (ctx tokens per frame C=256, dyn D=16):
   output = stream without the final sdf   (length seq_len, e.g. 751)
 
 The JAX package runs this as one jitted scan; here it is a Python loop over
-eager steps, with the cache updated in place. Sampling draws from an
-explicit ``torch.Generator``; torch cannot reproduce JAX's threefry draws,
-so streams from the two packages are compared through their logits and
-top-k sets, never token for token.
+eager steps, with the cache updated in place. Over a cache K3 reads (int8
+or ``"mixed"``) on the card, outside tensor parallelism, the one-token LM
+step is a CUDA graph captured once a call and replayed at every later
+step (:func:`_graphed`, :class:`_GraphedLMStep`); the draw stays eager.
+Sampling draws from an explicit ``torch.Generator``; torch cannot
+reproduce JAX's threefry draws, so streams from the two packages are
+compared through their logits and top-k sets, never token for token.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
+from ivideogpt_tpu_torch.ops.decode_attention import (capture_launches,
+                                                      count_replay)
 from ivideogpt_tpu_torch.utils import profiling
 
 
@@ -125,6 +131,97 @@ def sample_top_k(logits: torch.Tensor, generator: torch.Generator,
     return (masked - torch.log(-torch.log(u))).argmax(dim=-1)
 
 
+def _graphed(model, cache, device) -> bool:
+    """Whether :func:`generate` replays its one-token LM step as a CUDA
+    graph: on a CUDA ``device``, over a cache that K3 reads (its layers
+    hold ``vs``: int8 or ``"mixed"``), and with no module of ``model`` in
+    a tensor-parallel group (whose collectives stay eager). The bf16
+    cache's attention reads its position back to the host, which a
+    capture cannot hold."""
+    return (torch.device(device).type == "cuda" and "vs" in cache[0]
+            and all(getattr(m, "tp_group", None) is None
+                    for m in model.modules()))
+
+
+_side_streams: dict = {}   # device -> the stream graphs are captured on
+_last_graphs: dict = {}    # device -> the last graph captured there, kept
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """One capture stream a device, kept: cuBLAS keeps a workspace for
+    every stream it has run on."""
+    stream = _side_streams.get(device)
+    if stream is None:
+        stream = _side_streams[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def _eager_lm_step(model, cache, emb: torch.Tensor, index: int
+                   ) -> torch.Tensor:
+    _counters.eager_lm_steps += 1
+    return model.decode_cached(emb, cache, index)[0]
+
+
+class _GraphedLMStep:
+    """The one-token LM steps of one :func:`generate` call as one CUDA
+    graph. The first call runs its step eagerly on the device's capture
+    stream, with the position on the device (cuBLAS, the kernels and the
+    caching allocator warm there, outside any capture), then captures the
+    same step on that stream over static buffers: the input embedding
+    [B, 1, D] and the int32 position. Every later call writes the two
+    buffers and replays the graph on the current stream, and counts the K3
+    launches the capture recorded. Its output is the static hidden
+    [B, 1, D], which the next replay overwrites. The buffers go with the
+    object.
+
+    The capture shares the memory pool of the device's last graph, which
+    is kept for that alone (never replayed again) until the next capture
+    replaces it: the pool then outlives each call, and each capture takes
+    the blocks the last one freed. A graph's own pool would stay reserved
+    after the graph is dropped, until the allocator next empties its
+    cache, so a long-lived process would reserve more with every call. As
+    with K3's workspaces, one device's calls must not run on two streams
+    at once."""
+
+    def __init__(self, model, cache):
+        self.model, self.cache = model, cache
+        self.graph = self.emb = self.pos = self.hidden = self.k3 = None
+
+    def __call__(self, emb: torch.Tensor, index: int) -> torch.Tensor:
+        if self.graph is not None:
+            self.emb.copy_(emb)
+            self.pos.fill_(index)
+            self.graph.replay()
+            count_replay(self.k3)
+            _counters.graph_replays += 1
+            return self.hidden
+        self.emb = emb.clone()
+        self.pos = torch.full((1,), index, dtype=torch.int32,
+                              device=emb.device)
+        main = torch.cuda.current_stream(emb.device)
+        side = _side_stream(emb.device)
+        side.wait_stream(main)
+        last = _last_graphs.get(emb.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            hidden = self.model.decode_cached(self.emb, self.cache,
+                                              self.pos)[0]
+            with capture_launches() as self.k3:
+                graph.capture_begin(pool=None if last is None else last.pool(),
+                                    capture_error_mode="thread_local")
+                try:
+                    self.hidden = self.model.decode_cached(
+                        self.emb, self.cache, self.pos)[0]
+                finally:
+                    graph.capture_end()
+        main.wait_stream(side)
+        hidden.record_stream(main)
+        self.graph = _last_graphs[emb.device] = graph
+        _counters.eager_lm_steps += 1
+        _counters.graph_captures += 1
+        return hidden
+
+
 @torch.inference_mode()
 def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
              context_length: int, generator: torch.Generator,
@@ -157,6 +254,13 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
     ``"mixed"``, over the model's ``num_key_value_heads``. ``batch_rows``
     = (first row, global batch) makes the rows a data-parallel rank's
     (:func:`sample_top_k`).
+
+    Where :func:`_graphed` holds, the first one-token LM step runs eagerly
+    and every later one replays a CUDA graph captured after it
+    (:class:`_GraphedLMStep`); the tokens and rewards are those of the
+    eager loop, bit for bit. ``generate.graph_captures``,
+    ``generate.graph_replays`` and ``generate.eager_lm_steps`` count the
+    captures and the one-token LM steps replayed and run eagerly.
     """
     B, P1 = prelude_tokens.shape
     F = segment_length - context_length
@@ -169,6 +273,10 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
         raise ValueError("pass action or action_fn, not both")
 
     cache = model.init_cache(B, total, cache_dtype, prelude_tokens.device)
+    if _graphed(model, cache, prelude_tokens.device):
+        lm_step = _GraphedLMStep(model, cache)
+    else:
+        lm_step = functools.partial(_eager_lm_step, model, cache)
     with profiling.span("generation.prefill"):
         if action_fn is None:
             embeds = model.embed_tokens(prelude_tokens)
@@ -200,7 +308,7 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
                         emb = emb + action_embeds[
                             :, context_length - 1 + f, None].to(emb.dtype)
                     buf[:, s0 - 1] = sdf_token
-                    hidden, _ = model.decode_cached(emb, cache, s0 - 1)
+                    hidden = lm_step(emb, s0 - 1)
             for j in range(D):
                 with profiling.span("generation.sample"):
                     token = sample_top_k(model.unembed(hidden[:, -1]),
@@ -210,8 +318,8 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
                 if f == F - 1 and j == D - 1 and not reward_prediction:
                     break  # its logits would only feed the dropped final sdf
                 with profiling.span("generation.lm_step"):
-                    hidden, _ = model.decode_cached(
-                        model.embed_tokens(token[:, None]), cache, s0 + j)
+                    hidden = lm_step(model.embed_tokens(token[:, None]),
+                                     s0 + j)
             reward = (model.reward(hidden[:, -1]).float()
                       if reward_prediction else None)
         if reward is not None:
@@ -221,6 +329,14 @@ def generate(model, prelude_tokens: torch.Tensor, *, segment_length: int,
     tokens = buf[:, :-1]  # the final sdf slot is never written nor needed
     return GenerateResult(tokens,
                           torch.stack(rewards, 1) if reward_prediction else None)
+
+
+generate.graph_captures = 0
+generate.graph_replays = 0
+generate.eager_lm_steps = 0
+# the counters' holder: a caller may replace the module's ``generate`` by a
+# wrapper (the benchmark's timers do) while the steps count here
+_counters = generate
 
 
 @torch.inference_mode()

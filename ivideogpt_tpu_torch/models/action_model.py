@@ -17,7 +17,7 @@ from torch import nn
 from ivideogpt_tpu_torch.configs import ActionModelConfig, TransformerConfig
 from ivideogpt_tpu_torch.models.layers import Dense
 from ivideogpt_tpu_torch.models.llama import (Cache, DropoutKey,
-                                              LlamaForCausalLM)
+                                              LlamaForCausalLM, Position)
 from ivideogpt_tpu_torch.tokens import sdf_positions
 
 
@@ -59,7 +59,8 @@ class HeadModelWithAction(nn.Module):
                    device=None) -> Cache:
         return self.llm.init_cache(batch, max_len, cache_dtype, device)
 
-    def decode_cached(self, inputs_embeds, cache: Cache, cache_index: int):
+    def decode_cached(self, inputs_embeds, cache: Cache,
+                      cache_index: Position):
         return self.llm.forward_cached(inputs_embeds, cache, cache_index)
 
     def forward(self, input_ids: torch.Tensor,

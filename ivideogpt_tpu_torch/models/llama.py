@@ -22,6 +22,15 @@ Attention:
   index over any cache: plain torch over the cache as written (quantized
   where it is, the new tokens included), keys masked past
   cache_index + i, the int8 scales folded into the scores and weights.
+A one-token step may take its position on the device (``cache_index`` a
+one-element int32 tensor): ``forward_cached`` turns it once a step into a
+:class:`DevicePosition`, whose int64 slot RoPE reads and the cache is
+written through (``index_copy_``) and whose int32 ``valid`` K3 takes, so
+the step launches the same kernels whatever the position and a CUDA
+graph of it replays at any position (``generation.generate``). The values
+written and read are those of the host int's step, bit for bit. The float
+cache's attention slices at host ints, so there the position is read back
+(a wait on the card).
 Attention dropout (``config.attention_dropout``, 0.1 in every published
 recipe) acts in the training forward only, inside the attention kernels:
 ``forward(..., dropout_key=(seed, step))`` gives layer ``i`` the Philox
@@ -54,7 +63,7 @@ attention on ``bshd``.
 from __future__ import annotations
 
 from functools import partial
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +82,20 @@ Cache = List[Dict[str, torch.Tensor]]
 # (seed, step) of one training step's attention dropout, or (seed, step,
 # b0) for a data-parallel rank whose rows start at global row b0
 DropoutKey = Union[Tuple[int, int], Tuple[int, int, int]]
+
+
+class DevicePosition(NamedTuple):
+    """A one-token step's position on the device, made once a step by
+    :meth:`LlamaForCausalLM.forward_cached` for its layers: ``slot``
+    int64 [1], the slot the step writes, and ``valid`` int32 [1], slot + 1,
+    the live slots K3 reads."""
+    slot: torch.Tensor
+    valid: torch.Tensor
+
+
+# a cached step's first position: a host int, or (one token) a one-element
+# int32 tensor on the device, which the layers see as a DevicePosition
+Position = Union[int, torch.Tensor]
 
 
 # the "dots" policy's kept products: 2-D matrix products (with a bias)
@@ -177,13 +200,14 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cos, sin,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
-                cache_index: int = 0, dropout: Optional[Dropout] = None,
-                batch_offset: int = 0):
+                cache_index: Union[int, DevicePosition] = 0,
+                dropout: Optional[Dropout] = None, batch_offset: int = 0):
         """Without a cache: causal attention over the whole sequence (the
         training forward), with ``dropout`` = (p, seed, offset) on its
         probabilities, drawn at global row ``batch_offset`` on. With one: S
-        positions written at ``cache_index`` and attended as the module
-        docstring says."""
+        positions written at ``cache_index`` (a host int, or for S = 1 a
+        :class:`DevicePosition`) and attended as the module docstring
+        says."""
         c = self.config
         B, S, _ = x.shape
         H, Hkv, hd = self.heads, self.kv_heads, c.head_dim
@@ -202,11 +226,16 @@ class LlamaAttention(nn.Module):
             raise ValueError("attention dropout acts in the training "
                              "forward only, never with a cache")
 
-        end = cache_index + S
+        if isinstance(cache_index, DevicePosition):
+            slots, end = cache_index
+        else:
+            end = cache_index + S
+            slots = slice(cache_index, end)
         for name, x in (("k", k), ("v", v)):
             if name + "s" in cache:     # int8 with its scales
-                x, cache[name + "s"][:, cache_index:end] = quantize_int8(x)
-            cache[name][:, cache_index:end] = x.to(cache[name].dtype)
+                x, scales = quantize_int8(x)
+                _write(cache[name + "s"], slots, scales)
+            _write(cache[name], slots, x.to(cache[name].dtype))
 
         if S > 1 and cache_index == 0:
             out = causal_attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
@@ -215,8 +244,9 @@ class LlamaAttention(nn.Module):
             out = decode_attention(q[:, 0].contiguous(), cache["k"],
                                    cache.get("ks"), cache["v"], cache["vs"],
                                    end).reshape(B, 1, H * hd)
-        else:
-            out = self._cached_attention(q, cache, cache_index, end, rep)
+        else:   # host ints (a position on the device is read back)
+            out = self._cached_attention(q, cache, int(end) - S, int(end),
+                                         rep)
         return self._reduce(self.o_proj(out))
 
     def _cached_attention(self, q, cache, cache_index: int, end: int,
@@ -244,6 +274,15 @@ class LlamaAttention(nn.Module):
                 ).transpose(1, 2)[:, :, None, :]
         out = torch.einsum("bhqk,bkhd->bqhd", attn.to(dt), values)
         return out.reshape(B, S, H * hd)
+
+
+def _write(buf: torch.Tensor, slots, x: torch.Tensor):
+    """buf [B, M, ...] at ``slots`` = x [B, S, ...]: a slice of host ints,
+    or a position on the device as an int64 index along the slots."""
+    if isinstance(slots, slice):
+        buf[:, slots] = x
+    else:
+        buf.index_copy_(1, slots, x)
 
 
 def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
@@ -288,7 +327,8 @@ class LlamaLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps, dtype)
         self.mlp = LlamaMLP(config, dtype)
 
-    def forward(self, x, cos, sin, cache=None, cache_index: int = 0,
+    def forward(self, x, cos, sin, cache=None,
+                cache_index: Union[int, DevicePosition] = 0,
                 dropout: Optional[Dropout] = None, batch_offset: int = 0):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, cache,
                                cache_index, dropout, batch_offset)
@@ -410,11 +450,19 @@ class LlamaForCausalLM(nn.Module):
                  "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
                 for _ in range(c.num_hidden_layers)]
 
-    def forward_cached(self, inputs_embeds, cache: Cache, cache_index: int):
+    def forward_cached(self, inputs_embeds, cache: Cache,
+                       cache_index: Position):
         """Run S positions starting at ``cache_index`` against the cache,
-        which is updated in place. Returns (hidden [B, S, D], cache)."""
+        which is updated in place. Returns (hidden [B, S, D], cache). For
+        S = 1, ``cache_index`` may be a one-element int32 tensor on the
+        device (the module docstring)."""
         B, S, _ = inputs_embeds.shape
         pos = cache_index + torch.arange(S, device=inputs_embeds.device)
+        if isinstance(cache_index, torch.Tensor):
+            if S != 1:
+                raise ValueError(f"a position on the device takes one "
+                                 f"token, not {S}")
+            cache_index = DevicePosition(pos, cache_index + 1)
         cos, sin = rope_cos_sin(pos[None].expand(B, S), self.config.head_dim,
                                 self.config.rope_theta, dtype=self.dtype)
         x = inputs_embeds

@@ -36,13 +36,20 @@ Each wrapper call counts one launch on the variant it launched:
 ``decode_attention.launches`` (int8 K, one KV head a query head, the
 rollout's), ``decode_attention.grouped_launches`` (int8 K over fewer KV
 heads) or ``decode_attention.mixed_launches`` (bf16 K, any KV heads).
+A launch inside a CUDA graph's capture runs nothing and is not counted;
+inside :func:`capture_launches` the capture's launches are recorded
+instead, and :func:`count_replay` counts them for each replay, so the
+counters read what the card ran.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -223,13 +230,36 @@ def _launch(q, k_cache, ks, v_cache, vs, valid, splits: int):
     if err:
         raise RuntimeError(
             f"decode_attention kernel launch failed: cudaError {err}")
-    if ks is None:
-        decode_attention.mixed_launches += 1
-    elif Hkv != H:
-        decode_attention.grouped_launches += 1
-    else:
-        decode_attention.launches += 1
+    name = ("mixed_launches" if ks is None else
+            "grouped_launches" if Hkv != H else "launches")
+    if not torch.cuda.is_current_stream_capturing():
+        setattr(decode_attention, name, getattr(decode_attention, name) + 1)
+    elif getattr(_capture, "launches", None) is not None:
+        _capture.launches[name] += 1
     return out
+
+
+_capture = threading.local()   # .launches: the open capture_launches()
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Record this thread's K3 launches made under a CUDA graph capture
+    inside the block, by counter name (``"launches"``,
+    ``"grouped_launches"``, ``"mixed_launches"``), into the yielded
+    Counter: the graph's launches a replay, for :func:`count_replay`."""
+    _capture.launches = launches = collections.Counter()
+    try:
+        yield launches
+    finally:
+        _capture.launches = None
+
+
+def count_replay(launches: collections.Counter):
+    """Count one replay of a graph whose capture recorded ``launches``
+    (:func:`capture_launches`)."""
+    for name, n in launches.items():
+        setattr(decode_attention, name, getattr(decode_attention, name) + n)
 
 
 _plans: dict = {}       # (device, B, H, M) -> splits

@@ -123,3 +123,21 @@ def test_cpu_wrapper_takes_a_valid_tensor(valid):
     with pytest.raises(ValueError):
         tda.decode_attention(q, k, ks, v, vs,
                              torch.tensor([valid], dtype=torch.int64))
+
+
+def test_a_graph_replay_counts_the_launches_its_capture_recorded():
+    """capture_launches yields the Counter a capture records into and
+    closes it after; count_replay adds a replay's launches to the wrapper's
+    counters by name."""
+    fn = tda.decode_attention
+    names = ("launches", "grouped_launches", "mixed_launches")
+    before = tuple(getattr(fn, n) for n in names)
+    with tda.capture_launches() as rec:
+        assert rec == {} and tda._capture.launches is rec
+        rec["launches"] += 12
+        rec["mixed_launches"] += 2
+    assert tda._capture.launches is None
+    tda.count_replay(rec)
+    tda.count_replay(rec)
+    assert tuple(getattr(fn, n) - b for n, b in zip(names, before)) == (
+        24, 0, 4)

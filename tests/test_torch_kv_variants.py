@@ -16,7 +16,13 @@ models at LM_TINY's widths (4 query heads, 2 layers):
 - K3's plain versions (what the CPU runs) for both new variants: a
   grouped cache gives the multi-head answer over the cache repeated, bit
   for bit, and the split-then-merge plain version agrees with the plain
-  one to fp32 rounding, mixed and grouped.
+  one to fp32 rounding, mixed and grouped;
+- a one-token step with its position on the device (the CUDA graph's
+  form) leaves every cache tensor and the hidden output bit-identical to
+  the host int's step, over each cache dtype at three positions;
+- ``generation._graphed``, the rule that graphs generate's LM step: on a
+  CUDA device over an int8 or mixed cache, without a tensor-parallel
+  group, read from the device and the cache's entries alone.
 """
 
 import dataclasses
@@ -195,3 +201,40 @@ def test_k3_plain_versions_of_the_variants(mixed, kv):
         ref = torch.einsum("bhm,bmhd->bhd", p, v[:, :valid].float(
             ).repeat_interleave(rep, 2))
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("at", [7, 9, 15])
+@pytest.mark.parametrize("cache", ["bf16", "int8", "mixed"])
+def test_step_at_a_device_position_equals_the_host_ints(cache, at):
+    _, _, port = _llama(4, seed=6)
+    B, M = 2, 16
+    emb = torch.from_numpy(np.random.default_rng(at).normal(
+        0, 1, (B, M, LM_TINY.hidden_size)).astype(np.float32))
+    host = port.init_cache(B, M, CACHES[cache][1], device="cpu")
+    with torch.no_grad():
+        port.forward_cached(emb[:, :7], host, 0)
+        for i in range(7, at):
+            port.forward_cached(emb[:, i:i + 1], host, i)
+        dev = [{k: v.clone() for k, v in layer.items()} for layer in host]
+        want, _ = port.forward_cached(emb[:, at:at + 1], host, at)
+        got, _ = port.forward_cached(emb[:, at:at + 1], dev,
+                                     torch.tensor([at], dtype=torch.int32))
+    assert torch.equal(got, want)
+    for h, d in zip(host, dev):
+        assert sorted(h) == sorted(d)
+        for k in h:
+            assert torch.equal(h[k], d[k]), k
+    assert host[0]["k"][:, at].any()    # the step wrote its slot
+
+
+@pytest.mark.parametrize("device,cache,tp,graphed", [
+    ("cpu", "int8", False, False), ("cpu", "mixed", False, False),
+    ("cuda", "bf16", False, False), ("cuda", "int8", True, False),
+    ("cuda", "mixed", True, False), ("cuda", "int8", False, True),
+    ("cuda:0", "mixed", False, True)])
+def test_the_graph_rule(device, cache, tp, graphed):
+    _, _, port = _llama(2)
+    if tp:
+        port.model.layers[1].mlp.tp_group = object()
+    kv = port.init_cache(1, 4, CACHES[cache][1], device="cpu")
+    assert tgen._graphed(port, kv, torch.device(device)) is graphed

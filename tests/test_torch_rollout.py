@@ -135,15 +135,21 @@ def test_context_length_one_rollout():
 
 def test_generate_counts_decode_steps(run, monkeypatch):
     """236 decodes at ctx=2, T=16 are 13 frames x 16 + 15 + 13 forced sdf;
-    here at T=5 the same rule gives (T-ctx)*D - 1 + (T-ctx-1) decodes."""
+    here at T=5 the same rule gives (T-ctx)*D - 1 + (T-ctx-1) decodes. On
+    the CPU every one-token step runs eagerly: no graph is captured or
+    replayed."""
     lm = run["lm"]
     calls = []
     orig = lm.decode_cached
     monkeypatch.setattr(lm, "decode_cached",
                         lambda e, c, i: calls.append(i) or orig(e, c, i))
     prelude = run["res"].tokens[:, :(NCTX + 1) * CTX]
+    g = tgen.generate
+    before = (g.graph_captures, g.graph_replays, g.eager_lm_steps)
     tgen.generate(lm, prelude, segment_length=T, context_length=CTX,
                   generator=torch.Generator().manual_seed(1),
                   tokens_per_dyna=NDYN, cache_dtype=torch.int8)
     F = T - CTX
     assert calls[0] == 0 and len(calls) - 1 == F * NDYN - 1 + (F - 1)
+    assert (g.graph_captures, g.graph_replays, g.eager_lm_steps) == (
+        before[0], before[1], before[2] + len(calls) - 1)
